@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of incubator_mxnet_tpu for one NVIDIA H100.
+
+A second package beside the JAX one, with the same module layout and
+names; the JAX package stays the reference it is tested against.  It
+imports torch and numpy, never jax and nothing of incubator_mxnet_tpu.
+Entry points run on ``cuda:0`` unless the caller passes
+``device="cpu"``; every hand-written kernel (``csrc/``) is built with
+nvcc at first use, and on a CPU tensor its wrapper runs the kernel's
+plain PyTorch version instead.
+
+This slice ports the generation server: ``gluon.TransformerDecoder``,
+``serving.GenerationEngine`` and the flash-attention forward kernel.
+"""
+from . import base, context, convert, gluon, parallel, serving
+from .base import MXNetError
+
+__version__ = "0.1.0"
+
+__all__ = ["MXNetError", "base", "context", "convert", "gluon",
+           "parallel", "serving"]

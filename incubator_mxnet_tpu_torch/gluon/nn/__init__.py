@@ -1,0 +1,4 @@
+"""Neural-network layers of the port (``gluon.nn`` counterpart)."""
+from .basic_layers import Dense, Embedding, LayerNorm
+
+__all__ = ["Dense", "Embedding", "LayerNorm"]
