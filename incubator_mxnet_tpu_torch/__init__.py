@@ -8,13 +8,17 @@ Entry points run on ``cuda:0`` unless the caller passes
 nvcc at first use, and on a CPU tensor its wrapper runs the kernel's
 plain PyTorch version instead.
 
-This slice ports the generation server: ``gluon.TransformerDecoder``,
-``serving.GenerationEngine`` and the flash-attention forward kernel.
+Ported so far: the generation server (``gluon.TransformerDecoder``,
+``serving.GenerationEngine``, the flash-attention forward kernel) and
+ResNet V1 inference (``gluon.model_zoo.vision``, ``predict.
+BlockPredictor``, ``serving.ModelServer``, the fused BN -> ReLU -> conv
+kernels of ``ops.fused_conv``).
 """
-from . import base, context, convert, gluon, parallel, serving
+from . import (base, context, convert, gluon, ops, parallel, predict,
+               serving)
 from .base import MXNetError
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "base", "context", "convert", "gluon",
-           "parallel", "serving"]
+__all__ = ["MXNetError", "base", "context", "convert", "gluon", "ops",
+           "parallel", "predict", "serving"]

@@ -3,10 +3,11 @@
 Each kernel source ``csrc/<name>.cu`` exports a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library,
 loaded with ``ctypes``.  This keeps PyTorch's headers out of the build,
-which then takes seconds instead of minutes.  Libraries are built at
-first use into ``_build/`` beside this file (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused.  Nothing here runs at import
+which then takes seconds instead of minutes.  Code shared by several
+kernels lives in ``csrc/*.cuh`` headers.  Libraries are built at first
+use into ``_build/`` beside this file (listed in ``.gitignore``), named
+by a hash of the source, the headers and the flags, so an edited source
+or header rebuilds and an unchanged one is reused.  Nothing here runs at import
 time: the CPU tests import every module on a machine without ``nvcc``.
 """
 from __future__ import annotations
@@ -51,8 +52,12 @@ def _source(name):
 
 
 def _lib_path(name):
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [_source(name)] + [os.path.join(CSRC_DIR, h)
+                                   for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

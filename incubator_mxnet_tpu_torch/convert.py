@@ -1,5 +1,8 @@
 """Weight transfer from the JAX package's parameter names to the port.
 
+``resnet_params_from_numpy`` does the same for the ResNet V1 model zoo
+(its docstring gives the structure it maps).
+
 ``params_from_numpy`` takes ``{jax_param_name: np.ndarray}`` — what
 ``TransformerDecoder.collect_params()`` of the JAX package gives, each
 value turned into numpy by the caller — and returns the port's
@@ -19,7 +22,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "resnet_params_from_numpy"]
 
 # child blocks of a JAX DecoderLayer in creation order -> port names
 _LAYER_CHILDREN = {"layernorm0": "ln1", "dense0": "qkv", "dense1": "proj",
@@ -60,4 +63,127 @@ def params_from_numpy(named_arrays):
         else:
             raise MXNetError(f"cannot place JAX parameter {name!r}")
         out[key] = torch.from_numpy(np.array(arr, copy=True))
+    return out
+
+
+_RESNET_RE = re.compile(r"(?:stage(\d+)_)?(conv2d|batchnorm|dense)(\d+)_"
+                        r"(weight|bias|gamma|beta|running_mean|running_var)")
+_BN_PARAMS = ("gamma", "beta", "running_mean", "running_var")
+
+
+def resnet_params_from_numpy(named_arrays):
+    """``{jax_param_name: np.ndarray}`` of a JAX ResNet V1 (any depth,
+    ``fuse_block`` True or False, thumbnail or not) -> the state_dict of
+    the port's ``gluon.model_zoo.vision.ResNetV1``.
+
+    The JAX names are structural: ``<prefix>conv2d0_weight`` and
+    ``<prefix>batchnorm0_*`` (the stem; no BN on a thumbnail stem),
+    ``<prefix>stage<s>_conv2d<i>_*`` and ``<prefix>stage<s>_batchnorm<j>_*``
+    numbered in creation order within a stage, ``<prefix>dense0_*``.
+    Within a block the k-th BatchNorm normalises the k-th conv's output:
+    a bottleneck creates conv1 (with bias), the fused 3x3 (its BN, its
+    conv), the fused 1x1 (its BN, its conv with bias), the closing BN,
+    then the downsample (conv, BN); a basic block has one fewer conv and
+    BN in its body.  Each name is placed by that position, whatever the
+    prefix.  Raises MXNetError on a name it cannot place and on a shape
+    that does not fit the structure (a BN whose length is not its conv's
+    output channels, a bias or Dense of the wrong length)."""
+    dense = [n for n in named_arrays if n.endswith("dense0_weight")]
+    if len(dense) != 1:
+        raise MXNetError(f"expected one '<prefix>dense0_weight', found "
+                         f"{dense}")
+    prefix = dense[0][:-len("dense0_weight")]
+    # scope (0 = top, s = stage s) -> kind -> index -> {param: array}
+    scopes = {}
+    for name, arr in named_arrays.items():
+        m = _RESNET_RE.fullmatch(name[len(prefix):]) \
+            if name.startswith(prefix) else None
+        if m is None:
+            raise MXNetError(f"cannot place JAX parameter {name!r}")
+        stage, kind, idx, param = m.groups()
+        group = scopes.setdefault(int(stage or 0), {}).setdefault(
+            kind, {}).setdefault(int(idx), {})
+        group[param] = np.array(arr, copy=True)
+    top = scopes.pop(0)
+    stages = sorted(scopes)
+    if stages != list(range(1, len(stages) + 1)):
+        raise MXNetError(f"stages must be numbered 1..n, got {stages}")
+    out = {}
+
+    def put(key, arr, shape=None):
+        if shape is not None and tuple(arr.shape) != tuple(shape):
+            raise MXNetError(f"{key}: shape {tuple(arr.shape)} does not "
+                             f"fit the structure, expected {tuple(shape)}")
+        out[key] = torch.from_numpy(arr)
+
+    def place_conv(key, params, allowed):
+        if set(params) - allowed or "weight" not in params:
+            raise MXNetError(f"{key}: unexpected conv parameters "
+                             f"{sorted(params)}")
+        w = params["weight"]
+        if w.ndim != 4:
+            raise MXNetError(f"{key}.weight must be 4-D, got {w.shape}")
+        put(f"{key}.weight", w)
+        if "bias" in params:
+            put(f"{key}.bias", params["bias"], (w.shape[0],))
+        return w.shape[0]
+
+    def place_bn(key, params, channels):
+        if sorted(params) != sorted(_BN_PARAMS):
+            raise MXNetError(f"{key}: expected BatchNorm parameters "
+                             f"{_BN_PARAMS}, got {sorted(params)}")
+        for p in _BN_PARAMS:
+            put(f"{key}.{p}", params[p], (channels,))
+
+    def indexed(group, kind):
+        got = group.get(kind, {})
+        if sorted(got) != list(range(len(got))):
+            raise MXNetError(f"{kind} indices must run 0..n-1, got "
+                             f"{sorted(got)}")
+        return [got[i] for i in range(len(got))]
+
+    top_convs, top_bns = indexed(top, "conv2d"), indexed(top, "batchnorm")
+    if len(top_convs) != 1 or len(top_bns) > 1 or \
+            sorted(top.get("dense", {})) != [0]:
+        raise MXNetError("expected the stem conv2d0, at most one stem "
+                         "batchnorm0 and dense0 at the top level")
+    ch = place_conv("features.0", top_convs[0], {"weight"})
+    if top_bns:
+        place_bn("features.1", top_bns[0], ch)
+    base = 4 if top_bns else 1            # stem layers before stage 1
+    for s in stages:
+        convs = indexed(scopes[s], "conv2d")
+        bns = indexed(scopes[s], "batchnorm")
+        if not convs or len(convs) != len(bns):
+            raise MXNetError(f"stage {s}: {len(convs)} convs and "
+                             f"{len(bns)} batchnorms do not pair up")
+        bottleneck = convs[0]["weight"].shape[2:] == (1, 1)
+        body = ["body.0", "body.1.conv", "body.2.conv"] if bottleneck \
+            else ["body.0", "body.1.conv"]
+        body_bn = ["body.1.bn", "body.2.bn", "body.3"] if bottleneck \
+            else ["body.1.bn", "body.2"]
+        per = len(body)
+        if len(convs) % per not in (0, 1):
+            raise MXNetError(f"stage {s}: {len(convs)} convs do not make "
+                             f"whole blocks of {per}")
+        has_ds = len(convs) % per == 1
+        keys, bn_keys = [], []
+        for blk in range(len(convs) // per):
+            pre = f"features.{base + s - 1}.{blk}."
+            keys += [pre + k for k in body]
+            bn_keys += [pre + k for k in body_bn]
+            if blk == 0 and has_ds:
+                keys.append(pre + "downsample.0")
+                bn_keys.append(pre + "downsample.1")
+        for key, bn_key, conv, bn in zip(keys, bn_keys, convs, bns):
+            allowed = {"weight", "bias"} if key.endswith(
+                ("body.0", "body.2.conv")) and bottleneck else {"weight"}
+            place_bn(bn_key, bn, place_conv(key, conv, allowed))
+    dense = top["dense"][0]
+    w = dense.get("weight")
+    if set(dense) != {"weight", "bias"} or w.ndim != 2:
+        raise MXNetError(f"dense0: expected a 2-D weight and a bias, got "
+                         f"{sorted(dense)}")
+    put("output.weight", w)
+    put("output.bias", dense["bias"], (w.shape[0],))
     return out

@@ -1,0 +1,247 @@
+"""ResNet V1 of the port (counterpart of
+``incubator_mxnet_tpu/gluon/model_zoo/vision/resnet.py``): the same
+blocks, stages and widths, in eval form.
+
+* ``fuse_block=True`` runs the [BN -> ReLU -> conv] boundaries inside
+  each block as ``FusedBNReLUConv2D`` layers, which on the card and with
+  ``layout="NHWC"`` are the hand-written kernels: in ``BottleneckV1``
+  the 3x3 (``sbr_conv3x3``) and the 1x1 with bias (``sbr_matmul``), in
+  ``BasicBlockV1`` the second 3x3.  ``fuse_block=False`` builds the same
+  layers, with the same parameter names, running the plain composition.
+  As in the JAX package, the stride of a V1 bottleneck sits on its 1x1
+  ``conv1``, so every fused boundary is stride 1.
+* ``layout="NHWC"``: the model takes ``(N, H, W, 3)`` images, as the
+  JAX model does, and runs channels-last inside (``gluon.nn``'s module
+  note); ``"NCHW"`` takes ``(N, 3, H, W)``.  Either way it returns
+  ``(N, classes)`` logits.
+* Not ported yet, and raising ``MXNetError``: ResNet V2, ``fuse_block``
+  ``"1x1"``/``"chain"``/``"chain34"`` (the chain kernels),
+  ``mxu_stem=True`` (a TPU stem), ``fuse_bn_relu=True`` (``BNReLU``),
+  ``pretrained=True`` and training mode.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ....base import MXNetError
+from ....context import resolve_device
+from ...nn import (Activation, BatchNorm, Conv2D, Dense, FusedBNReLUConv2D,
+                   GlobalAvgPool2D, MaxPool2D)
+
+__all__ = ["BasicBlockV1", "BottleneckV1", "ResNetV1", "resnet_spec",
+           "get_resnet", "resnet18_v1", "resnet34_v1", "resnet50_v1",
+           "resnet101_v1", "resnet152_v1"]
+
+IMAGE_CHANNELS = 3
+
+
+def _conv3x3(channels, stride, in_channels, layout, device):
+    return Conv2D(channels, 3, stride, 1, use_bias=False,
+                  in_channels=in_channels, layout=layout, device=device)
+
+
+def _downsample(channels, stride, in_channels, layout, device):
+    return nn.Sequential(
+        Conv2D(channels, 1, stride, use_bias=False, in_channels=in_channels,
+               layout=layout, device=device),
+        BatchNorm(channels, device=device))
+
+
+class _BlockV1(nn.Module):
+    """``relu(body(x) + residual)``; the residual is ``x`` or its
+    downsample.  The add and ReLU run in place on the body's output."""
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        return self.body(x).add_(residual).relu_()
+
+
+class BasicBlockV1(_BlockV1):
+    """3x3 + 3x3 block (reference resnet.py:BasicBlockV1); with
+    ``fuse_block`` its [BN -> ReLU -> conv2] boundary is one kernel."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", fuse_block=False, device=None):
+        super().__init__()
+        self.body = nn.Sequential(
+            _conv3x3(channels, stride, in_channels, layout, device),
+            FusedBNReLUConv2D(channels, 3, 1, 1, layout=layout,
+                              in_channels=channels, fuse=fuse_block,
+                              device=device),
+            BatchNorm(channels, device=device))
+        self.downsample = _downsample(channels, stride, in_channels, layout,
+                                      device) if downsample else None
+
+
+class BottleneckV1(_BlockV1):
+    """1x1 - 3x3 - 1x1 bottleneck (reference resnet.py:BottleneckV1),
+    the stride on ``conv1``; with ``fuse_block`` both [BN -> ReLU ->
+    conv] boundaries of the body are one kernel each."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", fuse_block=False, device=None):
+        super().__init__()
+        mid = channels // 4
+        self.body = nn.Sequential(
+            Conv2D(mid, 1, stride, in_channels=in_channels, layout=layout,
+                   device=device),
+            FusedBNReLUConv2D(mid, 3, 1, 1, layout=layout, in_channels=mid,
+                              fuse=fuse_block, device=device),
+            FusedBNReLUConv2D(channels, 1, 1, 0, layout=layout,
+                              in_channels=mid, use_bias=True,
+                              fuse=fuse_block, device=device),
+            BatchNorm(channels, device=device))
+        self.downsample = _downsample(channels, stride, in_channels, layout,
+                                      device) if downsample else None
+
+
+class ResNetV1(nn.Module):
+    """ResNet V1 (reference resnet.py:ResNetV1): ``features`` (stem,
+    four stages, global average pool) then the ``output`` Dense.  The
+    weights are drawn from ``seed`` (``initialize``)."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, mxu_stem=False, layout="NCHW",
+                 fuse_bn_relu=False, fuse_block=False, device=None, seed=0):
+        super().__init__()
+        if len(layers) != len(channels) - 1:
+            raise MXNetError(f"{len(layers)} stages need {len(layers) + 1} "
+                             f"widths, got {channels}")
+        if mxu_stem:
+            raise MXNetError("mxu_stem=True (the TPU space-to-depth stem) "
+                             "is not ported")
+        if fuse_bn_relu:
+            raise MXNetError("fuse_bn_relu=True (BNReLU) is not ported yet")
+        if fuse_block not in (False, True):
+            raise MXNetError(f"fuse_block={fuse_block!r} is not ported yet "
+                             "(the chain kernels): use True or False")
+        device = resolve_device(device)
+        self.layout = layout
+        if thumbnail:
+            feats = [_conv3x3(channels[0], 1, IMAGE_CHANNELS, layout,
+                              device)]
+        else:
+            feats = [Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                            in_channels=IMAGE_CHANNELS, layout=layout,
+                            device=device),
+                     BatchNorm(channels[0], device=device),
+                     Activation("relu"),
+                     MaxPool2D(3, 2, 1)]
+        for i, num in enumerate(layers):
+            stride = 1 if i == 0 else 2
+            out_ch, in_ch = channels[i + 1], channels[i]
+            stage = [block(out_ch, stride, out_ch != in_ch,
+                           in_channels=in_ch, layout=layout,
+                           fuse_block=fuse_block, device=device)]
+            stage += [block(out_ch, 1, False, in_channels=out_ch,
+                            layout=layout, fuse_block=fuse_block,
+                            device=device) for _ in range(num - 1)]
+            feats.append(nn.Sequential(*stage))
+        feats.append(GlobalAvgPool2D())
+        self.features = nn.Sequential(*feats)
+        self.output = Dense(classes, channels[-1], device=device)
+        self.initialize(seed)
+
+    @torch.no_grad()
+    def initialize(self, seed=0):
+        """Fill every parameter and BN statistic from ``seed``, drawn on
+        the CPU in module order and copied to the device:
+
+        * conv weights Kaiming-normal, N(0, 2 / fan_in); conv biases 0;
+        * every BatchNorm: gamma ~ U(0.5, 1), beta ~ N(0, 0.1^2),
+          running_mean ~ N(0, 0.1^2), running_var ~ U(0.5, 1.5); the
+          BatchNorm that closes a block's body (its residual branch) has
+          gamma scaled by 0.25, so the residual stream grows by only a
+          few percent a block and activations stay O(1) through all
+          stages;
+        * the output Dense: weight N(0, 1 / in_units), bias 0.
+        """
+        gen = torch.Generator().manual_seed(int(seed))
+
+        def draw(t, fill):
+            t.copy_(fill(torch.empty(t.shape)).to(t.device))
+
+        closing = {id(blk.body[-1]) for stage in self.features
+                   if isinstance(stage, nn.Sequential) for blk in stage}
+        for mod in self.modules():
+            if isinstance(mod, Conv2D):
+                fan_in = mod.weight[0].numel()
+                draw(mod.weight, lambda t: t.normal_(
+                    0, math.sqrt(2.0 / fan_in), generator=gen))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, BatchNorm):
+                scale = 0.25 if id(mod) in closing else 1.0
+                draw(mod.gamma, lambda t: t.uniform_(
+                    0.5, 1.0, generator=gen).mul_(scale))
+                draw(mod.beta, lambda t: t.normal_(0, 0.1, generator=gen))
+                draw(mod.running_mean, lambda t: t.normal_(
+                    0, 0.1, generator=gen))
+                draw(mod.running_var, lambda t: t.uniform_(
+                    0.5, 1.5, generator=gen))
+            elif isinstance(mod, Dense):
+                draw(mod.weight, lambda t: t.normal_(
+                    0, 1.0 / math.sqrt(mod.weight.shape[1]), generator=gen))
+                mod.bias.zero_()
+
+    def forward(self, x):
+        if x.dim() != 4:
+            raise MXNetError(f"ResNetV1 takes 4-D images, got "
+                             f"{tuple(x.shape)}")
+        if self.layout == "NHWC":
+            # (N, H, W, C) -> NCHW-indexed channels-last: a view of
+            # contiguous input, a copy of anything else
+            x = x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+        return self.output(torch.flatten(self.features(x), 1))
+
+
+resnet_spec = {
+    18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
+    34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
+    50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
+    101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
+    152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048])}
+
+_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+
+
+def get_resnet(version, num_layers, pretrained=False, device=None, seed=0,
+               **kwargs):
+    """Factory (reference resnet.py:get_resnet).  ``device=None`` means
+    ``cuda:0`` (raises without a GPU); weights come from ``seed``."""
+    if num_layers not in resnet_spec:
+        raise MXNetError(f"Invalid number of layers: {num_layers}. Options "
+                         f"are {sorted(resnet_spec)}")
+    if version != 1:
+        raise MXNetError(f"ResNet version {version} is not ported yet: "
+                         "only version 1")
+    if pretrained:
+        raise MXNetError("pretrained weights are unavailable offline; "
+                         "load a state_dict instead")
+    block_type, layers, channels = resnet_spec[num_layers]
+    return ResNetV1(_BLOCKS[block_type], layers, channels, device=device,
+                    seed=seed, **kwargs)
+
+
+def resnet18_v1(**kwargs):
+    return get_resnet(1, 18, **kwargs)
+
+
+def resnet34_v1(**kwargs):
+    return get_resnet(1, 34, **kwargs)
+
+
+def resnet50_v1(**kwargs):
+    return get_resnet(1, 50, **kwargs)
+
+
+def resnet101_v1(**kwargs):
+    return get_resnet(1, 101, **kwargs)
+
+
+def resnet152_v1(**kwargs):
+    return get_resnet(1, 152, **kwargs)

@@ -1,4 +1,9 @@
 """Neural-network layers of the port (``gluon.nn`` counterpart)."""
-from .basic_layers import Dense, Embedding, LayerNorm
+from .activations import Activation
+from .basic_layers import BatchNorm, Dense, Embedding, Flatten, LayerNorm
+from .conv_layers import (Conv2D, FusedBNReLUConv2D, GlobalAvgPool2D,
+                          MaxPool2D)
 
-__all__ = ["Dense", "Embedding", "LayerNorm"]
+__all__ = ["Activation", "BatchNorm", "Conv2D", "Dense", "Embedding",
+           "Flatten", "FusedBNReLUConv2D", "GlobalAvgPool2D", "LayerNorm",
+           "MaxPool2D"]

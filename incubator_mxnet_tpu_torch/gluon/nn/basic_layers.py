@@ -1,9 +1,11 @@
-"""Basic layers of the port: ``Dense``, ``LayerNorm``, ``Embedding``
-(counterparts of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``
-``Dense``/``LayerNorm``/``Embedding`` and the ``FullyConnected``,
-``LayerNorm`` and ``Embedding`` ops).  Plain ``nn.Module``s with explicit
-``device``/``dtype``; parameters are allocated uninitialised and filled
-by the owner's ``initialize`` or a loaded ``state_dict``."""
+"""Basic layers of the port: ``Dense``, ``LayerNorm``, ``Embedding``,
+``BatchNorm`` (eval form) and ``Flatten`` (counterparts of
+``incubator_mxnet_tpu/gluon/nn/basic_layers.py`` and the
+``FullyConnected``, ``LayerNorm``, ``Embedding`` and ``BatchNorm`` ops).
+Plain ``nn.Module``s with explicit ``device``/``dtype``; ``device=None``
+means ``cuda:0`` (``context.resolve_device``: it raises without a GPU).
+Parameters are allocated uninitialised and filled by the owner's
+``initialize`` or a loaded ``state_dict``."""
 from __future__ import annotations
 
 import torch
@@ -11,8 +13,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...base import MXNetError
+from ...context import resolve_device
+from ...ops.fused_conv import bn_affine
 
-__all__ = ["Dense", "LayerNorm", "Embedding"]
+__all__ = ["Dense", "LayerNorm", "Embedding", "BatchNorm", "Flatten"]
 
 
 class Dense(nn.Module):
@@ -23,6 +27,7 @@ class Dense(nn.Module):
     def __init__(self, units, in_units, activation=None, use_bias=True,
                  device=None, dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         if activation not in (None, "relu"):
             raise MXNetError(f"Dense activation must be None or 'relu', "
                              f"got {activation!r}")
@@ -48,6 +53,7 @@ class LayerNorm(nn.Module):
     def __init__(self, in_channels, epsilon=1e-5, device=None,
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self._eps = epsilon
         self.gamma = nn.Parameter(torch.empty((in_channels,), device=device,
                                               dtype=dtype))
@@ -68,8 +74,67 @@ class Embedding(nn.Module):
     def __init__(self, input_dim, output_dim, device=None,
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.empty((input_dim, output_dim),
                                                device=device, dtype=dtype))
 
     def forward(self, x):
         return F.embedding(x.long(), self.weight)
+
+
+def check_eval(module):
+    """Raise unless ``module`` is in eval mode: training (batch
+    statistics) is not ported yet."""
+    if module.training:
+        raise MXNetError(
+            f"{type(module).__name__} is in train mode, and training "
+            "(batch statistics) is not ported yet: call .eval()")
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation in eval form over dim 1, the channel axis of
+    the port's NCHW-indexed tensors (channels-last or not):
+    ``(x - running_mean) * rsqrt(running_var + eps) * gamma + beta``,
+    computed as ``x*a + b`` with the fp32 ``(a, b)`` of
+    ``ops.fused_conv.bn_affine``.  ``scale=False`` fixes gamma at 1
+    (the reference's ``fix_gamma``).  ``gamma``/``beta`` are
+    parameters, ``running_mean``/``running_var`` buffers, under the
+    reference's names.  Training (batch statistics and their moving
+    average) is not ported: forward in train mode raises rather than
+    quietly use either statistic."""
+
+    def __init__(self, in_channels, epsilon=1e-5, scale=True, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        if in_channels < 1:
+            raise MXNetError(f"BatchNorm needs in_channels >= 1 (the port "
+                             f"does not infer shapes), got {in_channels}")
+        self.eps = float(epsilon)
+        self.fix_gamma = not scale
+        self.gamma = nn.Parameter(torch.empty((in_channels,), device=device,
+                                              dtype=dtype))
+        self.beta = nn.Parameter(torch.empty((in_channels,), device=device,
+                                             dtype=dtype))
+        self.register_buffer("running_mean", torch.empty(
+            (in_channels,), device=device, dtype=dtype))
+        self.register_buffer("running_var", torch.empty(
+            (in_channels,), device=device, dtype=dtype))
+
+    def affine(self):
+        """The fp32 per-channel ``(a, b)`` this layer applies."""
+        check_eval(self)
+        return bn_affine(self.gamma, self.beta, self.running_mean,
+                         self.running_var, self.eps, self.fix_gamma)
+
+    def forward(self, x):
+        a, b = self.affine()
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return torch.addcmul(b.view(shape), x, a.view(shape))
+
+
+class Flatten(nn.Module):
+    """``(N, ...) -> (N, prod(...))``."""
+
+    def forward(self, x):
+        return torch.flatten(x, 1)

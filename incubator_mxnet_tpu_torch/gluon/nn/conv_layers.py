@@ -1,0 +1,135 @@
+"""Convolution and pooling layers of the port (counterparts of
+``incubator_mxnet_tpu/gluon/nn/conv_layers.py`` ``Conv2D``,
+``MaxPool2D``, ``GlobalAvgPool2D`` and ``FusedBNReLUConv2D``).
+
+Tensors are NCHW-indexed.  ``layout="NHWC"`` keeps them channels-last
+in memory (``torch.channels_last``), the port's counterpart of the JAX
+package's NHWC layout: every layer here preserves that format, and
+``Conv2D`` stores its OIHW weight channels-last too, so cuDNN runs the
+plain convolutions without converting and the fused 3x3 kernel reads
+the weight's storage as OHWI.  The weight's shape, and so the
+``state_dict``, stays OIHW.  Unlike the JAX layers, which infer input
+channels at their first forward, these need ``in_channels``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...base import MXNetError
+from ...context import resolve_device
+from ...ops.fused_conv import fused_bn_relu_conv, supported
+from .basic_layers import BatchNorm, check_eval
+
+__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D", "FusedBNReLUConv2D"]
+
+LAYOUTS = ("NCHW", "NHWC")
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (int(v),) * 2
+
+
+def _check_layout(layout):
+    if layout not in LAYOUTS:
+        raise MXNetError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+
+
+class Conv2D(nn.Module):
+    """2-D convolution through cuDNN (``F.conv2d``), as the JAX package
+    leaves it to XLA: weight ``(channels, in_channels // groups, kh,
+    kw)``, bias ``(channels,)`` when ``use_bias``."""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 groups=1, layout="NCHW", in_channels=0, use_bias=True,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        _check_layout(layout)
+        if in_channels < 1:
+            raise MXNetError(f"Conv2D needs in_channels >= 1 (the port does "
+                             f"not infer shapes), got {in_channels}")
+        if in_channels % groups or channels % groups:
+            raise MXNetError(f"Conv2D channels {in_channels} -> {channels} "
+                             f"do not divide into {groups} groups")
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(strides)
+        self.padding = _pair(padding)
+        self.groups = groups
+        self.layout = layout
+        fmt = torch.channels_last if layout == "NHWC" \
+            else torch.contiguous_format
+        self.weight = nn.Parameter(torch.empty(
+            (channels, in_channels // groups) + self.kernel_size,
+            device=device, dtype=dtype, memory_format=fmt))
+        if use_bias:
+            self.bias = nn.Parameter(torch.empty((channels,), device=device,
+                                                 dtype=dtype))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                        groups=self.groups)
+
+
+class MaxPool2D(nn.Module):
+    """Max pooling with ``-inf`` padding (``pooling_convention="valid"``;
+    the reference's ``ceil_mode`` is not ported yet)."""
+
+    def __init__(self, pool_size=2, strides=None, padding=0):
+        super().__init__()
+        self.pool_size = _pair(pool_size)
+        self.stride = _pair(strides) if strides is not None \
+            else self.pool_size
+        self.padding = _pair(padding)
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.pool_size, self.stride, self.padding)
+
+
+class GlobalAvgPool2D(nn.Module):
+    """Mean over H and W, keeping them as size 1: ``(N, C, 1, 1)``."""
+
+    def forward(self, x):
+        return x.mean(dim=(2, 3), keepdim=True)
+
+
+class FusedBNReLUConv2D(nn.Module):
+    """BatchNorm -> ReLU -> Conv2D as one op, in eval form.
+
+    Its children ``bn`` (``BatchNorm``) and ``conv`` (``Conv2D``) hold
+    the parameters, so the layer's names are those of the unfused
+    sequence.  Inside the kernels' envelope (``ops.fused_conv.
+    supported``: ``layout="NHWC"``, fp32, stride 1, ungrouped, 1x1 pad 0
+    or 3x3 pad 1) and with ``fuse=True`` it runs ``ops.fused_conv.
+    fused_bn_relu_conv``, which on the card is one kernel launch; else it
+    runs the plain composition BN, ReLU, ``F.conv2d``.  The choice is
+    made here, from the configuration, and read from ``self.fused``."""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 groups=1, layout="NCHW", in_channels=0, use_bias=False,
+                 epsilon=1e-5, fuse=True, device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.bn = BatchNorm(in_channels, epsilon=epsilon, device=device,
+                            dtype=dtype)
+        self.conv = Conv2D(channels, kernel_size, strides, padding,
+                           groups=groups, layout=layout,
+                           in_channels=in_channels, use_bias=use_bias,
+                           device=device, dtype=dtype)
+        conv = self.conv
+        self.fused = bool(fuse) and supported(
+            conv.kernel_size, conv.stride, conv.padding, groups, layout,
+            dtype)
+
+    def forward(self, x):
+        bn, conv = self.bn, self.conv
+        if not self.fused:
+            return conv(torch.relu(bn(x)))
+        check_eval(self)
+        return fused_bn_relu_conv(
+            x, bn.gamma, bn.beta, bn.running_mean, bn.running_var,
+            conv.weight, conv.bias, kernel=conv.kernel_size, eps=bn.eps,
+            fix_gamma=bn.fix_gamma)

@@ -1,0 +1,225 @@
+"""Fused [BatchNorm-apply -> ReLU -> Conv] in eval form: the two
+hand-written Hopper kernels and their plain versions.
+
+Port of ``incubator_mxnet_tpu/ops/fused_conv.py``.  Its two TPU kernels,
+``_sbr_matmul_kernel`` (a 1x1 conv as a GEMM with the BN affine and ReLU
+as prologue) and ``_sbr_conv3x3_kernel`` (a 3x3 stride-1 pad-1 conv of
+the activated image), become ``csrc/sbr_matmul.cu`` and
+``csrc/sbr_conv3x3.cu``: the same functions, fp32 accumulation, the
+activated tensor never written to device memory (each source's note says
+how they are tiled for the card).
+
+* Tensors use the port's layout: NCHW-indexed, channels-last in memory
+  (``torch.channels_last``), so a kernel reads the storage as
+  ``(N*H*W, C)`` rows.  Weights are OIHW; the 3x3 kernel reads a
+  channels-last OIHW weight's storage as OHWI.
+* A CUDA tensor always goes to the kernel, or raises: no fallback to the
+  plain version, and no silent copy of an input in another memory
+  format.  A CPU tensor goes to the plain version (``_sbr_matmul_plain``,
+  ``_sbr_conv3x3_plain``), which the CPU tests hold against the JAX
+  package and ``chip_smoke.py`` holds the kernels against on the card.
+* ``sbr_matmul.launches`` and ``sbr_conv3x3.launches`` count kernel
+  launches, so a run can show that its main path went through them.
+* Eval only: the BN statistics are the running ones.  Batch statistics
+  and the backward come with the training slice.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from ..base import MXNetError
+
+__all__ = ["bn_affine", "fused_bn_relu_conv", "sbr_conv3x3", "sbr_matmul",
+           "supported"]
+
+_INDEX_LIMIT = 2 ** 31
+_bound = {}
+
+
+def _lib(name, nints):
+    """The kernel library ``name``, built at first use, with its C
+    signature: six pointers, ``nints`` ints, the stream."""
+    lib = _bound.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        fn = getattr(lib, f"mx_{name}")
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * nints + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mx_cuda_error_string.restype = ctypes.c_char_p
+        _bound[name] = lib
+    return lib
+
+
+def supported(kernel, stride=(1, 1), pad=(0, 0), groups=1, layout="NHWC",
+              dtype=torch.float32):
+    """The kernels' envelope, decided from a layer's configuration:
+    channels-last (``layout="NHWC"``), fp32, ungrouped, stride 1, and a
+    1x1 kernel with pad 0 or a 3x3 kernel with pad 1."""
+    kernel, stride, pad = tuple(kernel), tuple(stride), tuple(pad)
+    if layout != "NHWC" or dtype != torch.float32 or groups != 1:
+        return False
+    if stride != (1, 1):
+        return False
+    return (kernel, pad) in (((1, 1), (0, 0)), ((3, 3), (1, 1)))
+
+
+def bn_affine(gamma, beta, running_mean, running_var, eps=1e-5,
+              fix_gamma=False):
+    """fp32 per-channel ``(a, b)`` with ``x*a + b`` equal to the eval
+    BatchNorm of ``x``: ``a = gamma * rsqrt(var + eps)``, ``b = beta -
+    mean * a`` (gamma taken as 1 when ``fix_gamma``), as the JAX op's
+    ``affine`` folds it."""
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    a = g.float() * torch.rsqrt(running_var.float() + eps)
+    b = beta.float() - running_mean.float() * a
+    return a, b
+
+
+def _activate(x, a, b):
+    """relu(x*a + b) over the channel axis (dim 1), in fp32."""
+    shape = (1, -1, 1, 1)
+    return torch.relu(x.float() * a.view(shape) + b.view(shape))
+
+
+def _sbr_matmul_plain(x, a, b, weight, bias):
+    """Plain version of the 1x1 kernel: fp32 ``relu(x*a + b)`` as
+    ``(N*H*W, C)`` rows times the ``(Cout, C)`` weight, plus bias."""
+    n, c, h, w = x.shape
+    y = _activate(x, a, b).permute(0, 2, 3, 1).reshape(-1, c)
+    out = torch.matmul(y, weight.float().reshape(-1, c).t()) + bias.float()
+    return out.reshape(n, h, w, -1).permute(0, 3, 1, 2)
+
+
+def _sbr_conv3x3_plain(x, a, b, weight, bias):
+    """Plain version of the 3x3 kernel: fp32 ``relu(x*a + b)``, then
+    ``F.conv2d`` with padding 1 (zeros after the activation)."""
+    return F.conv2d(_activate(x, a, b), weight.float(), bias.float(),
+                    padding=1)
+
+
+def _check(name, x, a, b, weight, bias, kernel):
+    """The kernels' contract on CUDA tensors; raises on anything else."""
+    if x.dim() != 4:
+        raise MXNetError(f"{name}: x must be 4-D (N, C, H, W), got "
+                         f"{tuple(x.shape)}")
+    n, c, h, w = x.shape
+    cout = weight.shape[0]
+    want = {"x": (n, c, h, w), "a": (c,), "b": (c,),
+            "weight": (cout, c) + kernel, "bias": (cout,)}
+    for key, t in (("x", x), ("a", a), ("b", b), ("weight", weight),
+                   ("bias", bias)):
+        if t.device != x.device:
+            raise MXNetError(f"{name}: {key} is on {t.device}, x on "
+                             f"{x.device}")
+        if t.dtype != torch.float32:
+            raise MXNetError(f"{name} kernel takes float32, {key} is "
+                             f"{t.dtype}")
+        if tuple(t.shape) != want[key]:
+            raise MXNetError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {want[key]}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise MXNetError(f"{name} kernel reads channels-last storage: x "
+                         f"is not channels_last-contiguous")
+    if not weight.is_contiguous(memory_format=torch.channels_last):
+        raise MXNetError(f"{name} kernel reads the weight's storage as "
+                         f"OHWI: it must be channels_last-contiguous")
+    if not (a.is_contiguous() and b.is_contiguous() and
+            bias.is_contiguous()):
+        raise MXNetError(f"{name}: a, b and bias must be contiguous")
+    if x.numel() >= _INDEX_LIMIT or n * h * w * cout >= _INDEX_LIMIT:
+        raise MXNetError(f"{name} kernel: tensor too large for 32-bit "
+                         f"indices ({tuple(x.shape)} -> {cout} channels)")
+    if min(n, c, h, w, cout) == 0:
+        raise MXNetError(f"{name}: empty tensor {tuple(x.shape)} -> "
+                         f"{cout} channels")
+
+
+def _launch(name, ints, x, a, b, weight, bias):
+    out = torch.empty((x.shape[0], weight.shape[0]) + tuple(x.shape[2:]),
+                      device=x.device, dtype=torch.float32,
+                      memory_format=torch.channels_last)
+    lib = _lib(name, len(ints))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, f"mx_{name}")(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), *ints, stream)
+    if rc:
+        raise MXNetError(f"{name} kernel launch failed: "
+                         f"{lib.mx_cuda_error_string(rc).decode()} ({rc})")
+    return out
+
+
+def _dispatch(name, x):
+    """True for a CUDA tensor (the kernel), False for a CPU one (the
+    plain version); raises for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise MXNetError(f"{name} runs on cuda or cpu, not {x.device}")
+    return True
+
+
+def sbr_matmul(x, a, b, weight, bias):
+    """``relu(x*a + b)`` through a 1x1 stride-1 conv, plus ``bias``.
+    x: ``(N, C, H, W)`` channels-last; a, b: ``(C,)`` fp32; weight:
+    ``(Cout, C, 1, 1)``; bias: ``(Cout,)``.  Returns ``(N, Cout, H, W)``
+    channels-last."""
+    if not _dispatch("sbr_matmul", x):
+        return _sbr_matmul_plain(x, a, b, weight, bias)
+    _check("sbr_matmul", x, a, b, weight, bias, (1, 1))
+    n, c, h, w = x.shape
+    out = _launch("sbr_matmul", (n * h * w, c, weight.shape[0]), x, a, b,
+                  weight, bias)
+    sbr_matmul.launches += 1
+    return out
+
+
+def sbr_conv3x3(x, a, b, weight, bias):
+    """The 3x3 stride-1 pad-1 conv of ``relu(x*a + b)`` (zero padding
+    after the activation), plus ``bias``.  x: ``(N, C, H, W)``
+    channels-last; weight: ``(Cout, C, 3, 3)``, channels-last on CUDA
+    (its storage is the OHWI order the kernel reads).  Returns
+    ``(N, Cout, H, W)`` channels-last."""
+    if not _dispatch("sbr_conv3x3", x):
+        return _sbr_conv3x3_plain(x, a, b, weight, bias)
+    _check("sbr_conv3x3", x, a, b, weight, bias, (3, 3))
+    n, c, h, w = x.shape
+    out = _launch("sbr_conv3x3", (n, h, w, c, weight.shape[0]), x, a, b,
+                  weight, bias)
+    sbr_conv3x3.launches += 1
+    return out
+
+
+sbr_matmul.launches = 0
+sbr_conv3x3.launches = 0
+
+
+def fused_bn_relu_conv(x, gamma, beta, running_mean, running_var, weight,
+                       bias=None, kernel=(1, 1), eps=1e-5, fix_gamma=False):
+    """``conv(relu(BatchNorm_eval(x)), weight) + bias`` as one op, the
+    eval form of the JAX package's ``_FusedBNReluConv``: the BN folds
+    into fp32 ``(a, b)`` (``bn_affine``), then a 1x1 kernel (pad 0)
+    goes to ``sbr_matmul`` and a 3x3 kernel (pad 1) to ``sbr_conv3x3``;
+    stride 1, ungrouped.  x: ``(N, C, H, W)``, channels-last on CUDA.
+    A weight that is not channels-last is converted for the CUDA kernel
+    (a copy per call; layers keep theirs channels-last)."""
+    kernel = tuple(kernel)
+    if kernel not in ((1, 1), (3, 3)):
+        raise MXNetError(f"fused_bn_relu_conv takes a 1x1 or 3x3 kernel, "
+                         f"got {kernel}")
+    a, b = bn_affine(gamma, beta, running_mean, running_var, eps, fix_gamma)
+    if bias is None:
+        bias = torch.zeros((weight.shape[0],), dtype=torch.float32,
+                           device=weight.device)
+    bias = bias.float()
+    if x.device.type == "cuda":
+        weight = weight.contiguous(memory_format=torch.channels_last)
+    fn = sbr_matmul if kernel == (1, 1) else sbr_conv3x3
+    return fn(x, a, b, weight, bias)

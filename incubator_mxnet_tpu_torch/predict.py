@@ -1,0 +1,98 @@
+"""Inference front end of the port (``incubator_mxnet_tpu/predict.py``
+``BlockPredictor``): batch forwards of a module in eval mode.
+
+The JAX predictor compiles one ``EvalStep`` program per input shape;
+PyTorch runs eagerly, so here a forward is the module's own call under
+``torch.inference_mode()``.  The symbol ``Predictor``, the exported
+``CompiledPredictor``, the ``mesh=`` sharding and ``bf16_compute`` are
+not ported yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import numpy as np
+import torch
+
+from .base import MXNetError
+from .context import resolve_device
+
+__all__ = ["BlockPredictor"]
+
+
+class BlockPredictor:
+    """Batch inference on a module, on ``device`` (``None``: ``cuda:0``,
+    raising without a GPU), which must be where the module's parameters
+    are.  The module is put in ``eval()``.
+
+    Usage::
+
+        pred = BlockPredictor(net)           # net built on cuda:0
+        logits = pred(images)                # numpy or tensor -> tensor
+        probs = pred.predict(big, batch_size=32)
+
+    Calls are serialised by a lock and may come from any thread: each
+    runs under ``torch.inference_mode()`` with the predictor's CUDA
+    device current, since both are per-thread state.  Inputs are copied
+    to the device (numpy arrays through pageable host memory)."""
+
+    def __init__(self, block, device=None, mesh=None, bf16_compute=None):
+        if mesh is not None:
+            raise MXNetError("BlockPredictor(mesh=...) is not ported yet: "
+                             "one device only")
+        if bf16_compute:
+            raise MXNetError("BlockPredictor(bf16_compute=True) is not "
+                             "ported yet: the port computes in fp32")
+        self.device = resolve_device(device)
+        where = {p.device for p in block.parameters()}
+        if where and where != {self.device}:
+            raise MXNetError(f"BlockPredictor on {self.device}, but the "
+                             f"block's parameters are on {sorted(map(str, where))}")
+        self._block = block.eval()
+        self._lock = threading.Lock()
+
+    def _scope(self):
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _to_device(self, x):
+        t = torch.from_numpy(np.ascontiguousarray(x)) \
+            if isinstance(x, np.ndarray) else torch.as_tensor(x)
+        return t.to(self.device)
+
+    def __call__(self, *batch):
+        """Forward one batch (each input with its batch dim); returns
+        the module's output, on the device."""
+        with self._lock, torch.inference_mode(), self._scope():
+            return self._block(*(self._to_device(x) for x in batch))
+
+    def predict(self, data, batch_size=None):
+        """Minibatched forward over a large array.  Every minibatch,
+        including a single whole-array call and the tail, is padded with
+        zeros to a fixed size — ``batch_size``, or with ``batch_size=None``
+        the next power of two — and the padding is sliced off the
+        output.  Single-output modules only."""
+        data = data if isinstance(data, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(data))
+        n = data.shape[0]
+        if batch_size is None or batch_size >= n:
+            target = batch_size if batch_size is not None else \
+                (1 if n <= 1 else 1 << (n - 1).bit_length())
+            return self._forward_fixed(data, target)
+        return torch.cat([self._forward_fixed(data[i:i + batch_size],
+                                              batch_size)
+                          for i in range(0, n, batch_size)])
+
+    def _forward_fixed(self, chunk, target):
+        valid = chunk.shape[0]
+        if valid < target:
+            pad = torch.zeros((target - valid,) + tuple(chunk.shape[1:]),
+                              dtype=chunk.dtype, device=chunk.device)
+            chunk = torch.cat([chunk, pad])
+        out = self(chunk)
+        if not isinstance(out, torch.Tensor):
+            raise MXNetError("BlockPredictor.predict supports single-output "
+                             "blocks only; call the predictor directly")
+        return out[:valid]

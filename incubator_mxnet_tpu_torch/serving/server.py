@@ -1,0 +1,299 @@
+"""ModelServer of the port (``incubator_mxnet_tpu/serving/server.py``):
+request-level online inference over one predictor.
+
+Callers ``submit()`` single examples (or ``submit_batch()`` small
+batches) from any thread and get a ``concurrent.futures.Future``; a
+background worker coalesces them in a ``DynamicBatcher``, pads each
+batch up to a bucket size on the host (numpy), runs the predictor — a
+``BlockPredictor`` or any callable, which copies the batch to its device
+— and delivers each request's slice of the output as host numpy arrays.
+
+What differs from the JAX server: only the Block backend (``_BlockRunner``)
+is ported — the symbol ``Predictor`` and ``CompiledPredictor`` backends,
+the autotune consult, fleet shedding, the watchdog, and the telemetry,
+tracing, request-journal, fault-injection and diagnostics hooks are not
+yet.  ``stats()`` returns the server's own counters instead.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import contextlib
+import logging
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..context import resolve_device
+from .batcher import (DynamicBatcher, Request, ServerClosedError,
+                      WorkerCrashedError)
+from .config import ServingConfig
+
+__all__ = ["ModelServer"]
+
+_logger = logging.getLogger(__name__)
+
+
+def _to_numpy(out):
+    if isinstance(out, torch.Tensor):
+        return out.detach().cpu().numpy()
+    return np.asarray(out)
+
+
+class _BlockRunner:
+    """Drives a BlockPredictor or any callable on a list of host arrays,
+    returning a list of host arrays."""
+
+    def __init__(self, pred):
+        self._pred = pred
+
+    def run(self, arrays):
+        out = self._pred(*arrays)
+        if isinstance(out, (list, tuple)):
+            return [_to_numpy(o) for o in out]
+        return [_to_numpy(out)]
+
+
+class ModelServer:
+    """Thread-safe dynamic-batching server over one predictor.
+
+    Usage::
+
+        server = ModelServer(BlockPredictor(net), max_batch=32,
+                             input_shapes=[(224, 224, 3)])
+        server.warmup()                    # every bucket once
+        fut = server.submit(x)             # one example, no batch dim
+        y = fut.result()                   # numpy output for x
+        server.close()                     # drain + join
+
+    ``input_shapes`` are the per-example shapes (no batch dim) of the
+    model's float32 inputs, for validation and ``warmup``; without them
+    the first request defines the contract.  ``device`` (``None``:
+    ``cuda:0``, raising without a GPU) is where the predictor runs; a
+    predictor that names its own ``device`` must agree.
+    Futures resolve to numpy arrays (a list when the model has several
+    outputs) or raise QueueFullError / DeadlineExceededError /
+    ServerClosedError / WorkerCrashedError / the backend's failure.
+    """
+
+    def __init__(self, predictor, config=None, input_shapes=None,
+                 device=None, **knobs):
+        if config is None:
+            config = ServingConfig(**knobs)
+        elif knobs:
+            raise MXNetError(f"pass either config= or knob kwargs, not both "
+                             f"(got {sorted(knobs)})")
+        if not callable(predictor):
+            raise MXNetError(
+                f"unsupported predictor type {type(predictor).__name__}: "
+                "expected a BlockPredictor or a callable (the symbol and "
+                "compiled predictor backends are not ported yet)")
+        self.device = resolve_device(device)
+        own = getattr(predictor, "device", None)
+        if own is not None and torch.device(own) != self.device:
+            raise MXNetError(f"ModelServer on {self.device}, but its "
+                             f"predictor runs on {own}")
+        self._runner = _BlockRunner(predictor)
+        self._cfg = config
+        self._specs = None
+        if input_shapes is not None:
+            shapes = list(input_shapes.values()) \
+                if isinstance(input_shapes, dict) else list(input_shapes)
+            self._specs = [(tuple(s), np.dtype(np.float32)) for s in shapes]
+        self._batcher = DynamicBatcher(config)
+        # serialises predictor execution between the worker and warmup()
+        self._exec_lock = threading.Lock()
+        self._closed = False
+        #: the exception that killed the worker (None while healthy)
+        self._worker_exc = None
+        # written by the worker thread only
+        self._counts = {"batches": 0, "examples": 0, "padded": 0,
+                        "errors": 0}
+        self._exec_s = 0.0
+        self._worker = threading.Thread(target=self._worker_loop,
+                                        name="mxnet-serving-worker",
+                                        daemon=True)
+        self._worker.start()
+
+    # ------------------------------------------------------------- submit
+    def submit(self, *inputs, timeout_ms=None):
+        """Queue ONE example (inputs without batch dim, one positional
+        arg per model input).  Returns a Future of the example's
+        output."""
+        arrays = self._prep(inputs, add_batch_dim=True)
+        return self._enqueue(arrays, 1, unbatch=True, timeout_ms=timeout_ms)
+
+    def submit_batch(self, *inputs, timeout_ms=None):
+        """Queue a small already-batched request (leading dim = example
+        count, kept whole).  Returns a Future of outputs with the same
+        leading dim."""
+        arrays = self._prep(inputs, add_batch_dim=False)
+        n = arrays[0].shape[0]
+        if any(a.shape[0] != n for a in arrays):
+            raise MXNetError(f"submit_batch: leading dims differ "
+                             f"{[a.shape[0] for a in arrays]}")
+        if n < 1:
+            raise MXNetError("submit_batch: empty batch")
+        if n > self._cfg.max_batch:
+            raise MXNetError(
+                f"submit_batch: {n} examples exceeds max_batch "
+                f"{self._cfg.max_batch}; split the request or raise "
+                "MXNET_SERVING_MAX_BATCH")
+        return self._enqueue(arrays, n, unbatch=False, timeout_ms=timeout_ms)
+
+    def _prep(self, inputs, add_batch_dim):
+        if not inputs:
+            raise MXNetError("submit: at least one input is required")
+        if self._specs is not None and len(inputs) != len(self._specs):
+            raise MXNetError(f"submit: model takes {len(self._specs)} "
+                             f"inputs, got {len(inputs)}")
+        arrays = []
+        for i, x in enumerate(inputs):
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu().numpy()
+            a = np.asarray(x)
+            if self._specs is not None:
+                shape, dtype = self._specs[i]
+                a = np.ascontiguousarray(a, dtype)
+                expect = shape if add_batch_dim else a.shape[:1] + shape
+                if tuple(a.shape) != tuple(expect):
+                    raise MXNetError(
+                        f"submit: input {i} has shape {a.shape}, expected "
+                        f"{'per-example ' if add_batch_dim else ''}"
+                        f"{tuple(expect)}")
+            arrays.append(a[None] if add_batch_dim else a)
+        if self._specs is None:
+            # no declared shapes: the first request defines the contract
+            self._specs = [(tuple(a.shape[1:]), a.dtype) for a in arrays]
+        return arrays
+
+    def _enqueue(self, arrays, n, unbatch, timeout_ms):
+        if timeout_ms is None:
+            timeout_ms = self._cfg.timeout_ms
+        deadline = time.perf_counter() + timeout_ms / 1e3 \
+            if timeout_ms is not None else None
+        if self._worker_exc is not None:
+            raise WorkerCrashedError(
+                f"serving worker crashed ({self._worker_exc!r}); the server "
+                "is dead — recreate it")
+        if self._closed:
+            raise ServerClosedError("server is closed")
+        fut = concurrent.futures.Future()
+        self._batcher.submit(Request(arrays, n, fut, deadline=deadline,
+                                     unbatch=unbatch))
+        return fut
+
+    # ------------------------------------------------------------- worker
+    def _scope(self):
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _worker_loop(self):
+        try:
+            with self._scope():
+                while True:
+                    batch = self._batcher.next_batch()
+                    if batch is None:
+                        return                # closed and drained
+                    if batch:                 # else: all had expired
+                        self._run_batch(batch)
+        except Exception as e:
+            # containment: a worker dying outside the per-batch handler
+            # must not leave queued futures blocking forever
+            self._worker_exc = e
+            _logger.exception("serving worker died: failing %d pending "
+                              "request(s), refusing new submits",
+                              len(self._batcher))
+            self._batcher.fail_pending(WorkerCrashedError(
+                f"serving worker crashed before this request ran ({e!r}); "
+                "the server is dead — recreate it"), close=True)
+
+    def _run_batch(self, reqs):
+        """Assemble, pad, run and scatter one batch.  A failure fails
+        this batch's futures and leaves the loop running."""
+        try:
+            total = sum(r.n for r in reqs)
+            bucket = self._cfg.bucket_for(total)
+            cols = []
+            for i in range(len(reqs[0].arrays)):
+                parts = [r.arrays[i] for r in reqs]
+                a = parts[0] if len(parts) == 1 else np.concatenate(parts)
+                if a.shape[0] < bucket:       # pad up to the bucket
+                    a = np.concatenate([a, np.zeros(
+                        (bucket - a.shape[0],) + a.shape[1:], a.dtype)])
+                cols.append(a)
+            t0 = time.perf_counter()
+            with self._exec_lock:
+                outs = self._runner.run(cols)
+            self._exec_s += time.perf_counter() - t0
+        except Exception as e:
+            self._counts["errors"] += 1
+            _logger.exception("serving batch of %d request(s) failed",
+                              len(reqs))
+            for r in reqs:
+                if not r.future.done():
+                    r.future.set_exception(e)
+            return
+        self._counts["batches"] += 1
+        self._counts["examples"] += total
+        self._counts["padded"] += bucket
+        off = 0
+        for r in reqs:
+            sliced = [o[off:off + r.n] for o in outs]
+            off += r.n
+            if r.unbatch:
+                sliced = [o[0] for o in sliced]
+            r.future.set_result(sliced[0] if len(sliced) == 1 else sliced)
+
+    # ------------------------------------------------------------ control
+    def warmup(self):
+        """Run zeros through the predictor at every bucket size, so the
+        first real traffic pays no first-use cost (kernel builds, cuDNN
+        algorithm choice, allocator growth).  Needs the per-example
+        input shapes: pass ``input_shapes=`` or submit once first."""
+        if self._specs is None:
+            raise MXNetError(
+                "warmup(): input shapes unknown — pass input_shapes= "
+                "(per-example, no batch dim) at construction, or submit "
+                "a first request")
+        for b in self._cfg.buckets:
+            cols = [np.zeros((b,) + shape, dtype)
+                    for shape, dtype in self._specs]
+            with self._exec_lock, self._scope():
+                self._runner.run(cols)
+
+    def stats(self):
+        """The server's counters: requests, batches, examples, padded
+        (bucket slots run), errors, rejected, expired, ``mean_fill``
+        (examples / padded slots) and ``exec_s`` (host seconds in the
+        predictor, including the copies to and from the device)."""
+        out = dict(self._counts)
+        out["requests"] = self._batcher.accepted
+        out["rejected"] = self._batcher.rejected
+        out["expired"] = self._batcher.expired
+        out["mean_fill"] = out["examples"] / out["padded"] \
+            if out["padded"] else 0.0
+        out["exec_s"] = self._exec_s
+        return out
+
+    def close(self, drain=True):
+        """Stop accepting work and join the worker.  ``drain=True``
+        (default) lets queued requests run; ``drain=False`` fails them
+        with ServerClosedError."""
+        if self._closed:
+            return
+        self._closed = True
+        if not drain:
+            self._batcher.cancel_pending()
+        self._batcher.close()
+        self._worker.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close(drain=exc_type is None)
+        return False

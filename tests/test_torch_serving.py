@@ -1,0 +1,377 @@
+"""The port's ModelServer, DynamicBatcher, ServingConfig and
+BlockPredictor on the CPU: the cases of the JAX package's
+tests/test_serving.py that apply to the Block backend, plus the slice's
+path — a port ResNet-50 v1 (``fuse_block=True``, NHWC) served to
+concurrent clients, each result equal to a direct BlockPredictor
+forward of the same image.  (The same path against the JAX logits is in
+test_torch_resnet.py.)
+
+Tolerance of served vs direct: 1e-5 absolute on O(1) logits — the same
+fp32 forward, but at another batch size (the bucket), which may change
+oneDNN's summation order."""
+import concurrent.futures
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from incubator_mxnet_tpu_torch.base import MXNetError
+from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+from incubator_mxnet_tpu_torch.gluon.nn import Dense
+from incubator_mxnet_tpu_torch.predict import BlockPredictor
+from incubator_mxnet_tpu_torch.serving import (DeadlineExceededError,
+                                               DynamicBatcher, ModelServer,
+                                               QueueFullError, Request,
+                                               ServerClosedError,
+                                               ServingConfig,
+                                               WorkerCrashedError,
+                                               pow2_buckets)
+
+
+def _dense(seed=0, in_units=12, units=8):
+    net = Dense(units, in_units, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        net.weight.normal_(0, 0.3, generator=gen)
+        net.bias.normal_(0, 0.1, generator=gen)
+    return net
+
+
+def _server(net=None, **kw):
+    net = net if net is not None else _dense()
+    kw.setdefault("input_shapes", [(12,)])
+    return ModelServer(BlockPredictor(net, device="cpu"), device="cpu", **kw)
+
+
+# ------------------------------------------------------------- config
+def test_config_defaults_and_buckets():
+    cfg = ServingConfig(max_batch=32)
+    assert cfg.buckets == [1, 2, 4, 8, 16, 32]
+    assert pow2_buckets(24) == [1, 2, 4, 8, 16, 24]
+    assert [cfg.bucket_for(n) for n in (1, 5, 32)] == [1, 8, 32]
+    with pytest.raises(MXNetError):
+        cfg.bucket_for(33)
+    assert ServingConfig(max_batch=8, buckets=[4, 8, 4, 1]).buckets == \
+        [1, 4, 8]
+
+
+@pytest.mark.parametrize("kw", [dict(max_batch=0), dict(linger_us=-1),
+                                dict(queue_depth=0),
+                                dict(max_batch=8, buckets=[1, 2, 4]),
+                                dict(buckets=[0, 32])])
+def test_config_validation(kw):
+    with pytest.raises(MXNetError):
+        ServingConfig(**kw)
+
+
+def test_config_env_knobs(monkeypatch):
+    monkeypatch.setenv("MXNET_SERVING_MAX_BATCH", "16")
+    monkeypatch.setenv("MXNET_SERVING_LINGER_US", "777")
+    monkeypatch.setenv("MXNET_SERVING_QUEUE_DEPTH", "9")
+    cfg = ServingConfig()
+    assert (cfg.max_batch, cfg.linger_us, cfg.queue_depth) == (16, 777, 9)
+    assert cfg.buckets[-1] == 16
+
+
+# ------------------------------------------------------------ batcher
+def _req(n=1, deadline=None):
+    return Request([np.zeros((n, 3), "float32")], n,
+                   concurrent.futures.Future(), deadline=deadline)
+
+
+def _batcher(**kw):
+    kw = dict(dict(max_batch=4, linger_us=0, queue_depth=16), **kw)
+    return DynamicBatcher(ServingConfig(**kw))
+
+
+def test_batcher_coalesces_up_to_max_batch():
+    b = _batcher()
+    reqs = [_req() for _ in range(6)]
+    for r in reqs:
+        b.submit(r)
+    first, second = b.next_batch(), b.next_batch()
+    assert first == reqs[:4] and second == reqs[4:]     # size trigger, FIFO
+    assert b.accepted == 6
+
+
+def test_batcher_keeps_multi_example_requests_whole():
+    b = _batcher()
+    b.submit(_req(n=3))
+    b.submit(_req(n=3))
+    assert sum(r.n for r in b.next_batch()) == 3        # 3+3 > 4: not split
+    assert sum(r.n for r in b.next_batch()) == 3
+
+
+def test_batcher_expired_request_never_occupies_a_slot():
+    b = _batcher()
+    dead, live = _req(deadline=time.perf_counter() - 0.001), _req()
+    b.submit(dead)
+    b.submit(live)
+    assert b.next_batch() == [live]
+    assert isinstance(dead.future.exception(), DeadlineExceededError)
+    assert b.expired == 1
+
+
+def test_batcher_skips_cancelled_requests():
+    b = _batcher()
+    gone, live = _req(), _req()
+    b.submit(gone)
+    b.submit(live)
+    assert gone.future.cancel()
+    assert b.next_batch() == [live]
+    assert not live.future.cancel()          # popped: running now
+
+
+def test_batcher_queue_full_fast_reject():
+    b = _batcher(queue_depth=2)
+    b.submit(_req())
+    b.submit(_req())
+    with pytest.raises(QueueFullError):
+        b.submit(_req())
+    assert b.rejected == 1
+
+
+def test_batcher_close_wakes_and_drains():
+    b = _batcher(queue_depth=4)
+    b.submit(_req())
+    b.close()
+    assert len(b.next_batch()) == 1                    # drained after close
+    assert b.next_batch() is None                      # then terminal
+    with pytest.raises(ServerClosedError):
+        b.submit(_req())
+
+
+# ---------------------------------------------------- the slice's path
+def test_concurrent_resnet_serving_matches_direct_forwards():
+    """4 threads x 6 single-image submits plus two submit_batch calls
+    of 3 against a port ResNet-50 v1 (fuse_block=True, NHWC) on the
+    CPU: every result equals a direct forward of the same images."""
+    net = vision.resnet50_v1(classes=10, layout="NHWC", thumbnail=True,
+                             fuse_block=True, device="cpu", seed=0)
+    pred = BlockPredictor(net, device="cpu")
+    server = ModelServer(pred, device="cpu", max_batch=4, linger_us=2000,
+                         input_shapes=[(16, 16, 3)])
+    server.warmup()
+    X = np.random.RandomState(0).rand(30, 16, 16, 3).astype(np.float32)
+    direct = pred(X).numpy()
+    results, errors = {}, []
+
+    def client(i):
+        try:
+            futs = [server.submit(X[6 * i + j]) for j in range(6)]
+            results[i] = np.stack([f.result(timeout=120) for f in futs])
+        except Exception as exc:            # pragma: no cover - diagnostics
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    batches = [server.submit_batch(X[24:27]), server.submit_batch(X[27:30])]
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    got = np.concatenate([results[i] for i in range(4)] +
+                         [f.result(timeout=120) for f in batches])
+    server.close()
+    assert not errors, errors
+    np.testing.assert_allclose(got, direct, atol=1e-5, rtol=0)
+    stats = server.stats()
+    assert stats["requests"] == 26 and stats["examples"] == 30
+    assert 0 < stats["mean_fill"] <= 1 and stats["errors"] == 0
+    assert stats["batches"] >= 30 // 4 and stats["exec_s"] > 0
+
+
+def test_many_clients_lose_no_request_or_count():
+    """16 client threads (more than cores) x 20 submits with a short
+    switch interval: every future resolves to its own example's output,
+    and the counters, updated from client and worker threads, lose no
+    update."""
+    net = _dense()
+    server = _server(net, max_batch=8, linger_us=100)
+    X = np.random.RandomState(3).rand(16, 20, 12).astype("float32")
+    with torch.inference_mode():
+        direct = net(torch.from_numpy(X.reshape(-1, 12))).numpy()
+    got = np.zeros((16, 20, 8), np.float32)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def client(i):
+            futs = [server.submit(X[i, j]) for j in range(20)]
+            for j, f in enumerate(futs):
+                got[i, j] = f.result(timeout=120)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    server.close()
+    np.testing.assert_allclose(got.reshape(-1, 8), direct, rtol=1e-6,
+                               atol=1e-7)
+    stats = server.stats()
+    assert stats["requests"] == stats["examples"] == 320
+    assert stats["rejected"] == stats["expired"] == stats["errors"] == 0
+
+
+# ------------------------------------------------- deadlines and close
+def test_server_deadline_expires_queued_work():
+    server = _server(max_batch=32, linger_us=300_000)
+    x = np.random.RandomState(1).rand(12).astype("float32")
+    doomed = server.submit(x, timeout_ms=30)    # expires inside the linger
+    live = server.submit(x)
+    with pytest.raises(DeadlineExceededError):
+        doomed.result(timeout=60)
+    assert live.result(timeout=60).shape == (8,)
+    server.close()
+    assert server.stats()["expired"] == 1
+
+
+def test_server_close_drains_and_rejects_new_work():
+    net = _dense()
+    server = _server(net, max_batch=8, linger_us=200_000)
+    X = np.random.RandomState(2).rand(20, 12).astype("float32")
+    futs = [server.submit(X[i]) for i in range(20)]
+    server.close()                              # drain=True default
+    assert all(f.done() for f in futs)
+    with torch.inference_mode():
+        direct = net(torch.from_numpy(X)).numpy()
+    np.testing.assert_allclose(np.stack([f.result() for f in futs]),
+                               direct, rtol=1e-6, atol=1e-7)
+    with pytest.raises(ServerClosedError):
+        server.submit(X[0])
+    server.close()                              # idempotent
+
+
+def test_server_close_without_drain_fails_pending():
+    server = _server(max_batch=64, linger_us=500_000)
+    futs = [server.submit(np.zeros(12, "float32")) for _ in range(10)]
+    server.close(drain=False)
+    assert all(f.done() for f in futs)
+    # the worker may have raced a batch out before close; the rest fail
+    failed = sum(isinstance(f.exception(timeout=0), ServerClosedError)
+                 for f in futs)
+    assert failed + sum(f.exception(timeout=0) is None for f in futs) == 10
+
+
+def test_server_backend_failure_fails_batch_not_loop():
+    calls = {"n": 0}
+
+    def flaky(x):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("boom")
+        return torch.as_tensor(x)[:, :1]
+
+    server = ModelServer(flaky, device="cpu", max_batch=4, linger_us=0,
+                         input_shapes=[(3,)])
+    with pytest.raises(RuntimeError, match="boom"):
+        server.submit(np.zeros(3, "float32")).result(timeout=60)
+    good = server.submit(np.ones(3, "float32"))
+    assert good.result(timeout=60).shape == (1,)       # loop survived
+    server.close()
+    assert server.stats()["errors"] == 1
+
+
+def test_worker_crash_fails_pending_and_refuses_new_work():
+    """A worker that dies outside the per-batch handler fails what is
+    queued with WorkerCrashedError and refuses later submits."""
+    gate = threading.Event()
+
+    def stuck(x):
+        gate.wait(10)
+        return torch.as_tensor(x)
+
+    server = ModelServer(stuck, device="cpu", max_batch=1, linger_us=0,
+                         input_shapes=[(3,)])
+    first = server.submit(np.zeros(3, "float32"))      # occupies the worker
+    time.sleep(0.05)
+    pending = server.submit(np.zeros(3, "float32"))
+
+    def broken():
+        raise SystemError("batcher bug")
+
+    server._batcher.next_batch = broken
+    gate.set()
+    assert first.result(timeout=60).shape == (3,)
+    with pytest.raises(WorkerCrashedError):
+        pending.result(timeout=60)
+    with pytest.raises(WorkerCrashedError):
+        server.submit(np.zeros(3, "float32"))
+
+
+# ------------------------------------------------------ submit contract
+@pytest.mark.parametrize("call", [
+    lambda s: s.submit(np.zeros((5, 12), "float32")),     # example shape
+    lambda s: s.submit_batch(np.zeros((5, 12), "float32")),   # > max_batch
+    lambda s: s.submit_batch(np.zeros((0, 12), "float32")),   # empty
+    lambda s: s.submit(),                                     # no input
+    lambda s: s.submit(np.zeros(12), np.zeros(12))])          # two inputs
+def test_submit_validation(call):
+    server = _server(max_batch=4, linger_us=0)
+    with pytest.raises(MXNetError):
+        call(server)
+    server.close()
+
+
+def test_warmup_requires_shapes_for_block_backend():
+    server = _server(max_batch=4, linger_us=0, input_shapes=None)
+    with pytest.raises(MXNetError, match="input_shapes"):
+        server.warmup()
+    # the first request defines the contract; warmup works afterwards
+    server.submit(np.zeros(12, "float32")).result(timeout=60)
+    server.warmup()
+    server.close()
+
+
+def test_context_manager():
+    with _server(max_batch=4, linger_us=0) as server:
+        assert server.submit(np.zeros(12, "float32")).result(
+            timeout=60).shape == (8,)
+    with pytest.raises(ServerClosedError):
+        server.submit(np.zeros(12, "float32"))
+
+
+def test_server_and_predictor_must_share_a_device():
+    def elsewhere(x):
+        return x
+
+    elsewhere.device = torch.device("cuda", 0)
+    with pytest.raises(MXNetError, match="predictor runs on"):
+        ModelServer(elsewhere, device="cpu")
+
+
+# ------------------------------------------------------ BlockPredictor
+def test_block_predictor_eval_and_device_rules():
+    net = _dense().train()
+    pred = BlockPredictor(net, device="cpu")
+    assert not net.training                            # put in eval()
+    out = pred(np.zeros((2, 12), "float32"))
+    assert isinstance(out, torch.Tensor) and not out.requires_grad
+    with pytest.raises(MXNetError, match="parameters are on"):
+        BlockPredictor(_dense().to("meta"), device="cpu")
+    for kw in (dict(mesh=object()), dict(bf16_compute=True)):
+        with pytest.raises(MXNetError, match="not ported"):
+            BlockPredictor(_dense(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("n,batch_size,padded", [
+    (5, None, 8), (8, None, 8), (1, None, 1), (3, 4, 4), (10, 4, 4)])
+def test_block_predict_pads_to_a_fixed_shape(n, batch_size, padded):
+    net = _dense()
+    seen = []
+    net.register_forward_pre_hook(lambda m, a: seen.append(a[0].shape[0]))
+    pred = BlockPredictor(net, device="cpu")
+    X = np.random.RandomState(n).rand(n, 12).astype("float32")
+    got = pred.predict(X, batch_size=batch_size)
+    assert got.shape == (n, 8) and set(seen) == {padded}
+    with torch.inference_mode():
+        np.testing.assert_allclose(got.numpy(),
+                                   net(torch.from_numpy(X)).numpy(),
+                                   rtol=1e-6, atol=1e-7)

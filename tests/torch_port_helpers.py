@@ -1,14 +1,18 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
-one tiny decoder with seeded numpy weights, built on both sides — the
-JAX package's ``TransformerDecoder`` (the reference) and the port's,
-the weights moved through ``convert.params_from_numpy``."""
+a tiny decoder and a small ResNet V1 with seeded numpy weights, each
+built on both sides — the JAX package's model (the reference) and the
+port's, the weights moved through ``convert.params_from_numpy`` /
+``convert.resnet_params_from_numpy``."""
 import numpy as np
 
 import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu.gluon.decoder import TransformerDecoder as JaxDecoder
-from incubator_mxnet_tpu_torch.convert import params_from_numpy
+from incubator_mxnet_tpu.gluon.model_zoo import vision as jax_vision
+from incubator_mxnet_tpu_torch.convert import (params_from_numpy,
+                                               resnet_params_from_numpy)
 from incubator_mxnet_tpu_torch.gluon.decoder import \
     TransformerDecoder as TorchDecoder
+from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
 
 VOCAB = 32
 SMALL = dict(vocab=VOCAB, dim=32, heads=2, depth=2, max_len=64)
@@ -48,3 +52,41 @@ def prompts(n, seed=1, lengths=None):
     rs = np.random.RandomState(seed)
     lengths = lengths or [int(rs.randint(2, 14)) for _ in range(n)]
     return [rs.randint(1, VOCAB, size=L).tolist() for L in lengths]
+
+
+def jax_resnet(seed=0, num_layers=50, input_shape=(2, 16, 16, 3), **kw):
+    """The reference ResNet V1 (``prefix="resnet_"``) with weights and
+    BN statistics drawn by numpy from ``seed``, in parameter order:
+    conv weights N(0, 2 / fan_in), conv and Dense biases N(0, 0.1^2),
+    Dense weight N(0, 1 / in_units), BN gamma U(0.5, 1), beta and
+    running_mean N(0, 0.1^2), running_var U(0.5, 1.5).  One forward on
+    zeros of ``input_shape`` first fixes the deferred shapes (and
+    compiles the ops for that shape, so later forwards of it are
+    cheap)."""
+    mx.random.seed(0)
+    net = jax_vision.get_resnet(1, num_layers, prefix="resnet_", **kw)
+    net.initialize()
+    net(mx.nd.zeros(input_shape)).asnumpy()
+    rs = np.random.RandomState(seed)
+    for name, p in net.collect_params().items():
+        shape = p.shape
+        if name.endswith("gamma"):
+            arr = rs.uniform(0.5, 1.0, shape)
+        elif name.endswith("running_var"):
+            arr = rs.uniform(0.5, 1.5, shape)
+        elif name.endswith(("beta", "bias", "running_mean")):
+            arr = 0.1 * rs.randn(*shape)
+        else:
+            arr = rs.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        p.set_data(mx.nd.array(arr.astype(np.float32)))
+    return net
+
+
+def torch_twin_resnet(jax_net, num_layers=50, **kw):
+    """The port's ResNet V1 on the CPU, in eval mode, holding
+    ``jax_net``'s weights (``kw``: the same model options)."""
+    named = {n: p.data().asnumpy()
+             for n, p in jax_net.collect_params().items()}
+    net = get_resnet(1, num_layers, device="cpu", **kw)
+    net.load_state_dict(resnet_params_from_numpy(named))
+    return net.eval()
