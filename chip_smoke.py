@@ -6,8 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every hand-written kernel from ``incubator_mxnet_tpu_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version
-on the card, then drives the port's two main paths, each with the
-kernels' launch counts set to 0 just before it and read just after:
+on the card, then drives the port's main paths, each with the kernels'
+launch counts set to 0 just before it and read just after:
 
 * the continuous-batching generation server at GPT-2-small widths
   (vocab 50257, dim 768, 12 heads, 12 layers, max_len 1024), checked
@@ -18,7 +18,14 @@ kernels' launch counts set to 0 just before it and read just after:
   ``BlockPredictor`` at ``max_batch=32``: a burst of 224 images from 8
   client threads and 4 batch requests, every result held against a
   direct forward, the logits against the same weights on the CPU, then
-  the same burst under torch.profiler.
+  the same burst under torch.profiler;
+* ResNet-50 v1 training (the same widths, ``fuse_block="chain"``)
+  through ``parallel.TrainStep`` with softmax cross-entropy and SGD
+  (lr 0.1, momentum 0.9, wd 1e-4) on one resident batch of 128 images:
+  ``run_steps`` windows, one step held against the same step on the CPU
+  (b=2), the trained net's eval logits against the CPU's, one window
+  under torch.profiler; then a few steps of ``fuse_block=True``
+  training at b=32, which go through the fused conv kernels.
 
 Weights are random from ``--seed``.  Each phase prints one JSON line;
 any failed check exits non-zero.  The last three lines are the card's
@@ -27,7 +34,7 @@ name and power limit as nvidia-smi reports them, the kernel table, and
 
 Timings: CUDA events around many back-to-back launches divided by the
 count (flash inputs warm in L2, as a prefill finds them right after its
-QKV projection; the conv kernels' stage-1 tensors exceed L2).
+QKV projection; the conv and chain kernels' stage-1 tensors exceed L2).
 ``bound_ms`` is the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and the
 operations it needs on these inputs over the fp32 CUDA-core peak of
@@ -70,6 +77,37 @@ CONV3X3_SHAPES = [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
 BLOCKS_PER_STAGE = (3, 4, 6, 3)
 RAGGED_SHAPES = [(2, 9, 10, 16, 24), (3, 7, 7, 16, 40), (1, 5, 13, 8, 130),
                  (2, 7, 7, 20, 70)]
+# ResNet-50 v1's chain blocks at the training batch of 128: (N, H, W, C,
+# Cm, Co), C = Cm the conv1 output; BLOCKS_PER_STAGE of them per step
+TRAIN_BATCH = 128
+CHAIN_SHAPES = [(128, 56, 56, 64, 64, 256), (128, 28, 28, 128, 128, 512),
+                (128, 14, 14, 256, 256, 1024), (128, 7, 7, 512, 512, 2048)]
+# H != W, W = 7, channels that are not tile multiples, M not a multiple
+# of the row tiles, both row-tile choices of each kernel, Cm at the
+# envelope's edge
+CHAIN_RAGGED = [(2, 9, 10, 16, 24, 40), (3, 7, 7, 16, 40, 70),
+                (1, 5, 13, 8, 130, 33), (2, 7, 7, 20, 70, 130),
+                (3, 57, 55, 20, 72, 130), (1, 7, 7, 16, 768, 64),
+                (2, 68, 68, 8, 768, 40)]
+# chain_stats vs plain: sums of up to 401408 terms in other orders,
+# relative to the sum of the terms' magnitudes
+CHAIN_STATS_RTOL = 1e-5
+STRESS_VAR_RTOL = 2e-2  # shifted var2 vs fp64 at mean/std ~4e3
+TRAIN_WINDOWS, TRAIN_WINDOW_STEPS = 2, 5
+SGD_KW = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+# one training step, card vs CPU (b=2 at 224x224).  The loss and the
+# moving statistics come from the forward, which fp32 reproduces to a
+# few ulps: within STEP_RTOL (relative; of each tensor's largest
+# magnitude, plus STEP_ATOL).  The parameters' updates come from a
+# gradient through 53 BatchNorms of a randomly initialised net at b=2,
+# which amplifies rounding chaotically: two fp32 formulations of the
+# same math on one CPU (the chain's plain kernels and the unfused
+# layers) already differ by ~3x the STEP_RTOL bound on some tensors.  So
+# the card's worst parameter (in units of that bound) must lie within
+# SPREAD_FACTOR of the worst of that CPU-vs-CPU spread (and passes
+# outright within the bound).
+STEP_LOSS_RTOL, STEP_RTOL, STEP_ATOL, SPREAD_FACTOR = 1e-4, 1e-4, 1e-6, 3.0
+FUSED_TRAIN_BATCH, FUSED_TRAIN_STEPS = 32, 3
 GPT2_SMALL = dict(vocab=50257, dim=768, heads=12, depth=12, max_len=1024)
 PROMPT_LENGTHS = (9, 16, 33, 100, 250, 511, 700, 1000)
 MAX_NEW = 16
@@ -456,6 +494,422 @@ def phase_resnet_profile(server, images):
     emit(dict({"phase": "resnet_profile"}, **_profile_summary(prof, wall)))
 
 
+def chain_bound_ms(n, h, w, c, cm, co, emit):
+    """Least time for a chain pass on these shapes: c1, the affines, the
+    weights read and the output (``out`` for emit, the two sums for
+    stats) written once (fp32); conv2 (and conv3 for emit) at 2 flops
+    per multiply-add."""
+    m = n * h * w
+    flops = 2.0 * m * cm * (9 * c + (co if emit else 0))
+    if emit:
+        nbytes = 4.0 * (m * (c + co) + 9 * c * cm + cm * co + 2 * c
+                        + 2 * cm + co)
+    else:
+        nbytes = 4.0 * (m * c + 9 * c * cm + 2 * c + 3 * cm)
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _chain_case(gen, n, h, w, c, cm, co):
+    cl = torch.channels_last
+
+    def vec(k, lo, hi):
+        return torch.rand((k,), device="cuda", generator=gen) * (hi - lo) + lo
+    x = torch.randn((n, c, h, w), device="cuda", generator=gen).contiguous(
+        memory_format=cl)
+    w2 = (torch.randn((cm, c, 3, 3), device="cuda", generator=gen)
+          * math.sqrt(2.0 / (9 * c))).contiguous(memory_format=cl)
+    w3 = (torch.randn((co, cm, 1, 1), device="cuda", generator=gen)
+          * math.sqrt(2.0 / cm)).contiguous(memory_format=cl)
+    return dict(x=x, a1=vec(c, 0.5, 1.5), b1=vec(c, -0.1, 0.1), w2=w2,
+                shift=vec(cm, -0.5, 0.5), a2=vec(cm, 0.5, 1.5),
+                b2=vec(cm, -0.1, 0.1), w3=w3, b3=vec(co, -0.1, 0.1))
+
+
+def _stress_var2():
+    """The JAX package's shifted-variance stress case (its
+    tests/test_fused_chain.py) through chain_stats on the card: BN2's
+    batch mean ~4e3 standard deviations from 0.  Returns var2's largest
+    relative error against fp64, shifted by the moving mean (must be
+    within STRESS_VAR_RTOL) and unshifted (the raw form, which fails)."""
+    from incubator_mxnet_tpu_torch.ops.fused_chain import chain_stats
+    rs = np.random.RandomState(7)
+    n, h, w, c, cm = 4, 16, 16, 16, 8
+
+    def fp32(a):            # the values the kernel sees, kept in fp64
+        return np.asarray(a, np.float32).astype(np.float64)
+    c1 = fp32(rs.randn(n, h, w, c))
+    mean1, var1 = c1.mean((0, 1, 2)), c1.var((0, 1, 2))
+    a1 = fp32(1.0 / np.sqrt(var1 + 1e-5))
+    b1 = fp32(1000.0 - mean1 * a1)
+    w2 = np.zeros((cm, c, 3, 3))
+    w2[:, :, 1, 1] = fp32(0.1 + 0.001 * rs.randn(cm, c))
+    c2 = np.einsum("nhwc,mc->nhwm", np.maximum(c1 * a1 + b1, 0),
+                   w2[:, :, 1, 1])
+    mean_ref, var_ref = c2.mean((0, 1, 2)), c2.var((0, 1, 2))
+    x = torch.from_numpy(c1.astype(np.float32)).cuda().permute(0, 3, 1, 2)
+    args = [torch.from_numpy(v.astype(np.float32)).cuda()
+            for v in (a1, b1)]
+    w2t = torch.from_numpy(w2.astype(np.float32)).cuda().contiguous(
+        memory_format=torch.channels_last)
+    errs = []
+    for shift in (mean_ref * 1.003, np.zeros(cm)):
+        s = torch.from_numpy(shift.astype(np.float32)).cuda()
+        sums, sqs = chain_stats(x, *args, w2t, s)
+        count = n * h * w
+        mean_d = sums.double() / count
+        var2 = torch.clamp(sqs.double() / count - mean_d.square(), min=0)
+        errs.append(float(np.max(np.abs(var2.cpu().numpy() - var_ref)
+                                 / var_ref)))
+    return errs
+
+
+def phase_kernels_chain():
+    """The chain kernels against their plain versions at ResNet-50 v1's
+    four chain shapes at batch 128 (timed, with the unfused cuDNN
+    composition as yardstick), at ragged shapes, and (chain_stats) at the
+    shifted-variance stress case; chain_stats run twice must be
+    bit-identical."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops import fused_chain as fc
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {"chain_stats": [], "chain_emit": []}
+    worst = {"chain_stats": 0.0, "chain_emit": 0.0}
+    for shape in CHAIN_SHAPES + CHAIN_RAGGED:
+        t = _chain_case(gen, *shape)
+        x, a1, b1, w2, s = t["x"], t["a1"], t["b1"], t["w2"], t["shift"]
+        a2, b2, w3, b3 = t["a2"], t["b2"], t["w3"], t["b3"]
+        timed = shape in CHAIN_SHAPES
+        # pass 1
+        sums, sqs = fc.chain_stats(x, a1, b1, w2, s)
+        again = fc.chain_stats(x, a1, b1, w2, s)
+        ref_sum, ref_sq = fc._chain_stats_plain(x, a1, b1, w2, s)
+        d = fc._conv2(x, a1, b1, w2) - s.view(1, -1, 1, 1)
+        mass = d.abs().sum((0, 2, 3))
+        del d
+        torch.cuda.synchronize()
+        same = bool(torch.equal(sums, again[0]) and torch.equal(sqs, again[1]))
+        err = max((sums - ref_sum).abs().max().item(),
+                  (sqs - ref_sq).abs().max().item())
+        rel = max(((sums - ref_sum).abs() / mass).max().item(),
+                  ((sqs - ref_sq).abs() / ref_sq).max().item())
+        worst["chain_stats"] = max(worst["chain_stats"], err)
+        row = {"shape": list(shape), "max_abs_err": err, "max_rel_err": rel,
+               "bit_identical": same}
+        if not (torch.isfinite(sums).all() and torch.isfinite(sqs).all()):
+            fail(f"chain_stats gave non-finite sums at {shape}")
+        if not same:
+            fail(f"chain_stats is not deterministic at {shape}")
+        if rel > CHAIN_STATS_RTOL:
+            fail(f"chain_stats disagrees with its plain version at {shape}: "
+                 f"{rel} > {CHAIN_STATS_RTOL} of the sums' mass")
+        if timed:
+            def unfused_stats():
+                dd = F.conv2d(torch.relu(x * a1.view(1, -1, 1, 1)
+                                         + b1.view(1, -1, 1, 1)), w2,
+                              padding=1) - s.view(1, -1, 1, 1)
+                return dd.sum((0, 2, 3)), dd.square().sum((0, 2, 3))
+            row["kernel_ms"] = time_ms(lambda: fc.chain_stats(x, a1, b1, w2,
+                                                              s))
+            row["plain_ms"] = time_ms(
+                lambda: fc._chain_stats_plain(x, a1, b1, w2, s))
+            row["library_ms"] = time_ms(unfused_stats)
+            row["bound_ms"], row["bound_by"] = chain_bound_ms(*shape,
+                                                              emit=False)
+        rows["chain_stats"].append(row)
+        # pass 2
+        out = fc.chain_emit(x, a1, b1, w2, a2, b2, w3, b3)
+        ref = fc._chain_emit_plain(x, a1, b1, w2, a2, b2, w3, b3)
+        torch.cuda.synchronize()
+        if not out.is_contiguous(memory_format=torch.channels_last):
+            fail(f"chain_emit output is not channels-last at {shape}")
+        if not torch.isfinite(out).all():
+            fail(f"chain_emit gave non-finite values at {shape}")
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        worst["chain_emit"] = max(worst["chain_emit"], err)
+        row = {"shape": list(shape), "max_abs_err": err,
+               "ref_abs_max": scale}
+        if err > CONV_RTOL * scale:
+            fail(f"chain_emit disagrees with its plain version at {shape}: "
+                 f"{err} > {CONV_RTOL} x {scale}")
+        if timed:
+            def unfused_emit():
+                c2 = F.conv2d(torch.relu(x * a1.view(1, -1, 1, 1)
+                                         + b1.view(1, -1, 1, 1)), w2,
+                              padding=1)
+                return F.conv2d(torch.relu(c2 * a2.view(1, -1, 1, 1)
+                                           + b2.view(1, -1, 1, 1)), w3, b3)
+            row["kernel_ms"] = time_ms(lambda: fc.chain_emit(
+                x, a1, b1, w2, a2, b2, w3, b3))
+            row["plain_ms"] = time_ms(lambda: fc._chain_emit_plain(
+                x, a1, b1, w2, a2, b2, w3, b3))
+            row["library_ms"] = time_ms(unfused_emit)
+            row["bound_ms"], row["bound_by"] = chain_bound_ms(*shape,
+                                                              emit=True)
+        rows["chain_emit"].append(row)
+        del t, x, out, ref
+        torch.cuda.empty_cache()
+    shifted, raw = _stress_var2()
+    if shifted > STRESS_VAR_RTOL:
+        fail(f"chain_stats' shifted var2 is {shifted} off fp64 at the "
+             f"stress case (> {STRESS_VAR_RTOL})")
+    if raw <= 0.05:
+        fail(f"the stress case does not stress: the unshifted var2 is "
+             f"only {raw} off fp64")
+    kernels = {}
+    for name, line in (("chain_stats", "emit=False"),
+                       ("chain_emit", "emit=True")):
+        emit({"phase": "kernels_chain", "kernel": name,
+              "rtol": CHAIN_STATS_RTOL if name == "chain_stats"
+              else CONV_RTOL,
+              "library": "unfused cuDNN fp32: F.conv2d(relu(x*a1+b1), w2) "
+                         + ("then the two sums of (c2 - s)"
+                            if name == "chain_stats" else
+                            "then F.conv2d(relu(c2*a2+b2), w3, b3)"),
+              "stress_var2_rel_err": {"shifted": shifted, "unshifted": raw}
+              if name == "chain_stats" else None,
+              "rows": rows[name]})
+        timed = rows[name][:len(CHAIN_SHAPES)]
+        per_step = {key: sum(k * r[key] for k, r in
+                             zip(BLOCKS_PER_STAGE, timed))
+                    for key in ("kernel_ms", "plain_ms", "library_ms",
+                                "bound_ms")}
+        kernels[name] = {
+            "name": name, "route": "cuda",
+            "source": f"incubator_mxnet_tpu_torch/csrc/{name}.cu",
+            "replaces": "incubator_mxnet_tpu/ops/fused_chain.py:56",
+            "max_abs_err": worst[name], "ms": per_step["kernel_ms"],
+            "plain_ms": per_step["plain_ms"],
+            "bound_ms": per_step["bound_ms"],
+            "bound_by": timed[0]["bound_by"],
+            "library_ms": per_step["library_ms"],
+            "per": f"the 16 chain blocks of one b={TRAIN_BATCH} ResNet-50 "
+                   f"training step ({line})"}
+    return kernels
+
+
+def _wrappers():
+    """Every kernel wrapper, by the kernel's name in the kernel line."""
+    from incubator_mxnet_tpu_torch.ops import (chain_emit, chain_stats,
+                                               sbr_conv3x3, sbr_matmul)
+    from incubator_mxnet_tpu_torch.parallel import flash_attention
+    return {"flash_attention_fwd": flash_attention,
+            "sbr_matmul": sbr_matmul, "sbr_conv3x3": sbr_conv3x3,
+            "chain_stats": chain_stats, "chain_emit": chain_emit}
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _zero_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _train_step(net):
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.optimizer import SGD
+    from incubator_mxnet_tpu_torch.parallel import TrainStep
+    return TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(**SGD_KW),
+                     device=next(net.parameters()).device)
+
+
+def _train_batch(seed, n):
+    rs = np.random.RandomState(seed)
+    return (rs.rand(n, *IMAGE).astype(np.float32),
+            rs.randint(0, 1000, n).astype(np.float32))
+
+
+def _expect(launches, want, what):
+    if launches != want:
+        fail(f"{what} launched {launches}, expected {want}")
+
+
+def phase_resnet_train(seed):
+    """ResNet-50 v1 training, fuse_block="chain", through TrainStep on a
+    resident batch of TRAIN_BATCH at 224x224: one warm-up step, then
+    TRAIN_WINDOWS run_steps windows of TRAIN_WINDOW_STEPS, with the
+    kernel counts set to 0 just before the windows and read just
+    after."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = get_resnet(1, 50, device="cuda:0", seed=seed,
+                     **dict(RESNET50, fuse_block="chain"))
+    step = _train_step(net)
+    x, y = _train_batch(seed, TRAIN_BATCH)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    first = step(xd, yd).item()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _zero_counts()
+    losses, window_s = [], []
+    for _ in range(TRAIN_WINDOWS):
+        t1 = time.perf_counter()
+        out = step.run_steps(xd, yd, num_steps=TRAIN_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - t1)
+        losses += out.tolist()
+    launches = _counts()
+    steps = TRAIN_WINDOWS * TRAIN_WINDOW_STEPS
+    want = dict.fromkeys(launches, 0)
+    want.update(chain_stats=16 * steps, chain_emit=16 * steps)
+    _expect(launches, want, f"the training path ({steps} steps)")
+    if not all(math.isfinite(v) for v in [first] + losses):
+        fail(f"non-finite training losses: {[first] + losses}")
+    best = min(window_s)
+    emit({"phase": "resnet_train", "batch": TRAIN_BATCH, "steps": steps,
+          "window_steps": TRAIN_WINDOW_STEPS, "window_s": window_s,
+          "images_per_s": TRAIN_BATCH * TRAIN_WINDOW_STEPS / best,
+          "ms_per_step": best / TRAIN_WINDOW_STEPS * 1e3,
+          "warmup_loss": first, "losses": losses, "launches": launches,
+          "setup_s": setup_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, net, step, xd, yd
+
+
+def _worst(got, ref, keys):
+    """The largest ``|got - ref|`` over ``keys`` in units of STEP_RTOL of
+    the tensor's largest magnitude plus STEP_ATOL, and its key."""
+    worst, worst_key = 0.0, None
+    for key in keys:
+        r, g = ref[key], got[key].cpu()
+        err = (g - r).abs().max().item()
+        ratio = err / (STEP_RTOL * r.abs().max().item() + STEP_ATOL)
+        if ratio > worst:
+            worst, worst_key = ratio, key
+    return worst, worst_key
+
+
+def phase_resnet_train_reference(seed):
+    """One step of the same initial weights on one b=2 batch at 224x224,
+    on the card and on the CPU (the plain path), and on the CPU once
+    more through the unfused layers (fuse_block=False) for the spread of
+    fp32 itself: the loss, every moving statistic and every updated
+    parameter must agree (tolerances at STEP_LOSS_RTOL)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    gpu = get_resnet(1, 50, device="cuda:0", seed=seed + 1,
+                     **dict(RESNET50, fuse_block="chain"))
+    init = gpu.state_dict()
+    cpus = {}
+    for mode in ("chain", False):
+        cpus[mode] = get_resnet(1, 50, device="cpu", seed=seed + 1,
+                                **dict(RESNET50, fuse_block=mode))
+        cpus[mode].load_state_dict(init)
+    x, y = _train_batch(seed + 1, 2)
+    t0 = time.perf_counter()
+    loss_gpu = _train_step(gpu)(x, y).item()
+    loss_cpu = _train_step(cpus["chain"])(x, y).item()
+    _train_step(cpus[False])(x, y)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    got, ref, alt = (gpu.state_dict(), cpus["chain"].state_dict(),
+                     cpus[False].state_dict())
+    stats = [k for k in ref if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in ref if k not in stats]
+    stats_worst, stats_key = _worst(got, ref, stats)
+    params_worst, params_key = _worst(got, ref, params)
+    spread, spread_key = _worst(alt, ref, params)
+    emit({"phase": "resnet_train_reference", "loss_card": loss_gpu,
+          "loss_cpu": loss_cpu, "loss_rel_err": loss_rel,
+          "loss_rtol": STEP_LOSS_RTOL, "rtol": STEP_RTOL, "atol": STEP_ATOL,
+          "stats_worst_over_bound": stats_worst, "stats_worst": stats_key,
+          "params_worst_over_bound": params_worst,
+          "params_worst": params_key,
+          "cpu_spread_worst_over_bound": spread, "cpu_spread_worst":
+          spread_key, "spread_factor": SPREAD_FACTOR,
+          "tensors": len(ref), "seconds": cpu_s})
+    if not math.isfinite(loss_gpu) or loss_rel > STEP_LOSS_RTOL:
+        fail(f"card vs CPU training loss {loss_gpu} vs {loss_cpu}")
+    if stats_worst > 1.0:
+        fail(f"card vs CPU moving statistics after one step: {stats_key} "
+             f"is {stats_worst} x its bound off")
+    if params_worst > max(1.0, SPREAD_FACTOR * spread):
+        fail(f"card vs CPU parameters after one step: {params_key} is "
+             f"{params_worst} x its bound off, the CPU's own spread "
+             f"{spread}")
+
+
+def phase_resnet_train_eval(net, seed):
+    """The trained chain net in eval mode: card vs CPU logits on 2 images;
+    one forward launches chain_emit 16 times and chain_stats never."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    net.eval()
+    cpu = get_resnet(1, 50, device="cpu", seed=seed,
+                     **dict(RESNET50, fuse_block="chain")).eval()
+    cpu.load_state_dict(net.state_dict())
+    x = torch.from_numpy(_train_batch(seed + 2, 2)[0])
+    with torch.inference_mode():
+        _zero_counts()
+        lg_gpu = net(x.cuda())
+        torch.cuda.synchronize()
+        launches = _counts()
+        lg_cpu = cpu(x)
+    want = dict.fromkeys(launches, 0)
+    want.update(chain_emit=16)
+    _expect(launches, want, "one eval forward of the chain net")
+    lg_gpu = lg_gpu.cpu()
+    if not torch.isfinite(lg_gpu).all():
+        fail("non-finite eval logits of the trained net on the card")
+    err = (lg_gpu - lg_cpu).abs().max().item()
+    scale = lg_cpu.abs().max().item()
+    emit({"phase": "resnet_train_eval", "logits_max_abs_err": err,
+          "logits_abs_max": scale, "rtol": RESNET_RTOL,
+          "launches": launches,
+          "argmax_equal": bool(torch.equal(lg_gpu.argmax(1),
+                                           lg_cpu.argmax(1)))})
+    if err > RESNET_RTOL * scale:
+        fail(f"card vs CPU eval logits of the trained net differ by {err} "
+             f"> {RESNET_RTOL} x {scale}")
+    net.train()
+
+
+def phase_resnet_train_profile(step, xd, yd):
+    """One short window of the training path under torch.profiler: the
+    device's busy and idle share, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.run_steps(xd, yd, num_steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit(dict({"phase": "resnet_train_profile", "steps": steps},
+              **_profile_summary(prof, wall)))
+
+
+def phase_fused_train(seed):
+    """fuse_block=True training at FUSED_TRAIN_BATCH: the fused conv
+    kernels in their train form, 16 launches each per step."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    net = get_resnet(1, 50, device="cuda:0", seed=seed, **RESNET50)
+    step = _train_step(net)
+    x, y = _train_batch(seed + 3, FUSED_TRAIN_BATCH)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    step(xd, yd)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = step.run_steps(xd, yd, num_steps=FUSED_TRAIN_STEPS).tolist()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(sbr_matmul=16 * FUSED_TRAIN_STEPS,
+                sbr_conv3x3=16 * FUSED_TRAIN_STEPS)
+    _expect(launches, want, "fuse_block=True training")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite fuse_block=True training losses {losses}")
+    emit({"phase": "fused_train", "batch": FUSED_TRAIN_BATCH,
+          "steps": FUSED_TRAIN_STEPS, "losses": losses,
+          "ms_per_step": wall / FUSED_TRAIN_STEPS * 1e3,
+          "launches": launches})
+
+
 def _engine(net):
     from incubator_mxnet_tpu_torch.serving import GenerationEngine
     eng = GenerationEngine(net, slots=8, max_len=1024, kv_layout="paged",
@@ -582,9 +1036,11 @@ def main():
     # fp32 means fp32: no TF32 in cuBLAS or cuDNN on either side
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build(["flash_attention", "sbr_matmul", "sbr_conv3x3"])
+    phase_build(["flash_attention", "sbr_matmul", "sbr_conv3x3",
+                 "chain_stats", "chain_emit"])
     kernels = [phase_kernels()]
     conv = phase_kernels_conv()
+    chain = phase_kernels_chain()
     launches, net, greedy, sampled = phase_generation(args.seed)
     kernels[0]["launches"] = launches
     phase_profile(net, greedy, sampled)
@@ -598,6 +1054,19 @@ def main():
         server.close()
     for name, k in conv.items():
         k["launches"] = conv_launches[name]
+        kernels.append(k)
+    del rnet, server
+    torch.cuda.empty_cache()
+    train_launches, tnet, step, xd, yd = phase_resnet_train(args.seed)
+    phase_resnet_train_profile(step, xd, yd)
+    phase_resnet_train_eval(tnet, args.seed)
+    del tnet, step, xd, yd
+    torch.cuda.empty_cache()
+    phase_resnet_train_reference(args.seed)
+    torch.cuda.empty_cache()
+    phase_fused_train(args.seed)
+    for name, k in chain.items():
+        k["launches"] = train_launches[name]
         kernels.append(k)
     print(smi or "nvidia-smi: not available", flush=True)
     emit({"kernels": kernels})

@@ -9,16 +9,18 @@ nvcc at first use, and on a CPU tensor its wrapper runs the kernel's
 plain PyTorch version instead.
 
 Ported so far: the generation server (``gluon.TransformerDecoder``,
-``serving.GenerationEngine``, the flash-attention forward kernel) and
+``serving.GenerationEngine``, the flash-attention forward kernel),
 ResNet V1 inference (``gluon.model_zoo.vision``, ``predict.
 BlockPredictor``, ``serving.ModelServer``, the fused BN -> ReLU -> conv
-kernels of ``ops.fused_conv``).
+kernels of ``ops.fused_conv``) and ResNet V1 training
+(``parallel.TrainStep``, ``gluon.loss``, ``optimizer.SGD``, the
+bottleneck-chain kernels of ``ops.fused_chain``).
 """
-from . import (base, context, convert, gluon, ops, parallel, predict,
-               serving)
+from . import (base, context, convert, gluon, ops, optimizer, parallel,
+               predict, serving)
 from .base import MXNetError
 
 __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "base", "context", "convert", "gluon", "ops",
-           "parallel", "predict", "serving"]
+           "optimizer", "parallel", "predict", "serving"]

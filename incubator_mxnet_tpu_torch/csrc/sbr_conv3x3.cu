@@ -44,11 +44,12 @@ extern "C" int mx_sbr_conv3x3(const void* x, const void* a, const void* b,
                               const void* w, const void* bias, void* out,
                               int n, int h, int w_, int c, int cout,
                               void* stream) {
-  return sbr::launch<9>(
-      static_cast<const float*>(x), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), n * h * w_,
-      c, cout, h, w_, static_cast<cudaStream_t>(stream));
+  const sbr::Conv p{static_cast<const float*>(x), static_cast<const float*>(a),
+                    static_cast<const float*>(b), static_cast<const float*>(w),
+                    n * h * w_, c, cout, h, w_};
+  const sbr::StoreBias epi{static_cast<const float*>(bias),
+                           static_cast<float*>(out)};
+  return sbr::launch<9>(p, epi, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

@@ -1,29 +1,34 @@
-// The fp32 main loop shared by the two fused [BN-apply -> ReLU -> conv]
-// kernels, sbr_matmul.cu (1x1) and sbr_conv3x3.cu (3x3, pad 1); each
+// The fp32 main loop shared by the fused [BN-apply -> ReLU -> conv]
+// kernels: sbr_matmul.cu (1x1), sbr_conv3x3.cu (3x3, pad 1), and the two
+// passes of the bottleneck chain, chain_stats.cu and chain_emit.cu.  Each
 // source's note says which TPU kernel it replaces and why it is shaped
 // so.
 //
-// Both are one GEMM over channels-last storage:
+// All of them run one GEMM over channels-last storage:
 //
-//   out[m, n] = sum_{t < TAPS, c < C} y(m, t, c) * w[n, t, c] + bias[n]
+//   c[m, n] = sum_{t < TAPS, c < C} y(m, t, c) * w[n, t, c]
 //   y(m, t, c) = relu(x[m + shift(t), c] * a[c] + b[c])  if tap t of
 //                pixel m lies inside its image, else 0
 //
 // with m the flat pixel index n*H*W + h*W + w over the whole batch
-// (M = N*H*W rows of C channels), w the weight in OHWI order (Cout rows
-// of TAPS*C), TAPS = 1 for the 1x1 conv and 9 for the 3x3.  The padding
-// zero comes after the BN affine and the ReLU, as the TPU kernel pads
-// its activated image.
+// (M = N*H*W rows of C channels), w the weight in OHWI order (N rows of
+// TAPS*C), TAPS = 1 for the 1x1 conv and 9 for the 3x3.  The padding
+// zero comes after the BN affine and the ReLU, as the TPU kernels pad
+// their activated image.  What happens to the BM x BN tile of c is the
+// kernel's epilogue: store it plus a bias (B1, B2), reduce its columns
+// (chain_stats), or activate it on chip and feed a second GEMM
+// (chain_emit).
 //
-// Tiling.  One CTA of 256 threads owns a BM x BN output tile.  The
-// reduction runs in steps of BK = 8 channels of one tap: each thread
-// fetches its share of the next A tile (applying the affine and the
-// ReLU as it loads, so the activated tensor never reaches device
-// memory) and of the next B tile into registers while the CTA computes
-// on the current tiles in shared memory (double buffered, one barrier a
-// step).  Each thread accumulates a (BM/16) x (BN/16) block of outputs
-// in registers from float4 reads of the tiles; tile rows are padded by
-// 4 floats so the transposing stores hit 32 distinct banks.
+// Tiling.  One CTA of 256 threads owns a BM x BN tile.  The reduction
+// runs in steps of BK = 8 channels of one tap: each thread fetches its
+// share of the next A tile (applying the affine and the ReLU as it
+// loads, so the activated tensor never reaches device memory) and of the
+// next B tile into registers while the CTA computes on the current tiles
+// in shared memory (double buffered, one barrier a step).  The threads
+// form a TY x TX grid; each accumulates a TM x TN block of outputs in
+// registers (rows and columns in groups of 4, read as float4 from the
+// tiles); tile rows are padded by 4 floats so the transposing stores
+// hit 32 distinct banks.
 
 #pragma once
 
@@ -32,27 +37,64 @@
 namespace sbr {
 
 constexpr int BK = 8;            // channels of one tap per reduction step
-constexpr int NTHREADS = 256;    // 16 x 16 threads
+constexpr int NTHREADS = 256;
 constexpr int LANES = NTHREADS / BK;   // rows a load pass covers (32)
 
+// Which outputs of a BM x BN tile each thread owns: a TY x TX thread
+// grid, TM x TN outputs a thread, in groups of 4 rows and 4 columns
+// spaced 4*TY rows and 4*TX columns apart.
+template <int BM, int BN>
+struct Layout {
+  static constexpr int TY = BM >= 64 ? 16 : 8;
+  static constexpr int TX = NTHREADS / TY;
+  static constexpr int TM = BM / TY;
+  static constexpr int TN = BN / TX;
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "tile too small for 256 threads");
+  static_assert(BM % LANES == 0 && BN % LANES == 0, "tile not a load multiple");
+  __device__ static int row(int ty, int i) {
+    return (i / 4) * (4 * TY) + ty * 4 + (i % 4);
+  }
+  __device__ static int col(int tx, int j) {
+    return (j / 4) * (4 * TX) + tx * 4 + (j % 4);
+  }
+};
+
+template <int BM, int BN>
+using Acc = float[Layout<BM, BN>::TM][Layout<BM, BN>::TN];
+
+// the double-buffered operand tiles, k-major
+template <int BM, int BN>
+struct Tiles {
+  float as[2][BK][BM + 4];
+  float bs[2][BK][BN + 4];
+};
+
+// The operands of the implicit GEMM: x (M rows of C), the per-channel
+// affine (a, b), the OHWI weight w (N rows of TAPS*C), and the image
+// geometry the 3x3 taps need.  They are read-only for the kernel's
+// whole life and read through the read-only data cache (__ldg): a
+// pointer in a struct carries no __restrict__ for the compiler to use.
+struct Conv {
+  const float* x;
+  const float* a;
+  const float* b;
+  const float* w;
+  int M, C, N, H, W;
+};
+
+// acc = the (m0, n0) tile of c.  Starts and ends with the tiles free: it
+// writes them only after a barrier every thread has passed, and its last
+// step ends in a barrier.
 template <int TAPS, int BM, int BN>
-__global__ void __launch_bounds__(NTHREADS)
-sbr_gemm_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                const float* __restrict__ b, const float* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ out,
-                int M, int C, int N, int H, int W, int n_tiles) {
+__device__ __forceinline__ void mainloop(const Conv& p, int m0, int n0,
+                                         Tiles<BM, BN>& t, Acc<BM, BN>& acc) {
+  using L = Layout<BM, BN>;
   constexpr int AP = BM / LANES;   // A elements a thread loads per step
   constexpr int BP = BN / LANES;   // B elements a thread loads per step
-  constexpr int TM = BM / 16;      // output rows a thread owns
-  constexpr int TN = BN / 16;      // output columns a thread owns
-  __shared__ __align__(16) float as[2][BK][BM + 4];
-  __shared__ __align__(16) float bs[2][BK][BN + 4];
-
   const int tid = threadIdx.x;
-  const int m0 = (blockIdx.x / n_tiles) * BM;
-  const int n0 = (blockIdx.x % n_tiles) * BN;
   const int kl = tid % BK;         // channel within a step, for loads
   const int rl = tid / BK;         // first row of this thread's loads
+  const int C = p.C, H = p.H, W = p.W;
 
   // the pixels this thread loads A for, fixed over the whole reduction
   long long mrow[AP];
@@ -61,13 +103,13 @@ sbr_gemm_kernel(const float* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
   for (int i = 0; i < AP; ++i) {
     const int m = m0 + rl + LANES * i;
-    mok[i] = m < M;
+    mok[i] = m < p.M;
     mrow[i] = m;
     ph[i] = pw[i] = 0;
     if constexpr (TAPS == 9) {
-      const int p = m % (H * W);
-      ph[i] = p / W;
-      pw[i] = p % W;
+      const int q = m % (H * W);
+      ph[i] = q / W;
+      pw[i] = q % W;
     }
   }
 
@@ -80,8 +122,8 @@ sbr_gemm_kernel(const float* __restrict__ x, const float* __restrict__ a,
     const int tap = s / csteps;
     const int c = (s - tap * csteps) * BK + kl;
     const bool cok = c < C;
-    const float av = cok ? a[c] : 0.f;
-    const float bv = cok ? b[c] : 0.f;
+    const float av = cok ? __ldg(p.a + c) : 0.f;
+    const float bv = cok ? __ldg(p.b + c) : 0.f;
     const int dy = TAPS == 9 ? tap / 3 - 1 : 0;
     const int dx = TAPS == 9 ? tap % 3 - 1 : 0;
 #pragma unroll
@@ -90,30 +132,30 @@ sbr_gemm_kernel(const float* __restrict__ x, const float* __restrict__ a,
       if constexpr (TAPS == 9)
         ok = ok && (unsigned)(ph[i] + dy) < (unsigned)H &&
              (unsigned)(pw[i] + dx) < (unsigned)W;
-      ra[i] = ok ? fmaxf(fmaf(x[(mrow[i] + dy * W + dx) * C + c], av, bv),
-                         0.f)
+      ra[i] = ok ? fmaxf(fmaf(__ldg(p.x + (mrow[i] + dy * W + dx) * C + c),
+                              av, bv), 0.f)
                  : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < BP; ++j) {
       const int n = n0 + rl + LANES * j;
-      rb[j] = (cok && n < N) ? w[n * ldw + (long long)tap * C + c] : 0.f;
+      rb[j] = (cok && n < p.N) ? __ldg(p.w + n * ldw + (long long)tap * C + c)
+                               : 0.f;
     }
   };
   auto stash = [&](int buf) {
 #pragma unroll
-    for (int i = 0; i < AP; ++i) as[buf][kl][rl + LANES * i] = ra[i];
+    for (int i = 0; i < AP; ++i) t.as[buf][kl][rl + LANES * i] = ra[i];
 #pragma unroll
-    for (int j = 0; j < BP; ++j) bs[buf][kl][rl + LANES * j] = rb[j];
+    for (int j = 0; j < BP; ++j) t.bs[buf][kl][rl + LANES * j] = rb[j];
   };
 
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  float acc[TM][TN];
+  const int tx = tid % L::TX;
+  const int ty = tid / L::TX;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < L::TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < L::TN; ++j) acc[i][j] = 0.f;
 
   fetch(0);
   stash(0);
@@ -123,92 +165,152 @@ sbr_gemm_kernel(const float* __restrict__ x, const float* __restrict__ a,
     if (s + 1 < steps) fetch(s + 1);   // global loads in flight ...
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {  // ... while this step computes
-      float af[TM], bf[TN];
+      float af[L::TM], bf[L::TN];
 #pragma unroll
-      for (int i = 0; i < TM / 4; ++i) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&as[cur][kk][i * 64 + ty * 4]);
+      for (int i = 0; i < L::TM / 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &t.as[cur][kk][i * 4 * L::TY + ty * 4]);
         af[4 * i] = v.x; af[4 * i + 1] = v.y;
         af[4 * i + 2] = v.z; af[4 * i + 3] = v.w;
       }
 #pragma unroll
-      for (int j = 0; j < TN / 4; ++j) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&bs[cur][kk][j * 64 + tx * 4]);
+      for (int j = 0; j < L::TN / 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &t.bs[cur][kk][j * 4 * L::TX + tx * 4]);
         bf[4 * j] = v.x; bf[4 * j + 1] = v.y;
         bf[4 * j + 2] = v.z; bf[4 * j + 3] = v.w;
       }
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < L::TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(af[i], bf[j], acc[i][j]);
+        for (int j = 0; j < L::TN; ++j)
+          acc[i][j] = fmaf(af[i], bf[j], acc[i][j]);
     }
     // the other buffer was last read before the previous barrier
     if (s + 1 < steps) stash(cur ^ 1);
     __syncthreads();
   }
+}
 
-  // epilogue: bias, then rows of 16 threads x 4 columns, float4 stores
-  // where the row length allows
-  const bool vec = (N & 3) == 0;
+// Epilogue of B1/B2 (and of B4's second GEMM): out[m, n] = acc +
+// bias[n], rows of TX threads x 4 columns, float4 stores where the row
+// length allows.
+struct StoreBias {
+  const float* bias;
+  float* out;
+
+  template <int BM, int BN>
+  __device__ void operator()(const Conv& p, int m0, int n0,
+                             const Acc<BM, BN>& acc) const {
+    using L = Layout<BM, BN>;
+    const int tx = threadIdx.x % L::TX;
+    const int ty = threadIdx.x / L::TX;
+    const int N = p.N;
+    const bool vec = (N & 3) == 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
-    if (m >= M) continue;
-    float* orow = out + (long long)m * N;
+    for (int i = 0; i < L::TM; ++i) {
+      const int m = m0 + L::row(ty, i);
+      if (m >= p.M) continue;
+      float* orow = out + (long long)m * N;
 #pragma unroll
-    for (int j = 0; j < TN / 4; ++j) {
-      const int n = n0 + j * 64 + tx * 4;
-      if (vec && n + 3 < N) {
-        float4 v;
-        v.x = acc[i][4 * j] + bias[n];
-        v.y = acc[i][4 * j + 1] + bias[n + 1];
-        v.z = acc[i][4 * j + 2] + bias[n + 2];
-        v.w = acc[i][4 * j + 3] + bias[n + 3];
-        *reinterpret_cast<float4*>(orow + n) = v;
-      } else {
+      for (int j = 0; j < L::TN / 4; ++j) {
+        const int n = n0 + L::col(tx, 4 * j);
+        if (vec && n + 3 < N) {
+          float4 v;
+          v.x = acc[i][4 * j] + bias[n];
+          v.y = acc[i][4 * j + 1] + bias[n + 1];
+          v.z = acc[i][4 * j + 2] + bias[n + 2];
+          v.w = acc[i][4 * j + 3] + bias[n + 3];
+          *reinterpret_cast<float4*>(orow + n) = v;
+        } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (n + q < N) orow[n + q] = acc[i][4 * j + q] + bias[n + q];
+          for (int q = 0; q < 4; ++q)
+            if (n + q < N) orow[n + q] = acc[i][4 * j + q] + bias[n + q];
+        }
       }
     }
   }
+};
+
+// One CTA per BM x BN tile, tiles in row-major order over (m, n).
+template <int TAPS, int BM, int BN, class Epilogue>
+__device__ __forceinline__ void gemm_tile(const Conv& p, const Epilogue& epi,
+                                          int n_tiles) {
+  __shared__ __align__(16) Tiles<BM, BN> t;
+  const int m0 = (blockIdx.x / n_tiles) * BM;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  Acc<BM, BN> acc;
+  mainloop<TAPS, BM, BN>(p, m0, n0, t, acc);
+  epi.template operator()<BM, BN>(p, m0, n0, acc);
 }
 
-template <int TAPS, int BM, int BN>
-int launch_tiles(const float* x, const float* a, const float* b,
-                 const float* w, const float* bias, float* out, int M, int C,
-                 int N, int H, int W, cudaStream_t stream) {
-  const int m_tiles = (M + BM - 1) / BM;
-  const int n_tiles = (N + BN - 1) / BN;
-  sbr_gemm_kernel<TAPS, BM, BN><<<m_tiles * n_tiles, NTHREADS, 0, stream>>>(
-      x, a, b, w, bias, out, M, C, N, H, W, n_tiles);
+template <int TAPS, int BM, int BN, class Epilogue>
+__global__ void __launch_bounds__(NTHREADS)
+gemm_kernel(Conv p, Epilogue epi, int n_tiles) {
+  gemm_tile<TAPS, BM, BN>(p, epi, n_tiles);
+}
+
+// The same with the operands as __restrict__ kernel parameters.  The two
+// forms compile differently: measured on the H100 (PERF.md), this one
+// runs the 1x1 GEMM (TAPS = 1, B1) up to 7% faster than the struct
+// form, while the struct form runs the 3x3 GEMMs' 64 x 64 tiles up to
+// 17% faster; launch_tiles takes each where it measured faster.
+template <int TAPS, int BM, int BN, class Epilogue>
+__global__ void __launch_bounds__(NTHREADS)
+gemm_kernel_restrict(const float* __restrict__ x, const float* __restrict__ a,
+                     const float* __restrict__ b, const float* __restrict__ w,
+                     int M, int C, int N, int H, int W, Epilogue epi,
+                     int n_tiles) {
+  const Conv p{x, a, b, w, M, C, N, H, W};
+  gemm_tile<TAPS, BM, BN>(p, epi, n_tiles);
+}
+
+template <int TAPS, int BM, int BN, class Epilogue>
+int launch_tiles(const Conv& p, const Epilogue& epi, cudaStream_t stream) {
+  const int m_tiles = (p.M + BM - 1) / BM;
+  const int n_tiles = (p.N + BN - 1) / BN;
+  if constexpr (TAPS == 1)
+    gemm_kernel_restrict<TAPS, BM, BN, Epilogue>
+        <<<m_tiles * n_tiles, NTHREADS, 0, stream>>>(
+            p.x, p.a, p.b, p.w, p.M, p.C, p.N, p.H, p.W, epi, n_tiles);
+  else
+    gemm_kernel<TAPS, BM, BN, Epilogue>
+        <<<m_tiles * n_tiles, NTHREADS, 0, stream>>>(p, epi, n_tiles);
   return (int)cudaGetLastError();
+}
+
+inline int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
 }
 
 // Tile choice: 128 x 64 when the output has at most 64 channels; else
 // 128 x 128 when that still gives every SM a CTA; else 64 x 64, so the
 // small late-stage grids (ResNet-50 stage 3-4 at 14x14 and 7x7) fill
-// the card.
-template <int TAPS>
-int launch(const float* x, const float* a, const float* b, const float* w,
-           const float* bias, float* out, int M, int C, int N, int H, int W,
-           cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long big = (long long)((M + 127) / 128) * ((N + 127) / 128);
-  if (N <= 64)
-    return launch_tiles<TAPS, 128, 64>(x, a, b, w, bias, out, M, C, N, H, W,
-                                       stream);
-  if (big >= sms)
-    return launch_tiles<TAPS, 128, 128>(x, a, b, w, bias, out, M, C, N, H, W,
-                                        stream);
-  return launch_tiles<TAPS, 64, 64>(x, a, b, w, bias, out, M, C, N, H, W,
-                                    stream);
+// the card.  Every choice has at least MIN_BM rows; the one taken is
+// stored in *bm when bm is given.
+constexpr int MIN_BM = 64;
+
+template <int TAPS, class Epilogue>
+int launch(const Conv& p, const Epilogue& epi, cudaStream_t stream,
+           int* bm = nullptr) {
+  if (p.M <= 0 || p.N <= 0 || p.C <= 0) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (int err = sm_count(&sms)) return err;
+  const long long big = (long long)((p.M + 127) / 128) * ((p.N + 127) / 128);
+  if (p.N <= 64) {
+    if (bm) *bm = 128;
+    return launch_tiles<TAPS, 128, 64>(p, epi, stream);
+  }
+  if (big >= sms) {
+    if (bm) *bm = 128;
+    return launch_tiles<TAPS, 128, 128>(p, epi, stream);
+  }
+  if (bm) *bm = 64;
+  return launch_tiles<TAPS, 64, 64>(p, epi, stream);
 }
 
 }  // namespace sbr

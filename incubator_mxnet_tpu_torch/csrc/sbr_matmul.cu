@@ -6,9 +6,9 @@
 // `_pallas_sbr_matmul`).  It computes the same function,
 //   out[M, Cout] = relu(x[M, K] * a + b) @ W^T + c,
 // a stride-1 1x1 convolution of channels-last storage (M = N*H*W rows
-// of K channels) with the eval BatchNorm folded into the per-channel
-// fp32 (a, b) as its prologue and the conv bias c in its epilogue.
-// W is the OIHW weight (Cout, K, 1, 1) read as (Cout, K) rows.
+// of K channels) with the BatchNorm folded into the per-channel fp32
+// (a, b) as its prologue and the conv bias c in its epilogue.  W is the
+// OIHW weight (Cout, K, 1, 1) read as (Cout, K) rows.
 //
 // What bounds it on this card.  Per output element 2K flops against
 // (K + Cout) * 4 bytes per row of input and output: at ResNet-50's
@@ -38,11 +38,12 @@
 extern "C" int mx_sbr_matmul(const void* x, const void* a, const void* b,
                              const void* w, const void* bias, void* out,
                              int m, int k, int cout, void* stream) {
-  return sbr::launch<1>(
-      static_cast<const float*>(x), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), m, k, cout,
-      1, 1, static_cast<cudaStream_t>(stream));
+  const sbr::Conv p{static_cast<const float*>(x), static_cast<const float*>(a),
+                    static_cast<const float*>(b), static_cast<const float*>(w),
+                    m, k, cout, 1, 1};
+  const sbr::StoreBias epi{static_cast<const float*>(bias),
+                           static_cast<float*>(out)};
+  return sbr::launch<1>(p, epi, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

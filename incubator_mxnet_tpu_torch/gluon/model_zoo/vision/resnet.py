@@ -1,6 +1,6 @@
 """ResNet V1 of the port (counterpart of
 ``incubator_mxnet_tpu/gluon/model_zoo/vision/resnet.py``): the same
-blocks, stages and widths, in eval form.
+blocks, stages and widths, for inference and training.
 
 * ``fuse_block=True`` runs the [BN -> ReLU -> conv] boundaries inside
   each block as ``FusedBNReLUConv2D`` layers, which on the card and with
@@ -10,14 +10,21 @@ blocks, stages and widths, in eval form.
   layers, with the same parameter names, running the plain composition.
   As in the JAX package, the stride of a V1 bottleneck sits on its 1x1
   ``conv1``, so every fused boundary is stride 1.
+* ``fuse_block="chain"`` runs a bottleneck's whole interior [BN -> ReLU
+  -> conv 3x3 -> BN -> ReLU -> conv 1x1] as one ``FusedBottleneckChain``
+  over the same two layers (same parameter names again): on the card the
+  chain kernels, ``chain_stats`` then ``chain_emit`` in train mode and
+  ``chain_emit`` alone in eval.
 * ``layout="NHWC"``: the model takes ``(N, H, W, 3)`` images, as the
   JAX model does, and runs channels-last inside (``gluon.nn``'s module
   note); ``"NCHW"`` takes ``(N, 3, H, W)``.  Either way it returns
   ``(N, classes)`` logits.
+* Train mode (``net.train()``) takes every BatchNorm's batch statistics
+  and moves its running ones towards them; ``parallel.TrainStep`` trains.
 * Not ported yet, and raising ``MXNetError``: ResNet V2, ``fuse_block``
-  ``"1x1"``/``"chain"``/``"chain34"`` (the chain kernels),
-  ``mxu_stem=True`` (a TPU stem), ``fuse_bn_relu=True`` (``BNReLU``),
-  ``pretrained=True`` and training mode.
+  ``"1x1"`` and ``"chain34"``, and ``"chain"`` on basic blocks (they
+  need ``BNReLU``), ``mxu_stem=True`` (a TPU stem), ``fuse_bn_relu=True``
+  (``BNReLU``) and ``pretrained=True``.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from torch import nn
 from ....base import MXNetError
 from ....context import resolve_device
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, FusedBNReLUConv2D,
-                   GlobalAvgPool2D, MaxPool2D)
+                   FusedBottleneckChain, GlobalAvgPool2D, MaxPool2D)
 
 __all__ = ["BasicBlockV1", "BottleneckV1", "ResNetV1", "resnet_spec",
            "get_resnet", "resnet18_v1", "resnet34_v1", "resnet50_v1",
@@ -50,50 +57,73 @@ def _downsample(channels, stride, in_channels, layout, device):
         BatchNorm(channels, device=device))
 
 
+def _needs_bnrelu(fuse_block):
+    return MXNetError(f"fuse_block={fuse_block!r} needs BNReLU (the fused "
+                      f"BatchNorm + ReLU layer), which is not ported yet")
+
+
 class _BlockV1(nn.Module):
     """``relu(body(x) + residual)``; the residual is ``x`` or its
-    downsample.  The add and ReLU run in place on the body's output."""
+    downsample.  The add and ReLU run in place on the body's output.
+    A block with a ``chain`` runs its body as ``body[0]``, the chain
+    (over ``body[1]`` and ``body[2]``), then ``body[3]``."""
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
-        return self.body(x).add_(residual).relu_()
+        if self.chain is None:
+            out = self.body(x)
+        else:
+            body = self.body
+            out = body[3](self.chain(body[0](x)))
+        return out.add_(residual).relu_()
 
 
 class BasicBlockV1(_BlockV1):
     """3x3 + 3x3 block (reference resnet.py:BasicBlockV1); with
-    ``fuse_block`` its [BN -> ReLU -> conv2] boundary is one kernel."""
+    ``fuse_block=True`` its [BN -> ReLU -> conv2] boundary is one
+    kernel.  The chain modes need ``BNReLU`` here and raise."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", fuse_block=False, device=None):
         super().__init__()
+        if fuse_block not in (False, True):
+            raise _needs_bnrelu(fuse_block)
         self.body = nn.Sequential(
             _conv3x3(channels, stride, in_channels, layout, device),
             FusedBNReLUConv2D(channels, 3, 1, 1, layout=layout,
                               in_channels=channels, fuse=fuse_block,
                               device=device),
             BatchNorm(channels, device=device))
+        self.chain = None
         self.downsample = _downsample(channels, stride, in_channels, layout,
                                       device) if downsample else None
 
 
 class BottleneckV1(_BlockV1):
     """1x1 - 3x3 - 1x1 bottleneck (reference resnet.py:BottleneckV1),
-    the stride on ``conv1``; with ``fuse_block`` both [BN -> ReLU ->
-    conv] boundaries of the body are one kernel each."""
+    the stride on ``conv1``; with ``fuse_block=True`` both [BN -> ReLU ->
+    conv] boundaries of the body are one kernel each, with
+    ``fuse_block="chain"`` the two together are one
+    ``FusedBottleneckChain``."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", fuse_block=False, device=None):
         super().__init__()
+        if fuse_block not in (False, True, "chain"):
+            raise _needs_bnrelu(fuse_block)
         mid = channels // 4
+        per_layer = fuse_block is True
         self.body = nn.Sequential(
             Conv2D(mid, 1, stride, in_channels=in_channels, layout=layout,
                    device=device),
             FusedBNReLUConv2D(mid, 3, 1, 1, layout=layout, in_channels=mid,
-                              fuse=fuse_block, device=device),
+                              fuse=per_layer, device=device),
             FusedBNReLUConv2D(channels, 1, 1, 0, layout=layout,
                               in_channels=mid, use_bias=True,
-                              fuse=fuse_block, device=device),
+                              fuse=per_layer, device=device),
             BatchNorm(channels, device=device))
+        self.chain = FusedBottleneckChain(self.body[1], self.body[2]) \
+            if fuse_block == "chain" else None
         self.downsample = _downsample(channels, stride, in_channels, layout,
                                       device) if downsample else None
 
@@ -115,9 +145,9 @@ class ResNetV1(nn.Module):
                              "is not ported")
         if fuse_bn_relu:
             raise MXNetError("fuse_bn_relu=True (BNReLU) is not ported yet")
-        if fuse_block not in (False, True):
-            raise MXNetError(f"fuse_block={fuse_block!r} is not ported yet "
-                             "(the chain kernels): use True or False")
+        if fuse_block not in (False, True, "chain", "1x1", "chain34"):
+            raise MXNetError(f"unknown fuse_block={fuse_block!r}: False, "
+                             "True, 'chain', '1x1' or 'chain34'")
         device = resolve_device(device)
         self.layout = layout
         if thumbnail:

@@ -1,5 +1,5 @@
 """Basic layers of the port: ``Dense``, ``LayerNorm``, ``Embedding``,
-``BatchNorm`` (eval form) and ``Flatten`` (counterparts of
+``BatchNorm`` and ``Flatten`` (counterparts of
 ``incubator_mxnet_tpu/gluon/nn/basic_layers.py`` and the
 ``FullyConnected``, ``LayerNorm``, ``Embedding`` and ``BatchNorm`` ops).
 Plain ``nn.Module``s with explicit ``device``/``dtype``; ``device=None``
@@ -14,7 +14,7 @@ from torch import nn
 
 from ...base import MXNetError
 from ...context import resolve_device
-from ...ops.fused_conv import bn_affine
+from ...ops.fused_conv import bn_affine, bn_stats
 
 __all__ = ["Dense", "LayerNorm", "Embedding", "BatchNorm", "Flatten"]
 
@@ -82,35 +82,30 @@ class Embedding(nn.Module):
         return F.embedding(x.long(), self.weight)
 
 
-def check_eval(module):
-    """Raise unless ``module`` is in eval mode: training (batch
-    statistics) is not ported yet."""
-    if module.training:
-        raise MXNetError(
-            f"{type(module).__name__} is in train mode, and training "
-            "(batch statistics) is not ported yet: call .eval()")
-
-
 class BatchNorm(nn.Module):
-    """Batch normalisation in eval form over dim 1, the channel axis of
-    the port's NCHW-indexed tensors (channels-last or not):
-    ``(x - running_mean) * rsqrt(running_var + eps) * gamma + beta``,
-    computed as ``x*a + b`` with the fp32 ``(a, b)`` of
-    ``ops.fused_conv.bn_affine``.  ``scale=False`` fixes gamma at 1
-    (the reference's ``fix_gamma``).  ``gamma``/``beta`` are
-    parameters, ``running_mean``/``running_var`` buffers, under the
-    reference's names.  Training (batch statistics and their moving
-    average) is not ported: forward in train mode raises rather than
-    quietly use either statistic."""
+    """Batch normalisation over dim 1, the channel axis of the port's
+    NCHW-indexed tensors (channels-last or not), as ``x*a + b`` with the
+    fp32 ``(a, b)`` of ``ops.fused_conv.bn_affine``.
 
-    def __init__(self, in_channels, epsilon=1e-5, scale=True, device=None,
-                 dtype=torch.float32):
+    * Eval: the running statistics, ``(x - running_mean) *
+      rsqrt(running_var + eps) * gamma + beta``.
+    * Train: the batch statistics of ``ops.fused_conv.bn_stats`` (the
+      JAX package's single-pass fp32 ``_bn_stats``, biased variance),
+      then ``update_running`` moves the running statistics towards them.
+
+    ``scale=False`` fixes gamma at 1 (the reference's ``fix_gamma``).
+    ``gamma``/``beta`` are parameters, ``running_mean``/``running_var``
+    buffers, under the reference's names."""
+
+    def __init__(self, in_channels, epsilon=1e-5, momentum=0.9, scale=True,
+                 device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         if in_channels < 1:
             raise MXNetError(f"BatchNorm needs in_channels >= 1 (the port "
                              f"does not infer shapes), got {in_channels}")
         self.eps = float(epsilon)
+        self.momentum = float(momentum)
         self.fix_gamma = not scale
         self.gamma = nn.Parameter(torch.empty((in_channels,), device=device,
                                               dtype=dtype))
@@ -121,14 +116,27 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(
             (in_channels,), device=device, dtype=dtype))
 
-    def affine(self):
-        """The fp32 per-channel ``(a, b)`` this layer applies."""
-        check_eval(self)
-        return bn_affine(self.gamma, self.beta, self.running_mean,
-                         self.running_var, self.eps, self.fix_gamma)
+    @torch.no_grad()
+    def update_running(self, mean, var):
+        """Move the running statistics towards a batch's: ``running =
+        momentum * running + (1 - momentum) * batch`` for the mean and the
+        biased variance, in place (the JAX frontend's moving-stat update,
+        ``ndarray.py``; ``F.batch_norm`` would use the unbiased
+        variance, with momentum counted the other way)."""
+        m = self.momentum
+        for run, batch in ((self.running_mean, mean),
+                           (self.running_var, var)):
+            run.copy_(m * run + (1 - m) * batch.detach().to(run.dtype))
 
     def forward(self, x):
-        a, b = self.affine()
+        if not self.training:
+            a, b = bn_affine(self.gamma, self.beta, self.running_mean,
+                             self.running_var, self.eps, self.fix_gamma)
+        else:
+            mean, var = bn_stats(x)
+            a, b = bn_affine(self.gamma, self.beta, mean, var, self.eps,
+                             self.fix_gamma)
+            self.update_running(mean, var)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return torch.addcmul(b.view(shape), x, a.view(shape))
 

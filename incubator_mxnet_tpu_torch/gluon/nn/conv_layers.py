@@ -1,6 +1,7 @@
 """Convolution and pooling layers of the port (counterparts of
 ``incubator_mxnet_tpu/gluon/nn/conv_layers.py`` ``Conv2D``,
-``MaxPool2D``, ``GlobalAvgPool2D`` and ``FusedBNReLUConv2D``).
+``MaxPool2D``, ``GlobalAvgPool2D``, ``FusedBNReLUConv2D`` and
+``FusedBottleneckChain``).
 
 Tensors are NCHW-indexed.  ``layout="NHWC"`` keeps them channels-last
 in memory (``torch.channels_last``), the port's counterpart of the JAX
@@ -19,10 +20,12 @@ from torch import nn
 
 from ...base import MXNetError
 from ...context import resolve_device
+from ...ops.fused_chain import chain_supported, fused_bottleneck_chain
 from ...ops.fused_conv import fused_bn_relu_conv, supported
-from .basic_layers import BatchNorm, check_eval
+from .basic_layers import BatchNorm
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D", "FusedBNReLUConv2D"]
+__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D", "FusedBNReLUConv2D",
+           "FusedBottleneckChain"]
 
 LAYOUTS = ("NCHW", "NHWC")
 
@@ -97,7 +100,7 @@ class GlobalAvgPool2D(nn.Module):
 
 
 class FusedBNReLUConv2D(nn.Module):
-    """BatchNorm -> ReLU -> Conv2D as one op, in eval form.
+    """BatchNorm -> ReLU -> Conv2D as one op.
 
     Its children ``bn`` (``BatchNorm``) and ``conv`` (``Conv2D``) hold
     the parameters, so the layer's names are those of the unfused
@@ -106,15 +109,18 @@ class FusedBNReLUConv2D(nn.Module):
     or 3x3 pad 1) and with ``fuse=True`` it runs ``ops.fused_conv.
     fused_bn_relu_conv``, which on the card is one kernel launch; else it
     runs the plain composition BN, ReLU, ``F.conv2d``.  The choice is
-    made here, from the configuration, and read from ``self.fused``."""
+    made here, from the configuration, and read from ``self.fused``.
+    In train mode the BN takes the batch's statistics and moves its
+    running ones towards them (``BatchNorm.update_running``)."""
 
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  groups=1, layout="NCHW", in_channels=0, use_bias=False,
-                 epsilon=1e-5, fuse=True, device=None, dtype=torch.float32):
+                 epsilon=1e-5, momentum=0.9, fuse=True, device=None,
+                 dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
-        self.bn = BatchNorm(in_channels, epsilon=epsilon, device=device,
-                            dtype=dtype)
+        self.bn = BatchNorm(in_channels, epsilon=epsilon, momentum=momentum,
+                            device=device, dtype=dtype)
         self.conv = Conv2D(channels, kernel_size, strides, padding,
                            groups=groups, layout=layout,
                            in_channels=in_channels, use_bias=use_bias,
@@ -128,8 +134,67 @@ class FusedBNReLUConv2D(nn.Module):
         bn, conv = self.bn, self.conv
         if not self.fused:
             return conv(torch.relu(bn(x)))
-        check_eval(self)
-        return fused_bn_relu_conv(
+        out, mean, var = fused_bn_relu_conv(
             x, bn.gamma, bn.beta, bn.running_mean, bn.running_var,
             conv.weight, conv.bias, kernel=conv.kernel_size, eps=bn.eps,
-            fix_gamma=bn.fix_gamma)
+            fix_gamma=bn.fix_gamma, train_stats=self.training,
+            output_mean_var=True)
+        if self.training:
+            bn.update_running(mean, var)
+        return out
+
+
+class FusedBottleneckChain(nn.Module):
+    """[BN -> ReLU -> Conv3x3 -> BN -> ReLU -> Conv1x1] as one op: the
+    bottleneck interior of the JAX package's ``FusedBottleneckChain``,
+    run by ``ops.fused_chain.fused_bottleneck_chain`` (on the card two
+    kernel launches in train mode, one in eval).
+
+    Its parameters live on the two ``FusedBNReLUConv2D`` layers it is
+    given, ``first`` (BN1 and the 3x3 conv2: stride 1, pad 1,
+    ungrouped) and ``second`` (BN2 and the 1x1 conv3 with bias), which
+    the caller registers: the chain holds them without registering them
+    again, so a chain model has exactly the parameter names (and
+    ``state_dict``) of its ``fuse_block=True`` twin and checkpoints
+    interchange.  Inside the kernels' envelope (``ops.fused_chain.
+    chain_supported``) ``self.fused`` is True; else the chain runs the
+    two layers one after the other (their own forms).  ``train()`` and
+    ``eval()`` reach the two layers too.  In train mode both BNs move
+    their running statistics towards the batch's."""
+
+    def __init__(self, first, second):
+        super().__init__()
+        c2, c3 = first.conv, second.conv
+        if (c2.kernel_size, c2.stride, c2.padding, c2.groups) != \
+                ((3, 3), (1, 1), (1, 1), 1) or c2.bias is not None or \
+                (c3.kernel_size, c3.stride, c3.padding, c3.groups) != \
+                ((1, 1), (1, 1), (0, 0), 1) or c3.bias is None or \
+                c3.weight.shape[1] != c2.weight.shape[0]:
+            raise MXNetError(
+                "FusedBottleneckChain needs a 3x3 stride-1 pad-1 conv "
+                "without bias, then a 1x1 conv with bias over its output")
+        self._layers = (first, second)   # a tuple: not registered again
+        self.fused = c2.layout == c3.layout and chain_supported(
+            c2.weight.shape[0], c2.layout, c2.weight.dtype)
+
+    def train(self, mode=True):
+        """Set the mode of the chain and of its two layers."""
+        super().train(mode)
+        for layer in self._layers:
+            layer.train(mode)
+        return self
+
+    def forward(self, x):
+        first, second = self._layers
+        if not self.fused:
+            return second(first(x))
+        bn1, bn2 = first.bn, second.bn
+        out, mean1, var1, mean2, var2 = fused_bottleneck_chain(
+            x, bn1.gamma, bn1.beta, bn1.running_mean, bn1.running_var,
+            first.conv.weight, bn2.gamma, bn2.beta, bn2.running_mean,
+            bn2.running_var, second.conv.weight, second.conv.bias,
+            eps=bn1.eps, fix_gamma=bn1.fix_gamma, train_stats=self.training)
+        if self.training:
+            bn1.update_running(mean1, var1)
+            bn2.update_running(mean2, var2)
+        return out

@@ -1,5 +1,5 @@
-"""Fused [BatchNorm-apply -> ReLU -> Conv] in eval form: the two
-hand-written Hopper kernels and their plain versions.
+"""Fused [BatchNorm-apply -> ReLU -> Conv]: the two hand-written Hopper
+kernels, their plain versions, and the op in eval and train form.
 
 Port of ``incubator_mxnet_tpu/ops/fused_conv.py``.  Its two TPU kernels,
 ``_sbr_matmul_kernel`` (a 1x1 conv as a GEMM with the BN affine and ReLU
@@ -20,8 +20,13 @@ how they are tiled for the card).
   package and ``chip_smoke.py`` holds the kernels against on the card.
 * ``sbr_matmul.launches`` and ``sbr_conv3x3.launches`` count kernel
   launches, so a run can show that its main path went through them.
-* Eval only: the BN statistics are the running ones.  Batch statistics
-  and the backward come with the training slice.
+* ``fused_bn_relu_conv`` is the JAX op ``_FusedBNReluConv``: with
+  ``train_stats`` the BN statistics are the batch's (``bn_stats``, the
+  single-pass fp32 formula of the JAX ``_bn_stats``), else the running
+  ones.  It is a ``torch.autograd.Function`` whose backward is autograd
+  of the plain composition, re-run from the saved inputs, as the JAX
+  op's ``custom_vjp`` backward is ``jax.vjp`` of its XLA composition:
+  the JAX package has no backward kernel.
 """
 from __future__ import annotations
 
@@ -33,27 +38,41 @@ import torch.nn.functional as F
 from .. import _build
 from ..base import MXNetError
 
-__all__ = ["bn_affine", "fused_bn_relu_conv", "sbr_conv3x3", "sbr_matmul",
-           "supported"]
+__all__ = ["bn_affine", "bn_stats", "fused_bn_relu_conv", "sbr_conv3x3",
+           "sbr_matmul", "supported"]
 
 _INDEX_LIMIT = 2 ** 31
 _bound = {}
 
 
-def _lib(name, nints):
+def _lib(name, nptrs, nints):
     """The kernel library ``name``, built at first use, with its C
-    signature: six pointers, ``nints`` ints, the stream."""
+    signature ``mx_<name>``: ``nptrs`` pointers, ``nints`` ints, the
+    stream."""
     lib = _bound.get(name)
     if lib is None:
         lib = _build.load(name)
         fn = getattr(lib, f"mx_{name}")
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * nints + [
+        fn.argtypes = [ctypes.c_void_p] * nptrs + [ctypes.c_int] * nints + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mx_cuda_error_string.restype = ctypes.c_char_p
         _bound[name] = lib
     return lib
+
+
+def launch(name, tensors, ints, device):
+    """Call ``mx_<name>`` with the tensors' pointers, the ints and the
+    current stream of ``device``; raise MXNetError on a launch error."""
+    lib = _lib(name, len(tensors), len(ints))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"mx_{name}")(
+            *(t.data_ptr() for t in tensors), *ints, stream)
+    if rc:
+        raise MXNetError(f"{name} kernel launch failed: "
+                         f"{lib.mx_cuda_error_string(rc).decode()} ({rc})")
 
 
 def supported(kernel, stride=(1, 1), pad=(0, 0), groups=1, layout="NHWC",
@@ -69,16 +88,43 @@ def supported(kernel, stride=(1, 1), pad=(0, 0), groups=1, layout="NHWC",
     return (kernel, pad) in (((1, 1), (0, 0)), ((3, 3), (1, 1)))
 
 
-def bn_affine(gamma, beta, running_mean, running_var, eps=1e-5,
-              fix_gamma=False):
-    """fp32 per-channel ``(a, b)`` with ``x*a + b`` equal to the eval
-    BatchNorm of ``x``: ``a = gamma * rsqrt(var + eps)``, ``b = beta -
-    mean * a`` (gamma taken as 1 when ``fix_gamma``), as the JAX op's
-    ``affine`` folds it."""
+def bn_stats(x):
+    """Batch statistics over every axis but the channel axis (dim 1):
+    fp32 ``(mean, var)`` by the single pass E[x^2] - mean^2, clamped at
+    0 (the JAX package's ``_bn_stats``).  Raises on an empty batch, whose
+    statistics do not exist."""
+    if x.numel() == 0:
+        raise MXNetError(f"batch statistics (train mode) need a batch, got "
+                         f"an empty one {tuple(x.shape)}")
+    red = tuple(i for i in range(x.dim()) if i != 1)
+    x32 = x.float()
+    mean = x32.mean(red)
+    var = torch.clamp(x32.square().mean(red) - mean.square(), min=0.0)
+    return mean, var
+
+
+def bn_affine(gamma, beta, mean, var, eps=1e-5, fix_gamma=False):
+    """fp32 per-channel ``(a, b)`` with ``x*a + b`` equal to BatchNorm
+    with statistics ``(mean, var)``: ``a = gamma * rsqrt(var + eps)``,
+    ``b = beta - mean * a`` (gamma taken as 1 when ``fix_gamma``), as
+    the JAX op's ``affine`` folds it."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
-    a = g.float() * torch.rsqrt(running_var.float() + eps)
-    b = beta.float() - running_mean.float() * a
+    a = g.float() * torch.rsqrt(var.float() + eps)
+    b = beta.float() - mean.float() * a
     return a, b
+
+
+def bn_coefficients(data, gamma, beta, running_mean, running_var, eps,
+                    fix_gamma, train_stats):
+    """``(a, b, mean, var)``, all fp32: the statistics are the batch's
+    (``bn_stats`` of ``data``) with ``train_stats``, else the running
+    ones, and ``(a, b)`` their affine (``bn_affine``)."""
+    if train_stats:
+        mean, var = bn_stats(data)
+    else:
+        mean, var = running_mean.float(), running_var.float()
+    a, b = bn_affine(gamma, beta, mean, var, eps, fix_gamma)
+    return a, b, mean, var
 
 
 def _activate(x, a, b):
@@ -144,15 +190,7 @@ def _launch(name, ints, x, a, b, weight, bias):
     out = torch.empty((x.shape[0], weight.shape[0]) + tuple(x.shape[2:]),
                       device=x.device, dtype=torch.float32,
                       memory_format=torch.channels_last)
-    lib = _lib(name, len(ints))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"mx_{name}")(
-            x.data_ptr(), a.data_ptr(), b.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), *ints, stream)
-    if rc:
-        raise MXNetError(f"{name} kernel launch failed: "
-                         f"{lib.mx_cuda_error_string(rc).decode()} ({rc})")
+    launch(name, (x, a, b, weight, bias, out), ints, x.device)
     return out
 
 
@@ -201,25 +239,102 @@ sbr_matmul.launches = 0
 sbr_conv3x3.launches = 0
 
 
+def recompute_vjp(plain, args, needs, cotangents):
+    """The vector-Jacobian product of ``plain(*args)`` (a tuple of
+    outputs) against ``cotangents``, for each arg flagged in ``needs``
+    (None for the others): autograd of a re-run of ``plain`` from the
+    saved args, the port's form of ``jax.vjp`` of an op's XLA
+    composition in a ``custom_vjp`` backward."""
+    if not any(needs):
+        return (None,) * len(needs)
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(bool(n))
+                  if isinstance(a, torch.Tensor) else a
+                  for a, n in zip(args, needs)]
+        outs = plain(*leaves)
+        pairs = [(o, c) for o, c in zip(outs, cotangents)
+                 if c is not None and o.requires_grad]
+        wanted = [leaf for leaf, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [c for _, c in pairs],
+            allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+def _fused_plain(x, gamma, beta, running_mean, running_var, weight, bias,
+                 kernel, eps, fix_gamma, train_stats):
+    """The plain composition of the fused op (the JAX op's
+    ``xla_forward``): BN with the batch or running statistics, ReLU,
+    ``F.conv2d`` plus bias, in fp32.  Returns ``(out, mean, var)``."""
+    a, b, mean, var = bn_coefficients(x, gamma, beta, running_mean,
+                                      running_var, eps, fix_gamma,
+                                      train_stats)
+    out = F.conv2d(_activate(x, a, b), weight.float(), bias.float(),
+                   padding=kernel[0] // 2)
+    return out, mean, var
+
+
+class _FusedBNReluConv(torch.autograd.Function):
+    """Forward: the statistics, their affine, then one kernel launch
+    (the plain version on a CPU tensor).  Backward: ``recompute_vjp``
+    of ``_fused_plain``.  The running statistics get no gradient and
+    are saved only in eval form, where the forward reads them (in train
+    form the caller updates them in place after the forward)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, running_mean, running_var, weight,
+                bias, kernel, eps, fix_gamma, train_stats):
+        a, b, mean, var = bn_coefficients(x, gamma, beta, running_mean,
+                                          running_var, eps, fix_gamma,
+                                          train_stats)
+        if x.device.type == "cuda":
+            weight = weight.contiguous(memory_format=torch.channels_last)
+        fn = sbr_matmul if kernel == (1, 1) else sbr_conv3x3
+        out = fn(x, a, b, weight, bias)
+        ctx.cfg = (kernel, eps, fix_gamma, train_stats)
+        stats = () if train_stats else (running_mean, running_var)
+        ctx.save_for_backward(x, gamma, beta, weight, bias, *stats)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, d_out, d_mean, d_var):
+        kernel, eps, fix_gamma, train_stats = ctx.cfg
+        x, gamma, beta, weight, bias, *stats = ctx.saved_tensors
+        rm, rv = stats if stats else (None, None)
+        need = ctx.needs_input_grad
+        grads = recompute_vjp(
+            lambda x_, g_, b_, w_, c_: _fused_plain(
+                x_, g_, b_, rm, rv, w_, c_, kernel, eps, fix_gamma,
+                train_stats),
+            (x, gamma, beta, weight, bias),
+            (need[0], need[1], need[2], need[5], need[6]),
+            (d_out, d_mean, d_var))
+        gx, gg, gb, gw, gc = grads
+        return gx, gg, gb, None, None, gw, gc, None, None, None, None
+
+
 def fused_bn_relu_conv(x, gamma, beta, running_mean, running_var, weight,
-                       bias=None, kernel=(1, 1), eps=1e-5, fix_gamma=False):
-    """``conv(relu(BatchNorm_eval(x)), weight) + bias`` as one op, the
-    eval form of the JAX package's ``_FusedBNReluConv``: the BN folds
-    into fp32 ``(a, b)`` (``bn_affine``), then a 1x1 kernel (pad 0)
+                       bias=None, kernel=(1, 1), eps=1e-5, fix_gamma=False,
+                       train_stats=False, output_mean_var=False):
+    """``conv(relu(BatchNorm(x)), weight) + bias`` as one op, the JAX
+    package's ``_FusedBNReluConv``: the BN statistics are the batch's
+    (``bn_stats``) with ``train_stats``, else the running ones; they
+    fold into fp32 ``(a, b)`` (``bn_affine``), then a 1x1 kernel (pad 0)
     goes to ``sbr_matmul`` and a 3x3 kernel (pad 1) to ``sbr_conv3x3``;
     stride 1, ungrouped.  x: ``(N, C, H, W)``, channels-last on CUDA.
     A weight that is not channels-last is converted for the CUDA kernel
-    (a copy per call; layers keep theirs channels-last)."""
+    (a copy per call; layers keep theirs channels-last).  Returns the
+    output, or ``(out, mean, var)`` (the fp32 statistics used) with
+    ``output_mean_var``.  Differentiable in every input but the running
+    statistics (``_FusedBNReluConv``)."""
     kernel = tuple(kernel)
     if kernel not in ((1, 1), (3, 3)):
         raise MXNetError(f"fused_bn_relu_conv takes a 1x1 or 3x3 kernel, "
                          f"got {kernel}")
-    a, b = bn_affine(gamma, beta, running_mean, running_var, eps, fix_gamma)
     if bias is None:
         bias = torch.zeros((weight.shape[0],), dtype=torch.float32,
                            device=weight.device)
-    bias = bias.float()
-    if x.device.type == "cuda":
-        weight = weight.contiguous(memory_format=torch.channels_last)
-    fn = sbr_matmul if kernel == (1, 1) else sbr_conv3x3
-    return fn(x, a, b, weight, bias)
+    out, mean, var = _FusedBNReluConv.apply(
+        x, gamma, beta, running_mean, running_var, weight, bias.float(),
+        kernel, float(eps), bool(fix_gamma), bool(train_stats))
+    return (out, mean, var) if output_mean_var else out

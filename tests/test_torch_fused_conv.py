@@ -240,17 +240,23 @@ def test_layers_keep_channels_last_on_cpu():
 
 
 def test_train_mode_raises():
-    """Training is not ported: BN and the fused layer refuse train mode
-    instead of computing batch statistics or quietly using the moving
+    """Train mode takes batch statistics (held against the JAX package in
+    tests/test_torch_train.py), so it raises where there are none: an
+    empty batch, in BN and in the fused layer fused or not.  The same
+    empty batch passes in eval, where the statistics are the running
     ones."""
-    x = torch.randn(1, 4, 3, 3).contiguous(memory_format=CL)
+    x = torch.randn(0, 4, 3, 3).contiguous(memory_format=CL)
     for layer in (BatchNorm(4, device="cpu"),
                   FusedBNReLUConv2D(4, 3, 1, 1, layout="NHWC", in_channels=4,
                                     device="cpu"),
                   FusedBNReLUConv2D(4, 3, 2, 1, layout="NHWC", in_channels=4,
                                     device="cpu")):
+        for t in list(layer.parameters()) + list(layer.buffers()):
+            t.data.uniform_(0.5, 1.5)
         with pytest.raises(MXNetError, match="train mode"):
             layer.train()(x)
+        with torch.inference_mode():
+            assert layer.eval()(x).shape[0] == 0
 
 
 @pytest.mark.parametrize("make", [

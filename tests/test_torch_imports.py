@@ -66,6 +66,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import incubator_mxnet_tpu_torch.predict\n"
             "import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet\n"
             "import incubator_mxnet_tpu_torch.ops.fused_conv\n"
+            "import incubator_mxnet_tpu_torch.ops.fused_chain\n"
+            "import incubator_mxnet_tpu_torch.parallel.step\n"
+            "import incubator_mxnet_tpu_torch.optimizer\n"
+            "import incubator_mxnet_tpu_torch.gluon.loss\n"
             f"bad = sorted(m for m in sys.modules if any(m == f or "
             f"m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print('BAD', bad)\n")

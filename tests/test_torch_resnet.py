@@ -204,7 +204,9 @@ def test_unported_options_raise(kw, match):
 
 def test_device_none_means_the_card(monkeypatch):
     """get_resnet, BlockPredictor and ModelServer with no device resolve
-    to cuda:0 and raise without a GPU; train mode raises."""
+    to cuda:0 and raise without a GPU; the CPU runs only when asked for,
+    train mode included (it moves the running statistics towards the
+    batch's)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="no CUDA device"):
         vision.resnet18_v1(classes=4)
@@ -213,5 +215,8 @@ def test_device_none_means_the_card(monkeypatch):
         BlockPredictor(net)
     with pytest.raises(MXNetError, match="no CUDA device"):
         ModelServer(BlockPredictor(net, device="cpu"))
-    with pytest.raises(MXNetError, match="train mode"):
-        net.train()(torch.zeros(1, 3, 8, 8))
+    bn = net.features[1][0].body[2]
+    before = bn.running_mean.clone()
+    out = net.train()(torch.rand(2, 3, 8, 8))
+    assert out.shape == (2, 4) and torch.isfinite(out).all()
+    assert not torch.equal(bn.running_mean, before)

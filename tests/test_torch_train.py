@@ -1,0 +1,366 @@
+"""ResNet V1 training in the PyTorch port against the JAX package: the
+BatchNorm train form and its moving averages, the train form of the
+fused BN -> ReLU -> conv op, the softmax cross-entropy loss, the SGD
+update, and three steps of ``parallel.TrainStep`` on a small ResNet V1
+in every ``fuse_block`` mode.
+
+Both sides get the same inputs and weights from a seeded numpy stream
+(the weights through ``convert.resnet_params_from_numpy``).  The JAX
+side runs as its own tests run it on the CPU: its ops and layers on
+their XLA path, its ``TrainStep`` compiled.  The JAX nets are built and
+stepped once per module (fixture): their first forward and step compile
+(~20 s for the first mode, a few seconds for the others).
+
+Tolerances.  Single ops: fp32 on both sides, other summation orders,
+atol = rtol = 1e-5 (gradients 2e-5).  Three training steps: every
+final parameter and moving statistic within 1e-4 of that tensor's
+largest magnitude, plus 1e-6: the two frameworks round the ~50 fp32
+convolutions of a step (and their gradients) in other orders and the
+differences compound over three updates at lr 0.1 (observed up to
+7e-6 of max); the absolute floor is for the conv biases that feed a
+BatchNorm, which cancels them, so their true gradient is 0 and what
+they carry is rounding noise of ~1e-9.  Losses within 1e-4 relative,
+for the same reason (observed up to 1.3e-5 at the third step, where
+the loss is ~0.19)."""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+import incubator_mxnet_tpu as mx
+from incubator_mxnet_tpu import gluon as jax_gluon
+from incubator_mxnet_tpu import parallel as jax_parallel
+from incubator_mxnet_tpu.gluon.model_zoo.vision import (
+    BottleneckV1 as JaxBottleneckV1, ResNetV1 as JaxResNetV1)
+from incubator_mxnet_tpu.ops.fused_conv import _fused_bn_relu_conv
+from incubator_mxnet_tpu.ops.nn import _batch_norm
+from incubator_mxnet_tpu.ops.optimizer_ops import (_sgd_mom_update,
+                                                   _sgd_update)
+from incubator_mxnet_tpu_torch.base import MXNetError
+from incubator_mxnet_tpu_torch.convert import resnet_params_from_numpy
+from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                              ResNetV1)
+from incubator_mxnet_tpu_torch.gluon.nn import BatchNorm
+from incubator_mxnet_tpu_torch.ops.fused_chain import (chain_emit,
+                                                       chain_stats)
+from incubator_mxnet_tpu_torch.ops.fused_conv import (fused_bn_relu_conv,
+                                                      sbr_conv3x3,
+                                                      sbr_matmul)
+from incubator_mxnet_tpu_torch.optimizer import (SGD, sgd_mom_update,
+                                                 sgd_update)
+from incubator_mxnet_tpu_torch.parallel import TrainStep
+from torch_port_helpers import seeded_fill
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+CL = torch.channels_last
+MODES = ["chain", True, False]
+NET = dict(classes=10, thumbnail=True, layout="NHWC")
+SPEC = ([1, 2, 1, 1], [16, 32, 64, 128, 256])
+BATCH = (4, 16, 16, 3)
+STEPS = 3
+SGD_KW = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+STEP_RTOL, STEP_ATOL, LOSS_RTOL = 1e-4, 1e-6, 1e-4
+
+
+def _nchw(a):
+    return torch.from_numpy(a).permute(0, 3, 1, 2)
+
+
+# ------------------------------------------------------------ single ops
+@pytest.mark.parametrize("fix_gamma", [False, True])
+def test_batchnorm_train_matches_jax_with_moving_average(fix_gamma):
+    """Train-mode BatchNorm: output and gradients against the JAX op with
+    ``is_train=True``, and the running statistics after the update
+    against the JAX frontend's EMA of the op's batch statistics (momentum 0.9,
+    the biased variance)."""
+    import jax
+    rs = np.random.RandomState(11)
+    f = np.float32
+    x = (rs.randn(4, 6, 5, 3) * 2 + 1).astype(f)
+    gamma, beta = (rs.rand(6) + 0.5).astype(f), rs.randn(6).astype(f)
+    rmean, rvar = rs.randn(6).astype(f), (rs.rand(6) + 0.5).astype(f)
+
+    def jfwd(x_, g_, b_):
+        return _batch_norm(x_, g_, b_, jnp.asarray(rmean), jnp.asarray(rvar),
+                           eps=1e-5, fix_gamma=fix_gamma, axis=1,
+                           is_train=True)
+
+    ref, bmean, bvar = jfwd(*map(jnp.asarray, (x, gamma, beta)))
+    jgrads = jax.grad(lambda *a: jnp.sum(jfwd(*a)[0] ** 3),
+                      argnums=(0, 1, 2))(*map(jnp.asarray, (x, gamma, beta)))
+    bn = BatchNorm(6, epsilon=1e-5, scale=not fix_gamma, device="cpu")
+    bn.load_state_dict(dict(zip(
+        ("gamma", "beta", "running_mean", "running_var"),
+        map(torch.from_numpy, (gamma, beta, rmean, rvar)))))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    got = bn.train()(tx)
+    (got ** 3).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
+    for g, r in zip((tx.grad, bn.gamma.grad, bn.beta.grad), jgrads):
+        if fix_gamma and g is bn.gamma.grad:
+            continue        # gamma is fixed at 1: no gradient on either side
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-5,
+                                   rtol=2e-5)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               0.9 * rmean + 0.1 * np.asarray(bmean), **TOL)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               0.9 * rvar + 0.1 * np.asarray(bvar), **TOL)
+
+
+@pytest.mark.parametrize("kern", [(1, 1), (3, 3)])
+def test_fused_op_train_form_matches_jax(kern):
+    """``fused_bn_relu_conv`` with ``train_stats``: output, batch
+    statistics and gradients against the JAX op with ``is_train=True``
+    on its XLA path."""
+    import jax
+    rs = np.random.RandomState(kern[0])
+    f = np.float32
+    c, cout = 8, 12
+    args = [rs.randn(2, 6, 7, c).astype(f), (rs.rand(c) + 0.5).astype(f),
+            (rs.randn(c) * 0.1).astype(f), (rs.randn(c) * 0.1).astype(f),
+            (rs.rand(c) + 0.5).astype(f),
+            (rs.randn(cout, c, *kern) * 0.1).astype(f),
+            (rs.randn(cout) * 0.1).astype(f)]
+    pad = (kern[0] // 2,) * 2
+    diff = (0, 1, 2, 5, 6)
+
+    def jfwd(*a):
+        return _fused_bn_relu_conv(*a, kernel=kern, stride=(1, 1), pad=pad,
+                                   layout="NHWC", eps=1e-5, impl="xla",
+                                   is_train=True)
+
+    jargs = [jnp.asarray(a) for a in args]
+    ref = jfwd(*jargs)
+    jgrads = jax.grad(lambda *a: jnp.sum(jfwd(*a)[0] ** 2)
+                      + jnp.sum(jfwd(*a)[2]), argnums=diff)(*jargs)
+    targs = [torch.from_numpy(a) for a in args]
+    targs[0] = _nchw(args[0])
+    for i in diff:
+        targs[i] = targs[i].detach().clone().requires_grad_(True)
+    out, mean, var = fused_bn_relu_conv(*targs, kernel=kern, eps=1e-5,
+                                        train_stats=True,
+                                        output_mean_var=True)
+    np.testing.assert_allclose(out.detach().permute(0, 2, 3, 1).numpy(),
+                               np.asarray(ref[0]), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(mean.detach().numpy(), np.asarray(ref[1]),
+                               **TOL)
+    np.testing.assert_allclose(var.detach().numpy(), np.asarray(ref[2]),
+                               **TOL)
+    ((out ** 2).sum() + var.sum()).backward()
+    for i, r in zip(diff, jgrads):
+        g = targs[i].grad
+        got = g.permute(0, 2, 3, 1).numpy() if i == 0 else g.numpy()
+        np.testing.assert_allclose(got, np.asarray(r), atol=2e-5, rtol=2e-5,
+                                   err_msg=str(i))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(sparse_label=False),
+                                dict(weight=0.5), dict(sample_weight=True),
+                                dict(from_logits=True)])
+def test_softmax_cross_entropy_matches_jax(kw):
+    kw = dict(kw)
+    rs = np.random.RandomState(4)
+    pred = rs.randn(5, 7).astype(np.float32)
+    label = rs.randint(0, 7, 5).astype(np.float32)
+    if kw.get("sparse_label") is False:
+        label = np.eye(7, dtype=np.float32)[label.astype(int)]
+    sw = rs.rand(5, 1).astype(np.float32) if kw.pop("sample_weight", None) \
+        else None
+    ref = jax_gluon.loss.SoftmaxCrossEntropyLoss(**kw)(
+        mx.nd.array(pred), mx.nd.array(label),
+        None if sw is None else mx.nd.array(sw)).asnumpy()
+    got = SoftmaxCrossEntropyLoss(**kw)(
+        torch.from_numpy(pred), torch.from_numpy(label),
+        None if sw is None else torch.from_numpy(sw))
+    assert got.shape == (5,)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("extra", [dict(), dict(rescale_grad=0.5,
+                                                clip_gradient=0.3)])
+def test_sgd_update_matches_jax(momentum, extra):
+    """One update, weight and momentum, against the JAX package's
+    ``sgd_mom_update`` / ``sgd_update`` ops (the exact order: rescale,
+    clip, ``mom = momentum*mom - lr*(g + wd*w)``, ``w += mom``)."""
+    rs = np.random.RandomState(5)
+    w, g, m = (rs.randn(3, 4).astype(np.float32) for _ in range(3))
+    lr, wd = 0.1, 1e-2
+    tw, tm = torch.from_numpy(w.copy()), torch.from_numpy(m.copy())
+    if momentum:
+        rw, rm = _sgd_mom_update(jnp.asarray(w), jnp.asarray(g),
+                                 jnp.asarray(m), lr=lr, momentum=momentum,
+                                 wd=wd, **extra)
+        sgd_mom_update(tw, torch.from_numpy(g), tm, lr, momentum, wd,
+                       **extra)
+        np.testing.assert_allclose(tm.numpy(), np.asarray(rm), **TOL)
+    else:
+        rw = _sgd_update(jnp.asarray(w), jnp.asarray(g), lr=lr, wd=wd,
+                         **extra)
+        sgd_update(tw, torch.from_numpy(g), lr, wd, **extra)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(rw), **TOL)
+    # the optimizer object: lr_mult / wd_mult, and its state
+    opt = SGD(learning_rate=lr, momentum=momentum, wd=wd, **extra)
+    p = torch.nn.Parameter(torch.from_numpy(w.copy()))
+    p.lr_mult, p.wd_mult = 2.0, 0.0
+    state = opt.create_state(p)
+    opt.update(p, torch.from_numpy(g), state)
+    q, qm = torch.from_numpy(w.copy()), torch.zeros(3, 4)
+    if momentum:
+        sgd_mom_update(q, torch.from_numpy(g), qm, 2 * lr, momentum, 0.0,
+                       **extra)
+    else:
+        sgd_update(q, torch.from_numpy(g), 2 * lr, 0.0, **extra)
+    torch.testing.assert_close(p.data, q)
+
+
+# ------------------------------------------------------------- TrainStep
+def _batch():
+    rs = np.random.RandomState(1)
+    return rs.rand(*BATCH).astype(np.float32), \
+        rs.randint(0, NET["classes"], BATCH[0]).astype(np.float32)
+
+
+def _port_net(mode, state):
+    net = ResNetV1(BottleneckV1, *SPEC, fuse_block=mode, device="cpu",
+                   **NET)
+    net.load_state_dict(state)
+    return net
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """Per fuse_block mode: (initial port state_dict, JAX losses, JAX
+    final port state_dict) of STEPS JAX TrainStep steps on the seeded
+    small ResNet V1."""
+    x, y = _batch()
+    runs = {}
+    for mode in MODES:
+        mx.random.seed(0)
+        jnet = seeded_fill(JaxResNetV1(JaxBottleneckV1, *SPEC,
+                                       fuse_block=mode, prefix="resnet_",
+                                       **NET), seed=3, input_shape=BATCH)
+        named = {n: p.data().asnumpy()
+                 for n, p in jnet.collect_params().items()}
+        init = resnet_params_from_numpy(named)
+        step = jax_parallel.TrainStep(
+            jnet, jax_gluon.loss.SoftmaxCrossEntropyLoss(),
+            mx.optimizer.SGD(**SGD_KW))
+        losses = [float(step(mx.nd.array(x), mx.nd.array(y)).asscalar())
+                  for _ in range(STEPS)]
+        step.sync_params()
+        final = resnet_params_from_numpy(
+            {n: p.data().asnumpy()
+             for n, p in jnet.collect_params().items()})
+        runs[mode] = (init, losses, final)
+    return runs
+
+
+def _close_state(got, ref):
+    assert got.keys() == ref.keys()
+    for key, r in ref.items():
+        g = got[key].detach()
+        err = (g - r).abs().max().item()
+        bound = STEP_RTOL * r.abs().max().item() + STEP_ATOL
+        assert err <= bound, (key, err, bound)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_train_step_matches_jax(jax_runs, mode):
+    """Three TrainStep steps (SGD 0.1 / 0.9 / 1e-4, b=4 at 16x16): the
+    losses, every updated parameter and every moving statistic against
+    the JAX TrainStep's, in each fuse_block mode."""
+    init, ref_losses, ref_final = jax_runs[mode]
+    net = _port_net(mode, init)
+    step = TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(**SGD_KW),
+                     device="cpu")
+    x, y = _batch()
+    losses = [step(x, y) for _ in range(STEPS)]
+    assert all(t.shape == () and t.dtype == torch.float32 for t in losses)
+    np.testing.assert_allclose([t.item() for t in losses], ref_losses,
+                               rtol=LOSS_RTOL)
+    _close_state(net.state_dict(), ref_final)
+
+
+def test_run_steps_equals_calls(jax_runs):
+    """run_steps(num_steps=3) is three __call__s: the same losses and the
+    same final state, bit for bit."""
+    init = jax_runs["chain"][0]
+    x, y = _batch()
+    a, b = _port_net("chain", init), _port_net("chain", init)
+    sa = TrainStep(a, SoftmaxCrossEntropyLoss(), SGD(**SGD_KW), device="cpu")
+    sb = TrainStep(b, SoftmaxCrossEntropyLoss(), SGD(**SGD_KW), device="cpu")
+    window = sa.run_steps(x, y, num_steps=STEPS)
+    calls = torch.stack([sb(x, y) for _ in range(STEPS)])
+    assert window.shape == (STEPS,)
+    assert torch.equal(window, calls)
+    for key, t in a.state_dict().items():
+        assert torch.equal(t, b.state_dict()[key]), key
+
+
+def test_cpu_training_counts_no_kernel_launches(jax_runs):
+    net = _port_net("chain", jax_runs["chain"][0])
+    counts = (chain_stats.launches, chain_emit.launches,
+              sbr_matmul.launches, sbr_conv3x3.launches)
+    TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(**SGD_KW),
+              device="cpu")(*_batch())
+    assert (chain_stats.launches, chain_emit.launches, sbr_matmul.launches,
+            sbr_conv3x3.launches) == counts
+
+
+def test_chain_state_dict_interchanges_with_fused(jax_runs):
+    """A chain net and its fuse_block=True / False twins have the same
+    state_dict keys (those the converter gives from the JAX chain net),
+    and one state gives the same eval logits in all three."""
+    init = jax_runs["chain"][0]
+    nets = {m: _port_net(m, init).eval() for m in MODES}
+    for m in MODES:
+        assert nets[m].state_dict().keys() == init.keys()
+    x = torch.from_numpy(_batch()[0])
+    with torch.no_grad():
+        ref = nets[False](x)
+        for m in ("chain", True):
+            torch.testing.assert_close(nets[m](x), ref, atol=1e-5,
+                                       rtol=1e-5)
+    chain = nets["chain"]
+    assert sum(blk.chain is not None and blk.chain.fused
+               for stage in chain.features if isinstance(stage,
+                                                         torch.nn.Sequential)
+               for blk in stage) == sum(SPEC[0])
+    # a trained chain net's state loads into the fused twin and back
+    twin = copy.deepcopy(nets[True])
+    twin.load_state_dict(chain.state_dict())
+    chain.load_state_dict(twin.state_dict())
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(mesh=object()), "mesh"), (dict(grad_accum=2), "grad_accum"),
+    (dict(bf16_compute=True), "bf16"), (dict(loss_scaler=object()),
+                                        "loss_scaler"),
+    (dict(mirror=True), "mirror"), (dict(input_prep=abs), "input_prep"),
+    (dict(autotune=True), "autotune"), (dict(batch_axis=1), "axis 0")])
+def test_train_step_refuses_what_is_not_ported(kw, match):
+    net = ResNetV1(BottleneckV1, *SPEC, device="cpu", **NET)
+    with pytest.raises(MXNetError, match=match):
+        TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(), device="cpu", **kw)
+
+
+def test_train_step_device_rules(monkeypatch):
+    net = ResNetV1(BottleneckV1, *SPEC, device="cpu", **NET)
+    step = TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(), device="cpu")
+    with pytest.raises(MXNetError, match="stacked"):
+        step.run_steps(*_batch(), num_steps=2, stacked=True)
+    with pytest.raises(MXNetError, match="num_steps"):
+        step.run_steps(*_batch())
+    with pytest.raises(MXNetError, match="parameters are on"):
+        TrainStep(net.to("meta"), SoftmaxCrossEntropyLoss(), SGD(),
+                  device="cpu")
+    for kw in (dict(lr_scheduler=object()), dict(multi_precision=True)):
+        with pytest.raises(MXNetError, match="not ported"):
+            SGD(**kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        TrainStep(net, SoftmaxCrossEntropyLoss(), SGD())

@@ -56,15 +56,22 @@ def prompts(n, seed=1, lengths=None):
 
 def jax_resnet(seed=0, num_layers=50, input_shape=(2, 16, 16, 3), **kw):
     """The reference ResNet V1 (``prefix="resnet_"``) with weights and
-    BN statistics drawn by numpy from ``seed``, in parameter order:
-    conv weights N(0, 2 / fan_in), conv and Dense biases N(0, 0.1^2),
-    Dense weight N(0, 1 / in_units), BN gamma U(0.5, 1), beta and
-    running_mean N(0, 0.1^2), running_var U(0.5, 1.5).  One forward on
-    zeros of ``input_shape`` first fixes the deferred shapes (and
-    compiles the ops for that shape, so later forwards of it are
+    BN statistics drawn by numpy from ``seed`` (``seeded_fill``).  One
+    forward on zeros of ``input_shape`` first fixes the deferred shapes
+    (and compiles the ops for that shape, so later forwards of it are
     cheap)."""
     mx.random.seed(0)
     net = jax_vision.get_resnet(1, num_layers, prefix="resnet_", **kw)
+    return seeded_fill(net, seed, input_shape)
+
+
+def seeded_fill(net, seed, input_shape):
+    """Initialise the JAX ``net``, run one forward on zeros of
+    ``input_shape`` to fix its deferred shapes, then draw every
+    parameter by numpy from ``seed``, in parameter order: conv weights
+    N(0, 2 / fan_in), conv and Dense biases N(0, 0.1^2), Dense weight
+    N(0, 2 / in_units), BN gamma U(0.5, 1), beta and running_mean
+    N(0, 0.1^2), running_var U(0.5, 1.5).  Returns ``net``."""
     net.initialize()
     net(mx.nd.zeros(input_shape)).asnumpy()
     rs = np.random.RandomState(seed)
