@@ -25,7 +25,23 @@ launch counts set to 0 just before it and read just after:
   ``run_steps`` windows, one step held against the same step on the CPU
   (b=2), the trained net's eval logits against the CPU's, one window
   under torch.profiler; then a few steps of ``fuse_block=True``
-  training at b=32, which go through the fused conv kernels.
+  training at b=32, which go through the fused conv kernels;
+* the imperative ``mx.nd`` / ``mx.autograd`` path at the width of
+  ResNet-50 v1's classifier (2048 -> 1000, a batch of 1024 feature
+  rows): 20 steps of FullyConnected -> log_softmax -> pick -> mean
+  under ``autograd.record()``, ``backward()``, and the SGD update
+  ``w += -lr * w.grad`` by the reference's rtc example kernel ``axpy``,
+  compiled at run time through ``mx.rtc.CudaModule`` (NVRTC), one
+  launch per parameter; held against the same loop with the ``nd``
+  update on the card and on the CPU, then ``nd.save`` on the card and
+  ``nd.load`` on the CPU, and 5 steps under torch.profiler.
+
+The rtc user kernels (``axpy``, a per-row sum that stages its row in
+more than 48 KB of dynamic shared memory, and a ``scale_add`` template
+exported as ``scale_add<float>`` and ``scale_add<double>``) are
+defined below with their plain ``mx.nd`` versions beside them; they
+compile with ``--fmad=false``, so each multiply and add rounds once,
+as the plain versions' separate ops do.
 
 Weights are random from ``--seed``.  Each phase prints one JSON line;
 any failed check exits non-zero.  The last three lines are the card's
@@ -111,6 +127,89 @@ FUSED_TRAIN_BATCH, FUSED_TRAIN_STEPS = 32, 3
 GPT2_SMALL = dict(vocab=50257, dim=768, heads=12, depth=12, max_len=1024)
 PROMPT_LENGTHS = (9, 16, 33, 100, 250, 511, 700, 1000)
 MAX_NEW = 16
+
+# ---- rtc user kernels (compiled through mx.rtc.CudaModule) and their
+# plain mx.nd versions.  --fmad=false: no multiply-add contraction, so a
+# kernel rounds as its plain version's separate ops do (1 ulp bounds).
+RTC_OPTIONS = ("--fmad=false",)
+RTC_BLOCK = 256
+AXPY_SRC = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha,
+                                int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] += alpha * x[i];
+}
+"""
+AXPY_SIG = "const float *x, float *y, float alpha, int n"
+
+
+def axpy_plain(x, y, alpha):
+    """The value axpy leaves in y: y + alpha * x."""
+    return y + alpha * x
+
+
+# one block of RTC_BLOCK threads per row: the row is staged in dynamic
+# shared memory (cols floats), then RTC_BLOCK partial sums after it
+ROW_SUM_SRC = r"""
+extern "C" __global__ void row_sum(const float *x, float *out, int cols) {
+  extern __shared__ float buf[];
+  float *part = buf + cols;
+  const float *row = x + (size_t)blockIdx.x * cols;
+  for (int j = threadIdx.x; j < cols; j += blockDim.x) buf[j] = row[j];
+  __syncthreads();
+  float s = 0.f;
+  for (int j = threadIdx.x; j < cols; j += blockDim.x) s += buf[j];
+  part[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = part[0];
+}
+"""
+ROW_SUM_SIG = "const float *x, float *out, int cols"
+
+
+def row_sum_plain(x):
+    """The per-row sums row_sum writes: x.sum(axis=1)."""
+    return x.sum(axis=1)
+
+
+def row_sum_shared_bytes(cols):
+    return (cols + RTC_BLOCK) * 4
+
+
+SCALE_ADD_SRC = r"""
+template <typename T>
+__global__ void scale_add(const T *x, const T *y, T *o, T alpha, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = alpha * x[i] + y[i];
+}
+"""
+SCALE_ADD_EXPORTS = ("scale_add<float>", "scale_add<double>")
+
+
+def scale_add_plain(x, y, alpha):
+    """The value scale_add writes to o: alpha * x + y."""
+    return alpha * x + y
+
+
+# (rows, cols) of the row sums: the second stages 66.5 KB of shared
+# memory, above the 48 KB a launch gets without cuFuncSetAttribute
+ROW_SUM_SHAPES = ((1024, 2048), (512, 16384))
+SCALE_ADD_N = (1 << 20) + 7
+RTC_RTOL = {"float32": 1e-6, "float64": 1e-15}  # 1 ulp, relative
+ROW_SUM_RTOL = 1e-5     # of the row's mass sum|x|: other summation order
+# the imperative path: ResNet-50 v1's classifier (Dense 2048 -> 1000)
+FEATURES, CLASSES = 2048, 1000
+IMPERATIVE_BATCH, IMPERATIVE_STEPS, IMPERATIVE_PROFILE_STEPS = 1024, 20, 5
+IMPERATIVE_LR = 0.5
+# rtc update vs nd update, both on the card: bit-identical arithmetic,
+# so any difference is far below 1e-6 of each tensor's max
+RTC_VS_ND_RTOL = 1e-6
+# card vs CPU after 20 steps: cuBLAS vs oneDNN sum orders in fp32
+CARD_VS_CPU_RTOL = 1e-4
 
 
 def emit(obj):
@@ -692,13 +791,17 @@ def phase_kernels_chain():
 
 
 def _wrappers():
-    """Every kernel wrapper, by the kernel's name in the kernel line."""
+    """Every kernel wrapper, by the kernel's name in the kernel line
+    (rtc counts the launches of all its kernels in one module-level
+    count)."""
+    from incubator_mxnet_tpu_torch import rtc
     from incubator_mxnet_tpu_torch.ops import (chain_emit, chain_stats,
                                                sbr_conv3x3, sbr_matmul)
     from incubator_mxnet_tpu_torch.parallel import flash_attention
     return {"flash_attention_fwd": flash_attention,
             "sbr_matmul": sbr_matmul, "sbr_conv3x3": sbr_conv3x3,
-            "chain_stats": chain_stats, "chain_emit": chain_emit}
+            "chain_stats": chain_stats, "chain_emit": chain_emit,
+            "rtc_axpy": rtc}
 
 
 def _counts():
@@ -910,6 +1013,317 @@ def phase_fused_train(seed):
           "launches": launches})
 
 
+def rtc_bound_ms(nbytes):
+    """Least time for work that moves ``nbytes`` at a few flops per
+    element: bytes over the HBM rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _ulp_check(name, got, ref, rtol):
+    """Elementwise |got - ref| <= rtol * |ref| (1 ulp); returns the
+    worst relative error and the worst absolute error."""
+    diff = (got - ref).abs()
+    bad = diff > rtol * ref.abs()
+    rel = (diff / ref.abs().clamp_min(torch.finfo(ref.dtype).tiny)).max()
+    if bool(bad.any()):
+        fail(f"{name} disagrees with its plain version beyond 1 ulp "
+             f"({rtol}): worst relative error {rel.item()}")
+    return rel.item(), diff.max().item()
+
+
+def _compile_rtc(mx, source, **kw):
+    """A CudaModule, with its NVRTC compile time in ms."""
+    t0 = time.perf_counter()
+    mod = mx.rtc.CudaModule(source, options=RTC_OPTIONS, **kw)
+    return mod, (time.perf_counter() - t0) * 1e3
+
+
+def _get_rtc_kernel(mod, name, sig):
+    """A kernel of ``mod``, with the module load + lookup time in ms."""
+    t0 = time.perf_counter()
+    k = mod.get_kernel(name, sig)
+    return k, (time.perf_counter() - t0) * 1e3
+
+
+def _blocks(n):
+    return ((n + RTC_BLOCK - 1) // RTC_BLOCK,)
+
+
+def resnet50_param_count(seed):
+    """The parameter count of the port's resnet50_v1 (weights, biases,
+    BN gamma and beta; the moving statistics are not parameters)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    net = resnet50_v1(device="cuda:0", seed=seed)
+    n = sum(p.numel() for p in net.parameters())
+    del net
+    torch.cuda.empty_cache()
+    return n
+
+
+def _fresh_thread_axpy(nd, ctx, axpy, rs):
+    """axpy launched from a thread that has not used CUDA (no current
+    driver context there until rtc makes the primary one current), held
+    against its plain version."""
+    import threading
+    m = 4099
+    x = nd.array(rs.randn(m).astype(np.float32), ctx=ctx)
+    y0 = nd.array(rs.randn(m).astype(np.float32), ctx=ctx)
+    y = y0.copy()
+    torch.cuda.synchronize()
+    errors = []
+
+    def run():
+        try:
+            axpy.launch([x, y, 0.25, m], ctx, _blocks(m), (RTC_BLOCK,))
+            torch.cuda.synchronize()
+        except Exception as e:      # reported below, in the main thread
+            errors.append(repr(e))
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    if t.is_alive() or errors:
+        fail(f"axpy from a fresh thread failed: {errors or 'timeout'}")
+    _ulp_check("axpy (fresh thread)", y._data,
+               axpy_plain(x, y0, 0.25)._data, RTC_RTOL["float32"])
+    return True
+
+
+def phase_kernels_rtc(seed):
+    """The rtc user kernels compiled through mx.rtc.CudaModule, each
+    against its plain mx.nd version on the card: axpy at n = the
+    parameter count of resnet50_v1 (timed), the row sums at a small and
+    a >48 KB shared-memory shape, scale_add in fp32 and fp64."""
+    import incubator_mxnet_tpu_torch as mx
+    nd, ctx = mx.nd, mx.gpu(0)
+    rs = np.random.RandomState(seed + 11)
+    out = {}
+    # (a) axpy
+    mod, compile_ms = _compile_rtc(mx, AXPY_SRC)
+    axpy, load_ms = _get_rtc_kernel(mod, "axpy", AXPY_SIG)
+    n = resnet50_param_count(seed)
+    x = nd.array(rs.randn(n).astype(np.float32), ctx=ctx)
+    y0 = nd.array(rs.randn(n).astype(np.float32), ctx=ctx)
+    alpha = -0.1
+    y = y0.copy()
+    axpy.launch([x, y, alpha, n], ctx, _blocks(n), (RTC_BLOCK,))
+    ref = axpy_plain(x, y0, alpha)
+    torch.cuda.synchronize()
+    rel, err = _ulp_check("axpy", y._data, ref._data, RTC_RTOL["float32"])
+    xt, yt = x._data, y._data
+    row = {"kernel": "axpy", "n": n, "compile_ms": compile_ms,
+           "load_ms": load_ms, "max_rel_err": rel, "max_abs_err": err,
+           "rtol": RTC_RTOL["float32"],
+           "kernel_ms": time_ms(lambda: axpy.launch(
+               [x, y, alpha, n], ctx, _blocks(n), (RTC_BLOCK,))),
+           "plain_ms": time_ms(lambda: axpy_plain(x, y, alpha)),
+           "library_ms": time_ms(lambda: yt.add_(xt, alpha=alpha))}
+    row["bound_ms"], row["bound_by"] = rtc_bound_ms(3 * 4 * n)
+    row["fresh_thread_ok"] = _fresh_thread_axpy(nd, ctx, axpy, rs)
+    emit(dict({"phase": "kernels_rtc"}, **row))
+    out["axpy"] = (row, axpy)
+    del x, y, y0, ref, xt, yt
+    # (b) row sums, one launch above 48 KB of dynamic shared memory
+    mod, compile_ms = _compile_rtc(mx, ROW_SUM_SRC)
+    row_sum, load_ms = _get_rtc_kernel(mod, "row_sum", ROW_SUM_SIG)
+    rows = []
+    for r, c in ROW_SUM_SHAPES:
+        xs = nd.array(rs.randn(r, c).astype(np.float32), ctx=ctx)
+        sums = nd.zeros((r,), ctx=ctx)
+        smem = row_sum_shared_bytes(c)
+        row_sum.launch([xs, sums, c], ctx, (r,), (RTC_BLOCK,), smem)
+        ref = row_sum_plain(xs)
+        mass = xs.abs().sum(axis=1)
+        torch.cuda.synchronize()
+        worst = ((sums - ref).abs() / mass).max().asscalar()
+        if not worst <= ROW_SUM_RTOL:
+            fail(f"row_sum at {(r, c)} ({smem} B shared) disagrees with "
+                 f"its plain version: {worst} > {ROW_SUM_RTOL} of the "
+                 f"row's mass")
+        rows.append({"shape": [r, c], "shared_mem": smem,
+                     "max_err_of_mass": float(worst),
+                     "kernel_ms": time_ms(lambda: row_sum.launch(
+                         [xs, sums, c], ctx, (r,), (RTC_BLOCK,), smem)),
+                     "plain_ms": time_ms(lambda: row_sum_plain(xs))})
+    emit({"phase": "kernels_rtc", "kernel": "row_sum",
+          "compile_ms": compile_ms, "load_ms": load_ms,
+          "rtol_of_mass": ROW_SUM_RTOL, "rows": rows})
+    # (c) a template exported at two types
+    mod, compile_ms = _compile_rtc(mx, SCALE_ADD_SRC,
+                                   exports=SCALE_ADD_EXPORTS)
+    rows = []
+    for dtype, ctype in (("float32", "float"), ("float64", "double")):
+        k, load_ms = _get_rtc_kernel(
+            mod, f"scale_add<{ctype}>",
+            f"const {ctype} *x, const {ctype} *y, {ctype} *o, "
+            f"{ctype} alpha, int n")
+        n = SCALE_ADD_N
+        xs = nd.array(rs.randn(n), ctx=ctx, dtype=dtype)
+        ys = nd.array(rs.randn(n), ctx=ctx, dtype=dtype)
+        o = nd.zeros((n,), ctx=ctx, dtype=dtype)
+        k.launch([xs, ys, o, 2.5, n], ctx, _blocks(n), (RTC_BLOCK,))
+        ref = scale_add_plain(xs, ys, 2.5)
+        torch.cuda.synchronize()
+        rel, err = _ulp_check(f"scale_add<{ctype}>", o._data, ref._data,
+                              RTC_RTOL[dtype])
+        rows.append({"export": f"scale_add<{ctype}>", "n": n,
+                     "load_ms": load_ms, "max_rel_err": rel,
+                     "max_abs_err": err, "rtol": RTC_RTOL[dtype]})
+    emit({"phase": "kernels_rtc", "kernel": "scale_add",
+          "compile_ms": compile_ms, "rows": rows})
+    torch.cuda.empty_cache()
+    return out["axpy"]
+
+
+def imperative_data(seed, batch=IMPERATIVE_BATCH, features=FEATURES,
+                    classes=CLASSES):
+    """The classifier's inputs and initial parameters, from ``seed``:
+    non-negative feature rows (as after ReLU and average pooling),
+    labels in [0, classes), W ~ N(0, 0.01^2), b = 0."""
+    rs = np.random.RandomState(seed + 17)
+    feats = rs.rand(batch, features).astype(np.float32)
+    labels = rs.randint(0, classes, batch).astype(np.int32)
+    w0 = (0.01 * rs.randn(classes, features)).astype(np.float32)
+    b0 = np.zeros(classes, np.float32)
+    return feats, labels, w0, b0
+
+
+def imperative_setup(mx, ctx, data):
+    """The classifier's data and parameters as NDArrays on ``ctx``, W
+    and b with gradient buffers."""
+    nd = mx.nd
+    feats, labels, w0, b0 = data
+    x, y = nd.array(feats, ctx=ctx), nd.array(labels, ctx=ctx)
+    w, b = nd.array(w0, ctx=ctx), nd.array(b0, ctx=ctx)
+    w.attach_grad()
+    b.attach_grad()
+    return x, y, w, b
+
+
+def imperative_steps(mx, arrays, steps, update, lr=IMPERATIVE_LR):
+    """``steps`` imperative SGD steps of the classifier: FullyConnected
+    -> log_softmax -> -pick -> mean under record(), backward(), then
+    ``update(param, lr)`` for W and b.  Returns the loss NDArrays.
+    ``mx`` is the port, or the JAX package in the CPU tests."""
+    nd = mx.nd
+    x, y, w, b = arrays
+    losses = []
+    for _ in range(steps):
+        with mx.autograd.record():
+            out = nd.FullyConnected(x, w, b, num_hidden=w.shape[0])
+            loss = (-nd.pick(nd.log_softmax(out), y)).mean()
+        loss.backward()
+        update(w, lr)
+        update(b, lr)
+        losses.append(loss)
+    return losses
+
+
+def imperative_loop(mx, ctx, data, steps, update, lr=IMPERATIVE_LR):
+    """Setup and ``steps`` steps on ``ctx``: (W, b, the loss NDArrays)."""
+    arrays = imperative_setup(mx, ctx, data)
+    losses = imperative_steps(mx, arrays, steps, update, lr)
+    return arrays[2], arrays[3], losses
+
+
+def nd_update(p, lr):
+    """The plain SGD update: p[:] = p - lr * p.grad."""
+    p[:] = p - lr * p.grad
+
+
+def _worst_of_max(got, ref):
+    """max |got - ref| / max |ref| over the tensors."""
+    return max(float(np.abs(g.asnumpy() - r.asnumpy()).max()
+                     / max(np.abs(r.asnumpy()).max(), 1e-30))
+               for g, r in zip(got, ref))
+
+
+def phase_nd_imperative(seed, axpy):
+    """The slice's path at full width: the imperative loop with the rtc
+    axpy update on the card (kernel counts set to 0 just before it and
+    read just after: 2 launches a step), held against the nd update on
+    the card and on the CPU; nd.save on the card, nd.load on the CPU;
+    5 steps under torch.profiler."""
+    import incubator_mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+    ctx = mx.gpu(0)
+    data = imperative_data(seed)
+
+    def rtc_update(p, lr):
+        axpy.launch([p.grad, p, -lr, p.size], ctx, _blocks(p.size),
+                    (RTC_BLOCK,))
+
+    w_nd, b_nd, _ = imperative_loop(mx, ctx, data, IMPERATIVE_STEPS,
+                                    nd_update)
+    torch.cuda.synchronize()
+    arrays = imperative_setup(mx, ctx, data)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = imperative_steps(mx, arrays, IMPERATIVE_STEPS, rtc_update)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    w, b = arrays[2], arrays[3]
+    launches = _counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(rtc_axpy=2 * IMPERATIVE_STEPS)
+    _expect(launches, want, f"the imperative path ({IMPERATIVE_STEPS} "
+                            "steps)")
+    loss_vals = [float(v.asscalar()) for v in losses]
+    if not all(math.isfinite(v) for v in loss_vals) or \
+            not loss_vals[-1] < loss_vals[0]:
+        fail(f"imperative losses not finite and falling: {loss_vals}")
+    err_nd = _worst_of_max([w, b], [w_nd, b_nd])
+    if not err_nd <= RTC_VS_ND_RTOL:
+        fail(f"rtc-updated parameters differ from the nd update by "
+             f"{err_nd} > {RTC_VS_ND_RTOL} of each tensor's max")
+    with mx.cpu():
+        w_cpu, b_cpu, losses_cpu = imperative_loop(
+            mx, mx.cpu(), data, IMPERATIVE_STEPS, nd_update)
+    err_cpu = _worst_of_max([w, b], [w_cpu, b_cpu])
+    if not err_cpu <= CARD_VS_CPU_RTOL:
+        fail(f"card parameters differ from the CPU's by {err_cpu} > "
+             f"{CARD_VS_CPU_RTOL} of each tensor's max")
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        path = os.path.join(tmp, "classifier.params")
+        mx.nd.save(path, {"weight": w, "bias": b})
+        with mx.cpu():
+            back = mx.nd.load(path)
+    same = all(np.array_equal(back[k].asnumpy(), v.asnumpy())
+               and back[k].context == mx.cpu() and back[k].dtype == v.dtype
+               for k, v in (("weight", w), ("bias", b)))
+    if not same:
+        fail("nd.save on the card then nd.load on the CPU is not "
+             "bit-identical")
+    arrays = imperative_setup(mx, ctx, data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        imperative_steps(mx, arrays, IMPERATIVE_PROFILE_STEPS, rtc_update)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    emit({"phase": "nd_imperative", "batch": IMPERATIVE_BATCH,
+          "features": FEATURES, "classes": CLASSES,
+          "steps": IMPERATIVE_STEPS, "lr": IMPERATIVE_LR,
+          "losses": loss_vals,
+          "losses_cpu": [float(v.asscalar()) for v in losses_cpu],
+          "ms_per_step": wall / IMPERATIVE_STEPS * 1e3,
+          "launches": launches, "rtc_vs_nd_err_of_max": err_nd,
+          "rtc_vs_nd_rtol": RTC_VS_ND_RTOL,
+          "card_vs_cpu_err_of_max": err_cpu,
+          "card_vs_cpu_rtol": CARD_VS_CPU_RTOL,
+          "save_load_bit_identical": same})
+    emit(dict({"phase": "nd_imperative_profile",
+               "steps": IMPERATIVE_PROFILE_STEPS,
+               "ms_per_step": pwall / IMPERATIVE_PROFILE_STEPS * 1e3},
+              **_profile_summary(prof, pwall)))
+    return launches["rtc_axpy"]
+
+
 def _engine(net):
     from incubator_mxnet_tpu_torch.serving import GenerationEngine
     eng = GenerationEngine(net, slots=8, max_len=1024, kv_layout="paged",
@@ -1041,6 +1455,7 @@ def main():
     kernels = [phase_kernels()]
     conv = phase_kernels_conv()
     chain = phase_kernels_chain()
+    axpy_row, axpy = phase_kernels_rtc(args.seed)
     launches, net, greedy, sampled = phase_generation(args.seed)
     kernels[0]["launches"] = launches
     phase_profile(net, greedy, sampled)
@@ -1068,6 +1483,20 @@ def main():
     for name, k in chain.items():
         k["launches"] = train_launches[name]
         kernels.append(k)
+    torch.cuda.empty_cache()
+    rtc_launches = phase_nd_imperative(args.seed, axpy)
+    kernels.append({
+        "name": "rtc_axpy", "route": "cuda",
+        "source": "incubator_mxnet_tpu_torch/rtc.py",
+        "kernel_source": "chip_smoke.py:AXPY_SRC",
+        "replaces": "incubator_mxnet_tpu/rtc.py:36",
+        "launches": rtc_launches, "max_abs_err": axpy_row["max_abs_err"],
+        "ms": axpy_row["kernel_ms"], "plain_ms": axpy_row["plain_ms"],
+        "bound_ms": axpy_row["bound_ms"],
+        "bound_by": axpy_row["bound_by"],
+        "library_ms": axpy_row["library_ms"],
+        "per": f"one axpy over n = {axpy_row['n']} floats (resnet50_v1's "
+               "parameter count); compiled by NVRTC at run time"})
     print(smi or "nvidia-smi: not available", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

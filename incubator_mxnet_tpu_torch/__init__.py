@@ -12,15 +12,27 @@ Ported so far: the generation server (``gluon.TransformerDecoder``,
 ``serving.GenerationEngine``, the flash-attention forward kernel),
 ResNet V1 inference (``gluon.model_zoo.vision``, ``predict.
 BlockPredictor``, ``serving.ModelServer``, the fused BN -> ReLU -> conv
-kernels of ``ops.fused_conv``) and ResNet V1 training
+kernels of ``ops.fused_conv``), ResNet V1 training
 (``parallel.TrainStep``, ``gluon.loss``, ``optimizer.SGD``, the
-bottleneck-chain kernels of ``ops.fused_chain``).
+bottleneck-chain kernels of ``ops.fused_chain``) and the imperative
+front end: ``nd`` (``NDArray`` over ``torch.Tensor`` and the op
+registry), ``autograd`` (over ``torch.autograd``), ``random``, and
+``rtc.CudaModule`` (user CUDA C compiled at run time with NVRTC).  So
+``import incubator_mxnet_tpu_torch as mx; mx.nd.ones((2,))`` reads as
+it does against the JAX package, except that the default context is
+``mx.gpu(0)``.
 """
 from . import (base, context, convert, gluon, ops, optimizer, parallel,
                predict, serving)
+from . import ndarray
+from . import ndarray as nd
+from . import autograd, random, rtc
 from .base import MXNetError
+from .context import Context, cpu, current_context, gpu, num_gpus, tpu
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "base", "context", "convert", "gluon", "ops",
-           "optimizer", "parallel", "predict", "serving"]
+__all__ = ["MXNetError", "Context", "autograd", "base", "context",
+           "convert", "cpu", "current_context", "gluon", "gpu", "nd",
+           "ndarray", "num_gpus", "ops", "optimizer", "parallel",
+           "predict", "random", "rtc", "serving", "tpu"]

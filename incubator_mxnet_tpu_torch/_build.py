@@ -1,4 +1,6 @@
-"""Build and binding of the port's hand-written CUDA kernels.
+"""Build and binding of the port's hand-written CUDA kernels, and the
+one place that finds the CUDA toolkit (``nvcc`` for the kernels of
+``csrc/``, ``libnvrtc`` and its headers for ``rtc``).
 
 Each kernel source ``csrc/<name>.cu`` exports a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library,
@@ -13,6 +15,7 @@ time: the CPU tests import every module on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -21,7 +24,8 @@ import threading
 
 from .base import MXNetError
 
-__all__ = ["build", "load", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["build", "load", "nvrtc_path", "cuda_include_dirs",
+           "BUILD_DIR", "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -29,14 +33,19 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+DEFAULT_NVCC = os.path.join(DEFAULT_CUDA_HOME, "bin", "nvcc")
 
 _lock = threading.Lock()
 _libs = {}
 
 
+def _cuda_home():
+    return os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+
+
 def _nvcc():
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    home = _cuda_home()
     for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
                  shutil.which("nvcc"), DEFAULT_NVCC):
         if cand and os.access(cand, os.X_OK):
@@ -45,6 +54,38 @@ def _nvcc():
         "nvcc not found (CUDA_HOME, PATH, /usr/local/cuda/bin): the CUDA "
         "kernels of incubator_mxnet_tpu_torch are built from source at "
         "first use and need the CUDA toolkit")
+
+
+def nvrtc_path():
+    """Path of the NVRTC library, searched in ``$CUDA_HOME/lib64``, then
+    ``/usr/local/cuda/lib64``, then the ``nvidia/cuda_nvrtc/lib``
+    directory of the torch wheel's install.  Raises MXNetError when
+    none holds one."""
+    import torch
+    home = _cuda_home()
+    dirs = [os.path.join(home, "lib64")] if home else []
+    dirs += [os.path.join(DEFAULT_CUDA_HOME, "lib64"),
+             os.path.join(os.path.dirname(os.path.dirname(torch.__file__)),
+                          "nvidia", "cuda_nvrtc", "lib")]
+    for d in dirs:
+        found = sorted(glob.glob(os.path.join(d, "libnvrtc.so*")),
+                       key=len)
+        if found:
+            return found[0]
+    raise MXNetError(
+        "libnvrtc not found (searched " + ", ".join(dirs) + "): "
+        "rtc.CudaModule compiles CUDA C at run time with NVRTC and needs "
+        "the CUDA toolkit or the nvidia-cuda-nvrtc wheel")
+
+
+def cuda_include_dirs():
+    """The CUDA toolkit's include directories that exist
+    (``$CUDA_HOME/include``, ``/usr/local/cuda/include``), for NVRTC's
+    ``-I`` (``cuda_fp16.h`` for ``__half``)."""
+    home = _cuda_home()
+    dirs = ([os.path.join(home, "include")] if home else []) + \
+        [os.path.join(DEFAULT_CUDA_HOME, "include")]
+    return [d for d in dict.fromkeys(dirs) if os.path.isdir(d)]
 
 
 def _source(name):

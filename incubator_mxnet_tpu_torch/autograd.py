@@ -1,0 +1,265 @@
+"""Imperative autograd on ``torch.autograd`` (counterpart of
+``incubator_mxnet_tpu/autograd.py``; reference python/mxnet/autograd.py:
+record/pause :122,146, backward :243, grad :270, Function :364).
+
+The JAX package keeps its own tape of ``jax.vjp`` closures.  Here torch
+records the graph: an op dispatched by ``ndarray.invoke`` runs with
+gradients enabled only under ``record()`` (and only when it is
+differentiable); everywhere else it runs under ``torch.no_grad()``, so
+an in-place update of a variable outside ``record()`` is allowed and no
+graph is kept alive.
+
+``attach_grad()`` / ``mark_variables`` make the array's tensor a leaf
+that requires grad and tag it with its NDArray.  ``backward`` walks the
+heads' graph to the tagged leaves and asks ``torch.autograd.grad`` for
+their gradients, then writes each into the NDArray's grad buffer by its
+``grad_req``: ``write`` overwrites it in place, ``add`` accumulates,
+``null`` leaves it.  Torch's own ``.grad`` fields are never used, so
+nothing accumulates behind the caller's back.  The graph is freed after
+``backward`` unless ``retain_graph=True``, as in the reference (the
+JAX tape keeps it either way).
+"""
+from __future__ import annotations
+
+import threading
+import weakref
+
+import torch
+
+from .base import MXNetError
+
+__all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
+           "is_training", "mark_variables", "backward", "grad", "Function"]
+
+_state = threading.local()
+
+
+def _st():
+    if not hasattr(_state, "recording"):
+        _state.recording = False
+        _state.training = False
+    return _state
+
+
+def is_recording():
+    return _st().recording
+
+
+def is_training():
+    return _st().training
+
+
+class _Scope:
+    def __init__(self, recording, training):
+        self._r, self._t = recording, training
+
+    def __enter__(self):
+        s = _st()
+        self._pr, self._pt = s.recording, s.training
+        if self._r is not None:
+            s.recording = self._r
+        if self._t is not None:
+            s.training = self._t
+        return self
+
+    def __exit__(self, *exc):
+        s = _st()
+        s.recording, s.training = self._pr, self._pt
+
+
+def record(train_mode=True):
+    """Scope that turns on recording (python/mxnet/autograd.py:122)."""
+    return _Scope(True, train_mode)
+
+
+def pause(train_mode=False):
+    return _Scope(False, train_mode)
+
+
+def train_mode():
+    return _Scope(None, True)
+
+
+def predict_mode():
+    return _Scope(None, False)
+
+
+# ---------------------------------------------------------------- variables
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Associate gradient buffers with variables
+    (python/mxnet/autograd.py:mark_variables)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise MXNetError(f"grad_req must be write, add or null, "
+                             f"not {req!r}")
+        v._grad = g
+        v._grad_req = req
+        t = v._data
+        if not t.is_leaf:           # computed under record(): cut it off
+            t = v._data = t.detach()
+        if t.is_floating_point() and not t.requires_grad:
+            t.requires_grad_(True)
+        t._mx_variable = weakref.ref(v)
+
+
+def _variable_of(t):
+    ref = getattr(t, "_mx_variable", None)
+    v = ref() if ref is not None else None
+    return v if v is not None and v._data is t else None
+
+
+def _leaves(heads):
+    """The tagged leaf tensors the heads' graph reaches, in the order
+    first met."""
+    out, seen = [], set()
+    stack = [h.grad_fn for h in heads if h.grad_fn is not None]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        var = getattr(fn, "variable", None)
+        if var is not None:
+            if _variable_of(var) is not None:
+                out.append(var)
+            continue
+        stack.extend(nxt for nxt, _ in fn.next_functions)
+    return out
+
+
+def _head_grads(heads, head_grads):
+    if head_grads is None:
+        return [torch.ones_like(h._data) for h in heads]
+    from .ndarray import NDArray
+    if isinstance(head_grads, NDArray):
+        head_grads = [head_grads]
+    return [g._data if g is not None else torch.ones_like(h._data)
+            for h, g in zip(heads, head_grads)]
+
+
+@torch.no_grad()
+def _store(var, g):
+    if var._grad is None or var._grad_req == "null":
+        return
+    if var._grad_req == "add":
+        var._grad._data.add_(g)
+    else:
+        var._grad._data.copy_(g)
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of ``heads`` into the grad buffers of every variable the
+    heads depend on (reference MXAutogradBackwardEx), by each
+    variable's ``grad_req``."""
+    from .ndarray import NDArray
+    if isinstance(heads, NDArray):
+        heads = [heads]
+    grads_out = _head_grads(heads, head_grads)
+    outputs, seeds = [], []
+    for h, g in zip(heads, grads_out):
+        if h._data.grad_fn is not None:
+            outputs.append(h._data)
+            seeds.append(g)
+        elif _variable_of(h._data) is not None:
+            _store(h, g)            # a variable as its own head
+        else:
+            raise MXNetError("head array is not connected to the autograd "
+                             "graph (was it computed under "
+                             "autograd.record()?)")
+    if not outputs:
+        return
+    leaves = [t for t in _leaves(outputs)
+              if _variable_of(t)._grad_req != "null"]
+    if not leaves:
+        return
+    grads = torch.autograd.grad(outputs, leaves, seeds,
+                                retain_graph=retain_graph, allow_unused=True)
+    for t, g in zip(leaves, grads):
+        if g is not None:
+            _store(_variable_of(t), g)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """Gradients of ``heads`` with respect to ``variables``, returned
+    as new NDArrays; the variables' grad buffers are untouched
+    (python/mxnet/autograd.py:270)."""
+    from .ndarray import NDArray
+    single = isinstance(variables, NDArray)
+    if single:
+        variables = [variables]
+    if isinstance(heads, NDArray):
+        heads = [heads]
+    for v in variables:
+        if not v._data.requires_grad:
+            raise MXNetError("autograd.grad: every variable needs "
+                             "attach_grad() before record()")
+    seeds = _head_grads(heads, head_grads)
+    if retain_graph is None:
+        retain_graph = create_graph
+    grads = torch.autograd.grad([h._data for h in heads],
+                                [v._data for v in variables], seeds,
+                                retain_graph=retain_graph,
+                                create_graph=create_graph, allow_unused=True)
+    out = [NDArray(g if g is not None else torch.zeros_like(v._data),
+                   v.context) for g, v in zip(grads, variables)]
+    return out[0] if single else out
+
+
+class _Bridge(torch.autograd.Function):
+    """Carries a user ``Function``'s forward and backward into torch's
+    graph."""
+
+    @staticmethod
+    def forward(ctx, func, inputs, *tensors):
+        ctx.func = func
+        with pause():
+            outs = func.forward(*inputs)
+        ctx.outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+        return tuple(o._data for o in ctx.outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray import NDArray
+        cots = [NDArray(g if g is not None else torch.zeros_like(o._data),
+                        o.context) for g, o in zip(grads, ctx.outs)]
+        with pause():
+            igs = ctx.func.backward(*cots)
+        if not isinstance(igs, (list, tuple)):
+            igs = [igs]
+        return (None, None) + tuple(g._data if g is not None else None
+                                    for g in igs)
+
+
+class Function:
+    """Customized differentiable function (python/mxnet/autograd.py:364),
+    carried by a ``torch.autograd.Function``.  Subclass and override
+    ``forward(*inputs)`` and ``backward(*output_grads)`` on NDArrays;
+    call it imperatively: ``y = MyFunc()(x)``."""
+
+    def __init__(self):
+        self._saved = None
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray import NDArray
+        if not is_recording():
+            with pause():
+                return self.forward(*inputs)
+        tensors = _Bridge.apply(self, inputs, *(i._data for i in inputs))
+        outs = [NDArray(t, inputs[0].context) for t in tensors]
+        return outs[0] if len(outs) == 1 else outs

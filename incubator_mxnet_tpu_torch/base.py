@@ -1,16 +1,51 @@
-"""Foundation utilities of the PyTorch port: the framework error and the
-typed environment lookup (counterparts of ``incubator_mxnet_tpu/base.py``
-``MXNetError`` and ``get_env``, kept as the port's own copies)."""
+"""Foundation utilities of the PyTorch port: the framework error, the
+default real type, the typed environment lookup and the name registries
+(counterparts of ``incubator_mxnet_tpu/base.py`` ``MXNetError``,
+``mx_real_t``, ``get_env`` and ``registry``, kept as the port's own
+copies), and the numpy <-> torch dtype map of the imperative front
+end."""
 from __future__ import annotations
 
 import os
 
-__all__ = ["MXNetError", "get_env"]
+import numpy as np
+import torch
+
+__all__ = ["MXNetError", "mx_real_t", "get_env", "registry",
+           "torch_dtype", "numpy_dtype"]
 
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (name kept for API parity with the
     reference's python/mxnet/base.py:MXNetError)."""
+
+
+mx_real_t = np.float32
+
+_TORCH_OF = {"float32": torch.float32, "float64": torch.float64,
+             "float16": torch.float16, "uint8": torch.uint8,
+             "int8": torch.int8, "int16": torch.int16,
+             "int32": torch.int32, "int64": torch.int64,
+             "bool": torch.bool}
+_NUMPY_OF = {v: np.dtype(k) for k, v in _TORCH_OF.items()}
+
+
+def torch_dtype(dtype):
+    """The torch dtype of a numpy dtype, its name or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = np.dtype(dtype).name
+    if name not in _TORCH_OF:
+        raise MXNetError(f"dtype {name} is not supported by the port")
+    return _TORCH_OF[name]
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of a torch dtype."""
+    if dtype not in _NUMPY_OF:
+        raise MXNetError(f"torch dtype {dtype} has no numpy counterpart "
+                         "in the port")
+    return _NUMPY_OF[dtype]
 
 
 def get_env(name, default, typ=None):
@@ -23,3 +58,50 @@ def get_env(name, default, typ=None):
     if typ is bool:
         return val.lower() in ("1", "true", "yes", "on")
     return typ(val)
+
+
+class _Registry:
+    """Name -> object registry with aliases (the role of dmlc::Registry):
+    one place where a subsystem (the operator table so far) registers
+    named entries.  Lookups fall back to a case-insensitive match."""
+
+    def __init__(self, kind):
+        self.kind = kind
+        self._map = {}
+
+    def register(self, name, obj, aliases=()):
+        if name in self._map and self._map[name] is not obj:
+            raise ValueError(f"{self.kind} '{name}' already registered")
+        self._map[name] = obj
+        for a in aliases:
+            self._map[a] = obj
+        return obj
+
+    def find(self, name):
+        obj = self._map.get(name)
+        if obj is None:
+            low = name.lower()
+            for k, v in self._map.items():
+                if k.lower() == low:
+                    return v
+        return obj
+
+    def get(self, name):
+        obj = self.find(name)
+        if obj is None:
+            raise MXNetError(f"unknown {self.kind}: '{name}'. known: "
+                             f"{sorted(set(self._map))[:50]}")
+        return obj
+
+    def names(self):
+        return sorted(self._map)
+
+
+_registries = {}
+
+
+def registry(kind) -> _Registry:
+    """Get-or-create the registry for ``kind`` (e.g. 'op')."""
+    if kind not in _registries:
+        _registries[kind] = _Registry(kind)
+    return _registries[kind]

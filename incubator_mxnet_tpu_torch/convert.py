@@ -12,6 +12,11 @@ sees a JAX object.  The JAX names are structural
 ``<prefix>sequential0_decoderlayer<i>_<layer><n>_<param>``,
 ``<prefix>layernorm0_*``, ``<prefix>dense0_*``), so the mapping is by
 position within that structure, whatever the model's prefix.
+
+Arrays of the imperative path (``mx.nd``) cross between the packages
+as files instead: ``ndarray.save`` / ``ndarray.load`` write MXNet's
+binary ``.params`` format and read it and the JAX package's ``.npz``
+(``ndarray/utils.py``, ``ndarray/mxnet_format.py``).
 """
 from __future__ import annotations
 

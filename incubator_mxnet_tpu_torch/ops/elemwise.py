@@ -1,0 +1,241 @@
+"""Elementwise, broadcast and scalar operators (counterpart of
+``incubator_mxnet_tpu/ops/elemwise.py``; reference
+src/operator/tensor/elemwise_*.cc).
+
+Each op is one torch expression; autograd gives its gradient.  Output
+dtypes are the JAX package's: a float scalar applied to an integer
+array gives float32 (``_sc``); comparisons return the left operand's
+dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import torch_dtype
+from .registry import register_op
+
+__all__ = []
+
+
+def _sc(x, scalar):
+    """``(x, scalar)`` ready for a scalar op with the JAX package's
+    dtype rule: the scalar takes x's dtype, except that a float scalar
+    on an integer array computes in float32."""
+    if isinstance(scalar, float) and not (x.is_floating_point()
+                                          or x.is_complex()):
+        x = x.to(torch.float32)
+    return x, scalar
+
+
+def _full(x, scalar):
+    """The scalar as a 0-d tensor of x's dtype on x's device (for the
+    ops without a Scalar overload)."""
+    return torch.full((), scalar, dtype=x.dtype, device=x.device)
+
+
+def _cbrt(x):
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
+# ---------------------------------------------------------------- unary math
+_UNARY = {
+    "negative": torch.neg,
+    "reciprocal": torch.reciprocal,
+    "abs": torch.abs,
+    "sign": torch.sign,
+    "round": torch.round,
+    "rint": torch.round,
+    "ceil": torch.ceil,
+    "floor": torch.floor,
+    "trunc": torch.trunc,
+    "fix": torch.trunc,
+    "square": torch.square,
+    "sqrt": torch.sqrt,
+    "rsqrt": torch.rsqrt,
+    "cbrt": _cbrt,
+    "rcbrt": lambda x: torch.reciprocal(_cbrt(x)),
+    "exp": torch.exp,
+    "log": torch.log,
+    "log10": torch.log10,
+    "log2": torch.log2,
+    "log1p": torch.log1p,
+    "expm1": torch.expm1,
+    "gamma": lambda x: torch.exp(torch.lgamma(x)),
+    "gammaln": torch.lgamma,
+    "erf": torch.erf,
+    "erfinv": torch.erfinv,
+    "sin": torch.sin,
+    "cos": torch.cos,
+    "tan": torch.tan,
+    "arcsin": torch.asin,
+    "arccos": torch.acos,
+    "arctan": torch.atan,
+    "sinh": torch.sinh,
+    "cosh": torch.cosh,
+    "tanh": torch.tanh,
+    "arcsinh": torch.asinh,
+    "arccosh": torch.acosh,
+    "arctanh": torch.atanh,
+    "degrees": torch.rad2deg,
+    "radians": torch.deg2rad,
+    "sigmoid": torch.sigmoid,
+    "softsign": lambda x: x / (torch.abs(x) + 1),
+    "relu": torch.relu,
+    "logical_not": lambda x: (x == 0).to(x.dtype),
+}
+
+for _name, _f in _UNARY.items():
+    register_op(_name, (lambda f: lambda x: f(x))(_f))
+
+
+def _identity(x):
+    return x
+
+
+register_op("identity", _identity, aliases=("_copy", "stop_gradient_off"))
+register_op("BlockGrad", lambda x: x.detach(), aliases=("stop_gradient",))
+register_op("make_loss", lambda x: x, aliases=("MakeLoss",))
+
+
+@register_op("Cast", aliases=("cast",))
+def _cast(x, *, dtype):
+    """Differentiable cast: the gradient is cast back to x's dtype."""
+    return x.to(torch_dtype(dtype))
+
+
+@register_op("amp_cast")
+def _amp_cast(x, *, dtype):
+    return x.to(torch_dtype(dtype))
+
+
+@register_op("clip")
+def _clip(x, *, a_min, a_max):
+    return torch.clamp(x, a_min, a_max)
+
+
+# ---------------------------------------------------------------- binary
+# elemwise_* (same shape) and broadcast_* names map to the same
+# broadcasting torch call, as in the JAX package.
+_BINARY = {
+    "broadcast_add": torch.add,
+    "broadcast_sub": torch.sub,
+    "broadcast_mul": torch.mul,
+    "broadcast_div": torch.div,
+    "broadcast_mod": torch.remainder,
+    "broadcast_power": torch.pow,
+    "broadcast_maximum": torch.maximum,
+    "broadcast_minimum": torch.minimum,
+    "broadcast_hypot": torch.hypot,
+}
+_BINARY_ALIASES = {
+    "broadcast_add": ("elemwise_add", "_plus", "_add", "_Plus"),
+    "broadcast_sub": ("elemwise_sub", "_minus", "_sub", "_Minus"),
+    "broadcast_mul": ("elemwise_mul", "_mul", "_Mul"),
+    "broadcast_div": ("elemwise_div", "_div", "_Div"),
+    "broadcast_mod": ("_mod",),
+    "broadcast_power": ("_power", "_Power", "pow"),
+    "broadcast_maximum": ("_maximum",),
+    "broadcast_minimum": ("_minimum",),
+    "broadcast_hypot": ("_hypot",),
+}
+
+for _name, _f in _BINARY.items():
+    register_op(_name, (lambda f: lambda lhs, rhs: f(lhs, rhs))(_f),
+                aliases=_BINARY_ALIASES.get(_name, ()))
+
+_CMP = {
+    "broadcast_equal": torch.eq,
+    "broadcast_not_equal": torch.ne,
+    "broadcast_greater": torch.gt,
+    "broadcast_greater_equal": torch.ge,
+    "broadcast_lesser": torch.lt,
+    "broadcast_lesser_equal": torch.le,
+    "broadcast_logical_and": torch.logical_and,
+    "broadcast_logical_or": torch.logical_or,
+    "broadcast_logical_xor": torch.logical_xor,
+}
+for _name, _f in _CMP.items():
+    register_op(
+        _name,
+        (lambda f: lambda lhs, rhs: f(lhs, rhs).to(lhs.dtype))(_f),
+        aliases=(_name.replace("broadcast_", "_"),), differentiable=False)
+
+
+@register_op("_scatter_elemwise_div")
+def _scatter_div(lhs, rhs):
+    return lhs / rhs
+
+
+# ---------------------------------------------------------------- scalar
+_SCALAR = {
+    "_plus_scalar": torch.add,
+    "_minus_scalar": torch.sub,
+    "_rminus_scalar": lambda x, s: torch.sub(s, x),
+    "_mul_scalar": torch.mul,
+    "_div_scalar": torch.div,
+    "_rdiv_scalar": lambda x, s: torch.div(s, x),
+    "_mod_scalar": torch.remainder,
+    "_rmod_scalar": lambda x, s: torch.remainder(_full(x, s), x),
+    "_power_scalar": torch.pow,
+    "_rpower_scalar": lambda x, s: torch.pow(s, x),
+    "_maximum_scalar": lambda x, s: torch.maximum(x, _full(x, s)),
+    "_minimum_scalar": lambda x, s: torch.minimum(x, _full(x, s)),
+    "_hypot_scalar": lambda x, s: torch.hypot(x, _full(x, s)),
+}
+for _name, _f in _SCALAR.items():
+    register_op(_name,
+                (lambda f: lambda x, *, scalar: f(*_sc(x, scalar)))(_f))
+
+_SCALAR_CMP = {
+    "_equal_scalar": torch.eq,
+    "_not_equal_scalar": torch.ne,
+    "_greater_scalar": torch.gt,
+    "_greater_equal_scalar": torch.ge,
+    "_lesser_scalar": torch.lt,
+    "_lesser_equal_scalar": torch.le,
+    "_logical_and_scalar": torch.logical_and,
+    "_logical_or_scalar": torch.logical_or,
+    "_logical_xor_scalar": torch.logical_xor,
+}
+
+
+def _scalar_cmp(f):
+    def op(x, *, scalar):
+        xs, s = _sc(x, scalar)
+        return f(xs, _full(xs, s)).to(x.dtype)
+    return op
+
+
+for _name, _f in _SCALAR_CMP.items():
+    register_op(_name, _scalar_cmp(_f), differentiable=False)
+
+
+@register_op("smooth_l1")
+def _smooth_l1(x, *, scalar=1.0):
+    s2 = scalar * scalar
+    absx = torch.abs(x)
+    return torch.where(absx < 1.0 / s2, 0.5 * s2 * x * x, absx - 0.5 / s2)
+
+
+@register_op("where")
+def _where(condition, x, y):
+    cond = condition.bool()
+    if condition.ndim != x.ndim:
+        cond = cond.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(cond, x, y)
+
+
+@register_op("_scatter_set_nd", differentiable=False)
+def _scatter_set_nd(lhs, indices, rhs, *, shape=None):
+    out = lhs.clone()
+    out[tuple(indices.long())] = rhs.to(out.dtype)
+    return out
+
+
+@register_op("add_n", aliases=("ElementWiseSum", "_sum", "elemwise_sum"))
+def _add_n(*args):
+    out = args[0]
+    for a in args[1:]:
+        out = out + a
+    return out
+

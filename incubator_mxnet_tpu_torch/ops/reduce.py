@@ -1,0 +1,148 @@
+"""Reduction and broadcast-shape operators (counterpart of
+``incubator_mxnet_tpu/ops/reduce.py``; reference
+src/operator/tensor/broadcast_reduce_op_*.cc).
+
+MXNet axis semantics: ``axis`` may be None (all), an int or a tuple,
+with ``keepdims`` and ``exclude``.  Output dtypes are the JAX
+package's: sum and prod keep an integer input's dtype (bool sums to
+int32), mean of an integer array is float32, argmax/argmin return
+float32 indices.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import torch_dtype
+from .registry import register_op
+
+__all__ = []
+
+
+def _norm_axis(axis, ndim, exclude=False):
+    if axis is None:
+        ax = tuple(range(ndim))
+    elif isinstance(axis, int):
+        ax = (axis % ndim,)
+    else:
+        ax = tuple(a % ndim for a in axis)
+    if exclude:
+        ax = tuple(i for i in range(ndim) if i not in ax)
+    return ax
+
+
+def _int_result(x):
+    """The dtype an integer sum or product keeps (bool -> int32)."""
+    return torch.int32 if x.dtype == torch.bool else x.dtype
+
+
+def _sum(x, ax, keepdims):
+    if x.is_floating_point():
+        return torch.sum(x, dim=ax, keepdim=keepdims)
+    return torch.sum(x, dim=ax, keepdim=keepdims).to(_int_result(x))
+
+
+def _mean(x, ax, keepdims):
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return torch.mean(x, dim=ax, keepdim=keepdims)
+
+
+def _prod(x, ax, keepdims):
+    out = x
+    for a in sorted(ax, reverse=True):
+        out = torch.prod(out, dim=a, keepdim=keepdims)
+    return out if x.is_floating_point() else out.to(_int_result(x))
+
+
+def _nansum(x, ax, keepdims):
+    return torch.nansum(x, dim=ax, keepdim=keepdims)
+
+
+def _nanprod(x, ax, keepdims):
+    return _prod(torch.where(torch.isnan(x), torch.ones_like(x), x), ax,
+                 keepdims)
+
+
+def _max(x, ax, keepdims):
+    return torch.amax(x, dim=ax, keepdim=keepdims)
+
+
+def _min(x, ax, keepdims):
+    return torch.amin(x, dim=ax, keepdim=keepdims)
+
+
+def _reduce(f):
+    def op(x, *, axis=None, keepdims=False, exclude=False):
+        ax = _norm_axis(axis, x.ndim, exclude)
+        if not ax:      # an empty axis tuple reduces nothing
+            return x
+        return f(x, ax, bool(keepdims))
+    return op
+
+
+register_op("sum", _reduce(_sum), aliases=("sum_axis",))
+register_op("mean", _reduce(_mean))
+register_op("prod", _reduce(_prod))
+register_op("nansum", _reduce(_nansum))
+register_op("nanprod", _reduce(_nanprod))
+register_op("max", _reduce(_max), aliases=("max_axis",))
+register_op("min", _reduce(_min), aliases=("min_axis",))
+
+
+@register_op("norm")
+def _norm(x, *, ord=2, axis=None, keepdims=False):
+    ax = tuple(range(x.ndim)) if axis is None else \
+        (axis if isinstance(axis, tuple) else (axis,))
+    if ord == 1:
+        return torch.sum(torch.abs(x), dim=ax, keepdim=keepdims)
+    return torch.sqrt(torch.sum(torch.square(x), dim=ax, keepdim=keepdims))
+
+
+def _arg(f):
+    def op(x, *, axis=None, keepdims=False):
+        if axis is None:
+            out = f(x.reshape(-1), dim=0)
+        else:
+            out = f(x, dim=axis, keepdim=bool(keepdims))
+        return out.to(torch.float32)
+    return op
+
+
+register_op("argmax", _arg(torch.argmax), differentiable=False)
+register_op("argmin", _arg(torch.argmin), differentiable=False)
+
+
+@register_op("argmax_channel", differentiable=False)
+def _argmax_channel(x):
+    return torch.argmax(x, dim=-1).to(torch.float32)
+
+
+@register_op("broadcast_to")
+def _broadcast_to(x, *, shape):
+    tgt = tuple(s if s != 0 else x.shape[i] for i, s in enumerate(shape))
+    return x.expand(tgt)
+
+
+@register_op("broadcast_axis", aliases=("broadcast_axes",))
+def _broadcast_axis(x, *, axis, size):
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    sizes = (size,) if isinstance(size, int) else tuple(size)
+    tgt = list(x.shape)
+    for a, s in zip(axes, sizes):
+        tgt[a] = s
+    return x.expand(tuple(tgt))
+
+
+@register_op("broadcast_like")
+def _broadcast_like(x, like):
+    return x.expand(like.shape)
+
+
+@register_op("cumsum")
+def _cumsum(x, *, axis=None, dtype=None):
+    if axis is None:
+        x, axis = x.reshape(-1), 0
+    if dtype is not None:
+        return torch.cumsum(x, dim=axis, dtype=torch_dtype(dtype))
+    out = torch.cumsum(x, dim=axis)
+    return out if x.is_floating_point() else out.to(_int_result(x))
