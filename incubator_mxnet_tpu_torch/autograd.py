@@ -18,9 +18,20 @@ their gradients, then writes each into the NDArray's grad buffer by its
 nothing accumulates behind the caller's back.  The graph is freed after
 ``backward`` unless ``retain_graph=True``, as in the reference (the
 JAX tape keeps it either way).
+
+**Writes into saved arrays.**  A JAX array is immutable: a write
+rebinds the NDArray and the tape keeps differentiating at the values
+it recorded.  Torch saves tensors by reference and refuses ``backward``
+after one was written in place.  So ``saving()`` notes the storage of
+each tensor that a recorded op's graph saves (a saved-tensor hook; the
+note goes when torch frees the graph), and ``ndarray._write`` rebinds
+instead of writing in place while one is saved (``rebind``): the graph
+keeps the old tensor, and the array keeps its place in the graph, as
+its JAX tape node does.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import weakref
 
@@ -84,6 +95,71 @@ def predict_mode():
     return _Scope(None, False)
 
 
+# ---------------------------------------------------------------- saved
+class _Saved:
+    """A tensor as a recorded graph holds it, with its storage's address;
+    it lives exactly as long as the graph keeps it."""
+
+    __slots__ = ("t", "key", "__weakref__")
+
+    def __init__(self, t):
+        self.t = t
+        self.key = t.untyped_storage().data_ptr()
+        _saved.add(self)
+
+
+_saved = weakref.WeakSet()      # the _Saved of every live recorded graph
+
+
+def saving():
+    """Context of a recorded op: notes the tensors its graph saves."""
+    if not torch.is_grad_enabled():
+        return contextlib.nullcontext()
+    return torch.autograd.graph.saved_tensors_hooks(_Saved, lambda s: s.t)
+
+
+def is_saved(t):
+    """True when a live recorded graph has saved ``t``'s storage."""
+    if t.numel() == 0:
+        return False
+    key = t.untyped_storage().data_ptr()
+    return any(s.key == key for s in list(_saved))
+
+
+class _Rebound(torch.autograd.Function):
+    """``new``'s values in ``old``'s place in the graph: the gradient
+    goes to ``old`` unchanged (the JAX package's ``_set_data`` keeps the
+    array's tape node)."""
+
+    @staticmethod
+    def forward(ctx, old, new):
+        return new.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def rebind(arr, value):
+    """Give ``arr`` the values of tensor ``value`` (its shape and dtype)
+    without touching its tensor, which a live graph has saved.  A
+    variable gets a new leaf tagged as its own; an array computed under
+    ``record()`` a tensor that stands in its place in the graph."""
+    old = arr._data
+    value = value.detach()
+    if old.grad_fn is not None:
+        with torch.enable_grad():
+            arr._data = _Rebound.apply(old, value)
+        return
+    new = value.clone()
+    if old.requires_grad:
+        new.requires_grad_(True)
+    var = getattr(old, "_mx_variable", None)
+    if var is not None:
+        new._mx_variable = var
+    arr._data = new
+
+
 # ---------------------------------------------------------------- variables
 def mark_variables(variables, gradients, grad_reqs="write"):
     """Associate gradient buffers with variables
@@ -105,9 +181,9 @@ def mark_variables(variables, gradients, grad_reqs="write"):
 
 
 def _variable_of(t):
+    """The variable whose leaf ``t`` is (or was, before a ``rebind``)."""
     ref = getattr(t, "_mx_variable", None)
-    v = ref() if ref is not None else None
-    return v if v is not None and v._data is t else None
+    return ref() if ref is not None else None
 
 
 def _leaves(heads):
@@ -176,9 +252,15 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         return
     grads = torch.autograd.grad(outputs, leaves, seeds,
                                 retain_graph=retain_graph, allow_unused=True)
+    # a variable rebound under record() has two leaves: sum them
+    total = {}
     for t, g in zip(leaves, grads):
         if g is not None:
-            _store(_variable_of(t), g)
+            var = _variable_of(t)
+            prev = total.get(id(var), (var, None))[1]
+            total[id(var)] = (var, g if prev is None else prev + g)
+    for var, g in total.values():
+        _store(var, g)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -1,6 +1,6 @@
 // Pass 2 of the bottleneck chain for Hopper (sm_90a): BN1-apply -> ReLU
-// -> 3x3 conv2 -> BN2-apply -> ReLU -> 1x1 conv3 + bias, fp32 on the
-// CUDA cores.
+// -> 3x3 conv2 -> BN2-apply -> ReLU -> 1x1 conv3 + bias, fp32-accurate on
+// the tensor cores.
 //
 // Replaces the TPU kernel incubator_mxnet_tpu/ops/fused_chain.py
 // `_chain_kernel` with emit=True (launched by `pl.pallas_call` in
@@ -14,156 +14,237 @@
 // and writes only out: neither c2 nor y2 reaches device memory.
 //
 // What bounds it on this card.  2 * (9C + Co) flops per element of c2
-// against one read of c1 and one write of out: at ResNet-50's four
-// chain shapes at batch 128 (56x56x64 -> 64 -> 256 ... 7x7x512 -> 512 ->
-// 2048, 42.8 GFLOP each) it is bound by operations, 0.638 ms a launch
-// at the fp32 CUDA-core peak of 67 TFLOP/s.
+// against one read of c1 and one write of out: at ResNet-50's four chain
+// shapes at batch 128 (56x56x64 -> 64 -> 256 ... 7x7x512 -> 512 -> 2048,
+// 42.8 GFLOP each) it is bound by operations: 0.259 ms a launch at the
+// 165 TFLOP/s of fp32-accurate (3xTF32) tensor-core work.
 //
-// What the design does about it.  A CTA owns BM output pixels and all
-// Cm channels of c2.  It runs B2's main loop (sbr_gemm.cuh) over Cm in
-// BN-wide chunks, applies the BN2 affine and the ReLU to each chunk in
-// registers and stores it k-major into a shared-memory y2 tile (Cm x BM
-// fp32, up to 139 KB at BM = 64, Cm = 512, hence dynamic shared memory).
-// Then it computes y2 @ w3^T over Co in BN-wide chunks with the same
-// register blocking, A read from the resident y2 tile and w3 streamed
-// through the main loop's double-buffered B tiles, adds b3 and writes
-// out.  conv2 is computed once per CTA, not once per Co tile (that would
-// multiply its work by Co/BN, 16x at Co = 2048).  Rows are flat pixels
-// over the whole batch; BM = 32 (with 128-wide chunks) where 64-row
-// tiles would leave SMs idle (ResNet-50 stage 4 at batch 128: 98 CTAs
-// of 64 rows on 132 SMs).  Dropped from the TPU version: the whole-image
-// VMEM scratch, the dy-merged lanes for its MXU, and its VMEM envelope;
-// the port's envelope is Cm <= 768 (the y2 tile in 227 KB).
+// Design (tc_gemm.cuh for the main loop and its numerics).  A CTA owns
+// BM output pixels (flat over the batch) and all Cm channels of c2.
+// conv2 runs as the 3x3 implicit GEMM over Cm in BN-wide chunks, in one
+// cp.async ring (3 slots of 32 channels of one tap, one barrier a step)
+// that runs on from one chunk into the next; raw c1 rows arrive as they
+// are and the BN1 affine, the ReLU and the tap mask are applied as each
+// warp loads its A fragments.  Each chunk's epilogue applies the BN2
+// affine and the ReLU in registers and stores y2 into a resident
+// shared-memory tile (BM rows of Cm rounded up to BN, plus 4 floats, so
+// that the row stride is 4 mod 32 banks and conv3's A fragment loads are
+// conflict-free).  conv3 then reads its A fragments from that tile while
+// w3 streams through the same ring, Co in BN-wide chunks; the bias is
+// added and out written channels-last, as float4 stores (lane pairs swap
+// halves by a shuffle) where the row allows.  conv2 is computed once per
+// CTA, not once per Co tile.
+//
+// Tile per shape.  Larger BM shares each weight slot among more rows,
+// which the measurements favour over more CTAs an SM; the y2 tile and
+// the number of SMs bound it.  mx_chain_emit takes BN = 64 (2 x 2 warps)
+// when Cm <= 64, so no chunk is half empty; else BN = 128 and the
+// larger BM of 128 (Cm <= 128 only) and 96 whose CTAs fit in shared
+// memory and are at least one per SM, else BM = 48 (1 x 4 warps).
+// ResNet-50 at b = 128:
+//   56x56 (Cm  64): 64 x 64,   6272 CTAs,  72 KB, up to 3 an SM
+//   28x28 (Cm 128): 128 x 128,  784 CTAs, 175 KB, 1 an SM, 5.9 waves
+//   14x14 (Cm 256): 96 x 128,   262 CTAs, 193 KB, 1 an SM, 2.0 waves
+//   7x7   (Cm 512): 48 x 128,   131 CTAs, 172 KB, one wave (64-row
+//                   tiles would give 98 CTAs and leave 34 SMs idle)
+// Cm = 768, the envelope's edge, takes 48 x 128 (220 KB).
+//
+// What it reaches (PERF.md, measured by tools/port_chain_sweep.py).
+// mma.sync tf32 peaks at about 320 TFLOP/s on the H100, not wgmma's 495,
+// so 3xTF32 through it cannot go below ~0.4 ms at these shapes; the
+// kernel takes 2.3-3.4x that.  The three products, the cp.async copies
+// and the BN1 prologue each cost a share that the warps of a CTA, held
+// in step by one barrier a step, do not hide behind one another.
+//
+// Left for later: wgmma with B from shared memory (this is mma.sync, A
+// from registers, where the BN1 prologue runs anyway); TMA loads and
+// multicast of w2 / w3 across a cluster; Co split across a cluster whose
+// CTAs share one y2 tile through distributed shared memory.
 //
 // C interface (ctypes): mx_chain_emit returns the CUDA error code of the
 // launch (0 on success).  It allocates nothing; the caller passes
 // contiguous fp32 device pointers and the stream.
 
-#include "sbr_gemm.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-using sbr::BK;
-using sbr::LANES;
-using sbr::NTHREADS;
+using tc::BK;
 
-// the y2 tile: k-major rows of BM pixels, padded by 4 floats as the
-// main loop's tiles are; its rows are Cm rounded up to whole BN-wide
-// chunks
-inline int y2_rows(int cm, int bn) { return (cm + bn - 1) / bn * bn; }
-
-template <int BM, int BN>
-__global__ void __launch_bounds__(NTHREADS)
-chain_emit_kernel(sbr::Conv p, const float* __restrict__ a2,
-                  const float* __restrict__ b2,
-                  const float* __restrict__ w3,
-                  const float* __restrict__ b3, float* __restrict__ out,
-                  int Co) {
-  using L = sbr::Layout<BM, BN>;
-  constexpr int LD = BM + 4;
-  constexpr int BP = BN / LANES;
-  extern __shared__ __align__(16) float y2s[];   // [y2 rows][LD], k-major
-  __shared__ __align__(16) sbr::Tiles<BM, BN> t;
-  const int tid = threadIdx.x;
-  const int tx = tid % L::TX;
-  const int ty = tid / L::TX;
-  const int m0 = blockIdx.x * BM;
-  const int Cm = p.N;
-  sbr::Acc<BM, BN> acc;
-
-  // y2 = relu(conv2 * a2 + b2), chunk by chunk; columns past Cm hold 0
-  for (int n0 = 0; n0 < Cm; n0 += BN) {
-    sbr::mainloop<9, BM, BN>(p, m0, n0, t, acc);
-#pragma unroll
-    for (int j = 0; j < L::TN; ++j) {
-      const int k = n0 + L::col(tx, j);
-      const bool ok = k < Cm;
-      const float av = ok ? __ldg(a2 + k) : 0.f;
-      const float bv = ok ? __ldg(b2 + k) : 0.f;
-#pragma unroll
-      for (int i = 0; i < L::TM; ++i)
-        y2s[k * LD + L::row(ty, i)] = ok ? fmaxf(fmaf(acc[i][j], av, bv), 0.f)
-                                         : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // out = y2 @ w3^T + b3, Co in BN-wide chunks
-  const int steps = (Cm + BK - 1) / BK;
-  const int kl = tid % BK;
-  const int rl = tid / BK;
-  float rb[BP];
-  for (int o0 = 0; o0 < Co; o0 += BN) {
-    auto fetch = [&](int s) {
-      const int k = s * BK + kl;
-#pragma unroll
-      for (int j = 0; j < BP; ++j) {
-        const int o = o0 + rl + LANES * j;
-        rb[j] = (k < Cm && o < Co) ? __ldg(w3 + (long long)o * Cm + k) : 0.f;
-      }
-    };
-    auto stash = [&](int buf) {
-#pragma unroll
-      for (int j = 0; j < BP; ++j) t.bs[buf][kl][rl + LANES * j] = rb[j];
-    };
-#pragma unroll
-    for (int i = 0; i < L::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < L::TN; ++j) acc[i][j] = 0.f;
-    fetch(0);
-    stash(0);
-    __syncthreads();
-    for (int s = 0; s < steps; ++s) {
-      const int cur = s & 1;
-      if (s + 1 < steps) fetch(s + 1);
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float* arow = y2s + (s * BK + kk) * LD;
-        float af[L::TM], bf[L::TN];
-#pragma unroll
-        for (int i = 0; i < L::TM / 4; ++i) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              arow + i * 4 * L::TY + ty * 4);
-          af[4 * i] = v.x; af[4 * i + 1] = v.y;
-          af[4 * i + 2] = v.z; af[4 * i + 3] = v.w;
-        }
-#pragma unroll
-        for (int j = 0; j < L::TN / 4; ++j) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              &t.bs[cur][kk][j * 4 * L::TX + tx * 4]);
-          bf[4 * j] = v.x; bf[4 * j + 1] = v.y;
-          bf[4 * j + 2] = v.z; bf[4 * j + 3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < L::TM; ++i)
-#pragma unroll
-          for (int j = 0; j < L::TN; ++j)
-            acc[i][j] = fmaf(af[i], bf[j], acc[i][j]);
-      }
-      if (s + 1 < steps) stash(cur ^ 1);
-      __syncthreads();
-    }
-    const sbr::StoreBias epi{b3, out};
-    const sbr::Conv po{nullptr, nullptr, nullptr, nullptr, p.M, Cm, Co, 1, 1};
-    epi.template operator()<BM, BN>(po, m0, o0, acc);
-  }
+// the y2 tile's row: Cm rounded up to whole BN-wide chunks, plus 4 (a
+// row stride of 4 mod 32 banks)
+template <class T>
+__host__ __device__ int y2_ld(int cm) {
+  return (cm + T::BN - 1) / T::BN * T::BN + 4;
 }
 
-template <int BM, int BN>
-int launch_emit(const sbr::Conv& p, const float* a2, const float* b2,
-                const float* w3, const float* b3, float* out, int co,
-                int max_smem, cudaStream_t stream) {
-  const size_t dyn = (size_t)y2_rows(p.N, BN) * (BM + 4) * sizeof(float);
-  if (dyn + sizeof(sbr::Tiles<BM, BN>) > (size_t)max_smem)
-    return (int)cudaErrorInvalidValue;
+template <class T>
+size_t smem_bytes(int cm) {
+  return T::RING_BYTES + (size_t)T::BM * y2_ld<T>(cm) * sizeof(float);
+}
+
+struct Emit {
+  const float* a2;
+  const float* b2;
+  const float* w3;
+  const float* b3;
+  float* out;
+  int Co;
+  bool vec3;     // Cm % 4 == 0 and w3 16-byte aligned
+  bool vec_out;  // Co % 4 == 0 and out, b3 16-byte aligned
+};
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS)
+chain_emit_kernel(tc::Conv p, Emit e) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* y2s = smem + tc::STAGES * T::SLOT;
+  const int m0 = blockIdx.x * T::BM;
+  const int Cm = p.N;
+  const int ld = y2_ld<T>(Cm);
+  const tc::Conv3x3<T> conv(p, m0);
+  const tc::Frag<T>& f = conv.f;
+  tc::Acc<T> acc;
+  tc::zero<T>(acc);
+
+  // y2 = relu(conv2 * a2 + b2), chunk by chunk; columns past Cm hold 0
+  const int ks2 = p.steps();
+  const int chunks2 = (Cm + T::BN - 1) / T::BN;
+  tc::pipeline(
+      chunks2 * ks2,
+      [&](int s, int slot) {
+        conv.load(s % ks2, (s / ks2) * T::BN, ring + slot * T::SLOT);
+      },
+      [&](int s, int slot) {
+        const int ks = s % ks2;
+        conv.compute(ks, ring + slot * T::SLOT, acc);
+        if (ks != ks2 - 1) return;
+        const int n0 = (s / ks2) * T::BN;
+#pragma unroll
+        for (int j = 0; j < T::NI; ++j) {
+          const int n = n0 + f.col0(j);
+          const bool ok0 = n < Cm, ok1 = n + 1 < Cm;
+          const float a0 = ok0 ? __ldg(e.a2 + n) : 0.f;
+          const float b0 = ok0 ? __ldg(e.b2 + n) : 0.f;
+          const float a1 = ok1 ? __ldg(e.a2 + n + 1) : 0.f;
+          const float b1 = ok1 ? __ldg(e.b2 + n + 1) : 0.f;
+#pragma unroll
+          for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float2 v;
+              v.x = fmaxf(fmaf(acc[i][j][2 * h], a0, b0), 0.f);
+              v.y = fmaxf(fmaf(acc[i][j][2 * h + 1], a1, b1), 0.f);
+              *reinterpret_cast<float2*>(y2s + (f.row0(i) + 8 * h) * ld + n) =
+                  v;
+            }
+        }
+        tc::zero<T>(acc);
+      });
+
+  // out = y2 @ w3^T + b3, Co in BN-wide chunks, w3 through the same ring
+  const int ks3 = (Cm + BK - 1) / BK;
+  const int chunks3 = (e.Co + T::BN - 1) / T::BN;
+  const int M = p.M, Co = e.Co;
+  tc::pipeline(
+      chunks3 * ks3,
+      [&](int s, int slot) {
+        const int o0 = (s / ks3) * T::BN;
+        const float* w3 = e.w3;
+        tc::copy_rows<T::BN, T::THREADS>(
+            ring + slot * T::SLOT + T::B_OFF,
+            [&](int r) { return w3 + (long long)(o0 + r) * Cm; },
+            [&](int r) { return o0 + r < Co; }, (s % ks3) * BK, Cm, e.vec3,
+            w3);
+      },
+      [&](int s, int slot) {
+        const int ks = s % ks3;
+        const float* a = y2s + ks * BK;
+        auto a_frag = [&](int i, int kk, uint32_t (&ab)[4],
+                          uint32_t (&as)[4]) {
+          uint32_t r[4];
+          tc::ldsm4(r, a + f.a_row(i) * ld + kk * 8 + f.a_col());
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            tc::split(__uint_as_float(r[q]), ab[q], as[q]);
+        };
+        tc::mma_slot<T>(ring + slot * T::SLOT + T::B_OFF, f, a_frag, acc);
+        if (ks != ks3 - 1) return;
+        const int o0 = (s / ks3) * T::BN;
+        const bool odd = f.t & 1;
+#pragma unroll
+        for (int j = 0; j < T::NI; ++j) {
+          const int o = o0 + f.col0(j);
+#pragma unroll
+          for (int i = 0; i < T::MI; ++i) {
+            const float* c = acc[i][j];
+            if (e.vec_out) {
+              // lanes t and t^1 swap halves: the even one stores row g's
+              // columns 2t..2t+3, the odd one row g+8's 2t-2..2t+1
+              const float r0 =
+                  __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+              const float r1 =
+                  __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+              const int m = m0 + f.row0(i) + (odd ? 8 : 0);
+              const int oc = odd ? o - 2 : o;
+              if (m < M && oc < Co) {
+                const float4 bias =
+                    __ldg(reinterpret_cast<const float4*>(e.b3 + oc));
+                float4 v = odd ? make_float4(r0, r1, c[2], c[3])
+                               : make_float4(c[0], c[1], r0, r1);
+                v.x += bias.x;
+                v.y += bias.y;
+                v.z += bias.z;
+                v.w += bias.w;
+                *reinterpret_cast<float4*>(e.out + (long long)m * Co + oc) =
+                    v;
+              }
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int m = m0 + f.row0(i) + 8 * (q / 2);
+                const int oq = o + q % 2;
+                if (m < M && oq < Co)
+                  e.out[(long long)m * Co + oq] = c[q] + __ldg(e.b3 + oq);
+              }
+            }
+          }
+        }
+        tc::zero<T>(acc);
+      });
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <class T>
+int launch_emit(const tc::Conv& p, const Emit& e, cudaStream_t stream) {
+  const size_t dyn = smem_bytes<T>(p.N);
   cudaError_t err = cudaFuncSetAttribute(
-      chain_emit_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      chain_emit_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dyn);
   if (err != cudaSuccess) return (int)err;
-  const int m_tiles = (p.M + BM - 1) / BM;
-  chain_emit_kernel<BM, BN><<<m_tiles, NTHREADS, dyn, stream>>>(
-      p, a2, b2, w3, b3, out, co);
+  const int m_tiles = (p.M + T::BM - 1) / T::BM;
+  chain_emit_kernel<T><<<m_tiles, T::THREADS, dyn, stream>>>(p, e);
   return (int)cudaGetLastError();
+}
+
+// The tiles, chosen per shape by mx_chain_emit (see the note)
+using Cm64 = tc::Tile<64, 64, 2, 2>;
+using Rows128 = tc::Tile<128, 128, 2, 4>;
+using Rows96 = tc::Tile<96, 128, 2, 4>;
+using Rows48 = tc::Tile<48, 128, 1, 4>;
+
+template <class T>
+bool fits(int cm, int max_smem) {
+  return smem_bytes<T>(cm) <= (size_t)max_smem;
+}
+
+template <class T>
+bool fills(int m, int sms) {
+  return (m + T::BM - 1) / T::BM >= sms;
 }
 
 }  // namespace
@@ -173,10 +254,12 @@ extern "C" int mx_chain_emit(const void* x, const void* a1, const void* b1,
                              const void* w3, const void* b3, void* out,
                              int n, int h, int w, int c, int cm, int co,
                              void* stream) {
-  const sbr::Conv p{static_cast<const float*>(x),
-                    static_cast<const float*>(a1),
-                    static_cast<const float*>(b1),
-                    static_cast<const float*>(w2), n * h * w, c, cm, h, w};
+  const bool vec = c % 4 == 0 && aligned16(x) && aligned16(w2);
+  const tc::Conv p{static_cast<const float*>(x),
+                   static_cast<const float*>(a1),
+                   static_cast<const float*>(b1),
+                   static_cast<const float*>(w2), n * h * w, c, cm, h, w,
+                   vec};
   if (p.M <= 0 || c <= 0 || cm <= 0 || co <= 0)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, max_smem = 0;
@@ -187,15 +270,19 @@ extern "C" int mx_chain_emit(const void* x, const void* a1, const void* b1,
     err = cudaDeviceGetAttribute(
         &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const auto* a2f = static_cast<const float*>(a2);
-  const auto* b2f = static_cast<const float*>(b2);
-  const auto* w3f = static_cast<const float*>(w3);
-  const auto* b3f = static_cast<const float*>(b3);
-  auto* outf = static_cast<float*>(out);
+  const Emit e{static_cast<const float*>(a2), static_cast<const float*>(b2),
+               static_cast<const float*>(w3), static_cast<const float*>(b3),
+               static_cast<float*>(out), co,
+               cm % 4 == 0 && aligned16(w3),
+               co % 4 == 0 && aligned16(out) && aligned16(b3)};
   auto s = static_cast<cudaStream_t>(stream);
-  if ((p.M + 63) / 64 >= sms)
-    return launch_emit<64, 64>(p, a2f, b2f, w3f, b3f, outf, co, max_smem, s);
-  return launch_emit<32, 128>(p, a2f, b2f, w3f, b3f, outf, co, max_smem, s);
+  if (cm <= 64) return launch_emit<Cm64>(p, e, s);
+  if (cm <= 128 && fills<Rows128>(p.M, sms))
+    return launch_emit<Rows128>(p, e, s);
+  if (fits<Rows96>(cm, max_smem) && fills<Rows96>(p.M, sms))
+    return launch_emit<Rows96>(p, e, s);
+  if (fits<Rows48>(cm, max_smem)) return launch_emit<Rows48>(p, e, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

@@ -1,6 +1,7 @@
 // The fp32 main loop shared by the fused [BN-apply -> ReLU -> conv]
-// kernels: sbr_matmul.cu (1x1), sbr_conv3x3.cu (3x3, pad 1), and the two
-// passes of the bottleneck chain, chain_stats.cu and chain_emit.cu.  Each
+// kernels: sbr_matmul.cu (1x1), sbr_conv3x3.cu (3x3, pad 1), and pass 1
+// of the bottleneck chain, chain_stats.cu (pass 2, chain_emit.cu, runs
+// on the tensor cores through tc_gemm.cuh).  Each
 // source's note says which TPU kernel it replaces and why it is shaped
 // so.
 //
@@ -15,9 +16,8 @@
 // TAPS*C), TAPS = 1 for the 1x1 conv and 9 for the 3x3.  The padding
 // zero comes after the BN affine and the ReLU, as the TPU kernels pad
 // their activated image.  What happens to the BM x BN tile of c is the
-// kernel's epilogue: store it plus a bias (B1, B2), reduce its columns
-// (chain_stats), or activate it on chip and feed a second GEMM
-// (chain_emit).
+// kernel's epilogue: store it plus a bias (B1, B2) or reduce its columns
+// (chain_stats).
 //
 // Tiling.  One CTA of 256 threads owns a BM x BN tile.  The reduction
 // runs in steps of BK = 8 channels of one tap: each thread fetches its
@@ -192,9 +192,8 @@ __device__ __forceinline__ void mainloop(const Conv& p, int m0, int n0,
   }
 }
 
-// Epilogue of B1/B2 (and of B4's second GEMM): out[m, n] = acc +
-// bias[n], rows of TX threads x 4 columns, float4 stores where the row
-// length allows.
+// Epilogue of B1/B2: out[m, n] = acc + bias[n], rows of TX threads x 4
+// columns, float4 stores where the row length allows.
 struct StoreBias {
   const float* bias;
   float* out;

@@ -1,0 +1,425 @@
+// A warp-level tensor-core main loop for Hopper (sm_90a), fp32-accurate:
+// 3xTF32 mma.sync fed by a cp.async ring in dynamic shared memory.  Used
+// by chain_emit.cu (B4); its note says which TPU kernel that replaces.
+//
+// Products.  mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 multiplies
+// a 16x8 A fragment by an 8x8 B fragment into a 16x8 fp32 accumulator.
+// TF32 keeps 10 mantissa bits, so each operand x is split into big =
+// tf32_rna(x) and small = tf32_rna(x - big) (rounded to nearest, ties
+// away, as cvt.rna.tf32.f32 rounds), and three products are accumulated:
+// a_s*b_b + a_b*b_s, then a_b*b_b (small*small, ~2^-22 of the product,
+// is dropped).  That is fp32's accuracy at three times the TF32 work:
+// 495 / 3 = 165 TFLOP/s of fp32-accurate products on an H100 SXM
+// through wgmma, against 67 TFLOP/s on the CUDA cores.
+//
+// Fragment layout (PTX ISA, m16n8k8 .tf32), g = lane / 4, t = lane % 4:
+//   A (row-major 16x8): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (col-major 8x8):  b0 (k t, n g), b1 (k t+4, n g)
+//   C (16x8):           c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+//
+// Tiling.  A CTA owns a BM x BN tile, its warps a WGM x WGN grid of WM x
+// WN warp tiles (MI x NI mma tiles each).  The reduction runs in steps
+// of BK = 32 channels of one tap.  Each step's operands are copied by
+// cp.async into one slot of a STAGES-deep ring (one commit group a step,
+// STAGES - 1 steps in flight) and there is one barrier a step.  A slot
+// holds A as BM rows of BK floats, B as BN rows of BK floats (both
+// k-contiguous, as channels-last rows are in device memory), and the
+// step's per-channel affine (a, b).  Rows are padded to LDS = BK + 4
+// floats, so the 8 rows of each 8x8 matrix that ldmatrix reads for a
+// fragment start in banks 4r and cover all 32 banks once, and the
+// 16-byte cp.async stores of 8 threads cover one row's 32 banks.
+//
+// Accumulation.  The tensor cores add into the accumulator rounding
+// toward zero, so a running sum over thousands of products drifts (4e-5
+// of max |out| over K = 4608 on the H100).  Each slot's 32 channels are
+// therefore summed into a fresh fragment and added to the running sum
+// by an fp32 add, which rounds to nearest.
+//
+// The 3x3 implicit GEMM (Conv, Conv3x3 below) is the main loop of the fused
+// [BN-apply -> ReLU -> conv] kernels of the bottleneck chain:
+//
+//   c[m, n] = sum_{t < 9, c < C} y(m, t, c) * w[n, t, c]
+//   y(m, t, c) = relu(x[m + shift(t), c] * a[c] + b[c])  if tap t of
+//                pixel m lies inside its image, else 0
+//
+// with m the flat pixel n*H*W + h*W + w over the whole batch, x
+// channels-last (M rows of C), w OHWI (N rows of 9*C).  Raw rows of x are
+// copied as they are (a tap outside the image zero-filled by cp.async's
+// src-size 0); the affine, the ReLU and then the tap mask are applied
+// when a warp loads its A fragment, because relu(0*a + b) is not 0: the
+// padding zero comes after the activation.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tc {
+
+constexpr int BK = 32;             // channels of one tap per step
+constexpr int LDS = BK + 4;        // padded row of a ring slot (floats)
+constexpr int STAGES = 3;          // depth of the cp.async ring
+
+// ------------------------------------------------------------------ PTX
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, global -> shared, bypassing L1; zero-filled when !pred.
+// Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4 bytes, for rows that are not 16-byte aligned; zero-filled when !pred
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+// Four 8x8 matrices of 32-bit words from shared memory (ldmatrix on b16
+// pairs): lane L gives the address of row L % 8 of matrix L / 8, and
+// r[m] gets word L % 4 of row L / 4 of matrix m, which is where the
+// mma fragments want them (g = L / 4, t = L % 4).  Rows 16-byte aligned.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// cvt.rna.tf32.f32 on the integer pipe: round the fp32 bit pattern to
+// nearest, ties away, at 10 mantissa bits.  The same result for every
+// finite x, in two integer instructions instead of one on the
+// conversion unit, which does 16 lanes an SM a clock.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, both TF32 (round to nearest, ties away)
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b at fp32 accuracy: the two cross terms first, the big
+// product last
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma(d, as, bb);
+  mma(d, ab, bs);
+  mma(d, ab, bb);
+}
+
+// ------------------------------------------------------------------ tile
+// A CTA tile: BM x BN, warps WGM x WGN
+template <int BM_, int BN_, int WGM_, int WGN_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WGM = WGM_, WGN = WGN_;
+  static constexpr int THREADS = 32 * WGM * WGN;
+  static constexpr int WM = BM / WGM;
+  static constexpr int WN = BN / WGN;
+  static constexpr int MI = WM / 16;
+  static constexpr int NI = WN / 8;
+  static_assert(MI >= 1 && NI >= 2 && WM % 16 == 0 && WN % 16 == 0,
+                "warp tile is not whole mma tiles, B fragments in pairs");
+  static_assert(THREADS >= 2 * BK, "the affine copy needs 2 * BK threads");
+  // one ring slot: A rows, B rows, the step's affine (a, b)
+  static constexpr int A_OFF = 0;
+  static constexpr int B_OFF = BM * LDS;
+  static constexpr int AB_OFF = (BM + BN) * LDS;
+  static constexpr int SLOT = (BM + BN) * LDS + 2 * BK;     // floats
+  static constexpr size_t RING_BYTES = (size_t)STAGES * SLOT * sizeof(float);
+};
+
+template <class T>
+using Acc = float[T::MI][T::NI][4];
+
+template <class T>
+__device__ __forceinline__ void zero(Acc<T>& acc) {
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NI; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+}
+
+// Where this thread's accumulators sit in the BM x BN tile: acc[i][j][q]
+// is at row row0(i) + 8 * (q / 2), column col0(j) + q % 2.
+template <class T>
+struct Frag {
+  int wm, wn, lane, g, t;
+  __device__ Frag() {
+    const int warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+    wm = warp / T::WGN;
+    wn = warp % T::WGN;
+    g = lane / 4;
+    t = lane % 4;
+  }
+  __device__ int row0(int i) const { return wm * T::WM + i * 16 + g; }
+  __device__ int col0(int j) const { return wn * T::WN + j * 8 + 2 * t; }
+  // the row and column (within a k-step) this lane addresses for ldsm4:
+  // A fragment i (rows 0-7 then 8-15, columns 0-3 then 4-7), and B
+  // fragments 2jp and 2jp + 1 (columns 0-3 then 4-7 of each)
+  __device__ int a_row(int i) const {
+    return wm * T::WM + i * 16 + (lane & 7) + (lane & 8);
+  }
+  __device__ int a_col() const { return (lane >> 4) * 4; }
+  __device__ int b_row(int jp) const {
+    return wn * T::WN + jp * 16 + (lane & 7) + (lane >> 4) * 8;
+  }
+  __device__ int b_col() const { return (lane & 8) >> 1; }
+};
+
+// The ring.  steps reduction steps; load(s, slot) issues step s's
+// cp.async copies into slot, compute(s, slot) runs on it once it has
+// arrived.  Starts with the ring free (the caller's barrier) and ends
+// with it free and every copy landed (a final barrier), so whatever
+// compute wrote to shared memory outside the ring is visible after it.
+template <class Load, class Compute>
+__device__ __forceinline__ void pipeline(int steps, const Load& load,
+                                         const Compute& compute) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    wait_groups<STAGES - 2>();   // step s has landed (this thread's part)
+    __syncthreads();             // ... everyone's; slot (s-1) is free
+    const int next = s + STAGES - 1;
+    if (next < steps) load(next, next % STAGES);
+    commit();
+    compute(s, s % STAGES);
+  }
+  wait_groups<0>();
+  __syncthreads();
+}
+
+// acc += A * B over the 32 channels of a slot: B from the slot's B rows,
+// A fragments given by a_frag(i, kk, big, small) for k-step kk (8
+// channels).  The slot's sum is taken in a fresh fragment and added to
+// acc in fp32 (see Accumulation).
+template <class T, class AFrag>
+__device__ __forceinline__ void mma_slot(const float* bs, const Frag<T>& f,
+                                         const AFrag& a_frag, Acc<T>& acc) {
+  Acc<T> part;
+  zero<T>(part);
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    uint32_t bb[T::NI][2], bsm[T::NI][2];
+#pragma unroll
+    for (int jp = 0; jp < T::NI / 2; ++jp) {
+      uint32_t r[4];
+      ldsm4(r, bs + f.b_row(jp) * LDS + kk * 8 + f.b_col());
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split(__uint_as_float(r[q]), bb[2 * jp + q / 2][q % 2],
+              bsm[2 * jp + q / 2][q % 2]);
+    }
+#pragma unroll
+    for (int i = 0; i < T::MI; ++i) {
+      uint32_t ab[4], as[4];
+      a_frag(i, kk, ab, as);
+#pragma unroll
+      for (int j = 0; j < T::NI; ++j) mma3(part[i][j], ab, as, bb[j], bsm[j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NI; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
+}
+
+// Copy rows [0, ROWS) x [k0, k0 + BK) of a row-major matrix into a slot's
+// rows, zero-filling rows for which ok(r) is false and columns at or past
+// cols.  src(r) is row r's start.  vec: 16-byte copies (cols % 4 == 0
+// and every row 16-byte aligned), else 4-byte ones.  any: a valid address
+// for the zero-filling copies.
+template <int ROWS, int THREADS, class Src, class Ok>
+__device__ __forceinline__ void copy_rows(float* dst, const Src& src,
+                                          const Ok& ok, int k0, int cols,
+                                          bool vec, const float* any) {
+  if (vec) {
+    constexpr int CHUNKS = ROWS * BK / 4;
+#pragma unroll
+    for (int q = threadIdx.x; q < CHUNKS; q += THREADS) {
+      const int r = q / (BK / 4), k = k0 + (q % (BK / 4)) * 4;
+      const bool p = ok(r) && k < cols;
+      cp16(dst + r * LDS + (k - k0), p ? src(r) + k : any, p);
+    }
+  } else {
+    constexpr int ELEMS = ROWS * BK;
+#pragma unroll 4
+    for (int q = threadIdx.x; q < ELEMS; q += THREADS) {
+      const int r = q / BK, k = k0 + q % BK;
+      const bool p = ok(r) && k < cols;
+      cp4(dst + r * LDS + (k - k0), p ? src(r) + k : any, p);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ 3x3
+// The operands of the implicit GEMM: x (M rows of C), the per-channel
+// affine (a, b), the OHWI weight w (N rows of 9*C), the image geometry;
+// vec when C % 4 == 0 and x and w are 16-byte aligned.
+struct Conv {
+  const float* x;
+  const float* a;
+  const float* b;
+  const float* w;
+  int M, C, N, H, W;
+  bool vec;
+  __device__ int csteps() const { return (C + BK - 1) / BK; }
+  __device__ int steps() const { return 9 * csteps(); }
+};
+
+// One CTA's walk over the 3x3 implicit GEMM of its BM rows from m0:
+// load(ks, n0, slot) copies k-step ks (tap ks / csteps, channels
+// (ks % csteps) * BK ...) of A and of the BN weight rows from n0;
+// compute(ks, slot, acc) accumulates it, applying the affine, the ReLU
+// and the tap mask to A as its fragments load.
+template <class T>
+struct Conv3x3 {
+  const Conv& p;
+  const int m0;
+  Frag<T> f;
+  // image coordinates of this thread's fragment rows (rows past M get a
+  // row outside every image, so every tap masks them) and of the rows
+  // it copies on the 16-byte path: rows tid / 8 + i * THREADS / 8, 4
+  // channels at 4 * (tid % 8)
+  static constexpr int LA = T::BM * (BK / 4) / T::THREADS;
+  static_assert(T::BM * (BK / 4) % T::THREADS == 0,
+                "A rows are not whole copies a thread");
+  int fh[T::MI][2], fw[T::MI][2];
+  int lh[LA], lw[LA];
+
+  __device__ void pixel(int m, int& h, int& w) const {
+    const int q = m % (p.H * p.W);
+    h = m < p.M ? q / p.W : -4;
+    w = q % p.W;
+  }
+
+  __device__ Conv3x3(const Conv& p_, int m0_) : p(p_), m0(m0_) {
+#pragma unroll
+    for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        pixel(m0 + f.row0(i) + 8 * h, fh[i][h], fw[i][h]);
+#pragma unroll
+    for (int i = 0; i < LA; ++i)
+      pixel(m0 + threadIdx.x / 8 + i * (T::THREADS / 8), lh[i], lw[i]);
+  }
+
+  __device__ void load(int ks, int n0, float* slot) const {
+    const int cs = p.csteps();
+    const int tap = ks / cs, c0 = (ks - tap * cs) * BK;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const int C = p.C, H = p.H, W = p.W;
+    const float* x = p.x;
+    if (p.vec) {
+      const int kl = (threadIdx.x % 8) * 4;
+      const bool kok = c0 + kl < C;
+      const long long shift = (long long)(dy * W + dx) * C + c0 + kl;
+#pragma unroll
+      for (int i = 0; i < LA; ++i) {
+        const int r = threadIdx.x / 8 + i * (T::THREADS / 8);
+        const bool ok = kok && (unsigned)(lh[i] + dy) < (unsigned)H &&
+                        (unsigned)(lw[i] + dx) < (unsigned)W;
+        cp16(slot + T::A_OFF + r * LDS + kl,
+             ok ? x + (long long)(m0 + r) * C + shift : x, ok);
+      }
+    } else {
+      copy_rows<T::BM, T::THREADS>(
+          slot + T::A_OFF,
+          [&](int r) { return x + (long long)(m0 + r + dy * W + dx) * C; },
+          [&](int r) {
+            int h, w;
+            pixel(m0 + r, h, w);
+            return (unsigned)(h + dy) < (unsigned)H &&
+                   (unsigned)(w + dx) < (unsigned)W;
+          },
+          c0, C, false, x);
+    }
+    const long long ldw = 9LL * C;
+    const float* w = p.w + (long long)tap * C;
+    copy_rows<T::BN, T::THREADS>(
+        slot + T::B_OFF, [&](int r) { return w + (n0 + r) * ldw; },
+        [&](int r) { return n0 + r < p.N; }, c0, C, p.vec, p.w);
+    // the step's affine: a in the first BK floats past the rows, b in
+    // the next BK
+    const int tid = threadIdx.x;
+    if (tid < 2 * BK) {
+      const int c = c0 + tid % BK;
+      const float* v = tid < BK ? p.a : p.b;
+      cp4(slot + T::AB_OFF + tid, c < C ? v + c : p.a, c < C);
+    }
+  }
+
+  __device__ void compute(int ks, const float* slot, Acc<T>& acc) const {
+    const int tap = ks / p.csteps();
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    bool in[T::MI][2];
+#pragma unroll
+    for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        in[i][h] = (unsigned)(fh[i][h] + dy) < (unsigned)p.H &&
+                   (unsigned)(fw[i][h] + dx) < (unsigned)p.W;
+    const float* as = slot + T::A_OFF;
+    // the affine of this lane's channels t and t + 4 of each k-step
+    float ca[BK / 8][2], cb[BK / 8][2];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ca[kk][h] = slot[T::AB_OFF + kk * 8 + f.t + 4 * h];
+        cb[kk][h] = slot[T::AB_OFF + BK + kk * 8 + f.t + 4 * h];
+      }
+    const Frag<T>& fr = f;
+    auto a_frag = [&](int i, int kk, uint32_t (&ab)[4], uint32_t (&asm_)[4]) {
+      uint32_t r[4];
+      ldsm4(r, as + fr.a_row(i) * LDS + kk * 8 + fr.a_col());
+      // r: (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float y = fmaxf(
+            fmaf(__uint_as_float(r[q]), ca[kk][q / 2], cb[kk][q / 2]), 0.f);
+        split(in[i][q % 2] ? y : 0.f, ab[q], asm_[q]);
+      }
+    };
+    mma_slot<T>(slot + T::B_OFF, f, a_frag, acc);
+  }
+};
+
+}  // namespace tc

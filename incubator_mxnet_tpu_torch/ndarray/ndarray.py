@@ -18,7 +18,10 @@ the port copies wherever the JAX result would not alias: ``invoke``
 copies any output that shares storage with an input, and the methods
 above copy.  Writes go in place only where the JAX package rebinds the
 same NDArray: ``__setitem__``, ``+=`` and the other in-place operators,
-an op's ``out=``, and the arrays a ``rtc`` kernel is launched on.
+an op's ``out=``, and the arrays a ``rtc`` kernel is launched on.  The
+first three rebind instead while a live recorded graph has saved the
+array's tensor (``autograd.rebind``), so ``backward`` differentiates at
+the recorded values, as the JAX tape does.
 """
 from __future__ import annotations
 
@@ -154,7 +157,8 @@ class NDArray:
         if isinstance(other, Context):
             return NDArray(self._data.detach().to(other.torch_device(),
                                                   copy=True), other)
-        other._write(self._data.detach())
+        other._write(self._data.detach().to(other._data.device,
+                                            other._data.dtype))
         return other
 
     def as_in_context(self, ctx):
@@ -191,12 +195,15 @@ class NDArray:
     @torch.no_grad()
     def _write(self, value):
         """Write ``value`` (a tensor) into this array in place; an array
-        of another shape or dtype is rebound, as the JAX package does."""
-        if value.shape == self._data.shape and value.dtype == \
-                self._data.dtype:
-            self._data.copy_(value)
-        else:
+        of another shape or dtype is rebound, as the JAX package does,
+        and so is one whose tensor a live recorded graph has saved."""
+        if value.shape != self._data.shape or \
+                value.dtype != self._data.dtype:
             self._data = value.detach().clone()
+        elif autograd.is_saved(self._data):
+            autograd.rebind(self, value)
+        else:
+            self._data.copy_(value)
 
     @torch.no_grad()
     def __setitem__(self, key, value):
@@ -204,7 +211,12 @@ class NDArray:
             value = value._data.to(self._data.device)
         elif not isinstance(value, (int, float, bool)):
             value = torch.as_tensor(np.asarray(value)).to(self._data.device)
-        self._data[write_key(self._data, _key(key))] = value
+        target = self._data
+        if autograd.is_saved(target):
+            target = target.detach().clone()
+        target[write_key(target, _key(key))] = value
+        if target is not self._data:
+            autograd.rebind(self, target)
 
     def __getitem__(self, key):
         t, k = read_key(self._data, _key(key))
@@ -452,7 +464,8 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
         prefix = (_random.generator(device or ctx.torch_device()),)
     with torch.set_grad_enabled(autograd.is_recording()
                                 and op.differentiable):
-        raw = op.fn(*prefix, *tensors, **attrs)
+        with autograd.saving():
+            raw = op.fn(*prefix, *tensors, **attrs)
         if isinstance(raw, (tuple, list)):
             result = [NDArray(_own(r, tensors), ctx) for r in raw]
         else:

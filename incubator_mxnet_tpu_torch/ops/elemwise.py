@@ -33,6 +33,24 @@ def _full(x, scalar):
     return torch.full((), scalar, dtype=x.dtype, device=x.device)
 
 
+class _Abs(torch.autograd.Function):
+    """``|x|`` with ``jnp.abs``'s derivative: +1 at 0 (``x >= 0``),
+    where ``torch.abs`` gives 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+abs_ = _Abs.apply
+
+
 def _cbrt(x):
     return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
 
@@ -41,7 +59,7 @@ def _cbrt(x):
 _UNARY = {
     "negative": torch.neg,
     "reciprocal": torch.reciprocal,
-    "abs": torch.abs,
+    "abs": abs_,
     "sign": torch.sign,
     "round": torch.round,
     "rint": torch.round,
@@ -110,7 +128,13 @@ def _amp_cast(x, *, dtype):
 
 @register_op("clip")
 def _clip(x, *, a_min, a_max):
-    return torch.clamp(x, a_min, a_max)
+    """``jnp.clip``'s form, maximum then minimum, so the gradient at
+    ``a_min`` or ``a_max`` is 0.5 as there (``torch.clamp`` gives 1)."""
+    if a_min is not None:
+        x = torch.maximum(x, _full(x, a_min))
+    if a_max is not None:
+        x = torch.minimum(x, _full(x, a_max))
+    return x
 
 
 # ---------------------------------------------------------------- binary

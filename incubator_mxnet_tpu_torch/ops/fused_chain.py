@@ -48,8 +48,8 @@ from .fused_conv import (_INDEX_LIMIT, _activate, _dispatch, bn_affine,
 __all__ = ["CHAIN_MAX_CM", "chain_emit", "chain_stats", "chain_supported",
            "fused_bottleneck_chain"]
 
-# the widest conv2 output whose y2 tile (Cm x 64 rows of fp32, padded)
-# fits chain_emit's 227 KB of shared memory
+# the widest conv2 output whose y2 tile (48 rows of Cm fp32, padded)
+# fits chain_emit's 227 KB of shared memory beside its operand ring
 CHAIN_MAX_CM = 768
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..base import torch_dtype
+from .elemwise import abs_
 from .registry import register_op
 
 __all__ = []
@@ -94,7 +95,7 @@ def _norm(x, *, ord=2, axis=None, keepdims=False):
     ax = tuple(range(x.ndim)) if axis is None else \
         (axis if isinstance(axis, tuple) else (axis,))
     if ord == 1:
-        return torch.sum(torch.abs(x), dim=ax, keepdim=keepdims)
+        return torch.sum(abs_(x), dim=ax, keepdim=keepdims)
     return torch.sqrt(torch.sum(torch.square(x), dim=ax, keepdim=keepdims))
 
 

@@ -26,6 +26,7 @@ from incubator_mxnet_tpu_torch.ops import fused_chain
 from incubator_mxnet_tpu_torch.ops.fused_chain import (
     CHAIN_MAX_CM, _check, chain_emit, chain_stats, chain_supported,
     fused_bottleneck_chain)
+from torch_port_helpers import split_tf32, tf32_rna
 
 CL = torch.channels_last
 OUT_TOL = dict(atol=3e-5, rtol=3e-5)
@@ -303,3 +304,65 @@ def test_layer_refuses_another_structure(swap):
                                    in_channels=8, device="cpu")
     with pytest.raises(MXNetError, match="FusedBottleneckChain needs"):
         FusedBottleneckChain(first, second)
+
+
+# ------------------------------------------------------------- 3xTF32
+# B4 on the card multiplies in TF32 on the tensor cores, each operand
+# split into two TF32 parts and three products summed (csrc/tc_gemm.cuh).
+# Here both GEMMs of the plain version run in that arithmetic (fp32
+# accumulation) at the bench shapes of ResNet-50's chain, K = 9C up to
+# 4608, against fp64: the split must hold chip_smoke.py's kernel gate
+# (CONV_RTOL, 1e-4 of max |out|) with a margin of SPLIT_MARGIN, and one
+# TF32 pass must not hold it.
+CONV_RTOL = 1e-4
+SPLIT_MARGIN = 20.0
+
+
+def _gemms(x, a1, b1, w2, a2, b2, w3, b3, product):
+    """The two GEMMs of ``_chain_emit_plain`` with each convolution given
+    by ``product(y, w, padding)``."""
+    c2 = product(fused_chain._activate(x, a1, b1), w2, 1)
+    return product(fused_chain._activate(c2, a2, b2), w3, 0) + \
+        b3.view(1, -1, 1, 1)
+
+
+def _conv(y, w, padding):
+    return torch.nn.functional.conv2d(y, w, padding=padding)
+
+
+def _tf32_once(y, w, padding):
+    return _conv(tf32_rna(y), tf32_rna(w), padding)
+
+
+def _tf32_split(y, w, padding):
+    (yb, ys), (wb, ws) = split_tf32(y), split_tf32(w)
+    return _conv(ys, wb, padding) + _conv(yb, ws, padding) + \
+        _conv(yb, wb, padding)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64, 64, 256),
+                                   (1, 8, 8, 256, 256, 1024),
+                                   (1, 7, 7, 512, 512, 2048)],
+                         ids=["K576", "K2304", "K4608"])
+def test_3xtf32_split_holds_the_kernel_gate_and_one_pass_does_not(shape):
+    n, h, w, c, cm, co = shape
+    rs = np.random.RandomState(11)
+    f32 = np.float32
+    args = [rs.randn(n, c, h, w).astype(f32),
+            rs.uniform(0.5, 1.5, c).astype(f32),
+            rs.uniform(-0.1, 0.1, c).astype(f32),
+            (rs.randn(cm, c, 3, 3) * np.sqrt(2.0 / (9 * c))).astype(f32),
+            rs.uniform(0.5, 1.5, cm).astype(f32),
+            rs.uniform(-0.1, 0.1, cm).astype(f32),
+            (rs.randn(co, cm, 1, 1) * np.sqrt(2.0 / cm)).astype(f32),
+            rs.uniform(-0.1, 0.1, co).astype(f32)]
+    t32 = [torch.from_numpy(a) for a in args]
+    ref = _gemms(*[t.double() for t in t32], product=_conv)
+    scale = ref.abs().max().item()
+
+    def err(product):
+        return (_gemms(*t32, product=product).double() - ref).abs().max() \
+            .item() / scale
+    split, once = err(_tf32_split), err(_tf32_once)
+    assert split * SPLIT_MARGIN <= CONV_RTOL, (split, once)
+    assert once > CONV_RTOL, (split, once)

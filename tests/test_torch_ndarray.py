@@ -554,3 +554,110 @@ def test_registry_lists_every_ported_op_once():
     assert get_op("elemwise_add") is get_op("broadcast_add")
     assert get_op("random_uniform").needs_rng
     assert not get_op("argmax").differentiable
+
+
+# ------------------------------------------------------------- faults
+def _copyto(mod, target):
+    """``copyto`` of float32 values into int32 zeros, into an array or
+    a context (the CPU, the one context both packages have here)."""
+    src = mod.nd.array([1.5, 2.5])
+    if target == "array":
+        dst = mod.nd.zeros((2,), dtype="int32")
+        out = src.copyto(dst)
+        assert out is dst
+        return dst
+    return src.copyto(mod.cpu())
+
+
+@pytest.mark.parametrize("target", ["array", "context"])
+def test_copyto_keeps_target_dtype_and_context_like_jax(target):
+    want = _copyto(jmx, target)
+    with tmx.cpu():
+        got = _copyto(tmx, target)
+    _compare(got, want, EXACT, f"copyto {target}")
+    assert got.context == tmx.cpu() and got._data.device.type == "cpu"
+
+
+KINKS = {
+    "abs": (lambda nd, x: nd.abs(x), [-1.0, 0.0, 2.0]),
+    "abs-method": (lambda nd, x: abs(x), [0.0, -0.0, 3.0]),
+    "clip": (lambda nd, x: nd.clip(x, a_min=-1.0, a_max=1.5),
+             [-2.0, -1.0, 0.0, 1.5, 2.0]),
+    "clip-method": (lambda nd, x: x.clip(0.0, 0.0), [-1.0, 0.0, 1.0]),
+    "norm-ord1": (lambda nd, x: nd.norm(x, ord=1), [0.0, -2.0, 3.0]),
+    "log-abs": (lambda nd, x: nd.log(nd.abs(x)), [0.0, -2.0, 0.5]),
+}
+
+
+def _kink_grad(mod, name):
+    f, values = KINKS[name]
+    x = mod.nd.array(np.array(values, np.float32))
+    x.attach_grad()
+    with mod.autograd.record():
+        y = f(mod.nd, x)
+    y.backward()
+    return [y, x.grad]
+
+
+@pytest.mark.parametrize("name", sorted(KINKS))
+def test_kink_gradient_matches_jax(name):
+    """abs and clip at their kinks (0; a_min and a_max): the JAX
+    package's derivatives (1; 0.5), also inside compositions."""
+    want = _kink_grad(jmx, name)
+    with tmx.cpu():
+        got = _kink_grad(tmx, name)
+    for g, w, what in zip(got, want, ("value", "gradient")):
+        _compare(g, w, EXACT, f"{name} {what}")
+
+
+def _write_saved(mod, case):
+    """A write to an array that a recorded op saved, then ``backward``:
+    the gradient is taken at the recorded values."""
+    v = mod.nd.array([1.0, 2.0, 3.0])
+    v.attach_grad()
+    with mod.autograd.record():
+        if case == "variable":
+            head = v * v
+        else:
+            u = v * 2
+            a = u * u
+            if case == "setitem":
+                u[0] = 5
+            else:
+                u += 1
+            head = a + u * 3
+    if case == "variable":
+        v[:] = 0
+    head.backward()
+    return [v.grad, head, v]
+
+
+@pytest.mark.parametrize("case", ["setitem", "iadd", "variable"])
+def test_write_to_saved_array_matches_jax(case):
+    want = _write_saved(jmx, case)
+    with tmx.cpu():
+        got = _write_saved(tmx, case)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _compare(g, w, EXACT, f"{case} {i}")
+    expect = [2, 4, 6] if case == "variable" else [14, 22, 30]
+    np.testing.assert_array_equal(got[0].asnumpy(), expect)
+
+
+def test_write_after_backward_stays_in_place():
+    """Once ``backward`` has freed the graph, a write to a variable goes
+    in place again (the SGD update, rtc launches on its storage)."""
+    with tmx.cpu():
+        w = tmx.nd.array([0.5, -1.5])
+        w.attach_grad()
+        with tmx.autograd.record():
+            loss = (w * w).sum()
+        ptr = w._data.data_ptr()
+        loss.backward()
+        w -= 0.1 * w.grad
+        w[:] = w * 2
+        assert w._data.data_ptr() == ptr
+        np.testing.assert_allclose(w.asnumpy(), [0.8, -2.4], rtol=1e-6)
+        with tmx.autograd.record():
+            loss = (w * w).sum()
+        loss.backward()
+        np.testing.assert_allclose(w.grad.asnumpy(), [1.6, -4.8], rtol=1e-6)

@@ -97,3 +97,18 @@ def torch_twin_resnet(jax_net, num_layers=50, **kw):
     net = get_resnet(1, num_layers, device="cpu", **kw)
     net.load_state_dict(resnet_params_from_numpy(named))
     return net.eval()
+
+
+def tf32_rna(t):
+    """fp32 values rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as the card's ``cvt.rna.tf32.f32`` rounds them: on
+    the bit pattern, ``(bits + 0x1000) & ~0x1FFF``."""
+    import torch
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(t):
+    """``(big, small)``, both TF32, with big + small = t to ~2^-22."""
+    big = tf32_rna(t)
+    return big, tf32_rna(t - big)
