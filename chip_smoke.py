@@ -56,7 +56,7 @@ input read once, each output written once) over 3.35 TB/s and the
 operations it needs on these inputs over the card's least time for
 fp32-accurate products, 495 / 3 TFLOP/s (3xTF32 on the tensor cores;
 NVIDIA H100 SXM data sheet).  TF32 is off throughout for PyTorch's
-own calls; chain_emit's 3xTF32 keeps fp32's accuracy.
+own calls; the 3x3 kernels' 3xTF32 keeps fp32's accuracy.
 """
 from __future__ import annotations
 
@@ -97,21 +97,23 @@ CONV1X1_SHAPES = [(32, 56, 56, 64, 256), (32, 28, 28, 128, 512),
 CONV3X3_SHAPES = [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
                   (32, 14, 14, 256, 256), (32, 7, 7, 512, 512)]
 BLOCKS_PER_STAGE = (3, 4, 6, 3)
+# H != W, W = 7, few channels, Cout not a multiple of the tiles, and C
+# = 6: rows of x not 16-byte aligned (the 3x3 kernel's 4-byte copies)
 RAGGED_SHAPES = [(2, 9, 10, 16, 24), (3, 7, 7, 16, 40), (1, 5, 13, 8, 130),
-                 (2, 7, 7, 20, 70)]
+                 (2, 7, 7, 20, 70), (2, 6, 9, 6, 36)]
 # ResNet-50 v1's chain blocks at the training batch of 128: (N, H, W, C,
 # Cm, Co), C = Cm the conv1 output; BLOCKS_PER_STAGE of them per step
 TRAIN_BATCH = 128
 CHAIN_SHAPES = [(128, 56, 56, 64, 64, 256), (128, 28, 28, 128, 128, 512),
                 (128, 14, 14, 256, 256, 1024), (128, 7, 7, 512, 512, 2048)]
 # H != W, W = 7, channels that are not tile multiples, rows not 16-byte
-# aligned (C = 130, 70 for chain_emit's w3), M not a multiple of the row
-# tiles, Cm at the envelope's edge; with CHAIN_SHAPES, every tile choice
-# of each kernel
+# aligned (C = 6 for c1 and w2, Cm = 130, 70 for chain_emit's w3), M
+# not a multiple of the row tiles, Cm at the envelope's edge; with
+# CHAIN_SHAPES, every tile choice of each kernel
 CHAIN_RAGGED = [(2, 9, 10, 16, 24, 40), (3, 7, 7, 16, 40, 70),
                 (1, 5, 13, 8, 130, 33), (2, 7, 7, 20, 70, 130),
                 (3, 57, 55, 20, 72, 130), (1, 7, 7, 16, 768, 64),
-                (2, 68, 68, 8, 768, 40)]
+                (2, 68, 68, 8, 768, 40), (2, 6, 9, 6, 36, 20)]
 # chain_stats vs plain: sums of up to 401408 terms in other orders,
 # relative to the sum of the terms' magnitudes
 CHAIN_STATS_RTOL = 1e-5

@@ -31,9 +31,9 @@
 // that the row stride is 4 mod 32 banks and conv3's A fragment loads are
 // conflict-free).  conv3 then reads its A fragments from that tile while
 // w3 streams through the same ring, Co in BN-wide chunks; the bias is
-// added and out written channels-last, as float4 stores (lane pairs swap
-// halves by a shuffle) where the row allows.  conv2 is computed once per
-// CTA, not once per Co tile.
+// added and out written channels-last by tc::store_bias, float4 stores
+// (lane pairs swap halves by a shuffle) where the row allows.  conv2 is
+// computed once per CTA, not once per Co tile.
 //
 // Tile per shape.  Larger BM shares each weight slot among more rows,
 // which the measurements favour over more CTAs an SM; the y2 tile and
@@ -69,6 +69,7 @@
 
 namespace {
 
+using tc::aligned16;
 using tc::BK;
 
 // the y2 tile's row: Cm rounded up to whole BN-wide chunks, plus 4 (a
@@ -171,52 +172,10 @@ chain_emit_kernel(tc::Conv p, Emit e) {
         };
         tc::mma_slot<T>(ring + slot * T::SLOT + T::B_OFF, f, a_frag, acc);
         if (ks != ks3 - 1) return;
-        const int o0 = (s / ks3) * T::BN;
-        const bool odd = f.t & 1;
-#pragma unroll
-        for (int j = 0; j < T::NI; ++j) {
-          const int o = o0 + f.col0(j);
-#pragma unroll
-          for (int i = 0; i < T::MI; ++i) {
-            const float* c = acc[i][j];
-            if (e.vec_out) {
-              // lanes t and t^1 swap halves: the even one stores row g's
-              // columns 2t..2t+3, the odd one row g+8's 2t-2..2t+1
-              const float r0 =
-                  __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
-              const float r1 =
-                  __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
-              const int m = m0 + f.row0(i) + (odd ? 8 : 0);
-              const int oc = odd ? o - 2 : o;
-              if (m < M && oc < Co) {
-                const float4 bias =
-                    __ldg(reinterpret_cast<const float4*>(e.b3 + oc));
-                float4 v = odd ? make_float4(r0, r1, c[2], c[3])
-                               : make_float4(c[0], c[1], r0, r1);
-                v.x += bias.x;
-                v.y += bias.y;
-                v.z += bias.z;
-                v.w += bias.w;
-                *reinterpret_cast<float4*>(e.out + (long long)m * Co + oc) =
-                    v;
-              }
-            } else {
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const int m = m0 + f.row0(i) + 8 * (q / 2);
-                const int oq = o + q % 2;
-                if (m < M && oq < Co)
-                  e.out[(long long)m * Co + oq] = c[q] + __ldg(e.b3 + oq);
-              }
-            }
-          }
-        }
+        tc::store_bias<T>(acc, f, m0, (s / ks3) * T::BN, M, Co, e.b3, e.out,
+                          e.vec_out);
         tc::zero<T>(acc);
       });
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <class T>

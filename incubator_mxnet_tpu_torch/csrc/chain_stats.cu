@@ -1,5 +1,6 @@
 // Pass 1 of the bottleneck chain for Hopper (sm_90a): BN1-apply -> ReLU
-// -> 3x3 conv2 -> per-channel shifted sums, fp32 on the CUDA cores.
+// -> 3x3 conv2 -> per-channel shifted sums, fp32-accurate on the tensor
+// cores.
 //
 // Replaces the TPU kernel incubator_mxnet_tpu/ops/fused_chain.py
 // `_chain_kernel` with emit=False (launched by `pl.pallas_call` in
@@ -18,68 +19,106 @@
 // What bounds it on this card.  2 * 9C flops per element of c2 against
 // one read of c1 and two (Cm,) writes: at ResNet-50's four chain shapes
 // at batch 128 (56x56x64 -> 64 ... 7x7x512 -> 512, 29.6 GFLOP each) it
-// is bound by operations, 0.442 ms a launch at the fp32 CUDA-core peak
-// of 67 TFLOP/s.
+// is bound by operations, 0.179 ms a launch at the 165 TFLOP/s of
+// fp32-accurate (3xTF32) tensor-core work.
 //
-// What the design does about it.  The main loop is B2's implicit GEMM
-// (sbr_gemm.cuh): each CTA computes its BM x BN tile of c2 in registers.
-// Its epilogue reduces each column over the tile's valid rows (a padded
-// row would add s^2) in a fixed order through shared memory and writes
-// one (sum, sq) partial per (row tile, channel) to a workspace.  A
-// second launch sums the partials over the row tiles, again in a fixed
-// order: the TPU grid runs sequentially and its sums are deterministic,
-// and these are too (no float atomics; two runs are bit-identical).
-// Dropped from the TPU version: the whole-image VMEM scratch and the
-// dy-merged lanes for its MXU; the tiling over the batch's flat pixels
-// keeps every CTA full at 7x7.
+// What the design does about it.  The main loop is tc_gemm.cuh's 3x3
+// implicit GEMM (3xTF32 mma.sync fed by a cp.async ring, the BN1 affine,
+// the ReLU and the tap mask applied as each warp loads its A fragments),
+// one CTA per BM x BN tile of c2 (tc::conv3x3_kernel).  Its epilogue
+// reduces each column of the tile in registers over the tile's valid
+// rows only (a row past M holds 0 after the tap mask, and 0 - s would
+// add s^2), in a fixed order: inside the thread over its fragment rows,
+// across the 8 lanes of a column by shuffles, across the warp rows
+// through shared memory (the free ring), and writes one (sum, sq)
+// partial per (row tile, channel) to a workspace.  A second launch sums
+// the partials over the row tiles, again in a fixed order: the TPU grid
+// runs sequentially and its sums are deterministic, and these are too
+// (no float atomics; two runs are bit-identical).  Each 32-channel slot
+// is summed into a fresh fragment (tc_gemm.cuh, Accumulation), so the
+// tensor cores' rounding toward zero does not pile up into the column
+// sums.  Dropped from the TPU version: the whole-image VMEM scratch and
+// the dy-merged lanes for its MXU; the tiling over the batch's flat
+// pixels keeps every CTA full at 7x7.
+//
+// Tile per shape (swept by tools/port_chain_sweep.py over nine tiles at
+// the four shapes).  Without a y2 tile the ring alone sets shared
+// memory, so 2-4 CTAs share an SM.  Warp tiles of 64 x 32 (4 x 4 mma
+// tiles) share each fragment among the most products and measured
+// fastest wherever the grid is large: mx_chain_stats takes 128 x 64
+// (2 x 2 warps, 2 CTAs an SM) when Cm <= 64 or when it gives at least
+// two full waves; else 96 x 128 (2 x 4 warps, 1 an SM) when that fills
+// every SM; else 64 x 64 (2 x 2 warps, 4 an SM), for small grids.
+// ResNet-50 at b = 128:
+//   56x56 (Cm  64): 128 x 64, 3136 CTAs (0.69 ms; 64 x 64 0.78)
+//   28x28 (Cm 128): 128 x 64, 1568 CTAs (0.67; 128 x 128 within 1%)
+//   14x14 (Cm 256): 128 x 64,  784 CTAs (0.63; 128 x 128 the same)
+//   7x7   (Cm 512): 96 x 128,  264 CTAs, two full waves (0.70; 128 x 64
+//                   gives 1.5 waves, 0.82)
 //
 // C interface (ctypes): mx_chain_stats returns the CUDA error code of
 // the launches (0 on success); mx_chain_stats_workspace gives the floats
 // of scratch it needs.  It allocates nothing; the caller passes
 // contiguous fp32 device pointers and the stream.
 
-#include "sbr_gemm.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
 // Epilogue: per-column (sum, sq) of (c2 - shift) over the tile's valid
 // rows, written to part[row tile][0 | 1][n].
-struct ColumnStats {
+struct TileSums {
   const float* shift;
   float* part;
 
-  template <int BM, int BN>
-  __device__ void operator()(const sbr::Conv& p, int m0, int n0,
-                             const sbr::Acc<BM, BN>& acc) const {
-    using L = sbr::Layout<BM, BN>;
-    __shared__ float red[2][L::TY][BN];
-    const int tid = threadIdx.x;
-    const int tx = tid % L::TX;
-    const int ty = tid / L::TX;
+  template <class T>
+  __device__ void operator()(const tc::Conv& p, const tc::Frag<T>& f,
+                             const tc::Acc<T>& acc, int m0, int n0,
+                             float* smem) const {
+    // red[0 | 1][warp row][column of the tile]
+    float* red = smem;
+    static_assert(2 * T::WGM * T::BN <= tc::STAGES * T::SLOT,
+                  "the column sums do not fit in the ring");
+    bool row_ok[T::MI][2];
 #pragma unroll
-    for (int j = 0; j < L::TN; ++j) {
-      const int c = L::col(tx, j);
-      const float s = n0 + c < p.N ? shift[n0 + c] : 0.f;
-      float su = 0.f, sq = 0.f;
+    for (int i = 0; i < T::MI; ++i)
 #pragma unroll
-      for (int i = 0; i < L::TM; ++i) {
-        if (m0 + L::row(ty, i) < p.M) {
-          const float d = acc[i][j] - s;
-          su += d;
-          sq = fmaf(d, d, sq);
+      for (int h = 0; h < 2; ++h) row_ok[i][h] = m0 + f.row0(i) + 8 * h < p.M;
+#pragma unroll
+    for (int j = 0; j < T::NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = f.col0(j) + e;
+        const float s = n0 + c < p.N ? __ldg(shift + n0 + c) : 0.f;
+        float su = 0.f, sq = 0.f;
+#pragma unroll
+        for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (row_ok[i][h]) {
+              const float d = acc[i][j][2 * h + e] - s;
+              su += d;
+              sq = fmaf(d, d, sq);
+            }
+        // the 8 lanes of equal t hold the column's other rows
+#pragma unroll
+        for (int off = 4; off < 32; off *= 2) {
+          su += __shfl_xor_sync(0xffffffffu, su, off);
+          sq += __shfl_xor_sync(0xffffffffu, sq, off);
+        }
+        if (f.g == 0) {
+          red[f.wm * T::BN + c] = su;
+          red[(T::WGM + f.wm) * T::BN + c] = sq;
         }
       }
-      red[0][ty][c] = su;
-      red[1][ty][c] = sq;
-    }
     __syncthreads();
-    float* out = part + (long long)(m0 / BM) * 2 * p.N;
-    for (int c = tid; c < BN; c += sbr::NTHREADS) {
+    float* out = part + (long long)(m0 / T::BM) * 2 * p.N;
+    for (int c = threadIdx.x; c < T::BN; c += T::THREADS) {
       if (n0 + c >= p.N) continue;
       float su = 0.f, sq = 0.f;
-      for (int y = 0; y < L::TY; ++y) {
-        su += red[0][y][c];
-        sq += red[1][y][c];
+      for (int w = 0; w < T::WGM; ++w) {
+        su += red[w * T::BN + c];
+        sq += red[(T::WGM + w) * T::BN + c];
       }
       out[n0 + c] = su;
       out[p.N + n0 + c] = sq;
@@ -116,30 +155,59 @@ column_totals(const float* __restrict__ part, int tiles, int N,
   }
 }
 
+tc::Conv operands(const void* x, const void* a1, const void* b1,
+                  const void* w2, int n, int h, int w, int c, int cm) {
+  return tc::Conv{static_cast<const float*>(x),
+                  static_cast<const float*>(a1),
+                  static_cast<const float*>(b1),
+                  static_cast<const float*>(w2), n * h * w, c, cm, h, w,
+                  c % 4 == 0 && tc::aligned16(x) && tc::aligned16(w2)};
+}
+
+// The tiles pass, then the ordered sum of its partials
+template <class T>
+int launch_stats(const tc::Conv& p, const TileSums& epi, void* sum,
+                 void* sq, cudaStream_t stream) {
+  if (int err = tc::launch_conv3x3<T>(p, epi, stream)) return err;
+  const int tiles = (p.M + T::BM - 1) / T::BM;
+  column_totals<<<(p.N + 31) / 32, dim3(32, 32), 0, stream>>>(
+      epi.part, tiles, p.N, static_cast<float*>(sum),
+      static_cast<float*>(sq));
+  return (int)cudaGetLastError();
+}
+
+// The tiles, chosen per shape by mx_chain_stats (see the note)
+using Wide = tc::Tile<128, 64, 2, 2>;
+using Rows96 = tc::Tile<96, 128, 2, 4>;
+using Small = tc::Tile<64, 64, 2, 2>;
+// the fewest rows a tile of the rule has: it sizes the partials
+constexpr int MIN_BM = 64;
+static_assert(MIN_BM <= Wide::BM && MIN_BM <= Rows96::BM &&
+                  MIN_BM <= Small::BM,
+              "MIN_BM must be the smallest BM of the tile rule");
+
 }  // namespace
 
 extern "C" int mx_chain_stats_workspace(int m, int cm) {
-  return (m + sbr::MIN_BM - 1) / sbr::MIN_BM * 2 * cm;
+  return (m + MIN_BM - 1) / MIN_BM * 2 * cm;
 }
 
 extern "C" int mx_chain_stats(const void* x, const void* a1, const void* b1,
                               const void* w2, const void* shift, void* part,
                               void* sum, void* sq, int n, int h, int w,
                               int c, int cm, void* stream) {
-  const sbr::Conv p{static_cast<const float*>(x),
-                    static_cast<const float*>(a1),
-                    static_cast<const float*>(b1),
-                    static_cast<const float*>(w2), n * h * w, c, cm, h, w};
-  const ColumnStats epi{static_cast<const float*>(shift),
-                        static_cast<float*>(part)};
+  const tc::Conv p = operands(x, a1, b1, w2, n, h, w, c, cm);
+  if (p.M <= 0 || c <= 0 || cm <= 0) return (int)cudaErrorInvalidValue;
+  const TileSums epi{static_cast<const float*>(shift),
+                     static_cast<float*>(part)};
+  int sms = 0;
+  if (int err = tc::sm_count(&sms)) return err;
   auto s = static_cast<cudaStream_t>(stream);
-  int bm = 0;
-  if (int err = sbr::launch<9>(p, epi, s, &bm)) return err;
-  const int tiles = (p.M + bm - 1) / bm;
-  column_totals<<<(cm + 31) / 32, dim3(32, 32), 0, s>>>(
-      static_cast<const float*>(part), tiles, cm, static_cast<float*>(sum),
-      static_cast<float*>(sq));
-  return (int)cudaGetLastError();
+  if (cm <= 64 || tc::ctas<Wide>(p) >= 4LL * sms)
+    return launch_stats<Wide>(p, epi, sum, sq, s);
+  if (tc::ctas<Rows96>(p) >= sms)
+    return launch_stats<Rows96>(p, epi, sum, sq, s);
+  return launch_stats<Small>(p, epi, sum, sq, s);
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

@@ -1,5 +1,5 @@
 // Fused [BN-apply -> ReLU -> 3x3 stride-1 pad-1 conv] for Hopper
-// (sm_90a), fp32 on the CUDA cores.
+// (sm_90a), fp32-accurate on the tensor cores.
 //
 // Replaces the TPU kernel incubator_mxnet_tpu/ops/fused_conv.py
 // `_sbr_conv3x3_kernel` (launched by `pl.pallas_call` in
@@ -14,42 +14,95 @@
 // What bounds it on this card.  18*C flops per output element against
 // one read of x and one write of out: at ResNet-50's fused 3x3 shapes
 // at batch 32 (56x56x64 -> 64 ... 7x7x512 -> 512, 7.40 GFLOP each) that
-// is hundreds of flops per byte, so it is bound by operations: ~0.110 ms
-// each at the fp32 CUDA-core peak of 67 TFLOP/s.
+// is hundreds of flops per byte, so it is bound by operations: 0.0448 ms
+// each at the 165 TFLOP/s of fp32-accurate (3xTF32) tensor-core work.
 //
-// What the design does about it.  An implicit GEMM on the shared main
-// loop (sbr_gemm.cuh): the GEMM rows are the flat output pixels of the
-// whole batch, the reduction runs over (tap, input channel), and each
-// A tile is the activated input gathered at the tap's shift, with the
-// affine and ReLU applied and the out-of-image taps set to 0 as it is
-// loaded into shared memory, so the activated image never reaches
-// device memory.  Rows flattened over images, rather than a spatial
-// tile of one image with its halo, keep every CTA full at 7x7 (a
-// 128-pixel tile of one 7x7 image would idle 62% of its threads); the
-// cost is that each input element is read and activated once per tap
-// that touches it, through L1/L2, which at 2*Cout flops per load stays
-// far below the arithmetic.  Explicit row and column bounds replace the
-// flat-shift form's column-wrap masks.  Dropped from the TPU version:
-// the dy-merged `zsc` scratch (a 128-lane MXU packing trick) and the
+// What the design does about it.  An implicit GEMM on tc_gemm.cuh's 3x3
+// main loop (3xTF32 mma.sync fed by a cp.async ring), one CTA per
+// BM x BN tile of the output (tc::conv3x3_kernel): the GEMM rows are the
+// flat output pixels of the whole batch, the reduction runs over (tap,
+// input channel) in steps of 32 channels of one tap, raw rows of x are
+// copied into the ring as they are, and the affine, the ReLU and the
+// tap mask are applied as each warp loads its A fragments, so the
+// activated image never reaches device memory.  Rows flattened over
+// images, rather than a spatial tile of one image with its halo, keep
+// every CTA full at 7x7 (a 128-pixel tile of one 7x7 image would idle
+// 62% of its rows); the cost is that each input element is read and
+// activated once per tap that touches it, through L2.  The epilogue adds
+// the bias and stores the tile channels-last (tc::store_bias, float4
+// stores where the row allows).  Dropped from the TPU version: the
+// dy-merged `zsc` scratch (a 128-lane MXU packing trick) and the
 // whole-image VMEM budget: any stride-1 pad-1 channels-last fp32 shape
-// runs.  Tensor cores (TF32 or bf16 wgmma) and TMA are later work.
+// runs.
+//
+// Tile per shape (swept by tools/port_chain_sweep.py over nine tiles at
+// the four shapes).  Warp tiles of 64 x 32 share each fragment among the
+// most products; at b = 32 the grids are small, so the rule weighs that
+// against idle SMs: mx_sbr_conv3x3 takes 128 x 64 (2 x 2 warps, 2 CTAs
+// an SM) when Cout <= 64 or when it gives at least one full wave, else
+// 64 x 64 (2 x 2 warps, 4 an SM).  ResNet-50 at b = 32:
+//   56x56 (Cout  64): 128 x 64, 784 CTAs (0.18 ms; 64 x 64 0.20)
+//   28x28 (Cout 128): 128 x 64, 392 CTAs (0.18; 64 x 64 0.20)
+//   14x14 (Cout 256): 64 x 64,  392 CTAs (0.20; 128 x 64's 196 CTAs
+//                     leave SMs idle, 0.23)
+//   7x7   (Cout 512): 64 x 64,  200 CTAs (0.29; no tile was faster by
+//                     more than 1%)
 //
 // C interface (ctypes): mx_sbr_conv3x3 returns the CUDA error code of
 // the launch (0 on success).  It allocates nothing; the caller passes
 // contiguous fp32 device pointers and the stream.
 
-#include "sbr_gemm.cuh"
+#include "tc_gemm.cuh"
+
+namespace {
+
+// Epilogue: out[m, n] = acc + bias[n], channels-last
+struct StoreBias {
+  const float* bias;
+  float* out;
+  bool vec;   // Cout % 4 == 0, out and bias 16-byte aligned
+
+  template <class T>
+  __device__ void operator()(const tc::Conv& p, const tc::Frag<T>& f,
+                             const tc::Acc<T>& acc, int m0, int n0,
+                             float*) const {
+    tc::store_bias<T>(acc, f, m0, n0, p.M, p.N, bias, out, vec);
+  }
+};
+
+tc::Conv operands(const void* x, const void* a, const void* b,
+                  const void* w, int n, int h, int w_, int c, int cout) {
+  return tc::Conv{static_cast<const float*>(x), static_cast<const float*>(a),
+                  static_cast<const float*>(b), static_cast<const float*>(w),
+                  n * h * w_, c, cout, h, w_,
+                  c % 4 == 0 && tc::aligned16(x) && tc::aligned16(w)};
+}
+
+StoreBias epilogue(const void* bias, void* out, int cout) {
+  return StoreBias{static_cast<const float*>(bias), static_cast<float*>(out),
+                   cout % 4 == 0 && tc::aligned16(bias) &&
+                       tc::aligned16(out)};
+}
+
+// The tiles, chosen per shape by mx_sbr_conv3x3 (see the note)
+using Wide = tc::Tile<128, 64, 2, 2>;
+using Small = tc::Tile<64, 64, 2, 2>;
+
+}  // namespace
 
 extern "C" int mx_sbr_conv3x3(const void* x, const void* a, const void* b,
                               const void* w, const void* bias, void* out,
                               int n, int h, int w_, int c, int cout,
                               void* stream) {
-  const sbr::Conv p{static_cast<const float*>(x), static_cast<const float*>(a),
-                    static_cast<const float*>(b), static_cast<const float*>(w),
-                    n * h * w_, c, cout, h, w_};
-  const sbr::StoreBias epi{static_cast<const float*>(bias),
-                           static_cast<float*>(out)};
-  return sbr::launch<9>(p, epi, static_cast<cudaStream_t>(stream));
+  const tc::Conv p = operands(x, a, b, w, n, h, w_, c, cout);
+  if (p.M <= 0 || c <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
+  const StoreBias epi = epilogue(bias, out, cout);
+  int sms = 0;
+  if (int err = tc::sm_count(&sms)) return err;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (cout <= 64 || tc::ctas<Wide>(p) >= 2LL * sms)
+    return tc::launch_conv3x3<Wide>(p, epi, s);
+  return tc::launch_conv3x3<Small>(p, epi, s);
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

@@ -1,30 +1,22 @@
-// The fp32 main loop shared by the fused [BN-apply -> ReLU -> conv]
-// kernels: sbr_matmul.cu (1x1), sbr_conv3x3.cu (3x3, pad 1), and pass 1
-// of the bottleneck chain, chain_stats.cu (pass 2, chain_emit.cu, runs
-// on the tensor cores through tc_gemm.cuh).  Each
-// source's note says which TPU kernel it replaces and why it is shaped
-// so.
+// The fp32 main loop of the fused [BN-apply -> ReLU -> 1x1 conv] kernel,
+// sbr_matmul.cu (B1), on the CUDA cores; its note says which TPU kernel
+// it replaces and why it is shaped so.  (The 3x3 kernels, B2 to B4, run
+// on the tensor cores through tc_gemm.cuh.)
 //
-// All of them run one GEMM over channels-last storage:
+// It runs one GEMM over channels-last storage:
 //
-//   c[m, n] = sum_{t < TAPS, c < C} y(m, t, c) * w[n, t, c]
-//   y(m, t, c) = relu(x[m + shift(t), c] * a[c] + b[c])  if tap t of
-//                pixel m lies inside its image, else 0
+//   c[m, n] = sum_{c < C} relu(x[m, c] * a[c] + b[c]) * w[n, c]
 //
 // with m the flat pixel index n*H*W + h*W + w over the whole batch
-// (M = N*H*W rows of C channels), w the weight in OHWI order (N rows of
-// TAPS*C), TAPS = 1 for the 1x1 conv and 9 for the 3x3.  The padding
-// zero comes after the BN affine and the ReLU, as the TPU kernels pad
-// their activated image.  What happens to the BM x BN tile of c is the
-// kernel's epilogue: store it plus a bias (B1, B2) or reduce its columns
-// (chain_stats).
+// (M = N*H*W rows of C channels) and w the (N, C) rows of the OIHW
+// weight; the epilogue stores the BM x BN tile of c plus a bias.
 //
 // Tiling.  One CTA of 256 threads owns a BM x BN tile.  The reduction
-// runs in steps of BK = 8 channels of one tap: each thread fetches its
-// share of the next A tile (applying the affine and the ReLU as it
-// loads, so the activated tensor never reaches device memory) and of the
-// next B tile into registers while the CTA computes on the current tiles
-// in shared memory (double buffered, one barrier a step).  The threads
+// runs in steps of BK = 8 channels: each thread fetches its share of the
+// next A tile (applying the affine and the ReLU as it loads, so the
+// activated tensor never reaches device memory) and of the next B tile
+// into registers while the CTA computes on the current tiles in shared
+// memory (double buffered, one barrier a step).  The threads
 // form a TY x TX grid; each accumulates a TM x TN block of outputs in
 // registers (rows and columns in groups of 4, read as float4 from the
 // tiles); tile rows are padded by 4 floats so the transposing stores
@@ -36,7 +28,7 @@
 
 namespace sbr {
 
-constexpr int BK = 8;            // channels of one tap per reduction step
+constexpr int BK = 8;            // channels per reduction step
 constexpr int NTHREADS = 256;
 constexpr int LANES = NTHREADS / BK;   // rows a load pass covers (32)
 
@@ -45,7 +37,7 @@ constexpr int LANES = NTHREADS / BK;   // rows a load pass covers (32)
 // spaced 4*TY rows and 4*TX columns apart.
 template <int BM, int BN>
 struct Layout {
-  static constexpr int TY = BM >= 64 ? 16 : 8;
+  static constexpr int TY = 16;
   static constexpr int TX = NTHREADS / TY;
   static constexpr int TM = BM / TY;
   static constexpr int TN = BN / TX;
@@ -69,23 +61,21 @@ struct Tiles {
   float bs[2][BK][BN + 4];
 };
 
-// The operands of the implicit GEMM: x (M rows of C), the per-channel
-// affine (a, b), the OHWI weight w (N rows of TAPS*C), and the image
-// geometry the 3x3 taps need.  They are read-only for the kernel's
-// whole life and read through the read-only data cache (__ldg): a
-// pointer in a struct carries no __restrict__ for the compiler to use.
+// The operands of the GEMM: x (M rows of C), the per-channel affine
+// (a, b), the weight w (N rows of C).  They are read-only for the
+// kernel's whole life and read through the read-only data cache (__ldg).
 struct Conv {
   const float* x;
   const float* a;
   const float* b;
   const float* w;
-  int M, C, N, H, W;
+  int M, C, N;
 };
 
 // acc = the (m0, n0) tile of c.  Starts and ends with the tiles free: it
 // writes them only after a barrier every thread has passed, and its last
 // step ends in a barrier.
-template <int TAPS, int BM, int BN>
+template <int BM, int BN>
 __device__ __forceinline__ void mainloop(const Conv& p, int m0, int n0,
                                          Tiles<BM, BN>& t, Acc<BM, BN>& acc) {
   using L = Layout<BM, BN>;
@@ -94,53 +84,35 @@ __device__ __forceinline__ void mainloop(const Conv& p, int m0, int n0,
   const int tid = threadIdx.x;
   const int kl = tid % BK;         // channel within a step, for loads
   const int rl = tid / BK;         // first row of this thread's loads
-  const int C = p.C, H = p.H, W = p.W;
+  const int C = p.C;
 
-  // the pixels this thread loads A for, fixed over the whole reduction
+  // the rows this thread loads A for, fixed over the whole reduction
   long long mrow[AP];
-  int ph[AP], pw[AP];
   bool mok[AP];
 #pragma unroll
   for (int i = 0; i < AP; ++i) {
     const int m = m0 + rl + LANES * i;
     mok[i] = m < p.M;
     mrow[i] = m;
-    ph[i] = pw[i] = 0;
-    if constexpr (TAPS == 9) {
-      const int q = m % (H * W);
-      ph[i] = q / W;
-      pw[i] = q % W;
-    }
   }
 
-  const int csteps = (C + BK - 1) / BK;
-  const int steps = TAPS * csteps;
-  const long long ldw = (long long)TAPS * C;
+  const int steps = (C + BK - 1) / BK;
   float ra[AP], rb[BP];
 
   auto fetch = [&](int s) {
-    const int tap = s / csteps;
-    const int c = (s - tap * csteps) * BK + kl;
+    const int c = s * BK + kl;
     const bool cok = c < C;
     const float av = cok ? __ldg(p.a + c) : 0.f;
     const float bv = cok ? __ldg(p.b + c) : 0.f;
-    const int dy = TAPS == 9 ? tap / 3 - 1 : 0;
-    const int dx = TAPS == 9 ? tap % 3 - 1 : 0;
 #pragma unroll
-    for (int i = 0; i < AP; ++i) {
-      bool ok = cok && mok[i];
-      if constexpr (TAPS == 9)
-        ok = ok && (unsigned)(ph[i] + dy) < (unsigned)H &&
-             (unsigned)(pw[i] + dx) < (unsigned)W;
-      ra[i] = ok ? fmaxf(fmaf(__ldg(p.x + (mrow[i] + dy * W + dx) * C + c),
-                              av, bv), 0.f)
-                 : 0.f;
-    }
+    for (int i = 0; i < AP; ++i)
+      ra[i] = cok && mok[i]
+                  ? fmaxf(fmaf(__ldg(p.x + mrow[i] * C + c), av, bv), 0.f)
+                  : 0.f;
 #pragma unroll
     for (int j = 0; j < BP; ++j) {
       const int n = n0 + rl + LANES * j;
-      rb[j] = (cok && n < p.N) ? __ldg(p.w + n * ldw + (long long)tap * C + c)
-                               : 0.f;
+      rb[j] = (cok && n < p.N) ? __ldg(p.w + (long long)n * C + c) : 0.f;
     }
   };
   auto stash = [&](int buf) {
@@ -192,7 +164,7 @@ __device__ __forceinline__ void mainloop(const Conv& p, int m0, int n0,
   }
 }
 
-// Epilogue of B1/B2: out[m, n] = acc + bias[n], rows of TX threads x 4
+// The epilogue: out[m, n] = acc + bias[n], rows of TX threads x 4
 // columns, float4 stores where the row length allows.
 struct StoreBias {
   const float* bias;
@@ -231,50 +203,30 @@ struct StoreBias {
   }
 };
 
-// One CTA per BM x BN tile, tiles in row-major order over (m, n).
-template <int TAPS, int BM, int BN, class Epilogue>
-__device__ __forceinline__ void gemm_tile(const Conv& p, const Epilogue& epi,
-                                          int n_tiles) {
+// One CTA per BM x BN tile, tiles in row-major order over (m, n).  The
+// operands are __restrict__ kernel parameters: measured on the H100
+// (PERF.md), that runs this GEMM up to 7% faster than the same
+// pointers passed in a struct, which carries no __restrict__.
+template <int BM, int BN, class Epilogue>
+__global__ void __launch_bounds__(NTHREADS)
+gemm_kernel(const float* __restrict__ x, const float* __restrict__ a,
+            const float* __restrict__ b, const float* __restrict__ w, int M,
+            int C, int N, Epilogue epi, int n_tiles) {
   __shared__ __align__(16) Tiles<BM, BN> t;
+  const Conv p{x, a, b, w, M, C, N};
   const int m0 = (blockIdx.x / n_tiles) * BM;
   const int n0 = (blockIdx.x % n_tiles) * BN;
   Acc<BM, BN> acc;
-  mainloop<TAPS, BM, BN>(p, m0, n0, t, acc);
+  mainloop<BM, BN>(p, m0, n0, t, acc);
   epi.template operator()<BM, BN>(p, m0, n0, acc);
 }
 
-template <int TAPS, int BM, int BN, class Epilogue>
-__global__ void __launch_bounds__(NTHREADS)
-gemm_kernel(Conv p, Epilogue epi, int n_tiles) {
-  gemm_tile<TAPS, BM, BN>(p, epi, n_tiles);
-}
-
-// The same with the operands as __restrict__ kernel parameters.  The two
-// forms compile differently: measured on the H100 (PERF.md), this one
-// runs the 1x1 GEMM (TAPS = 1, B1) up to 7% faster than the struct
-// form, while the struct form runs the 3x3 GEMMs' 64 x 64 tiles up to
-// 17% faster; launch_tiles takes each where it measured faster.
-template <int TAPS, int BM, int BN, class Epilogue>
-__global__ void __launch_bounds__(NTHREADS)
-gemm_kernel_restrict(const float* __restrict__ x, const float* __restrict__ a,
-                     const float* __restrict__ b, const float* __restrict__ w,
-                     int M, int C, int N, int H, int W, Epilogue epi,
-                     int n_tiles) {
-  const Conv p{x, a, b, w, M, C, N, H, W};
-  gemm_tile<TAPS, BM, BN>(p, epi, n_tiles);
-}
-
-template <int TAPS, int BM, int BN, class Epilogue>
+template <int BM, int BN, class Epilogue>
 int launch_tiles(const Conv& p, const Epilogue& epi, cudaStream_t stream) {
   const int m_tiles = (p.M + BM - 1) / BM;
   const int n_tiles = (p.N + BN - 1) / BN;
-  if constexpr (TAPS == 1)
-    gemm_kernel_restrict<TAPS, BM, BN, Epilogue>
-        <<<m_tiles * n_tiles, NTHREADS, 0, stream>>>(
-            p.x, p.a, p.b, p.w, p.M, p.C, p.N, p.H, p.W, epi, n_tiles);
-  else
-    gemm_kernel<TAPS, BM, BN, Epilogue>
-        <<<m_tiles * n_tiles, NTHREADS, 0, stream>>>(p, epi, n_tiles);
+  gemm_kernel<BM, BN, Epilogue><<<m_tiles * n_tiles, NTHREADS, 0, stream>>>(
+      p.x, p.a, p.b, p.w, p.M, p.C, p.N, epi, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -287,29 +239,17 @@ inline int sm_count(int* sms) {
 }
 
 // Tile choice: 128 x 64 when the output has at most 64 channels; else
-// 128 x 128 when that still gives every SM a CTA; else 64 x 64, so the
-// small late-stage grids (ResNet-50 stage 3-4 at 14x14 and 7x7) fill
-// the card.  Every choice has at least MIN_BM rows; the one taken is
-// stored in *bm when bm is given.
-constexpr int MIN_BM = 64;
-
-template <int TAPS, class Epilogue>
-int launch(const Conv& p, const Epilogue& epi, cudaStream_t stream,
-           int* bm = nullptr) {
+// 128 x 128 when that still gives every SM a CTA; else 64 x 64, so
+// small grids fill the card.
+template <class Epilogue>
+int launch(const Conv& p, const Epilogue& epi, cudaStream_t stream) {
   if (p.M <= 0 || p.N <= 0 || p.C <= 0) return (int)cudaErrorInvalidValue;
   int sms = 0;
   if (int err = sm_count(&sms)) return err;
   const long long big = (long long)((p.M + 127) / 128) * ((p.N + 127) / 128);
-  if (p.N <= 64) {
-    if (bm) *bm = 128;
-    return launch_tiles<TAPS, 128, 64>(p, epi, stream);
-  }
-  if (big >= sms) {
-    if (bm) *bm = 128;
-    return launch_tiles<TAPS, 128, 128>(p, epi, stream);
-  }
-  if (bm) *bm = 64;
-  return launch_tiles<TAPS, 64, 64>(p, epi, stream);
+  if (p.N <= 64) return launch_tiles<128, 64>(p, epi, stream);
+  if (big >= sms) return launch_tiles<128, 128>(p, epi, stream);
+  return launch_tiles<64, 64>(p, epi, stream);
 }
 
 }  // namespace sbr

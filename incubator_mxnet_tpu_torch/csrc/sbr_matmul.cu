@@ -17,8 +17,8 @@
 // fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20), so it is bound by
 // operations: ~0.049 ms each at the fp32 CUDA-core peak.
 //
-// What the design does about it.  The shared main loop (sbr_gemm.cuh)
-// is a register-blocked SGEMM: 128 x 128 (or 128 x 64 / 64 x 64) output
+// What the design does about it.  The main loop (sbr_gemm.cuh) is a
+// register-blocked SGEMM: 128 x 128 (or 128 x 64 / 64 x 64) output
 // tiles, 8 x 8 accumulators a thread, operand tiles double-buffered in
 // shared memory with the next tile's global loads in flight during the
 // current tile's FMAs.  The affine and ReLU are applied to x as it is
@@ -40,10 +40,10 @@ extern "C" int mx_sbr_matmul(const void* x, const void* a, const void* b,
                              int m, int k, int cout, void* stream) {
   const sbr::Conv p{static_cast<const float*>(x), static_cast<const float*>(a),
                     static_cast<const float*>(b), static_cast<const float*>(w),
-                    m, k, cout, 1, 1};
+                    m, k, cout};
   const sbr::StoreBias epi{static_cast<const float*>(bias),
                            static_cast<float*>(out)};
-  return sbr::launch<1>(p, epi, static_cast<cudaStream_t>(stream));
+  return sbr::launch(p, epi, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

@@ -1,6 +1,7 @@
 // A warp-level tensor-core main loop for Hopper (sm_90a), fp32-accurate:
 // 3xTF32 mma.sync fed by a cp.async ring in dynamic shared memory.  Used
-// by chain_emit.cu (B4); its note says which TPU kernel that replaces.
+// by the three 3x3 kernels: sbr_conv3x3.cu (B2), chain_stats.cu (B3) and
+// chain_emit.cu (B4); each one's note says which TPU kernel it replaces.
 //
 // Products.  mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 multiplies
 // a 16x8 A fragment by an 8x8 B fragment into a 16x8 fp32 accumulator.
@@ -47,7 +48,10 @@
 // copied as they are (a tap outside the image zero-filled by cp.async's
 // src-size 0); the affine, the ReLU and then the tap mask are applied
 // when a warp loads its A fragment, because relu(0*a + b) is not 0: the
-// padding zero comes after the activation.
+// padding zero comes after the activation.  B4 walks all N columns of
+// its rows in one CTA; B2 and B3 run one CTA per BM x BN tile of c
+// (conv3x3_kernel below) and differ only in what their epilogue does
+// with the tile: store it plus a bias, or reduce its columns.
 
 #pragma once
 
@@ -289,6 +293,56 @@ __device__ __forceinline__ void copy_rows(float* dst, const Src& src,
   }
 }
 
+// ------------------------------------------------------------- epilogue
+// out[m, n] = acc + bias[n] over the tile's rows m0 + ... below M and
+// columns n0 + ... below N (out: rows of N floats).  vec (N % 4 == 0,
+// out and bias 16-byte aligned): float4 stores, lanes t and t^1 swapping
+// halves by a shuffle, so the even one stores row g's columns 2t..2t+3
+// and the odd one row g+8's 2t-2..2t+1.  Every lane of the warp calls it.
+template <class T>
+__device__ __forceinline__ void store_bias(const Acc<T>& acc,
+                                           const Frag<T>& f, int m0, int n0,
+                                           int M, int N, const float* bias,
+                                           float* out, bool vec) {
+  const bool odd = f.t & 1;
+#pragma unroll
+  for (int j = 0; j < T::NI; ++j) {
+    const int n = n0 + f.col0(j);
+#pragma unroll
+    for (int i = 0; i < T::MI; ++i) {
+      const float* c = acc[i][j];
+      if (vec) {
+        const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+        const int m = m0 + f.row0(i) + (odd ? 8 : 0);
+        const int nc = odd ? n - 2 : n;
+        if (m < M && nc < N) {
+          const float4 b = __ldg(reinterpret_cast<const float4*>(bias + nc));
+          float4 v = odd ? make_float4(r0, r1, c[2], c[3])
+                         : make_float4(c[0], c[1], r0, r1);
+          v.x += b.x;
+          v.y += b.y;
+          v.z += b.z;
+          v.w += b.w;
+          *reinterpret_cast<float4*>(out + (long long)m * N + nc) = v;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = m0 + f.row0(i) + 8 * (q / 2);
+          const int nq = n + q % 2;
+          if (m < M && nq < N)
+            out[(long long)m * N + nq] = c[q] + __ldg(bias + nq);
+        }
+      }
+    }
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // ------------------------------------------------------------------ 3x3
 // The operands of the implicit GEMM: x (M rows of C), the per-channel
 // affine (a, b), the OHWI weight w (N rows of 9*C), the image geometry;
@@ -421,5 +475,57 @@ struct Conv3x3 {
     mma_slot<T>(slot + T::B_OFF, f, a_frag, acc);
   }
 };
+
+// One CTA per BM x BN tile of c, the N tiles of a row tile next to each
+// other in launch order (they read the same rows of x, through L2).  The
+// tile's GEMM runs through the ring, then epi(p, f, acc, m0, n0, smem)
+// gets the tile with the whole ring free for its own use.
+template <class T, class Epilogue>
+__global__ void __launch_bounds__(T::THREADS)
+conv3x3_kernel(Conv p, Epilogue epi, int n_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = (blockIdx.x / n_tiles) * T::BM;
+  const int n0 = (blockIdx.x % n_tiles) * T::BN;
+  const Conv3x3<T> conv(p, m0);
+  Acc<T> acc;
+  zero<T>(acc);
+  pipeline(
+      p.steps(),
+      [&](int s, int slot) { conv.load(s, n0, smem + slot * T::SLOT); },
+      [&](int s, int slot) {
+        conv.compute(s, smem + slot * T::SLOT, acc);
+      });
+  epi.template operator()<T>(p, conv.f, acc, m0, n0, smem);
+}
+
+// The CTAs of conv3x3_kernel with tile T
+template <class T>
+long long ctas(const Conv& p) {
+  return (long long)((p.M + T::BM - 1) / T::BM) * ((p.N + T::BN - 1) / T::BN);
+}
+
+// The current device's SM count in *sms; the CUDA error code
+inline int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
+// Launch conv3x3_kernel with tile T on the stream; the CUDA error code
+template <class T, class Epilogue>
+int launch_conv3x3(const Conv& p, const Epilogue& epi, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_kernel<T, Epilogue>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::RING_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const long long m_tiles = (p.M + T::BM - 1) / T::BM;
+  const int n_tiles = (p.N + T::BN - 1) / T::BN;
+  conv3x3_kernel<T, Epilogue>
+      <<<(unsigned)(m_tiles * n_tiles), T::THREADS, T::RING_BYTES, stream>>>(
+          p, epi, n_tiles);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace tc

@@ -366,3 +366,88 @@ def test_3xtf32_split_holds_the_kernel_gate_and_one_pass_does_not(shape):
     split, once = err(_tf32_split), err(_tf32_once)
     assert split * SPLIT_MARGIN <= CONV_RTOL, (split, once)
     assert once > CONV_RTOL, (split, once)
+
+
+# B3 on the card runs conv2 in the same 3xTF32 arithmetic (the 3x3 main
+# loop of csrc/tc_gemm.cuh) and sums c2 - s per channel in fp32.  Here
+# the plain version of pass 1 runs in that arithmetic on the CPU (a CPU
+# computation, not the card's: fp32 accumulation rounding to nearest)
+# against fp64, at the same three K = 9C: the shifted sums must hold
+# chip_smoke.py's gate (CHAIN_STATS_RTOL of each channel's mass for the
+# sum, of the sum itself for the squares) with a margin of SPLIT_MARGIN,
+# and one TF32 pass must not hold it; and the stress case's shifted var2
+# must hold STRESS_VAR_RTOL.
+CHAIN_STATS_RTOL = 1e-5
+STRESS_VAR_RTOL = 2e-2
+
+
+def _shifted_sums(x, a1, b1, w2, shift, product):
+    """``(sum, sq)`` of ``c2 - shift`` over (N, H, W), c2 by
+    ``product``."""
+    d = product(fused_chain._activate(x, a1, b1), w2, 1) - \
+        shift.view(1, -1, 1, 1)
+    return d.sum((0, 2, 3)), d.square().sum((0, 2, 3))
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64, 64), (1, 8, 8, 256, 256),
+                                   (1, 7, 7, 512, 512)],
+                         ids=["K576", "K2304", "K4608"])
+def test_3xtf32_split_holds_the_chain_stats_gate_and_one_pass_does_not(
+        shape):
+    n, h, w, c, cm = shape
+    rs = np.random.RandomState(12)
+    f32 = np.float32
+    args = [rs.randn(n, c, h, w).astype(f32),
+            rs.uniform(0.5, 1.5, c).astype(f32),
+            rs.uniform(-0.1, 0.1, c).astype(f32),
+            (rs.randn(cm, c, 3, 3) * np.sqrt(2.0 / (9 * c))).astype(f32),
+            rs.uniform(-0.5, 0.5, cm).astype(f32)]
+    t32 = [torch.from_numpy(a) for a in args]
+    t64 = [t.double() for t in t32]
+    ref_sum, ref_sq = _shifted_sums(*t64, product=_conv)
+    d = _conv(fused_chain._activate(*t64[:3]), t64[3], 1) - \
+        t64[4].view(1, -1, 1, 1)
+    mass = d.abs().sum((0, 2, 3))
+
+    def err(product):
+        got_sum, got_sq = _shifted_sums(*t32, product=product)
+        return max(((got_sum.double() - ref_sum).abs() / mass).max().item(),
+                   ((got_sq.double() - ref_sq).abs() / ref_sq).max().item())
+    split, once = err(_tf32_split), err(_tf32_once)
+    assert split * SPLIT_MARGIN <= CHAIN_STATS_RTOL, (split, once)
+    assert once > CHAIN_STATS_RTOL, (split, once)
+
+
+def test_3xtf32_split_keeps_the_stress_case_shifted_variance():
+    """chip_smoke.py's stress case (BN2's mean ~4e3 standard deviations
+    from 0) with conv2 in 3xTF32 arithmetic: var2 from the sums shifted
+    by an EMA step off the mean holds STRESS_VAR_RTOL of fp64; from the
+    unshifted sums it does not."""
+    rs = np.random.RandomState(7)
+    n, h, w, c, cm = 4, 16, 16, 16, 8
+
+    def fp32(a):            # the values the kernel sees, kept in fp64
+        return np.asarray(a, np.float32).astype(np.float64)
+    c1 = fp32(rs.randn(n, h, w, c))
+    mean1, var1 = c1.mean((0, 1, 2)), c1.var((0, 1, 2))
+    a1 = fp32(1.0 / np.sqrt(var1 + 1e-5))
+    b1 = fp32(1000.0 - mean1 * a1)
+    w2 = np.zeros((cm, c, 3, 3))
+    w2[:, :, 1, 1] = fp32(0.1 + 0.001 * rs.randn(cm, c))
+    c2 = np.einsum("nhwc,mc->nhwm", np.maximum(c1 * a1 + b1, 0),
+                   w2[:, :, 1, 1])
+    mean_ref, var_ref = c2.mean((0, 1, 2)), c2.var((0, 1, 2))
+    assert float(np.min(mean_ref / np.sqrt(var_ref))) > 1e3  # stressed
+    x, a, b, wt = (torch.from_numpy(v.astype(np.float32))
+                   for v in (c1.transpose(0, 3, 1, 2), a1, b1, w2))
+    errs = []
+    for shift in (mean_ref * 1.003, np.zeros(cm)):
+        s = torch.from_numpy(shift.astype(np.float32))
+        sums, sqs = _shifted_sums(x, a, b, wt, s, product=_tf32_split)
+        count = n * h * w
+        mean_d = sums.double() / count
+        var2 = torch.clamp(sqs.double() / count - mean_d.square(), min=0)
+        errs.append(float(np.max(np.abs(var2.numpy() - var_ref) / var_ref)))
+    shifted, raw = errs
+    assert shifted <= STRESS_VAR_RTOL, errs
+    assert raw > 0.05, errs

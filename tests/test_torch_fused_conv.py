@@ -27,6 +27,7 @@ from incubator_mxnet_tpu_torch.gluon.nn import (BatchNorm, Conv2D, Dense,
 from incubator_mxnet_tpu_torch.ops import fused_conv
 from incubator_mxnet_tpu_torch.ops.fused_conv import (
     _check, fused_bn_relu_conv, sbr_conv3x3, sbr_matmul, supported)
+from torch_port_helpers import split_tf32, tf32_rna
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 CL = torch.channels_last
@@ -278,3 +279,56 @@ def test_kernel_library_binding_is_lazy():
     """Nothing is built or loaded at import: the CPU tests import every
     module on a machine without nvcc."""
     assert fused_conv._bound == {}
+
+
+# B2 on the card multiplies in TF32 on the tensor cores, each operand
+# split into two TF32 parts and three products summed (the 3x3 main loop
+# of csrc/tc_gemm.cuh).  Here the plain version runs in that arithmetic
+# on the CPU (a CPU computation, not the card's: fp32 accumulation
+# rounding to nearest) against fp64, at K = 9C up to 4608: the split
+# must hold chip_smoke.py's kernel gate (CONV_RTOL, 1e-4 of max |out|)
+# with a margin of SPLIT_MARGIN, and one TF32 pass must not hold it.
+CONV_RTOL = 1e-4
+SPLIT_MARGIN = 20.0
+
+
+def _conv3x3(y, w, product):
+    """F.conv2d(y, w, padding=1) with the multiplications of ``product``:
+    "fp32", "tf32" (one pass) or "3xtf32"."""
+    def conv(a, b):
+        return F.conv2d(a, b, padding=1)
+    if product == "tf32":
+        return conv(tf32_rna(y), tf32_rna(w))
+    if product == "3xtf32":
+        (yb, ys), (wb, ws) = split_tf32(y), split_tf32(w)
+        return conv(ys, wb) + conv(yb, ws) + conv(yb, wb)
+    return conv(y, w)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64, 64), (1, 8, 8, 256, 256),
+                                   (1, 7, 7, 512, 512)],
+                         ids=["K576", "K2304", "K4608"])
+def test_3xtf32_split_holds_the_conv3x3_gate_and_one_pass_does_not(shape):
+    n, h, w, c, cout = shape
+    rs = np.random.RandomState(13)
+    f32 = np.float32
+    args = [rs.randn(n, c, h, w).astype(f32),
+            rs.uniform(0.5, 1.5, c).astype(f32),
+            rs.uniform(-0.1, 0.1, c).astype(f32),
+            (rs.randn(cout, c, 3, 3) * np.sqrt(2.0 / (9 * c))).astype(f32),
+            rs.uniform(-0.1, 0.1, cout).astype(f32)]
+    x, a, b, wt, bias = [torch.from_numpy(v) for v in args]
+
+    def out(product, dtype):
+        y = fused_conv._activate(x.to(dtype), a.to(dtype), b.to(dtype))
+        return _conv3x3(y, wt.to(dtype), product) + \
+            bias.to(dtype).view(1, -1, 1, 1)
+    ref = out("fp32", torch.float64)
+    scale = ref.abs().max().item()
+
+    def err(product):
+        return (out(product, torch.float32).double() - ref).abs().max() \
+            .item() / scale
+    split, once = err("3xtf32"), err("tf32")
+    assert split * SPLIT_MARGIN <= CONV_RTOL, (split, once)
+    assert once > CONV_RTOL, (split, once)

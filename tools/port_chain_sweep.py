@@ -1,29 +1,35 @@
-"""Time the port's B4 kernel (csrc/chain_emit.cu) on one GPU at ResNet-50
-v1's four chain shapes (b=128): the kernel as shipped, every tile it
-could take, builds with one part of its work changed, a parent
-checkout's kernel, and the unfused cuDNN composition; and the peak rate
-of mma.sync tf32 on this card.
+"""Time the port's 3x3 kernels on the tensor-core main loop
+(``csrc/tc_gemm.cuh``) on one GPU: B4 ``chain_emit`` and B3
+``chain_stats`` at ResNet-50 v1's four chain shapes (b=128), B2
+``sbr_conv3x3`` at its four fused 3x3 shapes (b=32).  For each: the
+kernel as shipped, every tile it could take, builds with one part of its
+work changed, a parent checkout's kernel, and the unfused cuDNN
+composition; and the peak rate of mma.sync tf32 on this card.
 
-    python3 tools/port_chain_sweep.py [--parent PARENT_TREE]
-        [--tiles "BM,BN,WGM,WGN ..."] [--diag "cvt nopro ..."]
+    python3 tools/port_chain_sweep.py [--kernels "emit stats conv"]
+        [--parent PARENT_TREE] [--tiles "BM,BN,WGM,WGN ..."]
+        [--diag "cvt nopro ..."]
 
 Run from the repository root.  The tiles are built from this checkout's
-``csrc/chain_emit.cu`` with one extra C entry that launches a given
-``tc::Tile``; ``--diag`` builds also change ``csrc/tc_gemm.cuh``:
+kernel source with one extra C entry that launches a given ``tc::Tile``
+(a tile whose ring or y2 tile does not fit shows as null); ``--diag``
+builds also change ``csrc/tc_gemm.cuh``:
 
 * ``cvt``: the TF32 rounding by ``cvt.rna.tf32.f32`` instead of the
   integer add and mask;
-* ``nopro``: no BN1 affine / ReLU / tap mask at A fragment load;
+* ``nopro``: no BN affine / ReLU / tap mask at A fragment load;
 * ``onemma``: one TF32 product instead of the three of 3xTF32;
 * ``noload``: no cp.async copies (the ring is never filled).
 
 The last three compute wrong values: they only say what the removed
-work costs.  With ``--parent``, the parent's ``chain_emit.cu`` (built
-against its own ``csrc``) and this checkout's are timed in turns
-(parent, change, change, parent).  Every row is one JSON line; times are
-CUDA events over 20 launches after 3 warm-up launches, fp32 inputs as
-``chip_smoke.py`` makes them, TF32 off for PyTorch's own calls.  Builds
-go to ``incubator_mxnet_tpu_torch/_build/sweep``.
+work costs.  With ``--parent``, the parent's kernel (built from its own
+``csrc``) and this checkout's are timed in turns (parent, change,
+change, parent).  Every row is one JSON line; ``err`` is the gate of
+``chip_smoke.py`` against the plain version (of max |out| for emit and
+conv, of the sums' mass for stats).  Times are CUDA events over 20
+launches after 3 warm-up launches, fp32 inputs as ``chip_smoke.py``
+makes them, TF32 off for PyTorch's own calls.  Builds go to
+``incubator_mxnet_tpu_torch/_build/sweep``.
 """
 from __future__ import annotations
 
@@ -31,20 +37,23 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
 from incubator_mxnet_tpu_torch import _build  # noqa: E402
 from incubator_mxnet_tpu_torch.ops import fused_chain as fc  # noqa: E402
+from incubator_mxnet_tpu_torch.ops import fused_conv as fconv  # noqa: E402
 
 CSRC = os.path.abspath(os.path.join("incubator_mxnet_tpu_torch", "csrc"))
 OUT = os.path.join(_build.BUILD_DIR, "sweep")
-TILES = ("64,64,2,2 128,128,2,4 96,128,2,4 64,128,2,4 48,128,1,4 "
-         "64,64,2,4 32,64,2,4")
+TILES = ("64,64,2,2 128,64,2,2 128,128,2,4 96,128,2,4 64,128,2,4 "
+         "48,128,1,4 32,128,1,4 64,64,2,4 32,64,2,4")
 ROUND = "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;\n"
 DIAG = {
     "cvt": [(ROUND, '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : '
@@ -59,7 +68,13 @@ DIAG = {
     "noload": [("    if (s < steps) load(s, s);\n", ""),
                ("    if (next < steps) load(next, next % STAGES);\n", "")],
 }
-TILE_ENTRY = r'''
+P, I = ctypes.c_void_p, ctypes.c_int
+# Per kernel: its source, C entry and signature (pointers, ints), the
+# extra entry that launches tile @CASES@, and each case's launch.
+KERNELS = {
+    "emit": dict(
+        source="chain_emit.cu", fn="mx_chain_emit", nptrs=9, nints=6,
+        entry=r'''
 extern "C" int mx_chain_emit_tile(const void* x, const void* a1,
     const void* b1, const void* w2, const void* a2, const void* b2,
     const void* w3, const void* b3, void* out, int n, int h, int w, int c,
@@ -83,7 +98,44 @@ extern "C" int mx_chain_emit_tile(const void* x, const void* a1,
   }
   return (int)cudaErrorInvalidValue;
 }
-'''
+''',
+        case="fits<T>(cm, max_smem) ? launch_emit<T>(p, e, s) "
+             ": (int)cudaErrorInvalidValue"),
+    "stats": dict(
+        source="chain_stats.cu", fn="mx_chain_stats", nptrs=8, nints=5,
+        entry=r'''
+extern "C" int mx_chain_stats_tile(const void* x, const void* a1,
+    const void* b1, const void* w2, const void* shift, void* part,
+    void* sum, void* sq, int n, int h, int w, int c, int cm, void* stream,
+    int tile) {
+  const tc::Conv p = operands(x, a1, b1, w2, n, h, w, c, cm);
+  const TileSums epi{static_cast<const float*>(shift),
+                     static_cast<float*>(part)};
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+@CASES@
+  }
+  return (int)cudaErrorInvalidValue;
+}
+''',
+        case="launch_stats<T>(p, epi, sum, sq, s)"),
+    "conv": dict(
+        source="sbr_conv3x3.cu", fn="mx_sbr_conv3x3", nptrs=6, nints=5,
+        entry=r'''
+extern "C" int mx_sbr_conv3x3_tile(const void* x, const void* a,
+    const void* b, const void* w, const void* bias, void* out, int n, int h,
+    int w_, int c, int cout, void* stream, int tile) {
+  const tc::Conv p = operands(x, a, b, w, n, h, w_, c, cout);
+  const StoreBias epi = epilogue(bias, out, cout);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+@CASES@
+  }
+  return (int)cudaErrorInvalidValue;
+}
+''',
+        case="tc::launch_conv3x3<T>(p, epi, s)"),
+}
 MMA_PEAK = r'''
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,7 +166,6 @@ extern "C" int mma_peak_run(void* out, int blocks, int iters, void* st) {
   return (int)cudaGetLastError();
 }
 '''
-PTRS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def emit(obj):
@@ -136,6 +187,22 @@ def substitute(text, pairs):
     return text
 
 
+def ptxas_report(log):
+    """ptxas's registers and spills per kernel, the kernel named by its
+    tile (``BM,BN,WGM,WGN``) where it has one."""
+    rows, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            tile = re.search(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                             line)
+            name = ",".join(tile.groups()) if tile else line.split()[-1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            rows.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return rows
+
+
 def build(jobs):
     """``{name: (source, include dirs)}`` -> ``{name: CDLL}``, one nvcc
     each, all started together."""
@@ -153,16 +220,14 @@ def build(jobs):
         log, _ = proc.communicate()
         if proc.returncode:
             sys.exit(f"{name}: nvcc exit {proc.returncode}\n{log[-3000:]}")
-        emit({"build": name, "ptxas": [ln.strip() for ln in log.splitlines()
-                                       if "registers" in ln or "spill" in ln]})
+        emit({"build": name, "ptxas": ptxas_report(log)})
         libs[name] = ctypes.CDLL(lib)
     return libs
 
 
 def mma_peak(lib):
     fn = lib.mma_peak_run
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = [P, I, I, P]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     buf = torch.empty(sms * 4 * 256, device="cuda")
     iters = 4096
@@ -176,16 +241,152 @@ def mma_peak(lib):
               "ctas_per_sm": per_sm, "ms": ms})
 
 
-def unfused(x, a1, b1, w2, a2, b2, w3, b3):
-    conv = torch.nn.functional.conv2d
-    c2 = conv(torch.relu(x * a1.view(1, -1, 1, 1) + b1.view(1, -1, 1, 1)),
-              w2, padding=1)
-    return conv(torch.relu(c2 * a2.view(1, -1, 1, 1)
-                           + b2.view(1, -1, 1, 1)), w3, b3)
+def _activate(x, a, b):
+    return torch.relu(x * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1))
+
+
+def emit_case(gen, shape, min_bm):
+    """B4 at a chain shape: (pointers, ints, check, shipped, library)."""
+    n, h, w, c, cm, co = shape
+    t = cs._chain_case(gen, *shape)
+    ops = [t[k] for k in ("x", "a1", "b1", "w2", "a2", "b2", "w3", "b3")]
+    ref = fc._chain_emit_plain(*ops)
+    scale = ref.abs().max().item()
+    out = torch.empty_like(ref)
+
+    def check():
+        return (out - ref).abs().max().item() / scale
+
+    def library():
+        c2 = F.conv2d(_activate(ops[0], ops[1], ops[2]), ops[3], padding=1)
+        return F.conv2d(_activate(c2, ops[4], ops[5]), ops[6], ops[7])
+    return (ops + [out], (n, h, w, c, cm, co), out, check,
+            lambda: fc.chain_emit(*ops), library,
+            cs.chain_bound_ms(*shape, emit=True)[0])
+
+
+def stats_case(gen, shape, min_bm):
+    """B3 at a chain shape; the partials sized for ``min_bm`` rows."""
+    n, h, w, c, cm, co = shape
+    t = cs._chain_case(gen, *shape)
+    ops = [t[k] for k in ("x", "a1", "b1", "w2", "shift")]
+    ref_sum, ref_sq = fc._chain_stats_plain(*ops)
+    d = fc._conv2(*ops[:4]) - ops[4].view(1, -1, 1, 1)
+    mass = d.abs().sum((0, 2, 3))
+    del d
+    m = n * h * w
+    part = torch.empty(((m + min_bm - 1) // min_bm * 2 * cm,),
+                       device="cuda")
+    sums = torch.empty((cm,), device="cuda")
+    sqs = torch.empty_like(sums)
+
+    def check():
+        return max(((sums - ref_sum).abs() / mass).max().item(),
+                   ((sqs - ref_sq).abs() / ref_sq).max().item())
+
+    def library():
+        dd = F.conv2d(_activate(ops[0], ops[1], ops[2]), ops[3],
+                      padding=1) - ops[4].view(1, -1, 1, 1)
+        return dd.sum((0, 2, 3)), dd.square().sum((0, 2, 3))
+    return (ops + [part, sums, sqs], (n, h, w, c, cm), sums, check,
+            lambda: fc.chain_stats(*ops), library,
+            cs.chain_bound_ms(*shape, emit=False)[0])
+
+
+def conv_case(gen, shape, min_bm):
+    """B2 at a fused 3x3 shape."""
+    n, h, w, c, cout = shape
+    ops = list(cs._conv_case(gen, *shape, 9))
+    ref = fconv._sbr_conv3x3_plain(*ops)
+    scale = ref.abs().max().item()
+    out = torch.empty_like(ref)
+
+    def check():
+        return (out - ref).abs().max().item() / scale
+
+    def library():
+        return F.conv2d(_activate(*ops[:3]), ops[3], ops[4], padding=1)
+    return (ops + [out], shape, out, check, lambda: fconv.sbr_conv3x3(*ops),
+            library, cs.conv_bound_ms(*shape, 9)[0])
+
+
+CASES = {"emit": (emit_case, cs.CHAIN_SHAPES),
+         "stats": (stats_case, cs.CHAIN_SHAPES),
+         "conv": (conv_case, cs.CONV3X3_SHAPES)}
+
+
+def parent_workspace(lib, shape):
+    """Floats of the parent's chain_stats partials at a chain shape."""
+    fn = lib.mx_chain_stats_workspace
+    fn.argtypes, fn.restype = [I, I], I
+    n, h, w, _, cm, _ = shape
+    return fn(n * h * w, cm)
+
+
+def sweep(kernel, libs, tiles, diags, parent):
+    spec = KERNELS[kernel]
+    make, shapes = CASES[kernel]
+    sig = [P] * spec["nptrs"] + [I] * spec["nints"] + [P]
+    for name in [f"{kernel}-tiles"] + [f"{kernel}-{d}" for d in diags]:
+        getattr(libs[name], spec["fn"] + "_tile").argtypes = sig + [I]
+    if parent:
+        getattr(libs[f"{kernel}-parent"], spec["fn"]).argtypes = sig
+    min_bm = min(int(t.split(",")[0]) for t in tiles)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for shape in shapes:
+        tensors, ints, out, check, shipped, library, bound = make(
+            gen, shape, min_bm)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch(lib, tile=None, ptrs=None):
+            fn = getattr(lib, spec["fn"] + ("" if tile is None else "_tile"))
+            call = ptrs or [t.data_ptr() for t in tensors]
+            extra = () if tile is None else (tile,)
+            return lambda: fn(*call, *ints, stream, *extra)
+
+        row = {"kernel": kernel, "shape": list(shape), "bound_ms": bound,
+               "tiles": {}}
+        for i, tile in enumerate(tiles):
+            out.fill_(float("nan"))
+            if launch(libs[f"{kernel}-tiles"], i)():
+                row["tiles"][tile] = None      # does not fit
+                continue
+            torch.cuda.synchronize()
+            entry = {"err": check(),
+                     "ms": cs.time_ms(launch(libs[f"{kernel}-tiles"], i))}
+            for d in diags:
+                entry[d] = cs.time_ms(launch(libs[f"{kernel}-{d}"], i))
+            row["tiles"][tile] = entry
+        if parent:
+            plib = libs[f"{kernel}-parent"]
+            ptrs = None
+            if kernel == "stats":      # the parent sizes its own partials
+                part = torch.empty((parent_workspace(plib, shape),),
+                                   device="cuda")
+                ptrs = [t.data_ptr() for t in tensors]
+                ptrs[5] = part.data_ptr()
+            old = launch(plib, ptrs=ptrs)
+            out.fill_(float("nan"))
+            old()
+            torch.cuda.synchronize()
+            row["parent_err"] = check()
+            turns = [("parent", old), ("change", shipped),
+                     ("change", shipped), ("parent", old)]
+            row["turns_ms"] = [(who, cs.time_ms(fn)) for who, fn in turns]
+        else:
+            row["kernel_ms"] = cs.time_ms(shipped)
+        shipped()
+        torch.cuda.synchronize()
+        row["kernel_err"] = check()
+        row["library_ms"] = cs.time_ms(library)
+        emit(row)
+        del tensors, out
+        torch.cuda.empty_cache()
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default="emit stats conv")
     ap.add_argument("--parent", help="a parent checkout's root")
     ap.add_argument("--tiles", default=TILES)
     ap.add_argument("--diag", default="")
@@ -196,74 +397,35 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
-    tiles = args.tiles.split()
-    diags = args.diag.split()
-    cases = "\n".join(f"    case {i}: return fits<tc::Tile<{t}>>(cm, max_smem)"
-                      f" ? launch_emit<tc::Tile<{t}>>(p, e, s)"
-                      f" : (int)cudaErrorInvalidValue;"
-                      for i, t in enumerate(tiles))
-    with open(os.path.join(CSRC, "chain_emit.cu")) as f:
-        src = f.read() + TILE_ENTRY.replace("@CASES@", cases)
+    kernels, tiles, diags = (args.kernels.split(), args.tiles.split(),
+                             args.diag.split())
     with open(os.path.join(CSRC, "tc_gemm.cuh")) as f:
         header = f.read()
-    jobs = {"peak": (write(os.path.join(OUT, "peak.cu"), MMA_PEAK), []),
-            "tiles": (write(os.path.join(OUT, "tiles.cu"), src), [CSRC])}
-    for d in diags:
-        write(os.path.join(OUT, d, "tc_gemm.cuh"),
-              substitute(header, DIAG[d]))
-        jobs[d] = (write(os.path.join(OUT, d, "tiles.cu"), src),
-                   [os.path.join(OUT, d), CSRC])
-    if args.parent:
-        psrc = os.path.join(os.path.abspath(args.parent),
-                            "incubator_mxnet_tpu_torch", "csrc")
-        jobs["parent"] = (os.path.join(psrc, "chain_emit.cu"), [psrc])
+    jobs = {"peak": (write(os.path.join(OUT, "peak.cu"), MMA_PEAK), [])}
+    for kernel in kernels:
+        spec = KERNELS[kernel]
+        cases = "\n".join(
+            f"    case {i}: {{ using T = tc::Tile<{t}>; return "
+            f"{spec['case']}; }}" for i, t in enumerate(tiles))
+        with open(os.path.join(CSRC, spec["source"])) as f:
+            src = f.read() + spec["entry"].replace("@CASES@", cases)
+        jobs[f"{kernel}-tiles"] = (
+            write(os.path.join(OUT, kernel, spec["source"]), src), [CSRC])
+        for d in diags:
+            write(os.path.join(OUT, kernel, d, "tc_gemm.cuh"),
+                  substitute(header, DIAG[d]))
+            jobs[f"{kernel}-{d}"] = (
+                write(os.path.join(OUT, kernel, d, spec["source"]), src),
+                [os.path.join(OUT, kernel, d), CSRC])
+        if args.parent:
+            psrc = os.path.join(os.path.abspath(args.parent),
+                                "incubator_mxnet_tpu_torch", "csrc")
+            jobs[f"{kernel}-parent"] = (os.path.join(psrc, spec["source"]),
+                                        [psrc])
     libs = build(jobs)
     mma_peak(libs["peak"])
-    for name in ["tiles", *diags]:
-        libs[name].mx_chain_emit_tile.argtypes = PTRS + [ctypes.c_int]
-    if args.parent:
-        libs["parent"].mx_chain_emit.argtypes = PTRS
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    for shape in cs.CHAIN_SHAPES:
-        t = cs._chain_case(gen, *shape)
-        ops = [t[k] for k in ("x", "a1", "b1", "w2", "a2", "b2", "w3", "b3")]
-        ref = fc._chain_emit_plain(*ops)
-        scale = ref.abs().max().item()
-        out = torch.empty_like(ref)
-        call = [o.data_ptr() for o in ops] + [out.data_ptr()]
-        n, h, w, c, cm, co = shape
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def launch(lib, tile=None):
-            fn = lib.mx_chain_emit if tile is None else lib.mx_chain_emit_tile
-            extra = () if tile is None else (tile,)
-            return lambda: fn(*call, n, h, w, c, cm, co, stream, *extra)
-
-        row = {"shape": list(shape), "ref_abs_max": scale,
-               "bound_ms": cs.chain_bound_ms(*shape, emit=True)[0],
-               "tiles": {}}
-        for i, tile in enumerate(tiles):
-            out.fill_(float("nan"))
-            if launch(libs["tiles"], i)():
-                row["tiles"][tile] = None      # does not fit
-                continue
-            torch.cuda.synchronize()
-            entry = {"err": (out - ref).abs().max().item() / scale,
-                     "ms": cs.time_ms(launch(libs["tiles"], i))}
-            for d in diags:
-                entry[d] = cs.time_ms(launch(libs[d], i))
-            row["tiles"][tile] = entry
-        kernel = lambda: fc.chain_emit(*ops)     # noqa: E731
-        if args.parent:
-            turns = [("parent", launch(libs["parent"])), ("change", kernel),
-                     ("change", kernel), ("parent", launch(libs["parent"]))]
-            row["turns_ms"] = [(who, cs.time_ms(fn)) for who, fn in turns]
-        else:
-            row["kernel_ms"] = cs.time_ms(kernel)
-        row["library_ms"] = cs.time_ms(lambda: unfused(*ops))
-        emit(row)
-        del t, ops, ref, out
-        torch.cuda.empty_cache()
+    for kernel in kernels:
+        sweep(kernel, libs, tiles, diags, args.parent)
 
 
 if __name__ == "__main__":
