@@ -135,6 +135,7 @@ STEP_LOSS_RTOL, STEP_RTOL, STEP_ATOL, SPREAD_FACTOR = 1e-4, 1e-4, 1e-6, 3.0
 FUSED_TRAIN_BATCH, FUSED_TRAIN_STEPS = 32, 3
 GPT2_SMALL = dict(vocab=50257, dim=768, heads=12, depth=12, max_len=1024)
 PROMPT_LENGTHS = (9, 16, 33, 100, 250, 511, 700, 1000)
+SAMPLED_LEN, SAMPLED_TWICE = 40, 2  # one sampled prompt, submitted twice
 MAX_NEW = 16
 
 # ---- rtc user kernels (compiled through mx.rtc.CudaModule) and their
@@ -244,6 +245,25 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20):
+    """Device time of one call of fn: the CUDA kernel time torch.profiler
+    records over iters calls, over iters.  Unlike time_ms it leaves out
+    the host's time between launches, which sets time_ms for small
+    launches.  Raises when the profiler records no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        fail("torch.profiler recorded no CUDA kernel")
+    return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+
+
 def flash_bound_ms(b, h, t, d, causal):
     """Least time for attention forward on these shapes: q, k, v read
     and o written once (fp32); QK^T and PV at 2 flops per multiply-add
@@ -285,16 +305,42 @@ def phase_build(names):
           "built": sorted(logs), "ptxas": ptxas})
 
 
+def prefill_buckets():
+    """{T: prefills} of one smoke generation run: the bucket each prompt
+    of ``_serve``'s traffic prefills at, as the engine of ``_engine``
+    picks it."""
+    from collections import Counter
+    from incubator_mxnet_tpu_torch.serving.generation import \
+        GenerationConfig
+    cfg = GenerationConfig(slots=8, max_len=GPT2_SMALL["max_len"],
+                           block_size=16)
+    lengths = list(PROMPT_LENGTHS) + [SAMPLED_LEN] * SAMPLED_TWICE
+    return dict(sorted(Counter(cfg.bucket_for(n) for n in lengths).items()))
+
+
 def phase_kernels():
-    """Flash-attention forward: kernel vs its plain version at the
-    prefill shapes (B=1, H=12, D=64, T in the buckets), causal and
-    full, plus small D=32/128 and ragged-tile cases."""
+    """Flash-attention forward: kernel vs its plain version at every
+    prefill bucket of the generation path (B=1, H=12, D=64, T in the
+    buckets; timed with SDPA and the bound, causal as the prefill runs
+    it, and full), plus small D=32/128 and ragged-tile cases.  The
+    path's total sums the causal times over one smoke generation run:
+    12 layers x the prefills at each bucket.  At each bucket the kernel's
+    and SDPA's device time are read from torch.profiler too: the small
+    buckets' launches are bound by host time."""
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.parallel.flash_attention import (
         _flash_plain, flash_attention)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    buckets = prefill_buckets()
+    heads, depth = GPT2_SMALL["heads"], GPT2_SMALL["depth"]
+    head_dim = GPT2_SMALL["dim"] // heads
     shapes = [(1, 12, 16, 64), (1, 12, 128, 64), (1, 12, 1024, 64),
               (2, 4, 64, 32), (1, 2, 96, 128), (3, 2, 80, 16)]
+    shapes += [(1, heads, t, head_dim) for t in buckets
+               if (1, heads, t, head_dim) not in shapes]
+    # ragged against the kernel's 64-row q tiles and 32/64-key tiles
+    shapes += [(2, 3, 48, 64), (1, 2, 208, 128), (1, 2, 144, 32),
+               (2, 2, 16, 16)]
     rows, worst = [], 0.0
     for b, h, t, d in shapes:
         q, k, v = (torch.randn((b, h, t, d), device="cuda", generator=gen)
@@ -329,16 +375,35 @@ def phase_kernels():
                 fail(f"flash kernel disagrees with its plain version at "
                      f"{(b, h, t, d)} causal={causal}: {err} > "
                      f"{KERNEL_ATOL}")
+    prefill = {t: next(r for r in rows
+                       if r["shape"] == [1, heads, t, head_dim]
+                       and r["causal"]) for t in buckets}
+    for t, row in prefill.items():
+        q, k, v = (torch.randn((1, heads, t, head_dim), device="cuda",
+                               generator=gen) for _ in range(3))
+        row["kernel_device_ms"] = device_ms(
+            lambda: flash_attention(q, k, v, causal=True))
+        row["library_device_ms"] = device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    per_run = {key: depth * sum(n * prefill[t][key]
+                                for t, n in buckets.items())
+               for key in ("kernel_ms", "plain_ms", "library_ms",
+                           "bound_ms", "kernel_device_ms",
+                           "library_device_ms")}
     emit({"phase": "kernels", "kernel": "flash_attention_fwd",
-          "atol": KERNEL_ATOL, "rows": rows})
-    ref = next(r for r in rows
-               if r["shape"] == [1, 12, 1024, 64] and r["causal"])
+          "atol": KERNEL_ATOL, "rows": rows,
+          "prefill_buckets": buckets, "per_run": per_run})
+    ref = prefill[1024]
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "incubator_mxnet_tpu_torch/csrc/flash_attention.cu",
             "replaces": "incubator_mxnet_tpu/parallel/flash_attention.py:27",
             "max_abs_err": worst, "ms": ref["kernel_ms"],
             "plain_ms": ref["plain_ms"], "bound_ms": ref["bound_ms"],
-            "bound_by": ref["bound_by"], "library_ms": ref["library_ms"]}
+            "bound_by": ref["bound_by"], "library_ms": ref["library_ms"],
+            "per": "one launch at B1 H12 T1024 D64 causal",
+            "per_run_ms": per_run,
+            "per_run": f"{depth} layers x the prefills of one smoke "
+                       f"generation run, by bucket {buckets}"}
 
 
 def conv_bound_ms(n, h, w, c, cout, taps):
@@ -1347,7 +1412,7 @@ def _serve(eng, greedy, sampled):
     t0 = time.perf_counter()
     futs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in greedy]
     futs += [eng.submit(sampled, max_new_tokens=MAX_NEW, temperature=0.8,
-                        seed=123) for _ in range(2)]
+                        seed=123) for _ in range(SAMPLED_TWICE)]
     outs = [f.result(timeout=600) for f in futs]
     return outs, time.perf_counter() - t0
 
@@ -1362,7 +1427,7 @@ def phase_generation(seed):
     rs = np.random.RandomState(seed)
     vocab = GPT2_SMALL["vocab"]
     greedy = [rs.randint(0, vocab, size=L).tolist() for L in PROMPT_LENGTHS]
-    sampled = rs.randint(0, vocab, size=40).tolist()
+    sampled = rs.randint(0, vocab, size=SAMPLED_LEN).tolist()
     try:
         flash_attention.launches = 0
         outs, wall = _serve(eng, greedy, sampled)
@@ -1466,6 +1531,9 @@ def main():
     chain = phase_kernels_chain()
     axpy_row, axpy = phase_kernels_rtc(args.seed)
     launches, net, greedy, sampled = phase_generation(args.seed)
+    if launches != GPT2_SMALL["depth"] * sum(prefill_buckets().values()):
+        fail(f"flash launched {launches} times, but its per-run total "
+             f"weighs the buckets {prefill_buckets()}")
     kernels[0]["launches"] = launches
     phase_profile(net, greedy, sampled)
     del net

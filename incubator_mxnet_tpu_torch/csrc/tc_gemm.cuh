@@ -1,7 +1,11 @@
 // A warp-level tensor-core main loop for Hopper (sm_90a), fp32-accurate:
-// 3xTF32 mma.sync fed by a cp.async ring in dynamic shared memory.  Used
-// by the three 3x3 kernels: sbr_conv3x3.cu (B2), chain_stats.cu (B3) and
-// chain_emit.cu (B4); each one's note says which TPU kernel it replaces.
+// 3xTF32 mma.sync fed by a cp.async ring in dynamic shared memory.  Every
+// GEMM-shaped kernel of the port runs on it: the 1x1 walker (Gemm1x1,
+// below) carries sbr_matmul.cu (B1); the 3x3 implicit GEMM (Conv3x3)
+// carries sbr_conv3x3.cu (B2), chain_stats.cu (B3) and chain_emit.cu
+// (B4); flash_attention.cu (B5) uses its PTX helpers and numerics for
+// both of its products.  Each kernel's note says which TPU kernel it
+// replaces.
 //
 // Products.  mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 multiplies
 // a 16x8 A fragment by an 8x8 B fragment into a 16x8 fp32 accumulator.
@@ -35,6 +39,13 @@
 // of max |out| over K = 4608 on the H100).  Each slot's 32 channels are
 // therefore summed into a fresh fragment and added to the running sum
 // by an fp32 add, which rounds to nearest.
+//
+// Operand preparation.  The 3x3 loop applies the affine, the ReLU and the
+// tap mask, and makes the TF32 split, as each warp loads a fragment
+// (mma_slot): every warp column of a CTA repeats that work.  The 1x1
+// walker instead runs one split pass of the whole CTA per step over
+// the landed slot (big halves in place, small halves beside them), so a
+// fragment is a plain ldmatrix of ready halves (mma_ready).
 //
 // The 3x3 implicit GEMM (Conv, Conv3x3 below) is the main loop of the fused
 // [BN-apply -> ReLU -> conv] kernels of the bottleneck chain:
@@ -118,6 +129,13 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
                                       uint32_t& small) {
   big = tf32_rna(x);
   small = tf32_rna(x - __uint_as_float(big));
+}
+
+// 2^x (ex2.approx: ~2 ulp; 2^-inf = +0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -265,22 +283,89 @@ __device__ __forceinline__ void mma_slot(const float* bs, const Frag<T>& f,
       for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
 }
 
+// B fragments 2p and 2p + 1, big and small halves, by one ldmatrix of
+// each (rows of n, k contiguous; this lane's address at off, as b_row
+// and b_col give it)
+template <int NI>
+__device__ __forceinline__ void ldsm_pairs(uint32_t (&bb)[NI][2],
+                                           uint32_t (&bs)[NI][2], int p,
+                                           const float* big,
+                                           const float* small, int off) {
+  uint32_t r[4], q[4];
+  ldsm4(r, big + off);
+  ldsm4(q, small + off);
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    bb[2 * p + h / 2][h % 2] = r[h];
+    bs[2 * p + h / 2][h % 2] = q[h];
+  }
+}
+
+// acc += A * B over the 32 channels of a slot whose operands are split
+// already: A's TF32 halves at ab / as (rows lda floats apart), B's at
+// bb / bs (rows LDS apart), so every fragment is one ldmatrix.  Fresh
+// fragment per slot, as mma_slot.
+template <class T>
+__device__ __forceinline__ void mma_ready(const float* ab, const float* as,
+                                          int lda, const float* bb,
+                                          const float* bs, const Frag<T>& f,
+                                          Acc<T>& acc) {
+  Acc<T> part;
+  zero<T>(part);
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    uint32_t bbig[T::NI][2], bsml[T::NI][2];
+#pragma unroll
+    for (int jp = 0; jp < T::NI / 2; ++jp)
+      ldsm_pairs(bbig, bsml, jp, bb, bs,
+                 f.b_row(jp) * LDS + kk * 8 + f.b_col());
+#pragma unroll
+    for (int i = 0; i < T::MI; ++i) {
+      uint32_t abig[4], asml[4];
+      const int off = f.a_row(i) * lda + kk * 8 + f.a_col();
+      ldsm4(abig, ab + off);
+      ldsm4(asml, as + off);
+#pragma unroll
+      for (int j = 0; j < T::NI; ++j)
+        mma3(part[i][j], abig, asml, bbig[j], bsml[j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NI; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
+}
+
+// Four floats into their TF32 halves: big over v (in place), small at sml
+__device__ __forceinline__ void split4(float4 v, float* big, float* sml) {
+  uint32_t b[4], s[4];
+  split(v.x, b[0], s[0]);
+  split(v.y, b[1], s[1]);
+  split(v.z, b[2], s[2]);
+  split(v.w, b[3], s[3]);
+  *reinterpret_cast<uint4*>(big) = make_uint4(b[0], b[1], b[2], b[3]);
+  *reinterpret_cast<uint4*>(sml) = make_uint4(s[0], s[1], s[2], s[3]);
+}
+
 // Copy rows [0, ROWS) x [k0, k0 + BK) of a row-major matrix into a slot's
-// rows, zero-filling rows for which ok(r) is false and columns at or past
-// cols.  src(r) is row r's start.  vec: 16-byte copies (cols % 4 == 0
-// and every row 16-byte aligned), else 4-byte ones.  any: a valid address
-// for the zero-filling copies.
+// rows (ld floats apart), zero-filling rows for which ok(r) is false and
+// columns at or past cols.  src(r) is row r's start.  vec: 16-byte copies
+// (cols % 4 == 0 and every row 16-byte aligned), else 4-byte ones.  any:
+// a valid address for the zero-filling copies.
 template <int ROWS, int THREADS, class Src, class Ok>
 __device__ __forceinline__ void copy_rows(float* dst, const Src& src,
                                           const Ok& ok, int k0, int cols,
-                                          bool vec, const float* any) {
+                                          bool vec, const float* any,
+                                          int ld = LDS) {
   if (vec) {
     constexpr int CHUNKS = ROWS * BK / 4;
 #pragma unroll
     for (int q = threadIdx.x; q < CHUNKS; q += THREADS) {
       const int r = q / (BK / 4), k = k0 + (q % (BK / 4)) * 4;
       const bool p = ok(r) && k < cols;
-      cp16(dst + r * LDS + (k - k0), p ? src(r) + k : any, p);
+      cp16(dst + r * ld + (k - k0), p ? src(r) + k : any, p);
     }
   } else {
     constexpr int ELEMS = ROWS * BK;
@@ -288,7 +373,7 @@ __device__ __forceinline__ void copy_rows(float* dst, const Src& src,
     for (int q = threadIdx.x; q < ELEMS; q += THREADS) {
       const int r = q / BK, k = k0 + q % BK;
       const bool p = ok(r) && k < cols;
-      cp4(dst + r * LDS + (k - k0), p ? src(r) + k : any, p);
+      cp4(dst + r * ld + (k - k0), p ? src(r) + k : any, p);
     }
   }
 }
@@ -525,6 +610,254 @@ int launch_conv3x3(const Conv& p, const Epilogue& epi, cudaStream_t stream) {
   conv3x3_kernel<T, Epilogue>
       <<<(unsigned)(m_tiles * n_tiles), T::THREADS, T::RING_BYTES, stream>>>(
           p, epi, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ 1x1
+// The operands of the 1x1 GEMM, c[m, n] = sum_k relu(x[m, k] * a[k] +
+// b[k]) * w[n, k]: x (M rows of K), the per-channel affine (a, b), w (N
+// rows of K); vec when K % 4 == 0 and x and w are 16-byte aligned.
+struct Gemm1x1 {
+  const float* x;
+  const float* a;
+  const float* b;
+  const float* w;
+  int M, K, N;
+  bool vec;
+  __host__ __device__ int steps() const { return (K + BK - 1) / BK; }
+};
+
+// Shared memory of a 1x1 CTA, in floats.  With A resident: the CTA's
+// BM rows of y = relu(x * a + b), all K channels, as TF32 big and small
+// halves (rows of lda = K rounded up to BK, plus 4, floats: 4 mod 32
+// banks, as LDS), then the ring; else A goes through the ring with B.
+// A ring slot holds one step's raw rows (A's unless resident, then B's),
+// which the step's split pass turns into the big halves in place; the
+// small halves go to one of two buffers, by the step's parity.
+template <class T>
+struct Plan1x1 {
+  bool resident;
+  int lda;      // A row stride
+  int a_res;    // resident A (big then small); 0 when streamed
+  int slot;     // raw rows of one step
+  int small;    // small halves of one step
+  __host__ __device__ Plan1x1(int K, bool res) : resident(res) {
+    lda = res ? (K + BK - 1) / BK * BK + 4 : LDS;
+    a_res = res ? 2 * T::BM * lda : 0;
+    slot = small = (res ? 0 : T::BM * LDS) + T::BN * LDS;
+  }
+  __host__ __device__ int b_off() const { return resident ? 0 : T::BM * LDS; }
+  __host__ __device__ size_t bytes() const {
+    return (size_t)(a_res + STAGES * slot + 2 * small) * sizeof(float);
+  }
+};
+
+// The ring with the split pass one step ahead of the products.  At step
+// s the CTA computes on step s (split during step s - 1) while it splits
+// step s + 1, which has landed, and copies step s + STAGES - 1 into the
+// slot that step s - 1 freed: one barrier a step.  prep(s, slot) and
+// compute(s, slot) as load; starts and ends as pipeline.
+template <class Load, class Prep, class Compute>
+__device__ __forceinline__ void pipeline_prep(int steps, const Load& load,
+                                              const Prep& prep,
+                                              const Compute& compute) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    commit();
+  }
+  wait_groups<STAGES - 2>();     // step 0 has landed
+  __syncthreads();
+  if (steps > 0) prep(0, 0);
+  for (int s = 0; s < steps; ++s) {
+    wait_groups<STAGES - 3>();   // step s + 1 has landed
+    __syncthreads();             // step s split; slot (s-1) free
+    const int next = s + STAGES - 1;
+    if (next < steps) load(next, next % STAGES);
+    commit();
+    if (s + 1 < steps) prep(s + 1, (s + 1) % STAGES);
+    compute(s, s % STAGES);
+  }
+  wait_groups<0>();
+  __syncthreads();
+}
+static_assert(STAGES >= 3, "pipeline_prep splits one step ahead");
+
+// One CTA's walk over the 1x1 GEMM of its BM rows from m0 and the N
+// columns of its chunks (BN wide).  Step s is k-step s % ks of chunk s /
+// ks; A is copied and split in the first chunk's steps when resident,
+// in every step otherwise.  The split pass applies the affine and the
+// ReLU to A, once per element for the CTA, so a warp's fragment loads
+// are plain ldmatrix of ready operands.
+template <class T>
+struct Walk1x1 {
+  const Gemm1x1& p;
+  const Plan1x1<T> L;
+  float* const smem;
+  const int m0, ks;
+  Frag<T> f;
+
+  __device__ Walk1x1(const Gemm1x1& p_, bool resident, float* smem_,
+                     int m0_)
+      : p(p_), L(p_.K, resident), smem(smem_), m0(m0_), ks(p_.steps()) {}
+
+  __device__ bool with_a(int s) const { return !L.resident || s < ks; }
+  __device__ float* raw(int slot) const {
+    return smem + L.a_res + slot * L.slot;
+  }
+  __device__ float* sml(int s) const {
+    return smem + L.a_res + STAGES * L.slot + (s & 1) * L.small;
+  }
+  // A's big and small halves at step s (ring slot), rows L.lda apart
+  __device__ float* a_big(int s, int slot) const {
+    return L.resident ? smem + (s % ks) * BK : raw(slot);
+  }
+  __device__ float* a_sml(int s) const {
+    return L.resident ? smem + T::BM * L.lda + (s % ks) * BK : sml(s);
+  }
+
+  __device__ void load(int s, int n0, int slot) const {
+    const int k0 = (s % ks) * BK, K = p.K;
+    if (with_a(s)) {
+      const float* x = p.x;
+      const int m0_ = m0, M = p.M;
+      copy_rows<T::BM, T::THREADS>(
+          a_big(s, slot),
+          [&](int r) { return x + (long long)(m0_ + r) * K; },
+          [&](int r) { return m0_ + r < M; }, k0, K, p.vec, x, L.lda);
+    }
+    const float* w = p.w;
+    const int N = p.N;
+    copy_rows<T::BN, T::THREADS>(
+        raw(slot) + L.b_off(),
+        [&](int r) { return w + (long long)(n0 + r) * K; },
+        [&](int r) { return n0 + r < N; }, k0, K, p.vec, w);
+  }
+
+  // the split pass: thread tid takes channels 4 * (tid % 8) ... + 3 of
+  // rows tid / 8, + THREADS / 8, ...
+  __device__ void prep(int s, int slot) const {
+    static_assert(T::THREADS % 8 == 0, "rows of 8 float4s");
+    const int c4 = (threadIdx.x % 8) * 4;
+    const int r0 = threadIdx.x / 8;
+    constexpr int RS = T::THREADS / 8;
+    if (with_a(s)) {
+      const int k = (s % ks) * BK + c4;
+      float ca[4], cb[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = k + e < p.K;   // past K: y = relu(0) = 0
+        ca[e] = ok ? __ldg(p.a + k + e) : 0.f;
+        cb[e] = ok ? __ldg(p.b + k + e) : 0.f;
+      }
+      float* big = a_big(s, slot);
+      float* small = a_sml(s);
+#pragma unroll 4
+      for (int r = r0; r < T::BM; r += RS) {
+        float* at = big + r * L.lda + c4;
+        const float4 v = *reinterpret_cast<const float4*>(at);
+        split4(make_float4(fmaxf(fmaf(v.x, ca[0], cb[0]), 0.f),
+                           fmaxf(fmaf(v.y, ca[1], cb[1]), 0.f),
+                           fmaxf(fmaf(v.z, ca[2], cb[2]), 0.f),
+                           fmaxf(fmaf(v.w, ca[3], cb[3]), 0.f)),
+               at, small + r * L.lda + c4);
+      }
+    }
+    float* big = raw(slot) + L.b_off();
+    float* small = sml(s) + L.b_off();
+#pragma unroll 4
+    for (int r = r0; r < T::BN; r += RS) {
+      float* at = big + r * LDS + c4;
+      split4(*reinterpret_cast<const float4*>(at), at, small + r * LDS + c4);
+    }
+  }
+
+  __device__ void compute(int s, int slot, Acc<T>& acc) const {
+    mma_ready<T>(a_big(s, slot), a_sml(s), L.lda, raw(slot) + L.b_off(),
+                 sml(s) + L.b_off(), f, acc);
+  }
+};
+
+// One CTA per BM-row tile and group of `cpc` BN-wide chunks of N, the
+// groups of a row tile next to each other in launch order.  Each
+// chunk's tile goes to epi(p, f, acc, m0, n0) as it completes (the
+// epilogue reads no shared memory: the ring is in use).
+template <class T, class Epilogue>
+__global__ void __launch_bounds__(T::THREADS)
+gemm1x1_kernel(Gemm1x1 p, Epilogue epi, bool resident, int groups,
+               int cpc) {
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = (blockIdx.x / groups) * T::BM;
+  const int c0 = (blockIdx.x % groups) * cpc;
+  const int chunks = min(cpc, (p.N + T::BN - 1) / T::BN - c0);
+  const Walk1x1<T> walk(p, resident, smem, m0);
+  const int ks = walk.ks;
+  Acc<T> acc;
+  zero<T>(acc);
+  pipeline_prep(
+      chunks * ks,
+      [&](int s, int slot) { walk.load(s, (c0 + s / ks) * T::BN, slot); },
+      [&](int s, int slot) { walk.prep(s, slot); },
+      [&](int s, int slot) {
+        walk.compute(s, slot, acc);
+        if (s % ks != ks - 1) return;
+        epi.template operator()<T>(p, walk.f, acc, m0,
+                                   (c0 + s / ks) * T::BN);
+        zero<T>(acc);
+      });
+}
+
+// How gemm1x1_kernel with tile T splits N: into the groups of chunks
+// that minimise waves x chunks a CTA (the grid's time if a chunk's time
+// is fixed), fewer groups on a tie; slots: the CTAs the card holds at
+// once.  Sets *groups and *cpc (chunks a group).
+template <class T>
+void split_n(const Gemm1x1& p, long long slots, int* groups, int* cpc) {
+  const long long m_tiles = (p.M + T::BM - 1) / T::BM;
+  const int chunks = (p.N + T::BN - 1) / T::BN;
+  long long best = -1;
+  for (int g = 1; g <= chunks; ++g) {
+    const int c = (chunks + g - 1) / g;
+    if ((chunks + c - 1) / c != g) continue;   // a group would be empty
+    const long long cost = (m_tiles * g + slots - 1) / slots * c;
+    if (best < 0 || cost < best) {
+      best = cost;
+      *groups = g;
+      *cpc = c;
+    }
+  }
+}
+
+// Launch gemm1x1_kernel with tile T on the stream, A resident when it
+// fits in the shared memory a CTA may have (and `resident`); the CUDA
+// error code
+template <class T, class Epilogue>
+int launch_gemm1x1(const Gemm1x1& p, const Epilogue& epi,
+                   cudaStream_t stream, bool resident = true) {
+  auto kernel = gemm1x1_kernel<T, Epilogue>;
+  int dev = 0, sms = 0, max_smem = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  resident = resident && Plan1x1<T>(p.K, true).bytes() <= (size_t)max_smem;
+  const size_t smem = Plan1x1<T>(p.K, resident).bytes();
+  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        T::THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;   // does not fit
+  int groups = 1, cpc = 1;
+  split_n<T>(p, (long long)sms * per_sm, &groups, &cpc);
+  const long long ctas = (p.M + T::BM - 1) / T::BM * (long long)groups;
+  kernel<<<(unsigned)ctas, T::THREADS, smem, stream>>>(p, epi, resident,
+                                                        groups, cpc);
   return (int)cudaGetLastError();
 }
 

@@ -332,3 +332,46 @@ def test_3xtf32_split_holds_the_conv3x3_gate_and_one_pass_does_not(shape):
     split, once = err("3xtf32"), err("tf32")
     assert split * SPLIT_MARGIN <= CONV_RTOL, (split, once)
     assert once > CONV_RTOL, (split, once)
+
+
+# B1 on the card runs the same 3xTF32 arithmetic as B2 (tc_gemm.cuh's
+# 1x1 walker, the operands split once per CTA): its plain version in that
+# arithmetic on the CPU against fp64, at the four reduction lengths K of
+# ResNet-50's fused 1x1 boundaries, must hold the same gate with the same
+# margin, and one TF32 pass must not hold it.
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64, 256), (2, 8, 8, 128, 512),
+                                   (1, 8, 8, 256, 1024),
+                                   (1, 7, 7, 512, 2048)],
+                         ids=["K64", "K128", "K256", "K512"])
+def test_3xtf32_split_holds_the_conv1x1_gate_and_one_pass_does_not(shape):
+    n, h, w, c, cout = shape
+    rs = np.random.RandomState(13)
+    f32 = np.float32
+    args = [rs.randn(n, c, h, w).astype(f32),
+            rs.uniform(0.5, 1.5, c).astype(f32),
+            rs.uniform(-0.1, 0.1, c).astype(f32),
+            (rs.randn(cout, c, 1, 1) * np.sqrt(2.0 / c)).astype(f32),
+            rs.uniform(-0.1, 0.1, cout).astype(f32)]
+    x, a, b, wt, bias = [torch.from_numpy(v) for v in args]
+
+    def out(product, dtype):
+        y = fused_conv._activate(x.to(dtype), a.to(dtype), b.to(dtype))
+        y = y.permute(0, 2, 3, 1).reshape(-1, c)
+        wm = wt.to(dtype).reshape(cout, c).t()
+        if product == "tf32":
+            z = tf32_rna(y) @ tf32_rna(wm)
+        elif product == "3xtf32":
+            (yb, ys), (wb, ws) = split_tf32(y), split_tf32(wm)
+            z = ys @ wb + yb @ ws + yb @ wb
+        else:
+            z = y @ wm
+        return z + bias.to(dtype)
+    ref = out("fp32", torch.float64)
+    scale = ref.abs().max().item()
+
+    def err(product):
+        return (out(product, torch.float32).double() - ref).abs().max() \
+            .item() / scale
+    split, once = err("3xtf32"), err("tf32")
+    assert split * SPLIT_MARGIN <= CONV_RTOL, (split, once)
+    assert once > CONV_RTOL, (split, once)
