@@ -26,6 +26,16 @@ launch counts set to 0 just before it and read just after:
   (b=2), the trained net's eval logits against the CPU's, one window
   under torch.profiler; then a few steps of ``fuse_block=True``
   training at b=32, which go through the fused conv kernels;
+* ResNet-50 v1 training in ``bench.py:main``'s accelerator
+  configuration: ``fuse_bn_relu=True`` (``BNReLU``), channels-last,
+  ``TrainStep(bf16_compute=True)`` at b=128, in ``run_steps`` windows
+  taken in turns with the same net built ``fuse_bn_relu=False``, one
+  window under torch.profiler, and one b=2 bf16 step held against the
+  CPU; then fp32 ``fuse_block="chain34"`` at b=128 (the chain kernels on
+  stages 3 and 4), fp32 ``fuse_block="1x1"`` at b=32 (the 1x1 kernel in
+  train form), ``TrainStep(bf16_compute=True, grad_accum=2,
+  loss_scaler=...)`` at b=64 with one overflowed step that must change
+  nothing, and ``EvalStep`` in fp32 (the chain net) and bf16;
 * the imperative ``mx.nd`` / ``mx.autograd`` path at the width of
   ResNet-50 v1's classifier (2048 -> 1000, a batch of 1024 feature
   rows): 20 steps of FullyConnected -> log_softmax -> pick -> mean
@@ -61,6 +71,7 @@ own calls; the 3x3 kernels' 3xTF32 keeps fp32's accuracy.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import shutil
@@ -133,6 +144,43 @@ SGD_KW = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
 # outright within the bound).
 STEP_LOSS_RTOL, STEP_RTOL, STEP_ATOL, SPREAD_FACTOR = 1e-4, 1e-4, 1e-6, 3.0
 FUSED_TRAIN_BATCH, FUSED_TRAIN_STEPS = 32, 3
+# bench.py:main's accelerator configuration (bench.py:238-249):
+# resnet50_v1(fuse_bn_relu=True, fuse_block=False) under
+# TrainStep(bf16_compute=True), channels-last
+BENCH_NET = dict(RESNET50, fuse_block=False, fuse_bn_relu=True)
+# one bf16 step, card vs CPU (b=2 at 224x224).  bf16's 8-bit significand
+# through 53 BatchNorms at b=2 sets how far two computations of the step
+# agree, so the step is held per leaf on what it moved: each parameter's
+# change against the CPU's change of it, |d_card - d_cpu| / |d_cpu| (L2
+# norms), within BF16_STEP_FACTOR of the median over the leaves of the
+# same measure between two bf16 formulations on the CPU (BNReLU against
+# BatchNorm then ReLU).  On an NVIDIA H100 80GB HBM3 at 700 W that
+# median is 0.49 (at most 0.61) and the card's worst leaf 0.50, 1.02x
+# the median; a leaf left unmoved is 1.0 off and a step on half the
+# batch 0.90 to 1.38, so the factor is 1.5 (0.74) and the phase checks
+# that both of those planted faults fail.  Leaves whose gradient is 0 to
+# within rounding carry bf16 noise only and are left out, by a rule on
+# the CPU's gradient: the gradient part of the change (d + lr * wd * w)
+# of an fp32 step at most BF16_NOISE_GRAD of the bf16 step's (5e-4 for
+# the biases of the bottlenecks' first and last convs, which feed a
+# BatchNorm; >= 0.88 for every other leaf).  The moving statistics' worst
+# leaf (in units of its largest magnitude) must lie within
+# BF16_SPREAD_FACTOR of that spread's worst (1.31x measured), the loss
+# within BF16_LOSS_RTOL (four bf16 steps at the loss's magnitude).
+BF16_STEP_FACTOR, BF16_NOISE_GRAD = 1.5, 2.0 ** -8
+BF16_SPREAD_FACTOR, BF16_LOSS_RTOL = 3.0, 2.0 ** -5
+BF16_FROZEN = "features.6.0.body.1.conv.weight"
+# "chain34": the chain where the 3x3 has >= 256 channels, ResNet-50's
+# stages 3 and 4 (6 + 3 bottlenecks); BNReLU bottlenecks elsewhere
+CHAIN34_BLOCKS, CHAIN34_STEPS = 9, 3
+ONE_BY_ONE_BATCH, ONE_BY_ONE_STEPS = 32, 3
+OPTIONS_BATCH, OPTIONS_STEPS, OPTIONS_ACCUM = 64, 3, 2
+# EvalStep against the same forward called directly: the same kernels on
+# the same inputs (fp32); bf16 EvalStep against fp32 EvalStep of one
+# net, relative to max |logit| (bf16's rounding through 53 layers:
+# 4.0e-3 of max on an NVIDIA H100 80GB HBM3 at 700 W)
+EVAL_RTOL, BF16_EVAL_RTOL = 1e-6, 2e-2
+EVAL_BATCH = 32
 GPT2_SMALL = dict(vocab=50257, dim=768, heads=12, depth=12, max_len=1024)
 PROMPT_LENGTHS = (9, 16, 33, 100, 250, 511, 700, 1000)
 SAMPLED_LEN, SAMPLED_TWICE = 40, 2  # one sampled prompt, submitted twice
@@ -643,15 +691,35 @@ def phase_resnet_reference(net, images, seed):
              f"x {scale}")
 
 
+# kernel kinds of a profile, by the first pattern in a kernel's name
+KERNEL_KINDS = (("conv_gemm", ("conv", "cudnn", "xmma", "gemm", "cutlass",
+                               "sm90_", "sm80_", "tc::", "chain")),
+                ("reduction", ("reduce_kernel",)),
+                ("copy_cast", ("copy", "Memcpy", "Memset")),
+                ("elementwise", ("elementwise",)))
+
+
+def _kind(name):
+    for kind, patterns in KERNEL_KINDS:
+        if any(p in name for p in patterns):
+            return kind
+    return "other"
+
+
 def _profile_summary(prof, wall):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    by_kind = {}
+    for e in kernels:
+        kind = _kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0) + e.self_device_time_total / 1e3
     return {"wall_s": wall,
             "device_busy_s": busy_s if kernels else "not measured",
             "device_idle_share": 1 - busy_s / wall if kernels
             else "not measured",
+            "device_ms_by_kind": by_kind,
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "device_ms": e.self_device_time_total / 1e3}
                             for e in top]}
@@ -887,18 +955,28 @@ def _zero_counts():
         fn.launches = 0
 
 
-def _train_step(net):
+def _train_step(net, **kw):
     from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from incubator_mxnet_tpu_torch.optimizer import SGD
     from incubator_mxnet_tpu_torch.parallel import TrainStep
     return TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(**SGD_KW),
-                     device=next(net.parameters()).device)
+                     device=next(net.parameters()).device, **kw)
 
 
 def _train_batch(seed, n):
     rs = np.random.RandomState(seed)
     return (rs.rand(n, *IMAGE).astype(np.float32),
             rs.randint(0, 1000, n).astype(np.float32))
+
+
+def _resident(seed, n):
+    x, y = _train_batch(seed, n)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def _finite(losses, what):
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite {what} losses: {losses}")
 
 
 def _expect(launches, want, what):
@@ -918,8 +996,7 @@ def phase_resnet_train(seed):
     net = get_resnet(1, 50, device="cuda:0", seed=seed,
                      **dict(RESNET50, fuse_block="chain"))
     step = _train_step(net)
-    x, y = _train_batch(seed, TRAIN_BATCH)
-    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    xd, yd = _resident(seed, TRAIN_BATCH)
     first = step(xd, yd).item()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -936,8 +1013,7 @@ def phase_resnet_train(seed):
     want = dict.fromkeys(launches, 0)
     want.update(chain_stats=16 * steps, chain_emit=16 * steps)
     _expect(launches, want, f"the training path ({steps} steps)")
-    if not all(math.isfinite(v) for v in [first] + losses):
-        fail(f"non-finite training losses: {[first] + losses}")
+    _finite([first] + losses, "training")
     best = min(window_s)
     emit({"phase": "resnet_train", "batch": TRAIN_BATCH, "steps": steps,
           "window_steps": TRAIN_WINDOW_STEPS, "window_s": window_s,
@@ -949,14 +1025,14 @@ def phase_resnet_train(seed):
     return launches, net, step, xd, yd
 
 
-def _worst(got, ref, keys):
-    """The largest ``|got - ref|`` over ``keys`` in units of STEP_RTOL of
+def _worst(got, ref, keys, rtol=STEP_RTOL):
+    """The largest ``|got - ref|`` over ``keys`` in units of ``rtol`` of
     the tensor's largest magnitude plus STEP_ATOL, and its key."""
     worst, worst_key = 0.0, None
     for key in keys:
         r, g = ref[key], got[key].cpu()
         err = (g - r).abs().max().item()
-        ratio = err / (STEP_RTOL * r.abs().max().item() + STEP_ATOL)
+        ratio = err / (rtol * r.abs().max().item() + STEP_ATOL)
         if ratio > worst:
             worst, worst_key = ratio, key
     return worst, worst_key
@@ -1045,19 +1121,111 @@ def phase_resnet_train_eval(net, seed):
     net.train()
 
 
-def phase_resnet_train_profile(step, xd, yd):
-    """One short window of the training path under torch.profiler: the
-    device's busy and idle share, and the top kernels."""
+RANGE = "smoke: "
+AUTOGRAD_NODE = "autograd::engine::evaluate_function: "
+
+
+def _innermost(event, test):
+    node = event
+    while node is not None and not test(node.name):
+        node = node.cpu_parent
+    return node
+
+
+@contextlib.contextmanager
+def _source_ranges(step):
+    """Profiler ranges, for ``_device_ms_by_source``, around every module
+    call of ``step``'s block (named by the module's class) and around its
+    optimizer's updates, removed on exit."""
+    from torch.autograd.profiler import record_function
+    open_ranges, handles = [], []
+
+    def enter(module, _args):
+        rf = record_function(RANGE + type(module).__name__)
+        rf.__enter__()
+        open_ranges.append(rf)
+
+    def leave(_module, _args, _out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    for module in step._block.modules():
+        handles += [module.register_forward_pre_hook(enter),
+                    module.register_forward_hook(leave)]
+    opt = step._optimizer
+    update = opt.update
+
+    def ranged_update(*args, **kw):
+        with record_function(RANGE + "optimizer update"):
+            return update(*args, **kw)
+
+    opt.update = ranged_update
+    try:
+        yield
+    finally:
+        del opt.update
+        for h in handles:
+            h.remove()
+
+
+def _device_ms_by_source(prof, top=20):
+    """Device time of the kernels each op launched itself, by source: the
+    innermost ``_source_ranges`` range (a module class, the optimizer's
+    update), else the op's name (the step's own work: the bf16 casts,
+    the loss scaler); for an op of the backward, ``backward:`` and the
+    source of the forward op whose autograd node ran it (matched by
+    sequence number), else the node's name."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def source(e):
+        rng = _innermost(e, lambda n: n.startswith(RANGE))
+        return rng.name[len(RANGE):] if rng is not None else e.name
+
+    def is_node(name):
+        return name.startswith(AUTOGRAD_NODE)
+
+    forward = {}
+    for e in events:
+        if e.sequence_nr >= 0 and _innermost(e, is_node) is None:
+            forward.setdefault(e.sequence_nr, source(e))
+    by = {}
+    for e in events:
+        ms = e.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        node = _innermost(e, is_node)
+        if node is None:
+            key = source(e)
+        else:
+            key = "backward: " + forward.get(
+                node.sequence_nr, node.name[len(AUTOGRAD_NODE):])
+        by[key] = by.get(key, 0.0) + ms
+    return dict(sorted(by.items(), key=lambda kv: -kv[1])[:top])
+
+
+def phase_resnet_train_profile(step, xd, yd, phase="resnet_train_profile",
+                               by_source=False):
+    """One short window of a training path under torch.profiler: the
+    device's busy and idle share, and the top kernels.  With
+    ``by_source`` a second window, under ``_source_ranges`` (which slow
+    the host, so the first window alone gives the idle share), splits
+    the device time by where each kernel was launched from."""
     from torch.profiler import ProfilerActivity, profile
     steps = 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step.run_steps(xd, yd, num_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    emit(dict({"phase": "resnet_train_profile", "steps": steps},
-              **_profile_summary(prof, wall)))
+    row = dict({"phase": phase, "steps": steps},
+               **_profile_summary(prof, wall))
+    if by_source:
+        with _source_ranges(step), profile(activities=activities) as prof:
+            step.run_steps(xd, yd, num_steps=steps)
+            torch.cuda.synchronize()
+        row["device_ms_by_source"] = _device_ms_by_source(prof)
+    emit(row)
 
 
 def phase_fused_train(seed):
@@ -1066,8 +1234,7 @@ def phase_fused_train(seed):
     from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
     net = get_resnet(1, 50, device="cuda:0", seed=seed, **RESNET50)
     step = _train_step(net)
-    x, y = _train_batch(seed + 3, FUSED_TRAIN_BATCH)
-    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    xd, yd = _resident(seed + 3, FUSED_TRAIN_BATCH)
     step(xd, yd)
     torch.cuda.synchronize()
     _zero_counts()
@@ -1079,12 +1246,293 @@ def phase_fused_train(seed):
     want.update(sbr_matmul=16 * FUSED_TRAIN_STEPS,
                 sbr_conv3x3=16 * FUSED_TRAIN_STEPS)
     _expect(launches, want, "fuse_block=True training")
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"non-finite fuse_block=True training losses {losses}")
+    _finite(losses, "fuse_block=True training")
     emit({"phase": "fused_train", "batch": FUSED_TRAIN_BATCH,
           "steps": FUSED_TRAIN_STEPS, "losses": losses,
           "ms_per_step": wall / FUSED_TRAIN_STEPS * 1e3,
           "launches": launches})
+
+
+def phase_resnet_train_bench(seed):
+    """bench.py:main's accelerator configuration: ResNet-50 v1 with
+    fuse_bn_relu=True under TrainStep(bf16_compute=True), on a resident
+    batch of TRAIN_BATCH at 224x224; beside it the same net with
+    fuse_bn_relu=False (BatchNorm then ReLU) and the same weights.  One
+    warm-up step each, then run_steps windows of TRAIN_WINDOW_STEPS in
+    turns (BNReLU, plain, plain, BNReLU), each with its peak memory; the
+    kernel counts set to 0 just before the windows, and no kernel of
+    csrc/ or rtc on this path."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    nets, steps, warm = {}, {}, {}
+    t0 = time.perf_counter()
+    for fused in (True, False):
+        nets[fused] = get_resnet(1, 50, device="cuda:0", seed=seed,
+                                 **dict(BENCH_NET, fuse_bn_relu=fused))
+        steps[fused] = _train_step(nets[fused], bf16_compute=True)
+    xd, yd = _resident(seed + 4, TRAIN_BATCH)
+    for fused in (True, False):
+        warm[fused] = steps[fused](xd, yd).item()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    windows = {True: [], False: []}
+    losses = {True: [], False: []}
+    peak = {True: 0, False: 0}
+    _zero_counts()
+    for fused in (True, False, False, True):
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = steps[fused].run_steps(xd, yd, num_steps=TRAIN_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        windows[fused].append(time.perf_counter() - t1)
+        peak[fused] = max(peak[fused], torch.cuda.max_memory_allocated())
+        losses[fused] += out.tolist()
+    launches = _counts()
+    _expect(launches, dict.fromkeys(launches, 0),
+            "the bf16 training path (BNReLU and plain)")
+    for fused in (True, False):
+        _finite([warm[fused]] + losses[fused], "bf16 training")
+
+    def row(fused):
+        best = min(windows[fused])
+        return {"window_s": windows[fused],
+                "images_per_s": TRAIN_BATCH * TRAIN_WINDOW_STEPS / best,
+                "ms_per_step": best / TRAIN_WINDOW_STEPS * 1e3,
+                "warmup_loss": warm[fused], "losses": losses[fused],
+                "peak_mem_gb": peak[fused] / 1e9}
+
+    emit(dict({"phase": "resnet_train_bench", "batch": TRAIN_BATCH,
+               "dtype": "bfloat16", "window_steps": TRAIN_WINDOW_STEPS,
+               "setup_s": setup_s, "launches": launches,
+               "fuse_bn_relu_false": row(False)}, **row(True)))
+    return nets[True], steps[True], xd, yd
+
+
+def _change_errs(got, ref, init, keys):
+    """Per key, how far ``got`` moved from ``init`` other than ``ref``
+    did: ``|d_got - d_ref| / |d_ref|`` over the changes ``d`` (L2)."""
+    errs = {}
+    for k in keys:
+        d_got, d_ref = got[k].cpu() - init[k], ref[k] - init[k]
+        errs[k] = ((d_got - d_ref).double().norm() /
+                   d_ref.double().norm()).item()
+    return errs
+
+
+def phase_resnet_train_bench_reference(seed):
+    """One bf16 step of the bench net on one b=2 batch at 224x224, on the
+    card and on the CPU, on the CPU once more with fuse_bn_relu=False
+    (BatchNorm then ReLU) for the spread of bf16 itself, and once in fp32
+    for the rule that finds the leaves of zero gradient: the loss, the
+    moving statistics and each parameter's change as set out at
+    BF16_STEP_FACTOR; then two planted faults on the card (BF16_FROZEN
+    left unmoved, a step on half the batch) must fail that check."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    gpu = get_resnet(1, 50, device="cuda:0", seed=seed + 5, **BENCH_NET)
+    init = {k: v.detach().cpu().clone() for k, v in gpu.state_dict().items()}
+    x, y = _train_batch(seed + 5, 2)
+
+    def stepped(device, frozen=None, n=2, bf16=True, **kw):
+        net = get_resnet(1, 50, device=device, seed=seed + 5,
+                         **dict(BENCH_NET, **kw))
+        net.load_state_dict(init)
+        if frozen:
+            net.get_parameter(frozen).requires_grad_(False)
+        loss = _train_step(net, bf16_compute=bf16)(x[:n], y[:n]).item()
+        return loss, net.state_dict()
+
+    t0 = time.perf_counter()
+    loss_cpu, ref = stepped("cpu")
+    alt = stepped("cpu", fuse_bn_relu=False)[1]
+    ref32 = stepped("cpu", bf16=False)[1]
+    cpu_s = time.perf_counter() - t0
+    loss_gpu, got = stepped("cuda:0")
+    stats = [k for k in ref if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in ref if k not in stats]
+    lr_wd = SGD_KW["learning_rate"] * SGD_KW["wd"]
+    noise = sorted(k for k in params if
+                   (ref32[k] - init[k] + lr_wd * init[k]).norm() <=
+                   BF16_NOISE_GRAD *
+                   (ref[k] - init[k] + lr_wd * init[k]).norm())
+    kept = [k for k in params if k not in noise]
+    spread = _change_errs(alt, ref, init, kept)
+    bound = BF16_STEP_FACTOR * float(np.median(list(spread.values())))
+    errs = _change_errs(got, ref, init, kept)
+    worst_key = max(errs, key=errs.get)
+    faults = {"frozen": _change_errs(stepped("cuda:0", BF16_FROZEN)[1],
+                                     ref, init, kept)[BF16_FROZEN],
+              "half_batch": float(np.median(list(_change_errs(
+                  stepped("cuda:0", n=1)[1], ref, init, kept).values())))}
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    stats_worst = _worst(got, ref, stats, rtol=1.0)
+    stats_spread = _worst(alt, ref, stats, rtol=1.0)
+    emit({"phase": "resnet_train_bench_reference", "dtype": "bfloat16",
+          "loss_card": loss_gpu, "loss_cpu": loss_cpu,
+          "loss_rel_err": loss_rel, "loss_rtol": BF16_LOSS_RTOL,
+          "stats_worst_of_max": stats_worst,
+          "stats_cpu_spread_of_max": stats_spread,
+          "spread_factor": BF16_SPREAD_FACTOR,
+          "leaves": len(params), "zero_gradient_leaves": len(noise),
+          "change_err_worst": [errs[worst_key], worst_key],
+          "change_err_median": float(np.median(list(errs.values()))),
+          "cpu_spread_median": float(np.median(list(spread.values()))),
+          "cpu_spread_max": max(spread.values()),
+          "step_factor": BF16_STEP_FACTOR, "step_bound": bound,
+          "planted_faults": faults, "cpu_seconds": cpu_s})
+    if not math.isfinite(loss_gpu) or loss_rel > BF16_LOSS_RTOL:
+        fail(f"card vs CPU bf16 training loss {loss_gpu} vs {loss_cpu}")
+    if stats_worst[0] > BF16_SPREAD_FACTOR * stats_spread[0]:
+        fail(f"card vs CPU bf16 moving statistics after one step: "
+             f"{stats_worst} of max, the CPU's own spread {stats_spread}")
+    if any(not k.endswith(("body.0.bias", "body.2.conv.bias"))
+           for k in noise):
+        fail(f"the zero-gradient rule left out other leaves than the "
+             f"biases that feed a BatchNorm: {noise}")
+    if errs[worst_key] > bound:
+        fail(f"card vs CPU bf16 step: {worst_key} moved {errs[worst_key]} "
+             f"of its change off, the bound {bound}")
+    # the frozen leaf's own error, the half batch's median leaf
+    for what, err in faults.items():
+        if err <= bound:
+            fail(f"the bf16 step check passes a planted fault ({what}: "
+                 f"{err} <= {bound})")
+
+
+def phase_resnet_train_chain34(seed):
+    """fuse_block="chain34" training in fp32 at TRAIN_BATCH: the chain
+    kernels on stages 3 and 4 (CHAIN34_BLOCKS launches of each a step),
+    BNReLU on the bottlenecks before them."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    net = get_resnet(1, 50, device="cuda:0", seed=seed,
+                     **dict(RESNET50, fuse_block="chain34"))
+    step = _train_step(net)
+    xd, yd = _resident(seed + 6, TRAIN_BATCH)
+    step(xd, yd)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = step.run_steps(xd, yd, num_steps=CHAIN34_STEPS).tolist()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(chain_stats=CHAIN34_BLOCKS * CHAIN34_STEPS,
+                chain_emit=CHAIN34_BLOCKS * CHAIN34_STEPS)
+    _expect(launches, want, f"chain34 training ({CHAIN34_STEPS} steps)")
+    _finite(losses, "chain34 training")
+    emit({"phase": "resnet_train_chain34", "batch": TRAIN_BATCH,
+          "steps": CHAIN34_STEPS, "losses": losses,
+          "ms_per_step": wall / CHAIN34_STEPS * 1e3, "launches": launches})
+
+
+def phase_resnet_train_1x1(seed):
+    """fuse_block="1x1" training in fp32 at ONE_BY_ONE_BATCH: B1 in train
+    form, one launch per bottleneck per forward (16), its 3x3 boundary
+    a BNReLU; nothing else of csrc/ or rtc."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    net = get_resnet(1, 50, device="cuda:0", seed=seed,
+                     **dict(RESNET50, fuse_block="1x1"))
+    step = _train_step(net)
+    xd, yd = _resident(seed + 7, ONE_BY_ONE_BATCH)
+    step(xd, yd)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = step.run_steps(xd, yd, num_steps=ONE_BY_ONE_STEPS).tolist()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(sbr_matmul=16 * ONE_BY_ONE_STEPS)
+    _expect(launches, want, f"1x1 training ({ONE_BY_ONE_STEPS} steps)")
+    _finite(losses, "1x1 training")
+    emit({"phase": "resnet_train_1x1", "batch": ONE_BY_ONE_BATCH,
+          "steps": ONE_BY_ONE_STEPS, "losses": losses,
+          "ms_per_step": wall / ONE_BY_ONE_STEPS * 1e3,
+          "launches": launches})
+
+
+def phase_train_step_options(seed):
+    """TrainStep(bf16_compute=True, grad_accum=OPTIONS_ACCUM,
+    loss_scaler=LossScaler()) on the bench net at OPTIONS_BATCH:
+    OPTIONS_STEPS clean steps with finite losses and the scale
+    unchanged, then one step on the batch with an inf in it, which must
+    leave every parameter, momentum and moving statistic bit-identical
+    and halve the scale."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    from incubator_mxnet_tpu_torch.numerics import LossScaler
+    net = get_resnet(1, 50, device="cuda:0", seed=seed, **BENCH_NET)
+    scaler = LossScaler()
+    step = _train_step(net, bf16_compute=True, grad_accum=OPTIONS_ACCUM,
+                       loss_scaler=scaler)
+    xd, yd = _resident(seed + 8, OPTIONS_BATCH)
+    losses = [step(xd, yd).item()]
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses += step.run_steps(xd, yd, num_steps=OPTIONS_STEPS).tolist()
+    wall = time.perf_counter() - t0
+    scale = step.loss_scale()
+    _finite(losses, "bf16 grad_accum loss-scaled training")
+    if scale != scaler.init_scale:
+        fail(f"the loss scale moved to {scale} on clean steps")
+    poisoned = xd.clone()
+    poisoned[0, 0, 0, 0] = float("inf")
+    before = [t.clone() for t in step._carry()]
+    overflow_loss = step(poisoned, yd).item()
+    after = step._carry()
+    changed = sum(not torch.equal(a, b) for a, b in zip(after, before))
+    launches = _counts()
+    emit({"phase": "train_step_options", "batch": OPTIONS_BATCH,
+          "grad_accum": OPTIONS_ACCUM, "steps": OPTIONS_STEPS,
+          "losses": losses, "ms_per_step": wall / OPTIONS_STEPS * 1e3,
+          "scale": scale, "overflow_loss": str(overflow_loss),
+          "scale_after_overflow": step.loss_scale(),
+          "carry_tensors": len(after), "carry_changed": changed,
+          "launches": launches})
+    _expect(launches, dict.fromkeys(launches, 0), "the options path")
+    if changed:
+        fail(f"the overflowed step changed {changed} of {len(after)} "
+             "parameters, momenta and moving statistics")
+    if step.loss_scale() != scale * scaler.backoff_factor:
+        fail(f"the overflowed step left the scale at {step.loss_scale()}, "
+             f"not {scale * scaler.backoff_factor}")
+    phase_resnet_train_profile(step, xd, yd, "train_step_options_profile",
+                               by_source=True)
+
+
+def phase_eval_step(chain_net, bench_net, seed):
+    """EvalStep on the trained chain net (fp32): chain_emit 16 launches a
+    call and nothing else, against net.eval()(x) within EVAL_RTOL of max
+    |logit|; then EvalStep(bf16_compute=True) on the bench net against
+    its fp32 EvalStep within BF16_EVAL_RTOL."""
+    from incubator_mxnet_tpu_torch.parallel import EvalStep
+    xd = torch.from_numpy(_train_batch(seed + 9, EVAL_BATCH)[0]).cuda()
+    evaluate = EvalStep(chain_net)
+    _zero_counts()
+    got = evaluate(xd)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(chain_emit=16)
+    _expect(launches, want, "one chain-net EvalStep call")
+    with torch.inference_mode():
+        ref = chain_net.eval()(xd)
+    chain_net.train()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    lg32 = EvalStep(bench_net)(xd)
+    lg16 = EvalStep(bench_net, bf16_compute=True)(xd)
+    err16 = (lg16.float() - lg32).abs().max().item()
+    scale32 = lg32.abs().max().item()
+    emit({"phase": "eval_step", "batch": EVAL_BATCH, "launches": launches,
+          "max_abs_err": err, "logits_abs_max": scale, "rtol": EVAL_RTOL,
+          "bf16_dtype": str(lg16.dtype), "bf16_max_abs_err": err16,
+          "bf16_logits_abs_max": scale32, "bf16_rtol": BF16_EVAL_RTOL,
+          "bf16_argmax_agree": (lg16.float().argmax(1) == lg32.argmax(1))
+          .float().mean().item()})
+    if not torch.isfinite(got).all() or err > EVAL_RTOL * scale:
+        fail(f"EvalStep vs net.eval()(x): {err} > {EVAL_RTOL} x {scale}")
+    if lg16.dtype != torch.bfloat16 or not torch.isfinite(lg16).all() or \
+            err16 > BF16_EVAL_RTOL * scale32:
+        fail(f"bf16 EvalStep vs fp32: {err16} > {BF16_EVAL_RTOL} x "
+             f"{scale32} ({lg16.dtype})")
 
 
 def rtc_bound_ms(nbytes):
@@ -1552,11 +2000,23 @@ def main():
     train_launches, tnet, step, xd, yd = phase_resnet_train(args.seed)
     phase_resnet_train_profile(step, xd, yd)
     phase_resnet_train_eval(tnet, args.seed)
-    del tnet, step, xd, yd
+    del step, xd, yd
     torch.cuda.empty_cache()
     phase_resnet_train_reference(args.seed)
     torch.cuda.empty_cache()
     phase_fused_train(args.seed)
+    torch.cuda.empty_cache()
+    bnet, step, xd, yd = phase_resnet_train_bench(args.seed)
+    phase_resnet_train_profile(step, xd, yd, "resnet_train_bench_profile",
+                               by_source=True)
+    del step, xd, yd
+    torch.cuda.empty_cache()
+    phase_resnet_train_bench_reference(args.seed)
+    phase_resnet_train_chain34(args.seed)
+    phase_resnet_train_1x1(args.seed)
+    phase_train_step_options(args.seed)
+    phase_eval_step(tnet, bnet, args.seed)
+    del tnet, bnet
     for name, k in chain.items():
         k["launches"] = train_launches[name]
         kernels.append(k)

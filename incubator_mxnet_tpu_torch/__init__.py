@@ -13,8 +13,10 @@ Ported so far: the generation server (``gluon.TransformerDecoder``,
 ResNet V1 inference (``gluon.model_zoo.vision``, ``predict.
 BlockPredictor``, ``serving.ModelServer``, the fused BN -> ReLU -> conv
 kernels of ``ops.fused_conv``), ResNet V1 training
-(``parallel.TrainStep``, ``gluon.loss``, ``optimizer.SGD``, the
-bottleneck-chain kernels of ``ops.fused_chain``) and the imperative
+(``parallel.TrainStep`` with bf16 compute, gradient accumulation and
+the ``numerics.LossScaler``, ``parallel.EvalStep``, ``gluon.nn.BNReLU``,
+``gluon.loss``, ``optimizer.SGD``, the bottleneck-chain kernels of
+``ops.fused_chain``) and the imperative
 front end: ``nd`` (``NDArray`` over ``torch.Tensor`` and the op
 registry), ``autograd`` (over ``torch.autograd``), ``random``, and
 ``rtc.CudaModule`` (user CUDA C compiled at run time with NVRTC).  So
@@ -22,8 +24,8 @@ registry), ``autograd`` (over ``torch.autograd``), ``random``, and
 it does against the JAX package, except that the default context is
 ``mx.gpu(0)``.
 """
-from . import (base, context, convert, gluon, ops, optimizer, parallel,
-               predict, serving)
+from . import (base, context, convert, gluon, numerics, ops, optimizer,
+               parallel, predict, serving)
 from . import ndarray
 from . import ndarray as nd
 from . import autograd, random, rtc
@@ -34,5 +36,5 @@ __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "Context", "autograd", "base", "context",
            "convert", "cpu", "current_context", "gluon", "gpu", "nd",
-           "ndarray", "num_gpus", "ops", "optimizer", "parallel",
+           "ndarray", "num_gpus", "numerics", "ops", "optimizer", "parallel",
            "predict", "random", "rtc", "serving", "tpu"]

@@ -1,7 +1,9 @@
 """Weight transfer from the JAX package's parameter names to the port.
 
 ``resnet_params_from_numpy`` does the same for the ResNet V1 model zoo
-(its docstring gives the structure it maps).
+(its docstring gives the structure it maps), and
+``resnet_params_to_numpy`` maps the port's ResNet V1 ``state_dict``
+back to the JAX names, bit for bit.
 
 ``params_from_numpy`` takes ``{jax_param_name: np.ndarray}`` — what
 ``TransformerDecoder.collect_params()`` of the JAX package gives, each
@@ -27,7 +29,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["params_from_numpy", "resnet_params_from_numpy"]
+__all__ = ["params_from_numpy", "resnet_params_from_numpy",
+           "resnet_params_to_numpy"]
 
 # child blocks of a JAX DecoderLayer in creation order -> port names
 _LAYER_CHILDREN = {"layernorm0": "ln1", "dense0": "qkv", "dense1": "proj",
@@ -74,12 +77,18 @@ def params_from_numpy(named_arrays):
 _RESNET_RE = re.compile(r"(?:stage(\d+)_)?(conv2d|batchnorm|dense)(\d+)_"
                         r"(weight|bias|gamma|beta|running_mean|running_var)")
 _BN_PARAMS = ("gamma", "beta", "running_mean", "running_var")
+# the port's keys, within a block, of its convs and of the BatchNorm
+# each conv's output goes through, in the JAX package's creation order
+_BOTTLENECK = (("body.0", "body.1.conv", "body.2.conv"),
+               ("body.1.bn", "body.2.bn", "body.3"))
+_BASIC = (("body.0", "body.1.conv"), ("body.1.bn", "body.2"))
+_DOWNSAMPLE = ("downsample.0", "downsample.1")
 
 
 def resnet_params_from_numpy(named_arrays):
     """``{jax_param_name: np.ndarray}`` of a JAX ResNet V1 (any depth,
-    ``fuse_block`` True or False, thumbnail or not) -> the state_dict of
-    the port's ``gluon.model_zoo.vision.ResNetV1``.
+    any ``fuse_block`` and ``fuse_bn_relu``, thumbnail or not) -> the
+    state_dict of the port's ``gluon.model_zoo.vision.ResNetV1``.
 
     The JAX names are structural: ``<prefix>conv2d0_weight`` and
     ``<prefix>batchnorm0_*`` (the stem; no BN on a thumbnail stem),
@@ -89,9 +98,11 @@ def resnet_params_from_numpy(named_arrays):
     a bottleneck creates conv1 (with bias), the fused 3x3 (its BN, its
     conv), the fused 1x1 (its BN, its conv with bias), the closing BN,
     then the downsample (conv, BN); a basic block has one fewer conv and
-    BN in its body.  Each name is placed by that position, whatever the
-    prefix.  Raises MXNetError on a name it cannot place and on a shape
-    that does not fit the structure (a BN whose length is not its conv's
+    BN in its body.  Every mode creates them in that order (a ``BNReLU``
+    is named ``batchnorm``, a chain creates BN1, conv2, BN2, conv3).
+    Each name is placed by that position, whatever the prefix.  Raises
+    MXNetError on a name it cannot place and on a shape that does not
+    fit the structure (a BN whose length is not its conv's
     output channels, a bias or Dense of the wrong length)."""
     dense = [n for n in named_arrays if n.endswith("dense0_weight")]
     if len(dense) != 1:
@@ -163,10 +174,7 @@ def resnet_params_from_numpy(named_arrays):
             raise MXNetError(f"stage {s}: {len(convs)} convs and "
                              f"{len(bns)} batchnorms do not pair up")
         bottleneck = convs[0]["weight"].shape[2:] == (1, 1)
-        body = ["body.0", "body.1.conv", "body.2.conv"] if bottleneck \
-            else ["body.0", "body.1.conv"]
-        body_bn = ["body.1.bn", "body.2.bn", "body.3"] if bottleneck \
-            else ["body.1.bn", "body.2"]
+        body, body_bn = _BOTTLENECK if bottleneck else _BASIC
         per = len(body)
         if len(convs) % per not in (0, 1):
             raise MXNetError(f"stage {s}: {len(convs)} convs do not make "
@@ -178,8 +186,8 @@ def resnet_params_from_numpy(named_arrays):
             keys += [pre + k for k in body]
             bn_keys += [pre + k for k in body_bn]
             if blk == 0 and has_ds:
-                keys.append(pre + "downsample.0")
-                bn_keys.append(pre + "downsample.1")
+                keys.append(pre + _DOWNSAMPLE[0])
+                bn_keys.append(pre + _DOWNSAMPLE[1])
         for key, bn_key, conv, bn in zip(keys, bn_keys, convs, bns):
             allowed = {"weight", "bias"} if key.endswith(
                 ("body.0", "body.2.conv")) and bottleneck else {"weight"}
@@ -191,4 +199,55 @@ def resnet_params_from_numpy(named_arrays):
                          f"{sorted(dense)}")
     put("output.weight", w)
     put("output.bias", dense["bias"], (w.shape[0],))
+    return out
+
+
+def resnet_params_to_numpy(state_dict, prefix="resnetv10_"):
+    """The port's ResNet V1 ``state_dict`` (any mode) -> ``{jax_param_name:
+    np.ndarray}`` under ``prefix``: the inverse of
+    ``resnet_params_from_numpy``, which maps the result back to the same
+    tensors bit for bit.  The JAX package's ``set_data`` of each name
+    loads it into a JAX net of the same structure.  Raises MXNetError on
+    a key it does not place."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    out, placed = {}, set()
+
+    def take(key, name):
+        out[prefix + name] = sd[key]
+        placed.add(key)
+
+    take("features.0.weight", "conv2d0_weight")
+    stem_bn = "features.1.gamma" in sd
+    if stem_bn:
+        for p in _BN_PARAMS:
+            take(f"features.1.{p}", f"batchnorm0_{p}")
+    base = 4 if stem_bn else 1
+    stage = 1
+    while f"features.{base + stage - 1}.0.body.0.weight" in sd:
+        scope = f"features.{base + stage - 1}."
+        body, body_bn = _BOTTLENECK if f"{scope}0.body.3.gamma" in sd \
+            else _BASIC
+        n_conv = n_bn = 0
+        blk = 0
+        while f"{scope}{blk}.body.0.weight" in sd:
+            pre = f"{scope}{blk}."
+            ds = f"{pre}{_DOWNSAMPLE[0]}.weight" in sd
+            for key in body + (_DOWNSAMPLE[:1] if ds else ()):
+                for p in ("weight", "bias"):
+                    if f"{pre}{key}.{p}" in sd:
+                        take(f"{pre}{key}.{p}",
+                             f"stage{stage}_conv2d{n_conv}_{p}")
+                n_conv += 1
+            for key in body_bn + (_DOWNSAMPLE[1:] if ds else ()):
+                for p in _BN_PARAMS:
+                    take(f"{pre}{key}.{p}",
+                         f"stage{stage}_batchnorm{n_bn}_{p}")
+                n_bn += 1
+            blk += 1
+        stage += 1
+    take("output.weight", "dense0_weight")
+    take("output.bias", "dense0_bias")
+    if placed != set(sd):
+        raise MXNetError(f"cannot place the port's keys "
+                         f"{sorted(set(sd) - placed)}")
     return out

@@ -1,0 +1,26 @@
+"""Shared construction helpers of the port's vision zoo (counterpart of
+``incubator_mxnet_tpu/gluon/model_zoo/vision/_common.py``)."""
+from __future__ import annotations
+
+from torch import nn
+
+from ...nn import Activation, BatchNorm, BNReLU
+
+__all__ = ["add_bn_relu"]
+
+
+def add_bn_relu(layers, fuse, channels, **bn_kwargs):
+    """Append BatchNorm + ReLU over ``channels`` to the list ``layers``:
+    as one ``BNReLU`` (the lean backward) when ``fuse``, else as
+    ``BatchNorm`` then ``Activation("relu")``.  The one switch the zoo's
+    ``fuse_bn_relu`` goes through for a BN + ReLU pair of a sequence
+    (the reference's ``add_bn_relu``).  Both forms take two slots, the
+    fused one an ``nn.Identity`` where the ReLU was, so every later
+    layer keeps its index and a fused net has the ``state_dict`` keys
+    of its unfused twin.  ``bn_kwargs`` go to the norm layer either
+    way."""
+    if fuse:
+        layers += [BNReLU(channels, **bn_kwargs), nn.Identity()]
+    else:
+        layers += [BatchNorm(channels, **bn_kwargs), Activation("relu")]
+    return layers

@@ -2,6 +2,11 @@
 ``incubator_mxnet_tpu/gluon/model_zoo/vision/resnet.py``): the same
 blocks, stages and widths, for inference and training.
 
+* ``fuse_bn_relu=True`` runs the stem's and every block body's inner
+  [BN -> ReLU] pairs as one ``BNReLU`` each (the lean backward of
+  ``ops.nn.fused_batch_norm_relu``), where ``fuse_block`` does not fuse
+  them into a conv; the pair that closes a block stays BatchNorm, as
+  the residual add comes before its ReLU.
 * ``fuse_block=True`` runs the [BN -> ReLU -> conv] boundaries inside
   each block as ``FusedBNReLUConv2D`` layers, which on the card and with
   ``layout="NHWC"`` are the hand-written kernels: in ``BottleneckV1``
@@ -10,21 +15,28 @@ blocks, stages and widths, for inference and training.
   layers, with the same parameter names, running the plain composition.
   As in the JAX package, the stride of a V1 bottleneck sits on its 1x1
   ``conv1``, so every fused boundary is stride 1.
+* ``fuse_block="1x1"`` fuses only a bottleneck's 1x1 boundary
+  (``sbr_matmul``); its 3x3 boundary runs as ``BNReLU`` then the conv.
 * ``fuse_block="chain"`` runs a bottleneck's whole interior [BN -> ReLU
   -> conv 3x3 -> BN -> ReLU -> conv 1x1] as one ``FusedBottleneckChain``
   over the same two layers (same parameter names again): on the card the
   chain kernels, ``chain_stats`` then ``chain_emit`` in train mode and
-  ``chain_emit`` alone in eval.
+  ``chain_emit`` alone in eval.  ``"chain34"`` does so only where the
+  3x3 has at least 256 channels (stages 3 and 4 of ResNet-50) and runs
+  the other bottlenecks with ``fuse_bn_relu=True``.
+* A basic block has no bottleneck interior: with ``"1x1"``, ``"chain"``
+  or ``"chain34"`` it runs as ``fuse_block=False, fuse_bn_relu=True``,
+  as in the JAX package.
+* Every mode keeps the parameter names of the unfused net, so a net's
+  ``state_dict`` loads into every other mode.
 * ``layout="NHWC"``: the model takes ``(N, H, W, 3)`` images, as the
   JAX model does, and runs channels-last inside (``gluon.nn``'s module
   note); ``"NCHW"`` takes ``(N, 3, H, W)``.  Either way it returns
   ``(N, classes)`` logits.
 * Train mode (``net.train()``) takes every BatchNorm's batch statistics
   and moves its running ones towards them; ``parallel.TrainStep`` trains.
-* Not ported yet, and raising ``MXNetError``: ResNet V2, ``fuse_block``
-  ``"1x1"`` and ``"chain34"``, and ``"chain"`` on basic blocks (they
-  need ``BNReLU``), ``mxu_stem=True`` (a TPU stem), ``fuse_bn_relu=True``
-  (``BNReLU``) and ``pretrained=True``.
+* Not ported yet, and raising ``MXNetError``: ResNet V2,
+  ``mxu_stem=True`` (a TPU stem) and ``pretrained=True``.
 """
 from __future__ import annotations
 
@@ -35,8 +47,9 @@ from torch import nn
 
 from ....base import MXNetError
 from ....context import resolve_device
-from ...nn import (Activation, BatchNorm, Conv2D, Dense, FusedBNReLUConv2D,
+from ...nn import (BatchNorm, Conv2D, Dense, FusedBNReLUConv2D,
                    FusedBottleneckChain, GlobalAvgPool2D, MaxPool2D)
+from ._common import add_bn_relu
 
 __all__ = ["BasicBlockV1", "BottleneckV1", "ResNetV1", "resnet_spec",
            "get_resnet", "resnet18_v1", "resnet34_v1", "resnet50_v1",
@@ -57,9 +70,9 @@ def _downsample(channels, stride, in_channels, layout, device):
         BatchNorm(channels, device=device))
 
 
-def _needs_bnrelu(fuse_block):
-    return MXNetError(f"fuse_block={fuse_block!r} needs BNReLU (the fused "
-                      f"BatchNorm + ReLU layer), which is not ported yet")
+def _unknown_mode(fuse_block):
+    return MXNetError(f"unknown fuse_block={fuse_block!r}: False, True, "
+                      "'chain', '1x1' or 'chain34'")
 
 
 class _BlockV1(nn.Module):
@@ -81,17 +94,23 @@ class _BlockV1(nn.Module):
 class BasicBlockV1(_BlockV1):
     """3x3 + 3x3 block (reference resnet.py:BasicBlockV1); with
     ``fuse_block=True`` its [BN -> ReLU -> conv2] boundary is one
-    kernel.  The chain modes need ``BNReLU`` here and raise."""
+    kernel, with ``fuse_bn_relu=True`` (and in the bottleneck-only modes
+    ``"1x1"``, ``"chain"`` and ``"chain34"``) its BN + ReLU is one
+    ``BNReLU``."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", fuse_block=False, device=None):
+                 layout="NCHW", fuse_bn_relu=False, fuse_block=False,
+                 device=None):
         super().__init__()
+        if fuse_block in ("1x1", "chain", "chain34"):
+            fuse_block, fuse_bn_relu = False, True
         if fuse_block not in (False, True):
-            raise _needs_bnrelu(fuse_block)
+            raise _unknown_mode(fuse_block)
         self.body = nn.Sequential(
             _conv3x3(channels, stride, in_channels, layout, device),
             FusedBNReLUConv2D(channels, 3, 1, 1, layout=layout,
                               in_channels=channels, fuse=fuse_block,
+                              bn_relu=fuse_bn_relu and not fuse_block,
                               device=device),
             BatchNorm(channels, device=device))
         self.chain = None
@@ -102,25 +121,36 @@ class BasicBlockV1(_BlockV1):
 class BottleneckV1(_BlockV1):
     """1x1 - 3x3 - 1x1 bottleneck (reference resnet.py:BottleneckV1),
     the stride on ``conv1``; with ``fuse_block=True`` both [BN -> ReLU ->
-    conv] boundaries of the body are one kernel each, with
-    ``fuse_block="chain"`` the two together are one
-    ``FusedBottleneckChain``."""
+    conv] boundaries of the body are one kernel each, with ``"1x1"``
+    only the second (the first a ``BNReLU``), with ``"chain"`` the two
+    together are one ``FusedBottleneckChain``; ``"chain34"`` is
+    ``"chain"`` where the 3x3 has at least 256 channels and
+    ``fuse_bn_relu=True`` elsewhere (reference ``resnet.py:96-102``).
+    ``fuse_bn_relu=True`` makes every BN + ReLU that no kernel fuses a
+    ``BNReLU``."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", fuse_block=False, device=None):
+                 layout="NCHW", fuse_bn_relu=False, fuse_block=False,
+                 device=None):
         super().__init__()
-        if fuse_block not in (False, True, "chain"):
-            raise _needs_bnrelu(fuse_block)
         mid = channels // 4
-        per_layer = fuse_block is True
+        if fuse_block == "chain34":
+            fuse_block, fuse_bn_relu = ("chain", fuse_bn_relu) \
+                if mid >= 256 else (False, True)
+        if fuse_block not in (False, True, "chain", "1x1"):
+            raise _unknown_mode(fuse_block)
+        bn_relu = fuse_bn_relu and fuse_block is False
         self.body = nn.Sequential(
             Conv2D(mid, 1, stride, in_channels=in_channels, layout=layout,
                    device=device),
             FusedBNReLUConv2D(mid, 3, 1, 1, layout=layout, in_channels=mid,
-                              fuse=per_layer, device=device),
+                              fuse=fuse_block is True,
+                              bn_relu=bn_relu or fuse_block == "1x1",
+                              device=device),
             FusedBNReLUConv2D(channels, 1, 1, 0, layout=layout,
                               in_channels=mid, use_bias=True,
-                              fuse=per_layer, device=device),
+                              fuse=fuse_block in (True, "1x1"),
+                              bn_relu=bn_relu, device=device),
             BatchNorm(channels, device=device))
         self.chain = FusedBottleneckChain(self.body[1], self.body[2]) \
             if fuse_block == "chain" else None
@@ -143,11 +173,8 @@ class ResNetV1(nn.Module):
         if mxu_stem:
             raise MXNetError("mxu_stem=True (the TPU space-to-depth stem) "
                              "is not ported")
-        if fuse_bn_relu:
-            raise MXNetError("fuse_bn_relu=True (BNReLU) is not ported yet")
         if fuse_block not in (False, True, "chain", "1x1", "chain34"):
-            raise MXNetError(f"unknown fuse_block={fuse_block!r}: False, "
-                             "True, 'chain', '1x1' or 'chain34'")
+            raise _unknown_mode(fuse_block)
         device = resolve_device(device)
         self.layout = layout
         if thumbnail:
@@ -156,19 +183,18 @@ class ResNetV1(nn.Module):
         else:
             feats = [Conv2D(channels[0], 7, 2, 3, use_bias=False,
                             in_channels=IMAGE_CHANNELS, layout=layout,
-                            device=device),
-                     BatchNorm(channels[0], device=device),
-                     Activation("relu"),
-                     MaxPool2D(3, 2, 1)]
+                            device=device)]
+            add_bn_relu(feats, fuse_bn_relu, channels[0], device=device)
+            feats.append(MaxPool2D(3, 2, 1))
+        opts = dict(layout=layout, fuse_bn_relu=fuse_bn_relu,
+                    fuse_block=fuse_block, device=device)
         for i, num in enumerate(layers):
             stride = 1 if i == 0 else 2
             out_ch, in_ch = channels[i + 1], channels[i]
             stage = [block(out_ch, stride, out_ch != in_ch,
-                           in_channels=in_ch, layout=layout,
-                           fuse_block=fuse_block, device=device)]
-            stage += [block(out_ch, 1, False, in_channels=out_ch,
-                            layout=layout, fuse_block=fuse_block,
-                            device=device) for _ in range(num - 1)]
+                           in_channels=in_ch, **opts)]
+            stage += [block(out_ch, 1, False, in_channels=out_ch, **opts)
+                      for _ in range(num - 1)]
             feats.append(nn.Sequential(*stage))
         feats.append(GlobalAvgPool2D())
         self.features = nn.Sequential(*feats)

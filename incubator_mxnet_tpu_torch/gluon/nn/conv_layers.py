@@ -22,7 +22,7 @@ from ...base import MXNetError
 from ...context import resolve_device
 from ...ops.fused_chain import chain_supported, fused_bottleneck_chain
 from ...ops.fused_conv import fused_bn_relu_conv, supported
-from .basic_layers import BatchNorm
+from .basic_layers import BatchNorm, BNReLU
 
 __all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D", "FusedBNReLUConv2D",
            "FusedBottleneckChain"]
@@ -110,17 +110,21 @@ class FusedBNReLUConv2D(nn.Module):
     fused_bn_relu_conv``, which on the card is one kernel launch; else it
     runs the plain composition BN, ReLU, ``F.conv2d``.  The choice is
     made here, from the configuration, and read from ``self.fused``.
-    In train mode the BN takes the batch's statistics and moves its
-    running ones towards them (``BatchNorm.update_running``)."""
+    ``bn_relu=True`` makes ``bn`` a ``BNReLU`` (the same names), and the
+    plain composition then runs BN and ReLU as that one op: the model
+    zoo's ``fuse_bn_relu`` for a boundary that is not fused into the
+    conv.  In train mode the BN takes the batch's statistics and moves
+    its running ones towards them (``BatchNorm.update_running``)."""
 
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  groups=1, layout="NCHW", in_channels=0, use_bias=False,
-                 epsilon=1e-5, momentum=0.9, fuse=True, device=None,
-                 dtype=torch.float32):
+                 epsilon=1e-5, momentum=0.9, fuse=True, bn_relu=False,
+                 device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
-        self.bn = BatchNorm(in_channels, epsilon=epsilon, momentum=momentum,
-                            device=device, dtype=dtype)
+        norm = BNReLU if bn_relu else BatchNorm
+        self.bn = norm(in_channels, epsilon=epsilon, momentum=momentum,
+                       device=device, dtype=dtype)
         self.conv = Conv2D(channels, kernel_size, strides, padding,
                            groups=groups, layout=layout,
                            in_channels=in_channels, use_bias=use_bias,
@@ -133,7 +137,8 @@ class FusedBNReLUConv2D(nn.Module):
     def forward(self, x):
         bn, conv = self.bn, self.conv
         if not self.fused:
-            return conv(torch.relu(bn(x)))
+            return conv(bn(x) if isinstance(bn, BNReLU) else
+                        torch.relu(bn(x)))
         out, mean, var = fused_bn_relu_conv(
             x, bn.gamma, bn.beta, bn.running_mean, bn.running_var,
             conv.weight, conv.bias, kernel=conv.kernel_size, eps=bn.eps,

@@ -12,11 +12,12 @@ from .fused_chain import (chain_emit, chain_stats, chain_supported,
                           fused_bottleneck_chain)
 from .fused_conv import (bn_affine, bn_stats, fused_bn_relu_conv,
                          sbr_conv3x3, sbr_matmul, supported)
+from .nn import fused_batch_norm_relu
 from .registry import (Operator, alias_op, find_op, get_op, list_ops,
                        normalize_attrs, register_op)
 
 __all__ = ["Operator", "alias_op", "bn_affine", "bn_stats", "chain_emit",
            "chain_stats", "chain_supported", "find_op",
-           "fused_bn_relu_conv", "fused_bottleneck_chain", "get_op",
-           "list_ops", "normalize_attrs", "register_op", "sbr_conv3x3",
-           "sbr_matmul", "supported"]
+           "fused_batch_norm_relu", "fused_bn_relu_conv",
+           "fused_bottleneck_chain", "get_op", "list_ops", "normalize_attrs",
+           "register_op", "sbr_conv3x3", "sbr_matmul", "supported"]

@@ -64,8 +64,9 @@ def chain_supported(mid_channels, layout="NHWC", dtype=torch.float32):
 
 
 def _conv2(x, a1, b1, w2):
-    """fp32 conv2 of relu(x*a1 + b1), zero padding after the activation."""
-    return F.conv2d(_activate(x, a1, b1), w2.float(), padding=1)
+    """conv2 of relu(x*a1 + b1), zero padding after the activation, in
+    x's dtype (fp32 for the kernels)."""
+    return F.conv2d(_activate(x, a1, b1), w2.to(x.dtype), padding=1)
 
 
 def _chain_stats_plain(x, a1, b1, w2, shift):
@@ -77,9 +78,9 @@ def _chain_stats_plain(x, a1, b1, w2, shift):
 
 def _chain_emit_plain(x, a1, b1, w2, a2, b2, w3, b3):
     """Plain version of pass 2: ``conv1x1(relu(c2*a2 + b2), w3) + b3``,
-    fp32."""
-    return F.conv2d(_activate(_conv2(x, a1, b1, w2), a2, b2), w3.float(),
-                    b3.float())
+    in x's dtype (fp32 for the kernel)."""
+    return F.conv2d(_activate(_conv2(x, a1, b1, w2), a2, b2),
+                    w3.to(x.dtype), b3.to(x.dtype))
 
 
 def _check(name, x, vectors, w2, w3=None):
@@ -180,14 +181,15 @@ def _chain_plain(c1, g1, bt1, mm1, mv1, w2, g2, bt2, mm2, mv2, w3, b3, eps,
                  fix_gamma, train_stats):
     """The plain composition (the JAX op's ``xla_forward``): BN1, ReLU,
     conv2, BN2 (batch statistics by ``bn_stats``, unshifted, or the
-    moving ones), ReLU, conv3 plus bias, in fp32.  Returns ``(out,
-    mean1, var1, mean2, var2)``."""
+    moving ones), ReLU, conv3 plus bias; the BNs in fp32, the convs in
+    c1's dtype.  Returns ``(out, mean1, var1, mean2, var2)``, the
+    statistics fp32."""
     a1, b1, mean1, var1 = bn_coefficients(c1, g1, bt1, mm1, mv1, eps,
                                           fix_gamma, train_stats)
     c2 = _conv2(c1, a1, b1, w2)
     a2, b2, mean2, var2 = bn_coefficients(c2, g2, bt2, mm2, mv2, eps,
                                           fix_gamma, train_stats)
-    out = F.conv2d(_activate(c2, a2, b2), w3.float(), b3.float())
+    out = F.conv2d(_activate(c2, a2, b2), w3.to(c1.dtype), b3.to(c1.dtype))
     return out, mean1, var1, mean2, var2
 
 

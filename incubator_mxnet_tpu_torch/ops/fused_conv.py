@@ -128,25 +128,31 @@ def bn_coefficients(data, gamma, beta, running_mean, running_var, eps,
 
 
 def _activate(x, a, b):
-    """relu(x*a + b) over the channel axis (dim 1), in fp32."""
+    """relu(x*a + b) over the channel axis (dim 1), computed in fp32 and
+    returned in x's dtype, which the conv after it runs in (the JAX op
+    rounds the activation to the data's dtype the same way; a no-op
+    for fp32, the kernels' only dtype)."""
     shape = (1, -1, 1, 1)
-    return torch.relu(x.float() * a.view(shape) + b.view(shape))
+    return torch.relu(x.float() * a.view(shape) + b.view(shape)).to(x.dtype)
 
 
 def _sbr_matmul_plain(x, a, b, weight, bias):
-    """Plain version of the 1x1 kernel: fp32 ``relu(x*a + b)`` as
-    ``(N*H*W, C)`` rows times the ``(Cout, C)`` weight, plus bias."""
+    """Plain version of the 1x1 kernel: ``relu(x*a + b)`` as ``(N*H*W,
+    C)`` rows times the ``(Cout, C)`` weight, plus bias, in x's dtype
+    (fp32 for the kernel)."""
     n, c, h, w = x.shape
     y = _activate(x, a, b).permute(0, 2, 3, 1).reshape(-1, c)
-    out = torch.matmul(y, weight.float().reshape(-1, c).t()) + bias.float()
+    out = torch.matmul(y, weight.to(x.dtype).reshape(-1, c).t()) + \
+        bias.to(x.dtype)
     return out.reshape(n, h, w, -1).permute(0, 3, 1, 2)
 
 
 def _sbr_conv3x3_plain(x, a, b, weight, bias):
-    """Plain version of the 3x3 kernel: fp32 ``relu(x*a + b)``, then
-    ``F.conv2d`` with padding 1 (zeros after the activation)."""
-    return F.conv2d(_activate(x, a, b), weight.float(), bias.float(),
-                    padding=1)
+    """Plain version of the 3x3 kernel: ``relu(x*a + b)``, then
+    ``F.conv2d`` with padding 1 (zeros after the activation), in x's
+    dtype (fp32 for the kernel)."""
+    return F.conv2d(_activate(x, a, b), weight.to(x.dtype),
+                    bias.to(x.dtype), padding=1)
 
 
 def _check(name, x, a, b, weight, bias, kernel):
@@ -264,12 +270,13 @@ def recompute_vjp(plain, args, needs, cotangents):
 def _fused_plain(x, gamma, beta, running_mean, running_var, weight, bias,
                  kernel, eps, fix_gamma, train_stats):
     """The plain composition of the fused op (the JAX op's
-    ``xla_forward``): BN with the batch or running statistics, ReLU,
-    ``F.conv2d`` plus bias, in fp32.  Returns ``(out, mean, var)``."""
+    ``xla_forward``): BN with the batch or running statistics, ReLU
+    (both in fp32), ``F.conv2d`` plus bias in x's dtype.  Returns
+    ``(out, mean, var)``, the statistics fp32."""
     a, b, mean, var = bn_coefficients(x, gamma, beta, running_mean,
                                       running_var, eps, fix_gamma,
                                       train_stats)
-    out = F.conv2d(_activate(x, a, b), weight.float(), bias.float(),
+    out = F.conv2d(_activate(x, a, b), weight.to(x.dtype), bias.to(x.dtype),
                    padding=kernel[0] // 2)
     return out, mean, var
 

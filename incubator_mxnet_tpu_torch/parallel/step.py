@@ -1,6 +1,7 @@
-"""The training step of the port (counterpart of
-``incubator_mxnet_tpu/parallel/step.py`` ``TrainStep``): forward, loss,
-backward and optimizer update of a module, one call per step.
+"""The training and inference steps of the port (counterpart of
+``incubator_mxnet_tpu/parallel/step.py`` ``TrainStep`` and
+``EvalStep``): forward, loss, backward and optimizer update of a module,
+one call per step; or a forward in eval mode.
 
 The JAX step compiles the whole step (and a ``run_steps`` window as one
 ``lax.scan``) into one XLA program; the port runs it eagerly, each
@@ -14,21 +15,107 @@ What one step does is the JAX step body's:
 * every trainable parameter (``requires_grad``) is updated by the
   optimizer, with its ``lr_mult`` / ``wd_mult``: weight decay reaches
   BatchNorm gamma/beta and biases too, as in the JAX step.
+* ``bf16_compute=True``: the parameters and buffers stay fp32 masters.
+  Each forward runs over bf16 copies of every fp32 parameter and buffer
+  (``torch.func.functional_call``) on the float inputs cast to bf16,
+  explicitly, op by op as the JAX step casts its arrays (not
+  ``torch.autocast``, which keeps some ops in fp32).  The loss is the
+  bf16 mean cast to fp32; the gradients reach the fp32 masters through
+  the casts, and the update is fp32.  The moving statistics take the
+  forward's bf16 update, cast back to fp32 (JAX folds them in bf16 over
+  the bf16-cast buffers too).  The hand-written kernels B1-B4 are fp32
+  only: a net whose fused layers would launch them (on a CUDA device)
+  raises ``MXNetError`` when the step is built.
+* ``grad_accum=k``: the batch is split into k microbatches along axis 0
+  (it must divide evenly); each microbatch's forward sees the moving
+  statistics the previous one left (they compound), the loss is the
+  mean of the microbatch losses, the gradient the mean of theirs, and
+  there is one update.
+* ``loss_scaler`` (``numerics.LossScaler``; with ``bf16_compute``,
+  ``MXNET_LOSS_SCALE`` opts the env-configured one in): the backward
+  runs on ``loss * scale`` and the gradients are divided by the scale.
+  A step whose gradients are not finite applies no update: parameters,
+  optimizer states and moving statistics keep their values (by
+  ``torch.where`` on the device, no host sync), and the scale backs off.
+  The scale state is a device float32 ``[scale, streak]``;
+  ``loss_scale()`` reads it.
 
 Not ported yet, and raising ``MXNetError`` when asked for: ``mesh``,
-``grad_accum > 1``, ``bf16_compute``, ``loss_scaler``, ``mirror``,
-``input_prep``, ``autotune=True`` and ``run_steps(stacked=True)``; the
-persistent compile cache and the numerics sentinels have no counterpart.
+``mirror``, ``input_prep``, ``autotune=True``, ``run_steps(stacked=True)``
+and ``run_steps(drain=...)``; the persistent compile cache and the
+numerics sentinels have no counterpart.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..numerics import LossScaler, program_overflow
 
-__all__ = ["TrainStep"]
+__all__ = ["EvalStep", "TrainStep"]
+
+
+def _refuse(owner, asked):
+    for what, on in asked:
+        if on:
+            raise MXNetError(f"{owner}({what}) is not ported yet")
+
+
+def _to_device(x, device):
+    t = torch.from_numpy(np.ascontiguousarray(x)) \
+        if isinstance(x, np.ndarray) else torch.as_tensor(x)
+    return t.to(device)
+
+
+def _check_placement(owner, block, device):
+    where = {p.device for p in block.parameters()}
+    if where and where != {device}:
+        raise MXNetError(f"{owner} on {device}, but the block's parameters "
+                         f"are on {sorted(map(str, where))}")
+
+
+def _check_bf16(owner, block, device):
+    """Refuse bf16 compute for a net whose fused layers launch the fp32
+    kernels on ``device``: there is no quiet route to their plain
+    composition on a CUDA tensor."""
+    if device.type != "cuda":
+        return
+    from ..gluon.nn import FusedBNReLUConv2D, FusedBottleneckChain
+    live = [name for name, m in block.named_modules()
+            if isinstance(m, (FusedBNReLUConv2D, FusedBottleneckChain))
+            and m.fused]
+    if live:
+        raise MXNetError(
+            f"{owner}(bf16_compute=True): the hand-written kernels B1-B4 "
+            "(sbr_matmul, sbr_conv3x3, chain_stats, chain_emit) have no "
+            f"bf16 form yet, and {len(live)} fused layers of this net "
+            f"launch them on {device} (the first: {live[0]!r}); train "
+            "such a net in fp32, or build it with fuse_block=False "
+            "(fuse_bn_relu=True keeps BNReLU)")
+
+
+def _half(t):
+    return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+
+def _bf16_forward(block, inputs, keep_buffers):
+    """``block(*inputs)`` over bf16 copies of its fp32 parameters and
+    buffers, with its fp32 inputs cast to bf16.  With ``keep_buffers``
+    the copies' final values (the moving statistics the forward moved,
+    in bf16) are cast back into the fp32 buffers."""
+    params = {n: _half(p) for n, p in block.named_parameters()}
+    buffers = {n: _half(b) for n, b in block.named_buffers()}
+    out = functional_call(block, (params, buffers),
+                          tuple(_half(x) for x in inputs))
+    if keep_buffers:
+        with torch.no_grad():
+            for name, buf in block.named_buffers():
+                if buffers[name] is not buf:
+                    buf.copy_(buffers[name])
+    return out
 
 
 class TrainStep:
@@ -39,70 +126,170 @@ class TrainStep:
     Usage::
 
         step = TrainStep(net, SoftmaxCrossEntropyLoss(),
-                         SGD(learning_rate=0.1, momentum=0.9, wd=1e-4))
+                         SGD(learning_rate=0.1, momentum=0.9, wd=1e-4),
+                         bf16_compute=True)
         loss = step(x, y)                        # one step, a 0-d tensor
         losses = step.run_steps(x, y, num_steps=100)   # (100,) tensor
 
     Inputs are numpy arrays or tensors and are moved to the device;
     losses stay on the device (read them when the window is done).  The
     parameters are the block's own and are updated in place: there is
-    nothing to sync back."""
+    nothing to sync back (``sync_params`` is kept for the API)."""
 
     def __init__(self, block, loss_fn, optimizer, mesh=None, batch_axis=0,
                  grad_accum=1, donate=True, bf16_compute=False, mirror=None,
                  input_prep=None, autotune=None, loss_scaler=None,
                  device=None):
-        for what, asked in (("mesh", mesh is not None),
-                            ("grad_accum > 1", grad_accum != 1),
-                            ("bf16_compute", bool(bf16_compute)),
-                            ("mirror", bool(mirror)),
-                            ("input_prep", input_prep is not None),
-                            ("autotune", bool(autotune)),
-                            ("loss_scaler", loss_scaler is not None)):
-            if asked:
-                raise MXNetError(f"TrainStep({what}) is not ported yet")
+        _refuse("TrainStep", (("mesh", mesh is not None),
+                              ("mirror", bool(mirror)),
+                              ("input_prep", input_prep is not None),
+                              ("autotune", bool(autotune))))
         if batch_axis != 0:
             raise MXNetError("TrainStep takes the batch on axis 0")
+        if int(grad_accum) != grad_accum or grad_accum < 1:
+            raise MXNetError(f"grad_accum must be a positive integer, got "
+                             f"{grad_accum!r}")
         self.device = resolve_device(device)
-        where = {p.device for p in block.parameters()}
-        if where and where != {self.device}:
-            raise MXNetError(f"TrainStep on {self.device}, but the block's "
-                             f"parameters are on "
-                             f"{sorted(map(str, where))}")
+        self._bf16 = bool(bf16_compute)
+        if self._bf16:
+            _check_bf16("TrainStep", block, self.device)
+        _check_placement("TrainStep", block, self.device)
         self._block = block
         self._loss_fn = loss_fn
         self._optimizer = optimizer
+        self._grad_accum = int(grad_accum)
         self._params = [p for p in block.parameters() if p.requires_grad]
         self._states = [optimizer.create_state(p) for p in self._params]
+        if loss_scaler is None and self._bf16:
+            loss_scaler = LossScaler.from_env()
+        self._scaler = loss_scaler
+        self._scaler_state = None if loss_scaler is None else \
+            loss_scaler.state_init(self.device)
 
-    def _to_device(self, x):
-        t = torch.from_numpy(np.ascontiguousarray(x)) \
-            if isinstance(x, np.ndarray) else torch.as_tensor(x)
-        return t.to(self.device)
+    def _forward_loss(self, x, y):
+        if not self._bf16:
+            return self._loss_fn(self._block(x), y).mean()
+        out = _bf16_forward(self._block, (x,), keep_buffers=True)
+        return self._loss_fn(out, y).mean().float()
+
+    def _carry(self):
+        """Every tensor an overflowed step must leave as it was: the
+        trainable parameters, the optimizer states' tensors and the
+        block's float buffers (the moving statistics)."""
+        states = []
+        for s in self._states:
+            states += [t for t in (s if isinstance(s, tuple) else (s,))
+                       if t is not None]
+        buffers = [b for b in self._block.buffers() if b.is_floating_point()]
+        return self._params + states + buffers
 
     def _step(self, x, y):
-        block = self._block.train()
-        with torch.enable_grad():
-            loss = self._loss_fn(block(x), y).mean()
-            grads = torch.autograd.grad(loss, self._params)
+        self._block.train()
+        scaler = self._scaler
+        if scaler is not None:
+            carry = self._carry()
+            kept = [t.detach().clone() for t in carry]
+            scale = self._scaler_state[0]
+        accum = self._grad_accum
+        loss = grads = None
+        for xi, yi in zip(x.chunk(accum), y.chunk(accum)):
+            with torch.enable_grad():
+                lv = self._forward_loss(xi, yi)
+                g = torch.autograd.grad(lv if scaler is None else lv * scale,
+                                        self._params)
+            if scaler is not None:
+                g = [gi / scale for gi in g]
+            lv = lv.detach()
+            loss = lv if loss is None else loss + lv
+            grads = list(g) if grads is None else \
+                [a + b for a, b in zip(grads, g)]
+        if accum > 1:
+            loss = loss / accum
+            grads = [g / accum for g in grads]
         opt = self._optimizer
         for p, g, s in zip(self._params, grads, self._states):
             opt.update(p, g, s)
-        return loss.detach()
+        if scaler is not None:
+            overflow = program_overflow(grads)
+            with torch.no_grad():
+                for t, old in zip(carry, kept):
+                    t.copy_(torch.where(overflow, old, t))
+            self._scaler_state = scaler.next_state(self._scaler_state,
+                                                   overflow)
+        return loss
+
+    def loss_scale(self):
+        """The current loss scale (a host read of the device state), or
+        None without a scaler."""
+        if self._scaler is None:
+            return None
+        return float(self._scaler_state[0])
+
+    def sync_params(self):
+        """Nothing to do: the step updates the block's own parameters in
+        place (the JAX step keeps them in its own carry)."""
 
     def __call__(self, x, y):
         """One step on the batch ``(x, y)``; returns its loss (fp32, a
         0-d tensor on the device)."""
         return self.run_steps(x, y, num_steps=1)[0]
 
-    def run_steps(self, x, y, num_steps=None, stacked=False):
+    def run_steps(self, x, y, num_steps=None, stacked=False, drain=None):
         """``num_steps`` steps on the one batch ``(x, y)`` (the
         benchmark's resident batch); returns the ``(num_steps,)`` fp32
         losses on the device."""
-        if stacked:
-            raise MXNetError("run_steps(stacked=True) is not ported yet")
+        _refuse("run_steps", (("stacked=True", stacked),
+                              ("drain", drain is not None)))
         if num_steps is None or num_steps < 1:
             raise MXNetError(f"run_steps needs num_steps >= 1, got "
                              f"{num_steps}")
-        x, y = self._to_device(x), self._to_device(y)
+        x, y = _to_device(x, self.device), _to_device(y, self.device)
+        if x.shape[0] % self._grad_accum or y.shape[0] != x.shape[0]:
+            raise MXNetError(
+                f"grad_accum={self._grad_accum} splits the batch along axis "
+                f"0 into equal microbatches: got {x.shape[0]} samples and "
+                f"{y.shape[0]} labels")
         return torch.stack([self._step(x, y) for _ in range(num_steps)])
+
+
+class EvalStep:
+    """The block's forward in eval mode under ``no_grad`` per call, on
+    ``device`` (``None``: ``cuda:0``), the inference complement of
+    ``TrainStep`` (reference ``step.py:EvalStep``).  ``bf16_compute``
+    casts as ``TrainStep`` does: bf16 copies of the fp32 parameters and
+    buffers, the fp32 inputs cast, and the output left in bf16.  The
+    block's train/eval mode is restored after the call.
+
+    Usage::
+
+        logits = EvalStep(net)(x)
+
+    Not ported yet, and raising ``MXNetError``: ``mesh``,
+    ``input_prep`` and ``autotune=True``."""
+
+    def __init__(self, block, mesh=None, bf16_compute=False,
+                 input_prep=None, autotune=None, device=None):
+        _refuse("EvalStep", (("mesh", mesh is not None),
+                             ("input_prep", input_prep is not None),
+                             ("autotune", bool(autotune))))
+        self.device = resolve_device(device)
+        self._bf16 = bool(bf16_compute)
+        if self._bf16:
+            _check_bf16("EvalStep", block, self.device)
+        _check_placement("EvalStep", block, self.device)
+        self._block = block
+
+    def __call__(self, *batch):
+        """What the block returns for ``batch`` (numpy arrays or
+        tensors, moved to the device)."""
+        block = self._block
+        was_training = block.training
+        inputs = [_to_device(b, self.device) for b in batch]
+        block.eval()
+        try:
+            with torch.no_grad():
+                if self._bf16:
+                    return _bf16_forward(block, inputs, keep_buffers=False)
+                return block(*inputs)
+        finally:
+            block.train(was_training)

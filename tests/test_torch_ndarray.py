@@ -302,6 +302,11 @@ case("sgd_update", [_u(-1, 1), _u(-3, 3)],
      grad=False, tag="clip")
 case("sgd_mom_update", [_u(-1, 1), _u(-1, 1), _u(-1, 1)],
      {"lr": 0.1, "momentum": 0.9, "wd": 0.01}, tol=RED, grad=False)
+case("mp_sgd_update", [_u(-1, 1), _u(-3, 3), _u(-1, 1)],
+     {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5, "clip_gradient": 1.0},
+     tol=RED, grad=False)
+case("mp_sgd_mom_update", [_u(-1, 1), _u(-1, 1), _u(-1, 1), _u(-1, 1)],
+     {"lr": 0.1, "momentum": 0.9, "wd": 0.01}, tol=RED, grad=False)
 
 
 def _outs(x):

@@ -190,10 +190,8 @@ def test_seeded_init_is_deterministic_and_order_one():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(fuse_block="chain"), "not ported"),
-    (dict(fuse_block="1x1"), "not ported"),
     (dict(mxu_stem=True), "not ported"),
-    (dict(fuse_bn_relu=True), "not ported"),
+    (dict(fuse_block="chain2"), "unknown fuse_block"),
     (dict(version=2), "version 2"),
     (dict(pretrained=True), "pretrained")])
 def test_unported_options_raise(kw, match):

@@ -1,8 +1,9 @@
 """ResNet V1 training in the PyTorch port against the JAX package: the
-BatchNorm train form and its moving averages, the train form of the
-fused BN -> ReLU -> conv op, the softmax cross-entropy loss, the SGD
-update, and three steps of ``parallel.TrainStep`` on a small ResNet V1
-in every ``fuse_block`` mode.
+BatchNorm train form and its moving averages (fp32 and bf16), the train
+form of the fused BN -> ReLU -> conv op, the softmax cross-entropy loss,
+the SGD update and its multi-precision form, and three steps of
+``parallel.TrainStep`` on a small ResNet V1 in every ``fuse_block``
+mode; and what the step refuses.
 
 Both sides get the same inputs and weights from a seeded numpy stream
 (the weights through ``convert.resnet_params_from_numpy``).  The JAX
@@ -36,7 +37,9 @@ from incubator_mxnet_tpu.gluon.model_zoo.vision import (
     BottleneckV1 as JaxBottleneckV1, ResNetV1 as JaxResNetV1)
 from incubator_mxnet_tpu.ops.fused_conv import _fused_bn_relu_conv
 from incubator_mxnet_tpu.ops.nn import _batch_norm
-from incubator_mxnet_tpu.ops.optimizer_ops import (_sgd_mom_update,
+from incubator_mxnet_tpu.ops.optimizer_ops import (_mp_sgd_mom_update,
+                                                   _mp_sgd_update,
+                                                   _sgd_mom_update,
                                                    _sgd_update)
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.convert import resnet_params_from_numpy
@@ -49,9 +52,10 @@ from incubator_mxnet_tpu_torch.ops.fused_chain import (chain_emit,
 from incubator_mxnet_tpu_torch.ops.fused_conv import (fused_bn_relu_conv,
                                                       sbr_conv3x3,
                                                       sbr_matmul)
-from incubator_mxnet_tpu_torch.optimizer import (SGD, sgd_mom_update,
-                                                 sgd_update)
-from incubator_mxnet_tpu_torch.parallel import TrainStep
+from incubator_mxnet_tpu_torch.optimizer import (SGD, mp_sgd_mom_update,
+                                                 mp_sgd_update,
+                                                 sgd_mom_update, sgd_update)
+from incubator_mxnet_tpu_torch.parallel import EvalStep, TrainStep
 from torch_port_helpers import seeded_fill
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -217,6 +221,99 @@ def test_sgd_update_matches_jax(momentum, extra):
     torch.testing.assert_close(p.data, q)
 
 
+@pytest.mark.parametrize("train", [True, False])
+def test_batchnorm_bf16_matches_jax(train):
+    """BatchNorm on a bf16 x (the TrainStep bf16_compute form, with bf16
+    parameters) against the JAX op in bf16: the output within 2^-8 of
+    its max (one bf16 rounding step; the same formula in the same
+    dtype), the running statistics after the update on bf16 buffers
+    likewise."""
+    rs = np.random.RandomState(12)
+    f = np.float32
+    x = (rs.randn(4, 6, 5, 3) * 2 + 1).astype(f)
+    vecs = [(rs.rand(6) + 0.5).astype(f), rs.randn(6).astype(f),
+            rs.randn(6).astype(f), (rs.rand(6) + 0.5).astype(f)]
+    bf = jnp.bfloat16
+    ref, bmean, bvar = _batch_norm(
+        *(jnp.asarray(a).astype(bf) for a in [x] + vecs), eps=1e-5,
+        fix_gamma=False, axis=1, is_train=train)
+    bn = BatchNorm(6, epsilon=1e-5, device="cpu", dtype=torch.bfloat16)
+    bn.load_state_dict(dict(zip(
+        ("gamma", "beta", "running_mean", "running_var"),
+        (torch.from_numpy(a).bfloat16() for a in vecs))))
+    with torch.no_grad():
+        got = bn.train(train)(torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.bfloat16
+    ref = np.asarray(ref).astype(f)
+    assert np.abs(got.float().numpy() - ref).max() <= \
+        2 ** -8 * np.abs(ref).max()
+    if train:
+        for run, init, b in ((bn.running_mean, vecs[2], bmean),
+                             (bn.running_var, vecs[3], bvar)):
+            want = (0.9 * jnp.asarray(init).astype(bf) +
+                    0.1 * b).astype(jnp.float32)
+            np.testing.assert_allclose(run.float().numpy(),
+                                       np.asarray(want), rtol=2 ** -8)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("extra", [dict(), dict(rescale_grad=0.5,
+                                                clip_gradient=0.3)])
+def test_mp_sgd_update_matches_jax(momentum, extra):
+    """``mp_sgd_mom_update`` / ``mp_sgd_update`` on a bf16 weight with its
+    fp32 master, as functions, as ``mx.nd`` ops and through
+    ``SGD(multi_precision=True)``, against the JAX ops: the fp32 master
+    and momentum to 1e-6, the bf16 weight exactly (rounded from the same
+    master)."""
+    rs = np.random.RandomState(6)
+    w32, g, m = (rs.randn(3, 4).astype(np.float32) for _ in range(3))
+    lr, wd = 0.1, 1e-2
+    bf = jnp.bfloat16
+    jw = jnp.asarray(w32).astype(bf)
+    if momentum:
+        refs = _mp_sgd_mom_update(jw, jnp.asarray(g).astype(bf),
+                                  jnp.asarray(m), jnp.asarray(w32), lr=lr,
+                                  momentum=momentum, wd=wd, **extra)
+    else:
+        refs = _mp_sgd_update(jw, jnp.asarray(g).astype(bf),
+                              jnp.asarray(w32), lr=lr, wd=wd, **extra)
+    refs = [np.asarray(r).astype(np.float32) for r in refs]
+
+    def check(outs):
+        assert outs[0].dtype == torch.bfloat16
+        np.testing.assert_array_equal(outs[0].float().numpy(), refs[0])
+        for got, ref in zip(outs[1:], refs[1:]):
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6,
+                                       atol=1e-6)
+
+    tw = torch.from_numpy(w32).bfloat16()
+    tg = torch.from_numpy(g).bfloat16()
+    args = [tw.clone(), tg] + ([torch.from_numpy(m.copy())] if momentum
+                               else []) + [torch.from_numpy(w32.copy())]
+    kw = dict(rescale_grad=extra.get("rescale_grad", 1.0),
+              clip_gradient=extra.get("clip_gradient"))
+    if momentum:
+        mp_sgd_mom_update(*args, lr, momentum, wd, **kw)
+    else:
+        mp_sgd_update(*args, lr, wd, **kw)
+    check([args[0]] + args[2:])
+    # the optimizer object keeps the master in its state
+    opt = SGD(learning_rate=lr, momentum=momentum, wd=wd,
+              multi_precision=True, **extra)
+    p = torch.nn.Parameter(tw.clone())
+    state = opt.create_state(p)
+    assert state[1].dtype == torch.float32 and \
+        (state[0] is None) == (not momentum)
+    state[1].copy_(torch.from_numpy(w32))
+    if momentum:
+        state[0].copy_(torch.from_numpy(m))
+    opt.update(p, tg, state)
+    check([p.data] + ([state[0]] if momentum else []) + [state[1]])
+    assert SGD(multi_precision=True).create_state(
+        torch.zeros(2)) is None
+
+
 # ------------------------------------------------------------- TrainStep
 def _batch():
     rs = np.random.RandomState(1)
@@ -337,15 +434,39 @@ def test_chain_state_dict_interchanges_with_fused(jax_runs):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "mesh"), (dict(grad_accum=2), "grad_accum"),
-    (dict(bf16_compute=True), "bf16"), (dict(loss_scaler=object()),
-                                        "loss_scaler"),
+    (dict(mesh=object()), "mesh"),
     (dict(mirror=True), "mirror"), (dict(input_prep=abs), "input_prep"),
     (dict(autotune=True), "autotune"), (dict(batch_axis=1), "axis 0")])
 def test_train_step_refuses_what_is_not_ported(kw, match):
     net = ResNetV1(BottleneckV1, *SPEC, device="cpu", **NET)
     with pytest.raises(MXNetError, match=match):
         TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode", ["chain", True, "1x1", "chain34"])
+def test_bf16_refuses_a_live_kernel_net_on_the_card(monkeypatch, mode):
+    """bf16_compute on a CUDA device with a net whose fused layers
+    launch the fp32 kernels B1-B4 raises when the step is built, naming
+    the missing bf16 form; a net that launches none (fuse_block=False,
+    with BNReLU) passes that check (and here fails only on its CPU
+    parameters), and on the CPU the plain versions run bf16."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    spec = ([1, 1, 1, 1], [16, 32, 64, 128, 1024])
+    net = ResNetV1(BottleneckV1, *spec, fuse_block=mode, device="cpu",
+                   **NET)
+    for build in (lambda: TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(),
+                                    bf16_compute=True, device="cuda:0"),
+                  lambda: EvalStep(net, bf16_compute=True, device="cuda:0")):
+        with pytest.raises(MXNetError, match="no bf16 form"):
+            build()
+    plain = ResNetV1(BottleneckV1, *spec, fuse_bn_relu=True, device="cpu",
+                     **NET)
+    with pytest.raises(MXNetError, match="parameters are on"):
+        TrainStep(plain, SoftmaxCrossEntropyLoss(), SGD(),
+                  bf16_compute=True, device="cuda:0")
+    out = EvalStep(net, bf16_compute=True, device="cpu")(_batch()[0])
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
 
 
 def test_train_step_device_rules(monkeypatch):
@@ -358,9 +479,8 @@ def test_train_step_device_rules(monkeypatch):
     with pytest.raises(MXNetError, match="parameters are on"):
         TrainStep(net.to("meta"), SoftmaxCrossEntropyLoss(), SGD(),
                   device="cpu")
-    for kw in (dict(lr_scheduler=object()), dict(multi_precision=True)):
-        with pytest.raises(MXNetError, match="not ported"):
-            SGD(**kw)
+    with pytest.raises(MXNetError, match="not ported"):
+        SGD(lr_scheduler=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="no CUDA device"):
         TrainStep(net, SoftmaxCrossEntropyLoss(), SGD())

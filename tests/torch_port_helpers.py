@@ -6,6 +6,8 @@ port's, the weights moved through ``convert.params_from_numpy`` /
 import numpy as np
 
 import incubator_mxnet_tpu as mx
+from incubator_mxnet_tpu import gluon as jax_gluon
+from incubator_mxnet_tpu import parallel as jax_parallel
 from incubator_mxnet_tpu.gluon.decoder import TransformerDecoder as JaxDecoder
 from incubator_mxnet_tpu.gluon.model_zoo import vision as jax_vision
 from incubator_mxnet_tpu_torch.convert import (params_from_numpy,
@@ -87,6 +89,34 @@ def seeded_fill(net, seed, input_shape):
             arr = rs.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
         p.set_data(mx.nd.array(arr.astype(np.float32)))
     return net
+
+
+def jax_resnet_of(block, spec, seed, input_shape, **kw):
+    """The reference ``ResNetV1(block, *spec)`` (``prefix="resnet_"``),
+    seeded as ``jax_resnet`` does."""
+    mx.random.seed(0)
+    return seeded_fill(jax_vision.ResNetV1(block, *spec, prefix="resnet_",
+                                           **kw), seed, input_shape)
+
+
+def port_state(jax_net):
+    """The port's ResNet V1 state_dict holding ``jax_net``'s values."""
+    return resnet_params_from_numpy({n: p.data().asnumpy() for n, p in
+                                     jax_net.collect_params().items()})
+
+
+def jax_train(jax_net, x, y, steps, sgd_kw, **step_kw):
+    """``steps`` steps of the reference ``TrainStep`` (softmax
+    cross-entropy, SGD with ``sgd_kw``, ``step_kw`` for the step) on the
+    batch ``(x, y)``: (the losses, the port's state_dict of the final
+    values, the step)."""
+    step = jax_parallel.TrainStep(
+        jax_net, jax_gluon.loss.SoftmaxCrossEntropyLoss(),
+        mx.optimizer.SGD(**sgd_kw), **step_kw)
+    losses = [float(step(mx.nd.array(x), mx.nd.array(y)).asscalar())
+              for _ in range(steps)]
+    step.sync_params()
+    return losses, port_state(jax_net), step
 
 
 def torch_twin_resnet(jax_net, num_layers=50, **kw):
