@@ -27,15 +27,22 @@ launch counts set to 0 just before it and read just after:
   under torch.profiler; then a few steps of ``fuse_block=True``
   training at b=32, which go through the fused conv kernels;
 * ResNet-50 v1 training in ``bench.py:main``'s accelerator
-  configuration: ``fuse_bn_relu=True`` (``BNReLU``), channels-last,
-  ``TrainStep(bf16_compute=True)`` at b=128, in ``run_steps`` windows
-  taken in turns with the same net built ``fuse_bn_relu=False``, one
-  window under torch.profiler, and one b=2 bf16 step held against the
-  CPU; then fp32 ``fuse_block="chain34"`` at b=128 (the chain kernels on
-  stages 3 and 4), fp32 ``fuse_block="1x1"`` at b=32 (the 1x1 kernel in
-  train form), ``TrainStep(bf16_compute=True, grad_accum=2,
-  loss_scaler=...)`` at b=64 with one overflowed step that must change
-  nothing, and ``EvalStep`` in fp32 (the chain net) and bf16;
+  configuration: ``mxu_stem=True``, ``fuse_bn_relu=True`` (``BNReLU``),
+  channels-last, ``TrainStep(bf16_compute=True)`` at b=128, in
+  ``run_steps`` windows taken in turns with the same net built
+  ``fuse_bn_relu=False``, one window under torch.profiler, and one b=2
+  bf16 step held against the CPU; then the same with
+  ``BENCH_FUSE_BLOCK=chain`` (``fuse_block="chain"``: the bf16 forms of
+  the chain kernels, 16 launches each a step), in windows taken in turns
+  with the bench net, profiled, and one b=2 bf16 step held against the
+  CPU's plain versions; bf16 ``fuse_block=True``, ``"1x1"`` and
+  ``"chain34"`` at b=32 (the bf16 forms of B1-B4); fp32
+  ``fuse_block="chain34"`` at b=128 (the chain kernels on stages 3 and
+  4), fp32 ``fuse_block="1x1"`` at b=32 (the 1x1 kernel in train form),
+  ``TrainStep(bf16_compute=True, grad_accum=2, loss_scaler=...)`` at
+  b=64 with one overflowed step that must change nothing, and
+  ``EvalStep`` in fp32 (the chain net) and bf16 (the bench net, and the
+  bf16 chain net against its direct forward);
 * the imperative ``mx.nd`` / ``mx.autograd`` path at the width of
   ResNet-50 v1's classifier (2048 -> 1000, a batch of 1024 feature
   rows): 20 steps of FullyConnected -> log_softmax -> pick -> mean
@@ -58,20 +65,27 @@ any failed check exits non-zero.  The last three lines are the card's
 name and power limit as nvidia-smi reports them, the kernel table, and
 ``{"ok": true, "device": {...}}``.
 
+The conv and chain kernels B1-B4 have two forms, fp32 and bf16 (bf16
+data, weights and output; fp32 affines, bias and sums), each held
+against its plain version in its own dtype and listed apart in the
+kernel line (``sbr_matmul`` and ``sbr_matmul_bf16``, ...).
+
 Timings: CUDA events around many back-to-back launches divided by the
 count (flash inputs warm in L2, as a prefill finds them right after its
 QKV projection; the conv and chain kernels' stage-1 tensors exceed L2).
 ``bound_ms`` is the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and the
 operations it needs on these inputs over the card's least time for
-fp32-accurate products, 495 / 3 TFLOP/s (3xTF32 on the tensor cores;
-NVIDIA H100 SXM data sheet).  TF32 is off throughout for PyTorch's
-own calls; the 3x3 kernels' 3xTF32 keeps fp32's accuracy.
+them: fp32-accurate products at 495 / 3 TFLOP/s (3xTF32 on the tensor
+cores), bf16 products at 989 TFLOP/s (dense bf16; NVIDIA H100 SXM data
+sheet).  TF32 is off throughout for PyTorch's own calls; the kernels'
+3xTF32 keeps fp32's accuracy.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import math
 import shutil
@@ -88,6 +102,17 @@ HBM_BYTES_PER_S = 3.35e12
 # above the 67 TFLOP/s of fp32 on the CUDA cores.  A bound is a property
 # of the work, so every GEMM-shaped kernel is held to this one.
 FP32_ACCURATE_FLOPS_PER_S = 495e12 / 3
+# dense bf16 on the tensor cores (NVIDIA H100 SXM data sheet): the bound
+# of the kernels' bf16 forms
+BF16_FLOPS_PER_S = 989e12
+# the kernels B1-B4's two forms, by the suffix of their names in the
+# kernel line
+FORMS = {torch.float32: "", torch.bfloat16: "_bf16"}
+# bf16 kernel vs plain, in bf16 ulps of max |out|: both round the same
+# activations to bf16 and their fp32 sums, which differ in order only,
+# to the bf16 output, so an element may land one ulp apart (B4: a y2
+# element too)
+BF16_KERNEL_ULPS = 2
 KERNEL_ATOL = 1e-4      # kernel vs plain, both fp32, other summation order
 LOGITS_ATOL = 1e-3      # card vs CPU logits through 12 fp32 layers
 # conv kernels vs plain (cuBLAS / cuDNN fp32), relative to max |out|:
@@ -109,9 +134,10 @@ CONV3X3_SHAPES = [(32, 56, 56, 64, 64), (32, 28, 28, 128, 128),
                   (32, 14, 14, 256, 256), (32, 7, 7, 512, 512)]
 BLOCKS_PER_STAGE = (3, 4, 6, 3)
 # H != W, W = 7, few channels, Cout not a multiple of the tiles, and C
-# = 6: rows of x not 16-byte aligned (the 3x3 kernel's 4-byte copies)
+# = 6 or 7: rows of x not 16-byte aligned (element copies; C = 20 too in
+# bf16)
 RAGGED_SHAPES = [(2, 9, 10, 16, 24), (3, 7, 7, 16, 40), (1, 5, 13, 8, 130),
-                 (2, 7, 7, 20, 70), (2, 6, 9, 6, 36)]
+                 (2, 7, 7, 20, 70), (2, 6, 9, 6, 36), (2, 5, 6, 7, 9)]
 # ResNet-50 v1's chain blocks at the training batch of 128: (N, H, W, C,
 # Cm, Co), C = Cm the conv1 output; BLOCKS_PER_STAGE of them per step
 TRAIN_BATCH = 128
@@ -125,6 +151,10 @@ CHAIN_RAGGED = [(2, 9, 10, 16, 24, 40), (3, 7, 7, 16, 40, 70),
                 (1, 5, 13, 8, 130, 33), (2, 7, 7, 20, 70, 130),
                 (3, 57, 55, 20, 72, 130), (1, 7, 7, 16, 768, 64),
                 (2, 68, 68, 8, 768, 40), (2, 6, 9, 6, 36, 20)]
+# bf16 only: Cm past the fp32 form's envelope, up to the bf16 one's edge
+# (chain_emit's 48-row tile), and C = 7, Cm = 9, Co = 11 (odd widths:
+# element copies, scalar stores)
+CHAIN_RAGGED_BF16 = [(1, 7, 7, 16, 1536, 64), (2, 5, 6, 7, 9, 11)]
 # chain_stats vs plain: sums of up to 401408 terms in other orders,
 # relative to the sum of the terms' magnitudes
 CHAIN_STATS_RTOL = 1e-5
@@ -145,9 +175,20 @@ SGD_KW = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
 STEP_LOSS_RTOL, STEP_RTOL, STEP_ATOL, SPREAD_FACTOR = 1e-4, 1e-4, 1e-6, 3.0
 FUSED_TRAIN_BATCH, FUSED_TRAIN_STEPS = 32, 3
 # bench.py:main's accelerator configuration (bench.py:238-249):
-# resnet50_v1(fuse_bn_relu=True, fuse_block=False) under
-# TrainStep(bf16_compute=True), channels-last
-BENCH_NET = dict(RESNET50, fuse_block=False, fuse_bn_relu=True)
+# resnet50_v1(mxu_stem=True, fuse_bn_relu=True, fuse_block=False) under
+# TrainStep(bf16_compute=True), channels-last (the port's mxu_stem is
+# the plain strided stem conv)
+BENCH_NET = dict(RESNET50, fuse_block=False, fuse_bn_relu=True,
+                 mxu_stem=True)
+# the same with BENCH_FUSE_BLOCK=chain: the chain kernels' bf16 forms on
+# all 16 bottlenecks
+BENCH_CHAIN_NET = dict(BENCH_NET, fuse_block="chain")
+# bench.py's other BENCH_FUSE_BLOCK modes in bf16, a few steps each at
+# b=32, with the launches a step of each bf16 kernel form
+BF16_MODES_BATCH, BF16_MODES_STEPS = 32, 3
+BF16_MODES = {True: dict(sbr_matmul_bf16=16, sbr_conv3x3_bf16=16),
+              "1x1": dict(sbr_matmul_bf16=16),
+              "chain34": dict(chain_stats_bf16=9, chain_emit_bf16=9)}
 # one bf16 step, card vs CPU (b=2 at 224x224).  bf16's 8-bit significand
 # through 53 BatchNorms at b=2 sets how far two computations of the step
 # agree, so the step is held per leaf on what it moved: each parameter's
@@ -180,6 +221,9 @@ OPTIONS_BATCH, OPTIONS_STEPS, OPTIONS_ACCUM = 64, 3, 2
 # net, relative to max |logit| (bf16's rounding through 53 layers:
 # 4.0e-3 of max on an NVIDIA H100 80GB HBM3 at 700 W)
 EVAL_RTOL, BF16_EVAL_RTOL = 1e-6, 2e-2
+# steps of a training profile's windows (reading a window's events back
+# is the costly part of a profile phase, seconds a step)
+PROFILE_STEPS = 1
 EVAL_BATCH = 32
 GPT2_SMALL = dict(vocab=50257, dim=768, heads=12, depth=12, max_len=1024)
 PROMPT_LENGTHS = (9, 16, 33, 100, 250, 511, 700, 1000)
@@ -270,7 +314,13 @@ RTC_VS_ND_RTOL = 1e-6
 CARD_VS_CPU_RTOL = 1e-4
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the seconds since start."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _T0, 3))
     print(json.dumps(obj), flush=True)
 
 
@@ -454,16 +504,43 @@ def phase_kernels():
                        f"generation run, by bucket {buckets}"}
 
 
-def conv_bound_ms(n, h, w, c, cout, taps):
-    """Least time for relu(x*a + b) through a stride-1 conv with
-    ``taps`` taps plus bias: x, a, b, the weight and the bias read and
-    the output written once (fp32); 2 flops per multiply-add."""
-    flops = 2.0 * n * h * w * cout * c * taps
-    nbytes = 4.0 * (n * h * w * (c + cout) + cout * c * taps + 2 * c + cout)
-    t_ops = flops / FP32_ACCURATE_FLOPS_PER_S * 1e3
+def _bound(flops, nbytes, dtype):
+    """(least ms, what bounds it) for ``flops`` of products in ``dtype``
+    (fp32: 3xTF32, bf16: dense bf16) and ``nbytes`` moved."""
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else \
+        FP32_ACCURATE_FLOPS_PER_S
+    t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def conv_bound_ms(n, h, w, c, cout, taps, dtype=torch.float32):
+    """Least time for relu(x*a + b) through a stride-1 conv with
+    ``taps`` taps plus bias: x, a, b, the weight and the bias read and
+    the output written once (x, the weight and the output in ``dtype``,
+    a, b and the bias fp32); 2 flops per multiply-add."""
+    size = torch.finfo(dtype).bits // 8
+    flops = 2.0 * n * h * w * cout * c * taps
+    nbytes = size * (n * h * w * (c + cout) + cout * c * taps) + \
+        4.0 * (2 * c + cout)
+    return _bound(flops, nbytes, dtype)
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at magnitude ``v`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7) if v > 0 else 0.0
+
+
+def _gate(name, dtype, err, scale, where):
+    """The kernel-vs-plain gate of an output: fp32 CONV_RTOL of max
+    |out|, bf16 BF16_KERNEL_ULPS ulps of max |out|; returns the limit."""
+    limit = BF16_KERNEL_ULPS * bf16_ulp(scale) if dtype == torch.bfloat16 \
+        else CONV_RTOL * scale
+    if err > limit:
+        fail(f"{name} ({dtype}) disagrees with its plain version at "
+             f"{where}: {err} > {limit} (max |out| {scale})")
+    return limit
 
 
 def _conv_case(gen, n, h, w, c, cout, taps):
@@ -480,10 +557,11 @@ def _conv_case(gen, n, h, w, c, cout, taps):
 
 
 def phase_kernels_conv():
-    """The fused BN -> ReLU -> conv kernels against their plain versions
-    at ResNet-50 v1's eight fused shapes at batch 32 (timed, with the
-    unfused cuDNN composition as yardstick) and at ragged shapes (H != W,
-    W = 7, few channels, Cout not a multiple of the tiles)."""
+    """The fused BN -> ReLU -> conv kernels, in both forms, against their
+    plain versions at ResNet-50 v1's eight fused shapes at batch 32
+    (timed, with the unfused cuDNN composition in the same dtype as
+    yardstick) and at ragged shapes (H != W, W = 7, few channels, Cout
+    not a multiple of the tiles, rows that are not 16-byte aligned)."""
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops import fused_conv as fc
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -492,61 +570,71 @@ def phase_kernels_conv():
             ("sbr_matmul", 1, CONV1X1_SHAPES, fc._sbr_matmul_plain),
             ("sbr_conv3x3", 9, CONV3X3_SHAPES, fc._sbr_conv3x3_plain)):
         kern = getattr(fc, name)
-        rows, worst = [], 0.0
+        rows = {dt: [] for dt in FORMS}
         for shape in shapes + RAGGED_SHAPES:
-            x, a, b, wt, bias = _conv_case(gen, *shape, taps)
-            out = kern(x, a, b, wt, bias)
-            ref = plain(x, a, b, wt, bias)
-            torch.cuda.synchronize()
-            if not out.is_contiguous(memory_format=torch.channels_last):
-                fail(f"{name} output is not channels-last at {shape}")
-            if not torch.isfinite(out).all():
-                fail(f"{name} gave non-finite values at {shape}")
-            err = (out - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            worst = max(worst, err)
-            row = {"shape": list(shape), "max_abs_err": err,
-                   "ref_abs_max": scale}
-            if shape in shapes:
-                pad = 1 if taps == 9 else 0
+            case = _conv_case(gen, *shape, taps)
+            for dt in FORMS:
+                x, a, b, wt, bias = case
+                x, wt = x.to(dt), wt.to(dt)
+                out = kern(x, a, b, wt, bias)
+                ref = plain(x, a, b, wt, bias)
+                torch.cuda.synchronize()
+                if not out.is_contiguous(memory_format=torch.channels_last) \
+                        or out.dtype != dt:
+                    fail(f"{name} output is not channels-last {dt} at "
+                         f"{shape}")
+                if not torch.isfinite(out).all():
+                    fail(f"{name} ({dt}) gave non-finite values at {shape}")
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                row = {"shape": list(shape), "max_abs_err": err,
+                       "ref_abs_max": scale,
+                       "limit": _gate(name, dt, err, scale, shape)}
+                if shape in shapes:
+                    pad = 1 if taps == 9 else 0
+                    a16, b16, bias16 = (v.to(dt) for v in (a, b, bias))
 
-                def unfused():
-                    y = torch.relu(x * a.view(1, -1, 1, 1)
-                                   + b.view(1, -1, 1, 1))
-                    return F.conv2d(y, wt, bias, padding=pad)
+                    def unfused():
+                        y = torch.relu(x * a16.view(1, -1, 1, 1)
+                                       + b16.view(1, -1, 1, 1))
+                        return F.conv2d(y, wt, bias16, padding=pad)
 
-                row["kernel_ms"] = time_ms(lambda: kern(x, a, b, wt, bias))
-                row["plain_ms"] = time_ms(lambda: plain(x, a, b, wt, bias))
-                row["library_ms"] = time_ms(unfused)
-                row["bound_ms"], row["bound_by"] = conv_bound_ms(
-                    *shape, taps)
-            rows.append(row)
-            if err > CONV_RTOL * scale:
-                fail(f"{name} disagrees with its plain version at {shape}: "
-                     f"{err} > {CONV_RTOL} x {scale}")
-        emit({"phase": "kernels_conv", "kernel": name, "rtol": CONV_RTOL,
-              "library": "F.conv2d(relu(x*a+b), w, bias): unfused cuDNN "
-                         "fp32", "rows": rows})
-        # one b=32 forward runs each path shape once per bottleneck
-        timed = rows[:len(shapes)]
-        per_fwd = {key: sum(n * r[key] for n, r in
-                            zip(BLOCKS_PER_STAGE, timed))
-                   for key in ("kernel_ms", "plain_ms", "library_ms",
-                               "bound_ms")}
-        source = "3x3" if taps == 9 else "1x1"
-        line = 58 if taps == 9 else 49
-        kernels[name] = {
-            "name": name, "route": "cuda",
-            "source": f"incubator_mxnet_tpu_torch/csrc/{name}.cu",
-            "replaces": f"incubator_mxnet_tpu/ops/fused_conv.py:{line}",
-            "max_abs_err": worst, "ms": per_fwd["kernel_ms"],
-            "plain_ms": per_fwd["plain_ms"],
-            "bound_ms": per_fwd["bound_ms"],
-            "bound_by": timed[0]["bound_by"],
-            "library_ms": per_fwd["library_ms"],
-            "per": f"the 16 fused {source} boundaries of one b=32 "
-                   "ResNet-50 forward"}
-    torch.cuda.empty_cache()
+                    row["kernel_ms"] = time_ms(
+                        lambda: kern(x, a, b, wt, bias))
+                    row["plain_ms"] = time_ms(
+                        lambda: plain(x, a, b, wt, bias))
+                    row["library_ms"] = time_ms(unfused)
+                    row["bound_ms"], row["bound_by"] = conv_bound_ms(
+                        *shape, taps, dt)
+                rows[dt].append(row)
+        for dt in FORMS:
+            key = name + FORMS[dt]
+            emit({"phase": "kernels_conv", "kernel": key,
+                  "dtype": str(dt), "gate": "1e-4 of max |out|"
+                  if dt == torch.float32 else
+                  f"{BF16_KERNEL_ULPS} bf16 ulps of max |out|",
+                  "library": "F.conv2d(relu(x*a+b), w, bias): unfused "
+                             f"cuDNN, {dt}", "rows": rows[dt]})
+            # one b=32 forward runs each path shape once per bottleneck
+            timed = rows[dt][:len(shapes)]
+            per_fwd = {k: sum(n * r[k] for n, r in
+                              zip(BLOCKS_PER_STAGE, timed))
+                       for k in ("kernel_ms", "plain_ms", "library_ms",
+                                 "bound_ms")}
+            source = "3x3" if taps == 9 else "1x1"
+            line = 58 if taps == 9 else 49
+            kernels[key] = {
+                "name": key, "route": "cuda",
+                "source": f"incubator_mxnet_tpu_torch/csrc/{name}.cu",
+                "replaces": f"incubator_mxnet_tpu/ops/fused_conv.py:{line}",
+                "max_abs_err": max(r["max_abs_err"] for r in rows[dt]),
+                "ms": per_fwd["kernel_ms"], "plain_ms": per_fwd["plain_ms"],
+                "bound_ms": per_fwd["bound_ms"],
+                "bound_by": timed[0]["bound_by"],
+                "library_ms": per_fwd["library_ms"],
+                "per": f"the 16 fused {source} boundaries of one b=32 "
+                       f"ResNet-50 forward, {dt}"}
+        torch.cuda.empty_cache()
     return kernels
 
 
@@ -735,22 +823,21 @@ def phase_resnet_profile(server, images):
     emit(dict({"phase": "resnet_profile"}, **_profile_summary(prof, wall)))
 
 
-def chain_bound_ms(n, h, w, c, cm, co, emit):
+def chain_bound_ms(n, h, w, c, cm, co, emit, dtype=torch.float32):
     """Least time for a chain pass on these shapes: c1, the affines, the
     weights read and the output (``out`` for emit, the two sums for
-    stats) written once (fp32); conv2 (and conv3 for emit) at 2 flops
-    per multiply-add."""
+    stats) written once (c1, the weights and ``out`` in ``dtype``, the
+    affines, b3 and the sums fp32); conv2 (and conv3 for emit) at 2
+    flops per multiply-add."""
+    size = torch.finfo(dtype).bits // 8
     m = n * h * w
     flops = 2.0 * m * cm * (9 * c + (co if emit else 0))
     if emit:
-        nbytes = 4.0 * (m * (c + co) + 9 * c * cm + cm * co + 2 * c
-                        + 2 * cm + co)
+        nbytes = size * (m * (c + co) + 9 * c * cm + cm * co) + \
+            4.0 * (2 * c + 2 * cm + co)
     else:
-        nbytes = 4.0 * (m * c + 9 * c * cm + 2 * c + 3 * cm)
-    t_ops = flops / FP32_ACCURATE_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+        nbytes = size * (m * c + 9 * c * cm) + 4.0 * (2 * c + 3 * cm)
+    return _bound(flops, nbytes, dtype)
 
 
 def _chain_case(gen, n, h, w, c, cm, co):
@@ -808,90 +895,99 @@ def _stress_var2():
 
 
 def phase_kernels_chain():
-    """The chain kernels against their plain versions at ResNet-50 v1's
-    four chain shapes at batch 128 (timed, with the unfused cuDNN
-    composition as yardstick), at ragged shapes, and (chain_stats) at the
-    shifted-variance stress case; chain_stats run twice must be
-    bit-identical."""
+    """The chain kernels, in both forms, against their plain versions at
+    ResNet-50 v1's four chain shapes at batch 128 (timed, with the
+    unfused cuDNN composition in the same dtype as yardstick), at
+    ragged shapes, and (chain_stats, fp32) at the shifted-variance
+    stress case; chain_stats run twice must be bit-identical."""
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops import fused_chain as fc
     gen = torch.Generator(device="cuda").manual_seed(2)
-    rows = {"chain_stats": [], "chain_emit": []}
-    worst = {"chain_stats": 0.0, "chain_emit": 0.0}
-    for shape in CHAIN_SHAPES + CHAIN_RAGGED:
+    names = [n + f for f in FORMS.values()
+             for n in ("chain_stats", "chain_emit")]
+    rows = {n: [] for n in names}
+    for shape in CHAIN_SHAPES + CHAIN_RAGGED + CHAIN_RAGGED_BF16:
         t = _chain_case(gen, *shape)
-        x, a1, b1, w2, s = t["x"], t["a1"], t["b1"], t["w2"], t["shift"]
-        a2, b2, w3, b3 = t["a2"], t["b2"], t["w3"], t["b3"]
         timed = shape in CHAIN_SHAPES
-        # pass 1
-        sums, sqs = fc.chain_stats(x, a1, b1, w2, s)
-        again = fc.chain_stats(x, a1, b1, w2, s)
-        ref_sum, ref_sq = fc._chain_stats_plain(x, a1, b1, w2, s)
-        d = fc._conv2(x, a1, b1, w2) - s.view(1, -1, 1, 1)
-        mass = d.abs().sum((0, 2, 3))
-        del d
-        torch.cuda.synchronize()
-        same = bool(torch.equal(sums, again[0]) and torch.equal(sqs, again[1]))
-        err = max((sums - ref_sum).abs().max().item(),
-                  (sqs - ref_sq).abs().max().item())
-        rel = max(((sums - ref_sum).abs() / mass).max().item(),
-                  ((sqs - ref_sq).abs() / ref_sq).max().item())
-        worst["chain_stats"] = max(worst["chain_stats"], err)
-        row = {"shape": list(shape), "max_abs_err": err, "max_rel_err": rel,
-               "bit_identical": same}
-        if not (torch.isfinite(sums).all() and torch.isfinite(sqs).all()):
-            fail(f"chain_stats gave non-finite sums at {shape}")
-        if not same:
-            fail(f"chain_stats is not deterministic at {shape}")
-        if rel > CHAIN_STATS_RTOL:
-            fail(f"chain_stats disagrees with its plain version at {shape}: "
-                 f"{rel} > {CHAIN_STATS_RTOL} of the sums' mass")
-        if timed:
-            def unfused_stats():
-                dd = F.conv2d(torch.relu(x * a1.view(1, -1, 1, 1)
-                                         + b1.view(1, -1, 1, 1)), w2,
-                              padding=1) - s.view(1, -1, 1, 1)
-                return dd.sum((0, 2, 3)), dd.square().sum((0, 2, 3))
-            row["kernel_ms"] = time_ms(lambda: fc.chain_stats(x, a1, b1, w2,
-                                                              s))
-            row["plain_ms"] = time_ms(
-                lambda: fc._chain_stats_plain(x, a1, b1, w2, s))
-            row["library_ms"] = time_ms(unfused_stats)
-            row["bound_ms"], row["bound_by"] = chain_bound_ms(*shape,
-                                                              emit=False)
-        rows["chain_stats"].append(row)
-        # pass 2
-        out = fc.chain_emit(x, a1, b1, w2, a2, b2, w3, b3)
-        ref = fc._chain_emit_plain(x, a1, b1, w2, a2, b2, w3, b3)
-        torch.cuda.synchronize()
-        if not out.is_contiguous(memory_format=torch.channels_last):
-            fail(f"chain_emit output is not channels-last at {shape}")
-        if not torch.isfinite(out).all():
-            fail(f"chain_emit gave non-finite values at {shape}")
-        err = (out - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        worst["chain_emit"] = max(worst["chain_emit"], err)
-        row = {"shape": list(shape), "max_abs_err": err,
-               "ref_abs_max": scale}
-        if err > CONV_RTOL * scale:
-            fail(f"chain_emit disagrees with its plain version at {shape}: "
-                 f"{err} > {CONV_RTOL} x {scale}")
-        if timed:
-            def unfused_emit():
-                c2 = F.conv2d(torch.relu(x * a1.view(1, -1, 1, 1)
-                                         + b1.view(1, -1, 1, 1)), w2,
-                              padding=1)
-                return F.conv2d(torch.relu(c2 * a2.view(1, -1, 1, 1)
-                                           + b2.view(1, -1, 1, 1)), w3, b3)
-            row["kernel_ms"] = time_ms(lambda: fc.chain_emit(
-                x, a1, b1, w2, a2, b2, w3, b3))
-            row["plain_ms"] = time_ms(lambda: fc._chain_emit_plain(
-                x, a1, b1, w2, a2, b2, w3, b3))
-            row["library_ms"] = time_ms(unfused_emit)
-            row["bound_ms"], row["bound_by"] = chain_bound_ms(*shape,
-                                                              emit=True)
-        rows["chain_emit"].append(row)
-        del t, x, out, ref
+        for dt, suffix in FORMS.items():
+            if shape in CHAIN_RAGGED_BF16 and dt != torch.bfloat16:
+                continue
+            x, w2, w3 = t["x"].to(dt), t["w2"].to(dt), t["w3"].to(dt)
+            a1, b1, s = t["a1"], t["b1"], t["shift"]
+            a2, b2, b3 = t["a2"], t["b2"], t["b3"]
+            lib = {k: t[k].to(dt).view(1, -1, 1, 1)
+                   for k in ("a1", "b1", "shift", "a2", "b2")}
+            # pass 1
+            sums, sqs = fc.chain_stats(x, a1, b1, w2, s)
+            again = fc.chain_stats(x, a1, b1, w2, s)
+            ref_sum, ref_sq = fc._chain_stats_plain(x, a1, b1, w2, s)
+            d = fc._conv2_sums(x, a1, b1, w2) - s.view(1, -1, 1, 1)
+            mass = d.abs().sum((0, 2, 3))
+            del d
+            torch.cuda.synchronize()
+            same = bool(torch.equal(sums, again[0]) and
+                        torch.equal(sqs, again[1]))
+            err = max((sums - ref_sum).abs().max().item(),
+                      (sqs - ref_sq).abs().max().item())
+            rel = max(((sums - ref_sum).abs() / mass).max().item(),
+                      ((sqs - ref_sq).abs() / ref_sq).max().item())
+            row = {"shape": list(shape), "max_abs_err": err,
+                   "max_rel_err": rel, "bit_identical": same}
+            if not (torch.isfinite(sums).all() and
+                    torch.isfinite(sqs).all()):
+                fail(f"chain_stats ({dt}) gave non-finite sums at {shape}")
+            if not same:
+                fail(f"chain_stats ({dt}) is not deterministic at {shape}")
+            if rel > CHAIN_STATS_RTOL:
+                fail(f"chain_stats ({dt}) disagrees with its plain version "
+                     f"at {shape}: {rel} > {CHAIN_STATS_RTOL} of the sums' "
+                     f"mass")
+            if timed:
+                def unfused_stats():
+                    dd = F.conv2d(torch.relu(x * lib["a1"] + lib["b1"]), w2,
+                                  padding=1) - lib["shift"]
+                    return dd.sum((0, 2, 3)), dd.square().sum((0, 2, 3))
+                row["kernel_ms"] = time_ms(
+                    lambda: fc.chain_stats(x, a1, b1, w2, s))
+                row["plain_ms"] = time_ms(
+                    lambda: fc._chain_stats_plain(x, a1, b1, w2, s))
+                row["library_ms"] = time_ms(unfused_stats)
+                row["bound_ms"], row["bound_by"] = chain_bound_ms(
+                    *shape, emit=False, dtype=dt)
+            rows["chain_stats" + suffix].append(row)
+            # pass 2
+            out = fc.chain_emit(x, a1, b1, w2, a2, b2, w3, b3)
+            ref = fc._chain_emit_plain(x, a1, b1, w2, a2, b2, w3, b3)
+            torch.cuda.synchronize()
+            if not out.is_contiguous(memory_format=torch.channels_last) or \
+                    out.dtype != dt:
+                fail(f"chain_emit output is not channels-last {dt} at "
+                     f"{shape}")
+            if not torch.isfinite(out).all():
+                fail(f"chain_emit ({dt}) gave non-finite values at {shape}")
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            row = {"shape": list(shape), "max_abs_err": err,
+                   "ref_abs_max": scale,
+                   "limit": _gate("chain_emit", dt, err, scale, shape)}
+            if timed:
+                b316 = b3.to(dt)
+
+                def unfused_emit():
+                    c2 = F.conv2d(torch.relu(x * lib["a1"] + lib["b1"]), w2,
+                                  padding=1)
+                    return F.conv2d(torch.relu(c2 * lib["a2"] + lib["b2"]),
+                                    w3, b316)
+                row["kernel_ms"] = time_ms(lambda: fc.chain_emit(
+                    x, a1, b1, w2, a2, b2, w3, b3))
+                row["plain_ms"] = time_ms(lambda: fc._chain_emit_plain(
+                    x, a1, b1, w2, a2, b2, w3, b3))
+                row["library_ms"] = time_ms(unfused_emit)
+                row["bound_ms"], row["bound_by"] = chain_bound_ms(
+                    *shape, emit=True, dtype=dt)
+            rows["chain_emit" + suffix].append(row)
+            del x, w2, w3, out, ref
+        del t
         torch.cuda.empty_cache()
     shifted, raw = _stress_var2()
     if shifted > STRESS_VAR_RTOL:
@@ -901,34 +997,42 @@ def phase_kernels_chain():
         fail(f"the stress case does not stress: the unshifted var2 is "
              f"only {raw} off fp64")
     kernels = {}
-    for name, line in (("chain_stats", "emit=False"),
-                       ("chain_emit", "emit=True")):
-        emit({"phase": "kernels_chain", "kernel": name,
-              "rtol": CHAIN_STATS_RTOL if name == "chain_stats"
-              else CONV_RTOL,
-              "library": "unfused cuDNN fp32: F.conv2d(relu(x*a1+b1), w2) "
-                         + ("then the two sums of (c2 - s)"
-                            if name == "chain_stats" else
-                            "then F.conv2d(relu(c2*a2+b2), w3, b3)"),
-              "stress_var2_rel_err": {"shifted": shifted, "unshifted": raw}
-              if name == "chain_stats" else None,
-              "rows": rows[name]})
-        timed = rows[name][:len(CHAIN_SHAPES)]
-        per_step = {key: sum(k * r[key] for k, r in
-                             zip(BLOCKS_PER_STAGE, timed))
-                    for key in ("kernel_ms", "plain_ms", "library_ms",
-                                "bound_ms")}
-        kernels[name] = {
-            "name": name, "route": "cuda",
-            "source": f"incubator_mxnet_tpu_torch/csrc/{name}.cu",
-            "replaces": "incubator_mxnet_tpu/ops/fused_chain.py:56",
-            "max_abs_err": worst[name], "ms": per_step["kernel_ms"],
-            "plain_ms": per_step["plain_ms"],
-            "bound_ms": per_step["bound_ms"],
-            "bound_by": timed[0]["bound_by"],
-            "library_ms": per_step["library_ms"],
-            "per": f"the 16 chain blocks of one b={TRAIN_BATCH} ResNet-50 "
-                   f"training step ({line})"}
+    for dt, suffix in FORMS.items():
+        for name, line in (("chain_stats", "emit=False"),
+                           ("chain_emit", "emit=True")):
+            key = name + suffix
+            gate = (f"{CHAIN_STATS_RTOL} of the sums' mass, bit-identical"
+                    if name == "chain_stats" else "1e-4 of max |out|"
+                    if dt == torch.float32 else
+                    f"{BF16_KERNEL_ULPS} bf16 ulps of max |out|")
+            emit({"phase": "kernels_chain", "kernel": key, "dtype": str(dt),
+                  "gate": gate,
+                  "library": f"unfused cuDNN {dt}: F.conv2d(relu(x*a1+b1), "
+                             "w2) " + ("then the two sums of (c2 - s)"
+                                       if name == "chain_stats" else
+                                       "then F.conv2d(relu(c2*a2+b2), w3, "
+                                       "b3)"),
+                  "stress_var2_rel_err": {"shifted": shifted,
+                                          "unshifted": raw}
+                  if key == "chain_stats" else None,
+                  "rows": rows[key]})
+            timed = rows[key][:len(CHAIN_SHAPES)]
+            per_step = {k: sum(n * r[k] for n, r in
+                               zip(BLOCKS_PER_STAGE, timed))
+                        for k in ("kernel_ms", "plain_ms", "library_ms",
+                                  "bound_ms")}
+            kernels[key] = {
+                "name": key, "route": "cuda",
+                "source": f"incubator_mxnet_tpu_torch/csrc/{name}.cu",
+                "replaces": "incubator_mxnet_tpu/ops/fused_chain.py:56",
+                "max_abs_err": max(r["max_abs_err"] for r in rows[key]),
+                "ms": per_step["kernel_ms"],
+                "plain_ms": per_step["plain_ms"],
+                "bound_ms": per_step["bound_ms"],
+                "bound_by": timed[0]["bound_by"],
+                "library_ms": per_step["library_ms"],
+                "per": f"the 16 chain blocks of one b={TRAIN_BATCH} "
+                       f"ResNet-50 training step ({line}), {dt}"}
     return kernels
 
 
@@ -947,12 +1051,23 @@ def _wrappers():
 
 
 def _counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launches by kernel name: B1-B4's fp32 and bf16 forms apart (their
+    wrappers count both forms in ``launches``, the bf16 one in
+    ``launches_bf16``)."""
+    counts = {}
+    for name, fn in _wrappers().items():
+        bf16 = getattr(fn, "launches_bf16", None)
+        counts[name] = fn.launches - (bf16 or 0)
+        if bf16 is not None:
+            counts[name + FORMS[torch.bfloat16]] = bf16
+    return counts
 
 
 def _zero_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
 
 
 def _train_step(net, **kw):
@@ -1205,13 +1320,14 @@ def _device_ms_by_source(prof, top=20):
 
 def phase_resnet_train_profile(step, xd, yd, phase="resnet_train_profile",
                                by_source=False):
-    """One short window of a training path under torch.profiler: the
-    device's busy and idle share, and the top kernels.  With
-    ``by_source`` a second window, under ``_source_ranges`` (which slow
-    the host, so the first window alone gives the idle share), splits
-    the device time by where each kernel was launched from."""
+    """One short window of PROFILE_STEPS steps of a training path under
+    torch.profiler: the device's busy and idle share, and the top
+    kernels.  With ``by_source`` a second window, under
+    ``_source_ranges`` (which slow the host, so the first window alone
+    gives the idle share), splits the device time by where each kernel
+    was launched from."""
     from torch.profiler import ProfilerActivity, profile
-    steps = 2
+    steps = PROFILE_STEPS
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -1318,22 +1434,23 @@ def _change_errs(got, ref, init, keys):
     return errs
 
 
-def phase_resnet_train_bench_reference(seed):
-    """One bf16 step of the bench net on one b=2 batch at 224x224, on the
-    card and on the CPU, on the CPU once more with fuse_bn_relu=False
-    (BatchNorm then ReLU) for the spread of bf16 itself, and once in fp32
-    for the rule that finds the leaves of zero gradient: the loss, the
-    moving statistics and each parameter's change as set out at
-    BF16_STEP_FACTOR; then two planted faults on the card (BF16_FROZEN
-    left unmoved, a step on half the batch) must fail that check."""
+def phase_bf16_reference(seed, phase, net_kw, alt_kw):
+    """One bf16 step of the net ``net_kw`` on one b=2 batch at 224x224,
+    on the card and on the CPU (the kernels' plain versions), on the CPU
+    once more as ``alt_kw`` says (another formulation of the same math)
+    for the spread of bf16 itself, and once in fp32 for the rule that
+    finds the leaves of zero gradient: the loss, the moving statistics
+    and each parameter's change as set out at BF16_STEP_FACTOR; then two
+    planted faults on the card (BF16_FROZEN left unmoved, a step on half
+    the batch) must fail that check."""
     from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
-    gpu = get_resnet(1, 50, device="cuda:0", seed=seed + 5, **BENCH_NET)
+    gpu = get_resnet(1, 50, device="cuda:0", seed=seed, **net_kw)
     init = {k: v.detach().cpu().clone() for k, v in gpu.state_dict().items()}
-    x, y = _train_batch(seed + 5, 2)
+    x, y = _train_batch(seed, 2)
 
     def stepped(device, frozen=None, n=2, bf16=True, **kw):
-        net = get_resnet(1, 50, device=device, seed=seed + 5,
-                         **dict(BENCH_NET, **kw))
+        net = get_resnet(1, 50, device=device, seed=seed,
+                         **dict(net_kw, **kw))
         net.load_state_dict(init)
         if frozen:
             net.get_parameter(frozen).requires_grad_(False)
@@ -1342,7 +1459,7 @@ def phase_resnet_train_bench_reference(seed):
 
     t0 = time.perf_counter()
     loss_cpu, ref = stepped("cpu")
-    alt = stepped("cpu", fuse_bn_relu=False)[1]
+    alt = stepped("cpu", **alt_kw)[1]
     ref32 = stepped("cpu", bf16=False)[1]
     cpu_s = time.perf_counter() - t0
     loss_gpu, got = stepped("cuda:0")
@@ -1365,7 +1482,7 @@ def phase_resnet_train_bench_reference(seed):
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     stats_worst = _worst(got, ref, stats, rtol=1.0)
     stats_spread = _worst(alt, ref, stats, rtol=1.0)
-    emit({"phase": "resnet_train_bench_reference", "dtype": "bfloat16",
+    emit({"phase": phase, "dtype": "bfloat16", "alt": alt_kw,
           "loss_card": loss_gpu, "loss_cpu": loss_cpu,
           "loss_rel_err": loss_rel, "loss_rtol": BF16_LOSS_RTOL,
           "stats_worst_of_max": stats_worst,
@@ -1395,6 +1512,93 @@ def phase_resnet_train_bench_reference(seed):
         if err <= bound:
             fail(f"the bf16 step check passes a planted fault ({what}: "
                  f"{err} <= {bound})")
+
+
+def phase_resnet_train_bench_chain(seed, bench_step, xd, yd):
+    """bench.py:main with BENCH_FUSE_BLOCK=chain: ResNet-50 v1 with
+    fuse_block="chain" under TrainStep(bf16_compute=True) on the bench
+    phase's resident batch of TRAIN_BATCH, beside the bench net
+    (fuse_block=False): one warm-up step, then run_steps windows of
+    TRAIN_WINDOW_STEPS in turns (chain, bench, bench, chain), each with
+    its peak memory.  The kernel counts are set to 0 just before the
+    windows: B3 and B4 launch their bf16 form 16 times a chain step, and
+    nothing else of csrc/ or rtc runs."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    t0 = time.perf_counter()
+    net = get_resnet(1, 50, device="cuda:0", seed=seed, **BENCH_CHAIN_NET)
+    steps = {"chain": _train_step(net, bf16_compute=True),
+             "bench": bench_step}
+    warm = steps["chain"](xd, yd).item()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    windows = {k: [] for k in steps}
+    losses = {k: [] for k in steps}
+    peak = dict.fromkeys(steps, 0)
+    _zero_counts()
+    for which in ("chain", "bench", "bench", "chain"):
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = steps[which].run_steps(xd, yd, num_steps=TRAIN_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        windows[which].append(time.perf_counter() - t1)
+        peak[which] = max(peak[which], torch.cuda.max_memory_allocated())
+        losses[which] += out.tolist()
+    launches = _counts()
+    n = 2 * TRAIN_WINDOW_STEPS
+    want = dict.fromkeys(launches, 0)
+    want.update(chain_stats_bf16=16 * n, chain_emit_bf16=16 * n)
+    _expect(launches, want, f"the bf16 chain training path ({n} steps)")
+    _finite([warm] + losses["chain"], "bf16 chain training")
+
+    def row(which):
+        best = min(windows[which])
+        return {"window_s": windows[which],
+                "images_per_s": TRAIN_BATCH * TRAIN_WINDOW_STEPS / best,
+                "ms_per_step": best / TRAIN_WINDOW_STEPS * 1e3,
+                "losses": losses[which], "peak_mem_gb": peak[which] / 1e9}
+
+    emit(dict({"phase": "resnet_train_bench_chain", "batch": TRAIN_BATCH,
+               "dtype": "bfloat16", "window_steps": TRAIN_WINDOW_STEPS,
+               "setup_s": setup_s, "warmup_loss": warm,
+               "launches": launches, "bench_fuse_block_false": row("bench")},
+              **row("chain")))
+    return net, steps["chain"], launches
+
+
+def phase_resnet_train_bf16_modes(seed):
+    """bench.py's other BENCH_FUSE_BLOCK modes (True, "1x1", "chain34")
+    in bf16 at BF16_MODES_BATCH: per mode one warm-up step, then
+    BF16_MODES_STEPS steps with the kernel counts set to 0 just before
+    them, which must launch each bf16 kernel form as BF16_MODES says and
+    nothing else.  Returns the fuse_block=True run's counts (B1 and B2's
+    bf16 forms)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    xd, yd = _resident(seed + 10, BF16_MODES_BATCH)
+    runs = {}
+    for mode, per_step in BF16_MODES.items():
+        net = get_resnet(1, 50, device="cuda:0", seed=seed,
+                         **dict(BENCH_NET, fuse_block=mode))
+        step = _train_step(net, bf16_compute=True)
+        step(xd, yd)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        losses = step.run_steps(xd, yd, num_steps=BF16_MODES_STEPS).tolist()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        want = dict.fromkeys(launches, 0)
+        want.update({k: v * BF16_MODES_STEPS for k, v in per_step.items()})
+        _expect(launches, want, f"bf16 fuse_block={mode!r} training")
+        _finite(losses, f"bf16 fuse_block={mode!r} training")
+        emit({"phase": "resnet_train_bf16_modes", "fuse_block": mode,
+              "dtype": "bfloat16", "batch": BF16_MODES_BATCH,
+              "steps": BF16_MODES_STEPS, "losses": losses,
+              "ms_per_step": wall / BF16_MODES_STEPS * 1e3,
+              "launches": launches})
+        runs[mode] = launches
+        del net, step
+        torch.cuda.empty_cache()
+    return runs[True]
 
 
 def phase_resnet_train_chain34(seed):
@@ -1493,15 +1697,17 @@ def phase_train_step_options(seed):
     if step.loss_scale() != scale * scaler.backoff_factor:
         fail(f"the overflowed step left the scale at {step.loss_scale()}, "
              f"not {scale * scaler.backoff_factor}")
-    phase_resnet_train_profile(step, xd, yd, "train_step_options_profile",
-                               by_source=True)
+    phase_resnet_train_profile(step, xd, yd, "train_step_options_profile")
 
 
-def phase_eval_step(chain_net, bench_net, seed):
+def phase_eval_step(chain_net, bench_net, bench_chain_net, seed):
     """EvalStep on the trained chain net (fp32): chain_emit 16 launches a
     call and nothing else, against net.eval()(x) within EVAL_RTOL of max
     |logit|; then EvalStep(bf16_compute=True) on the bench net against
-    its fp32 EvalStep within BF16_EVAL_RTOL."""
+    its fp32 EvalStep within BF16_EVAL_RTOL; then
+    EvalStep(bf16_compute=True) on the trained bf16 chain net: chain_emit's
+    bf16 form 16 launches a call and nothing else, against the forward
+    of a bf16 copy of the net called directly, within EVAL_RTOL."""
     from incubator_mxnet_tpu_torch.parallel import EvalStep
     xd = torch.from_numpy(_train_batch(seed + 9, EVAL_BATCH)[0]).cuda()
     evaluate = EvalStep(chain_net)
@@ -1533,6 +1739,26 @@ def phase_eval_step(chain_net, bench_net, seed):
             err16 > BF16_EVAL_RTOL * scale32:
         fail(f"bf16 EvalStep vs fp32: {err16} > {BF16_EVAL_RTOL} x "
              f"{scale32} ({lg16.dtype})")
+    _zero_counts()
+    lgc = EvalStep(bench_chain_net, bf16_compute=True)(xd)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(chain_emit_bf16=16)
+    _expect(launches, want, "one bf16 chain-net EvalStep call")
+    twin = copy.deepcopy(bench_chain_net).to(torch.bfloat16).eval()
+    with torch.inference_mode():
+        refc = twin(xd.to(torch.bfloat16))
+    del twin
+    errc = (lgc.float() - refc.float()).abs().max().item()
+    scalec = refc.float().abs().max().item()
+    emit({"phase": "eval_step_bf16_chain", "batch": EVAL_BATCH,
+          "launches": launches, "dtype": str(lgc.dtype),
+          "max_abs_err": errc, "logits_abs_max": scalec, "rtol": EVAL_RTOL})
+    if lgc.dtype != torch.bfloat16 or not torch.isfinite(lgc).all() or \
+            errc > EVAL_RTOL * scalec:
+        fail(f"bf16 chain EvalStep vs the bf16 net's direct forward: "
+             f"{errc} > {EVAL_RTOL} x {scalec} ({lgc.dtype})")
 
 
 def rtc_bound_ms(nbytes):
@@ -1992,9 +2218,8 @@ def main():
         phase_resnet_profile(server, images)
     finally:
         server.close()
-    for name, k in conv.items():
-        k["launches"] = conv_launches[name]
-        kernels.append(k)
+    for name in ("sbr_matmul", "sbr_conv3x3"):
+        conv[name]["launches"] = conv_launches[name]
     del rnet, server
     torch.cuda.empty_cache()
     train_launches, tnet, step, xd, yd = phase_resnet_train(args.seed)
@@ -2009,17 +2234,31 @@ def main():
     bnet, step, xd, yd = phase_resnet_train_bench(args.seed)
     phase_resnet_train_profile(step, xd, yd, "resnet_train_bench_profile",
                                by_source=True)
-    del step, xd, yd
+    cnet, cstep, bench_chain_launches = phase_resnet_train_bench_chain(
+        args.seed, step, xd, yd)
+    phase_resnet_train_profile(cstep, xd, yd,
+                               "resnet_train_bench_chain_profile",
+                               by_source=True)
+    del step, cstep, xd, yd
     torch.cuda.empty_cache()
-    phase_resnet_train_bench_reference(args.seed)
+    phase_bf16_reference(args.seed + 5, "resnet_train_bench_reference",
+                         BENCH_NET, dict(fuse_bn_relu=False))
+    phase_bf16_reference(args.seed + 12,
+                         "resnet_train_bench_chain_reference",
+                         BENCH_CHAIN_NET, dict(fuse_block=False))
+    bf16_conv_launches = phase_resnet_train_bf16_modes(args.seed)
     phase_resnet_train_chain34(args.seed)
     phase_resnet_train_1x1(args.seed)
     phase_train_step_options(args.seed)
-    phase_eval_step(tnet, bnet, args.seed)
-    del tnet, bnet
-    for name, k in chain.items():
-        k["launches"] = train_launches[name]
-        kernels.append(k)
+    phase_eval_step(tnet, bnet, cnet, args.seed)
+    del tnet, bnet, cnet
+    bf16 = FORMS[torch.bfloat16]
+    for name in ("sbr_matmul", "sbr_conv3x3"):
+        conv[name + bf16]["launches"] = bf16_conv_launches[name + bf16]
+    for name in ("chain_stats", "chain_emit"):
+        chain[name]["launches"] = train_launches[name]
+        chain[name + bf16]["launches"] = bench_chain_launches[name + bf16]
+    kernels += list(conv.values()) + list(chain.values())
     torch.cuda.empty_cache()
     rtc_launches = phase_nd_imperative(args.seed, axpy)
     kernels.append({

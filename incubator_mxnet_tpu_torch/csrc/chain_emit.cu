@@ -1,6 +1,6 @@
 // Pass 2 of the bottleneck chain for Hopper (sm_90a): BN1-apply -> ReLU
-// -> 3x3 conv2 -> BN2-apply -> ReLU -> 1x1 conv3 + bias, fp32-accurate on
-// the tensor cores.
+// -> 3x3 conv2 -> BN2-apply -> ReLU -> 1x1 conv3 + bias, on the tensor
+// cores in two forms: fp32 (fp32-accurate, 3xTF32) and bf16.
 //
 // Replaces the TPU kernel incubator_mxnet_tpu/ops/fused_chain.py
 // `_chain_kernel` with emit=True (launched by `pl.pallas_call` in
@@ -61,46 +61,60 @@
 // multicast of w2 / w3 across a cluster; Co split across a cluster whose
 // CTAs share one y2 tile through distributed shared memory.
 //
-// C interface (ctypes): mx_chain_emit returns the CUDA error code of the
-// launch (0 on success).  It allocates nothing; the caller passes
-// contiguous fp32 device pointers and the stream.
+// The bf16 form (mx_chain_emit_bf16): c1, w2, w3 and out bf16, the
+// affines and b3 fp32, the TPU kernel's arithmetic on bf16 data: the BN1
+// activation rounded to bf16, conv2 summed in fp32, relu(c2 * a2 + b2)
+// in fp32 rounded to bf16 into the y2 tile, conv3 summed in fp32, + b3,
+// rounded to bf16 once.  The y2 tile is bf16, half the fp32 one, so Cm
+// reaches 1536 (the 48-row tile) where fp32 stops at 768.  The same
+// tiles and rule on tc_gemm.cuh's bf16 path.  Bound at b = 128: 0.0767
+// ms by bytes at 56x56, 0.0432 by operations (989 TFLOP/s) at the other
+// three; it takes 0.491, 0.406, 0.385, 0.553 ms (chip_smoke.py,
+// NVIDIA H100 80GB HBM3, 700 W).
+//
+// C interface (ctypes): mx_chain_emit and mx_chain_emit_bf16 return the
+// CUDA error code of the launch (0 on success).  They allocate nothing;
+// the caller passes contiguous device pointers (c1, w2, w3, out in the
+// form's type, the rest fp32) and the stream.
 
 #include "tc_gemm.cuh"
 
 namespace {
 
 using tc::aligned16;
-using tc::BK;
 
-// the y2 tile's row: Cm rounded up to whole BN-wide chunks, plus 4 (a
-// row stride of 4 mod 32 banks)
+// the y2 tile's row (elements): Cm rounded up to whole BN-wide chunks,
+// plus 16 bytes (a row stride of 4 mod 32 banks)
 template <class T>
 __host__ __device__ int y2_ld(int cm) {
-  return (cm + T::BN - 1) / T::BN * T::BN + 4;
+  return (cm + T::BN - 1) / T::BN * T::BN + T::PAD;
 }
 
 template <class T>
 size_t smem_bytes(int cm) {
-  return T::RING_BYTES + (size_t)T::BM * y2_ld<T>(cm) * sizeof(float);
+  return T::RING_BYTES +
+         (size_t)T::BM * y2_ld<T>(cm) * sizeof(typename T::E);
 }
 
+template <class E>
 struct Emit {
   const float* a2;
   const float* b2;
-  const float* w3;
+  const E* w3;
   const float* b3;
-  float* out;
+  E* out;
   int Co;
-  bool vec3;     // Cm % 4 == 0 and w3 16-byte aligned
+  bool vec3;     // Cm a multiple of a 16-byte copy, w3 16-byte aligned
   bool vec_out;  // Co % 4 == 0 and out, b3 16-byte aligned
 };
 
 template <class T>
 __global__ void __launch_bounds__(T::THREADS)
-chain_emit_kernel(tc::Conv p, Emit e) {
+chain_emit_kernel(tc::Conv<typename T::E> p, Emit<typename T::E> e) {
+  using E = typename T::E;
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
-  float* y2s = smem + tc::STAGES * T::SLOT;
+  E* ring = reinterpret_cast<E*>(smem);
+  E* y2s = ring + tc::STAGES * T::SLOT;
   const int m0 = blockIdx.x * T::BM;
   const int Cm = p.N;
   const int ld = y2_ld<T>(Cm);
@@ -109,7 +123,8 @@ chain_emit_kernel(tc::Conv p, Emit e) {
   tc::Acc<T> acc;
   tc::zero<T>(acc);
 
-  // y2 = relu(conv2 * a2 + b2), chunk by chunk; columns past Cm hold 0
+  // y2 = relu(conv2 * a2 + b2) (bf16: rounded to nearest even), chunk by
+  // chunk; columns past Cm hold 0
   const int ks2 = p.steps();
   const int chunks2 = (Cm + T::BN - 1) / T::BN;
   tc::pipeline(
@@ -134,41 +149,49 @@ chain_emit_kernel(tc::Conv p, Emit e) {
           for (int i = 0; i < T::MI; ++i)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              float2 v;
-              v.x = fmaxf(fmaf(acc[i][j][2 * h], a0, b0), 0.f);
-              v.y = fmaxf(fmaf(acc[i][j][2 * h + 1], a1, b1), 0.f);
-              *reinterpret_cast<float2*>(y2s + (f.row0(i) + 8 * h) * ld + n) =
-                  v;
+              const float* c = acc[i][j] + 2 * h;
+              E* at = y2s + (f.row0(i) + 8 * h) * ld + n;
+              if constexpr (T::TF32)
+                *reinterpret_cast<float2*>(at) =
+                    make_float2(fmaxf(fmaf(c[0], a0, b0), 0.f),
+                                fmaxf(fmaf(c[1], a1, b1), 0.f));
+              else
+                *reinterpret_cast<uint32_t*>(at) = tc::pack_bf16(
+                    tc::act(c[0], a0, b0), tc::act(c[1], a1, b1));
             }
         }
         tc::zero<T>(acc);
       });
 
   // out = y2 @ w3^T + b3, Co in BN-wide chunks, w3 through the same ring
-  const int ks3 = (Cm + BK - 1) / BK;
+  const int ks3 = (Cm + T::BK - 1) / T::BK;
   const int chunks3 = (e.Co + T::BN - 1) / T::BN;
   const int M = p.M, Co = e.Co;
   tc::pipeline(
       chunks3 * ks3,
       [&](int s, int slot) {
         const int o0 = (s / ks3) * T::BN;
-        const float* w3 = e.w3;
+        const E* w3 = e.w3;
         tc::copy_rows<T::BN, T::THREADS>(
             ring + slot * T::SLOT + T::B_OFF,
             [&](int r) { return w3 + (long long)(o0 + r) * Cm; },
-            [&](int r) { return o0 + r < Co; }, (s % ks3) * BK, Cm, e.vec3,
-            w3);
+            [&](int r) { return o0 + r < Co; }, (s % ks3) * T::BK, Cm,
+            e.vec3, w3);
       },
       [&](int s, int slot) {
         const int ks = s % ks3;
-        const float* a = y2s + ks * BK;
+        const E* a = y2s + ks * T::BK;
         auto a_frag = [&](int i, int kk, uint32_t (&ab)[4],
                           uint32_t (&as)[4]) {
           uint32_t r[4];
-          tc::ldsm4(r, a + f.a_row(i) * ld + kk * 8 + f.a_col());
+          tc::ldsm4(r, a + f.a_row(i) * ld + kk * T::KK + f.a_col());
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            tc::split(__uint_as_float(r[q]), ab[q], as[q]);
+          for (int q = 0; q < 4; ++q) {
+            if constexpr (T::TF32)
+              tc::split(__uint_as_float(r[q]), ab[q], as[q]);
+            else
+              ab[q] = r[q];
+          }
         };
         tc::mma_slot<T>(ring + slot * T::SLOT + T::B_OFF, f, a_frag, acc);
         if (ks != ks3 - 1) return;
@@ -179,7 +202,8 @@ chain_emit_kernel(tc::Conv p, Emit e) {
 }
 
 template <class T>
-int launch_emit(const tc::Conv& p, const Emit& e, cudaStream_t stream) {
+int launch_emit(const tc::Conv<typename T::E>& p,
+                const Emit<typename T::E>& e, cudaStream_t stream) {
   const size_t dyn = smem_bytes<T>(p.N);
   cudaError_t err = cudaFuncSetAttribute(
       chain_emit_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -190,11 +214,15 @@ int launch_emit(const tc::Conv& p, const Emit& e, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The tiles, chosen per shape by mx_chain_emit (see the note)
-using Cm64 = tc::Tile<64, 64, 2, 2>;
-using Rows128 = tc::Tile<128, 128, 2, 4>;
-using Rows96 = tc::Tile<96, 128, 2, 4>;
-using Rows48 = tc::Tile<48, 128, 1, 4>;
+// The tiles, chosen per shape by chain_emit (see the note)
+template <class E>
+using Cm64 = tc::Tile<64, 64, 2, 2, E>;
+template <class E>
+using Rows128 = tc::Tile<128, 128, 2, 4, E>;
+template <class E>
+using Rows96 = tc::Tile<96, 128, 2, 4, E>;
+template <class E>
+using Rows48 = tc::Tile<48, 128, 1, 4, E>;
 
 template <class T>
 bool fits(int cm, int max_smem) {
@@ -206,19 +234,12 @@ bool fills(int m, int sms) {
   return (m + T::BM - 1) / T::BM >= sms;
 }
 
-}  // namespace
-
-extern "C" int mx_chain_emit(const void* x, const void* a1, const void* b1,
-                             const void* w2, const void* a2, const void* b2,
-                             const void* w3, const void* b3, void* out,
-                             int n, int h, int w, int c, int cm, int co,
-                             void* stream) {
-  const bool vec = c % 4 == 0 && aligned16(x) && aligned16(w2);
-  const tc::Conv p{static_cast<const float*>(x),
-                   static_cast<const float*>(a1),
-                   static_cast<const float*>(b1),
-                   static_cast<const float*>(w2), n * h * w, c, cm, h, w,
-                   vec};
+template <class E>
+int chain_emit(const void* x, const void* a1, const void* b1, const void* w2,
+               const void* a2, const void* b2, const void* w3,
+               const void* b3, void* out, int n, int h, int w, int c, int cm,
+               int co, void* stream) {
+  const tc::Conv<E> p = tc::conv_operands<E>(x, a1, b1, w2, n, h, w, c, cm);
   if (p.M <= 0 || c <= 0 || cm <= 0 || co <= 0)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, max_smem = 0;
@@ -229,19 +250,40 @@ extern "C" int mx_chain_emit(const void* x, const void* a1, const void* b1,
     err = cudaDeviceGetAttribute(
         &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const Emit e{static_cast<const float*>(a2), static_cast<const float*>(b2),
-               static_cast<const float*>(w3), static_cast<const float*>(b3),
-               static_cast<float*>(out), co,
-               cm % 4 == 0 && aligned16(w3),
-               co % 4 == 0 && aligned16(out) && aligned16(b3)};
+  const Emit<E> e{static_cast<const float*>(a2), static_cast<const float*>(b2),
+                  static_cast<const E*>(w3), static_cast<const float*>(b3),
+                  static_cast<E*>(out), co,
+                  cm % tc::Geo<E>::VEC == 0 && aligned16(w3),
+                  co % 4 == 0 && aligned16(out) && aligned16(b3)};
   auto s = static_cast<cudaStream_t>(stream);
-  if (cm <= 64) return launch_emit<Cm64>(p, e, s);
-  if (cm <= 128 && fills<Rows128>(p.M, sms))
-    return launch_emit<Rows128>(p, e, s);
-  if (fits<Rows96>(cm, max_smem) && fills<Rows96>(p.M, sms))
-    return launch_emit<Rows96>(p, e, s);
-  if (fits<Rows48>(cm, max_smem)) return launch_emit<Rows48>(p, e, s);
+  if (cm <= 64) return launch_emit<Cm64<E>>(p, e, s);
+  if (cm <= 128 && fills<Rows128<E>>(p.M, sms))
+    return launch_emit<Rows128<E>>(p, e, s);
+  if (fits<Rows96<E>>(cm, max_smem) && fills<Rows96<E>>(p.M, sms))
+    return launch_emit<Rows96<E>>(p, e, s);
+  if (fits<Rows48<E>>(cm, max_smem)) return launch_emit<Rows48<E>>(p, e, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int mx_chain_emit(const void* x, const void* a1, const void* b1,
+                             const void* w2, const void* a2, const void* b2,
+                             const void* w3, const void* b3, void* out,
+                             int n, int h, int w, int c, int cm, int co,
+                             void* stream) {
+  return chain_emit<float>(x, a1, b1, w2, a2, b2, w3, b3, out, n, h, w, c,
+                           cm, co, stream);
+}
+
+extern "C" int mx_chain_emit_bf16(const void* x, const void* a1,
+                                  const void* b1, const void* w2,
+                                  const void* a2, const void* b2,
+                                  const void* w3, const void* b3, void* out,
+                                  int n, int h, int w, int c, int cm, int co,
+                                  void* stream) {
+  return chain_emit<tc::bf16>(x, a1, b1, w2, a2, b2, w3, b3, out, n, h, w, c,
+                              cm, co, stream);
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

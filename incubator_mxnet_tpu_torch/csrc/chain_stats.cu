@@ -1,6 +1,6 @@
 // Pass 1 of the bottleneck chain for Hopper (sm_90a): BN1-apply -> ReLU
-// -> 3x3 conv2 -> per-channel shifted sums, fp32-accurate on the tensor
-// cores.
+// -> 3x3 conv2 -> per-channel shifted sums, on the tensor cores in two
+// forms: fp32 (fp32-accurate, 3xTF32) and bf16.
 //
 // Replaces the TPU kernel incubator_mxnet_tpu/ops/fused_chain.py
 // `_chain_kernel` with emit=False (launched by `pl.pallas_call` in
@@ -56,10 +56,21 @@
 //   7x7   (Cm 512): 96 x 128,  264 CTAs, two full waves (0.70; 128 x 64
 //                   gives 1.5 waves, 0.82)
 //
-// C interface (ctypes): mx_chain_stats returns the CUDA error code of
-// the launches (0 on success); mx_chain_stats_workspace gives the floats
-// of scratch it needs.  It allocates nothing; the caller passes
-// contiguous fp32 device pointers and the stream.
+// The bf16 form (mx_chain_stats_bf16): c1 and w2 bf16, a1, b1, the shift
+// and the sums fp32, the TPU kernel's arithmetic on bf16 data: the BN1
+// activation rounded to bf16, bf16 products summed in fp32, and c2 kept
+// in fp32 (never rounded) through the shifted sums, which stay fp32 and
+// deterministic.  The same tiles, rule and partials on tc_gemm.cuh's
+// bf16 path.  Bound at b = 128: 0.0299 ms a launch by operations (989
+// TFLOP/s); it takes 0.325, 0.301, 0.289, 0.267 ms at the four shapes
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+//
+// C interface (ctypes): mx_chain_stats and mx_chain_stats_bf16 return
+// the CUDA error code of the launches (0 on success);
+// mx_chain_stats_workspace gives the floats of scratch they need (the
+// same for both forms).  They allocate nothing; the caller passes
+// contiguous device pointers (c1, w2 in the form's type, the rest fp32)
+// and the stream.
 
 #include "tc_gemm.cuh"
 
@@ -72,12 +83,13 @@ struct TileSums {
   float* part;
 
   template <class T>
-  __device__ void operator()(const tc::Conv& p, const tc::Frag<T>& f,
+  __device__ void operator()(const tc::Conv<typename T::E>& p,
+                             const tc::Frag<T>& f,
                              const tc::Acc<T>& acc, int m0, int n0,
                              float* smem) const {
     // red[0 | 1][warp row][column of the tile]
     float* red = smem;
-    static_assert(2 * T::WGM * T::BN <= tc::STAGES * T::SLOT,
+    static_assert(2 * T::WGM * T::BN * sizeof(float) <= T::RING_BYTES,
                   "the column sums do not fit in the ring");
     bool row_ok[T::MI][2];
 #pragma unroll
@@ -155,18 +167,9 @@ column_totals(const float* __restrict__ part, int tiles, int N,
   }
 }
 
-tc::Conv operands(const void* x, const void* a1, const void* b1,
-                  const void* w2, int n, int h, int w, int c, int cm) {
-  return tc::Conv{static_cast<const float*>(x),
-                  static_cast<const float*>(a1),
-                  static_cast<const float*>(b1),
-                  static_cast<const float*>(w2), n * h * w, c, cm, h, w,
-                  c % 4 == 0 && tc::aligned16(x) && tc::aligned16(w2)};
-}
-
 // The tiles pass, then the ordered sum of its partials
 template <class T>
-int launch_stats(const tc::Conv& p, const TileSums& epi, void* sum,
+int launch_stats(const tc::Conv<typename T::E>& p, const TileSums& epi, void* sum,
                  void* sq, cudaStream_t stream) {
   if (int err = tc::launch_conv3x3<T>(p, epi, stream)) return err;
   const int tiles = (p.M + T::BM - 1) / T::BM;
@@ -176,15 +179,36 @@ int launch_stats(const tc::Conv& p, const TileSums& epi, void* sum,
   return (int)cudaGetLastError();
 }
 
-// The tiles, chosen per shape by mx_chain_stats (see the note)
-using Wide = tc::Tile<128, 64, 2, 2>;
-using Rows96 = tc::Tile<96, 128, 2, 4>;
-using Small = tc::Tile<64, 64, 2, 2>;
+// The tiles, chosen per shape by chain_stats (see the note)
+template <class E>
+using Wide = tc::Tile<128, 64, 2, 2, E>;
+template <class E>
+using Rows96 = tc::Tile<96, 128, 2, 4, E>;
+template <class E>
+using Small = tc::Tile<64, 64, 2, 2, E>;
 // the fewest rows a tile of the rule has: it sizes the partials
 constexpr int MIN_BM = 64;
-static_assert(MIN_BM <= Wide::BM && MIN_BM <= Rows96::BM &&
-                  MIN_BM <= Small::BM,
+static_assert(MIN_BM <= Wide<float>::BM && MIN_BM <= Rows96<float>::BM &&
+                  MIN_BM <= Small<float>::BM,
               "MIN_BM must be the smallest BM of the tile rule");
+
+template <class E>
+int chain_stats(const void* x, const void* a1, const void* b1,
+                const void* w2, const void* shift, void* part, void* sum,
+                void* sq, int n, int h, int w, int c, int cm, void* stream) {
+  const tc::Conv<E> p = tc::conv_operands<E>(x, a1, b1, w2, n, h, w, c, cm);
+  if (p.M <= 0 || c <= 0 || cm <= 0) return (int)cudaErrorInvalidValue;
+  const TileSums epi{static_cast<const float*>(shift),
+                     static_cast<float*>(part)};
+  int sms = 0;
+  if (int err = tc::sm_count(&sms)) return err;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (cm <= 64 || tc::ctas<Wide<E>>(p) >= 4LL * sms)
+    return launch_stats<Wide<E>>(p, epi, sum, sq, s);
+  if (tc::ctas<Rows96<E>>(p) >= sms)
+    return launch_stats<Rows96<E>>(p, epi, sum, sq, s);
+  return launch_stats<Small<E>>(p, epi, sum, sq, s);
+}
 
 }  // namespace
 
@@ -196,18 +220,17 @@ extern "C" int mx_chain_stats(const void* x, const void* a1, const void* b1,
                               const void* w2, const void* shift, void* part,
                               void* sum, void* sq, int n, int h, int w,
                               int c, int cm, void* stream) {
-  const tc::Conv p = operands(x, a1, b1, w2, n, h, w, c, cm);
-  if (p.M <= 0 || c <= 0 || cm <= 0) return (int)cudaErrorInvalidValue;
-  const TileSums epi{static_cast<const float*>(shift),
-                     static_cast<float*>(part)};
-  int sms = 0;
-  if (int err = tc::sm_count(&sms)) return err;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (cm <= 64 || tc::ctas<Wide>(p) >= 4LL * sms)
-    return launch_stats<Wide>(p, epi, sum, sq, s);
-  if (tc::ctas<Rows96>(p) >= sms)
-    return launch_stats<Rows96>(p, epi, sum, sq, s);
-  return launch_stats<Small>(p, epi, sum, sq, s);
+  return chain_stats<float>(x, a1, b1, w2, shift, part, sum, sq, n, h, w, c,
+                            cm, stream);
+}
+
+extern "C" int mx_chain_stats_bf16(const void* x, const void* a1,
+                                   const void* b1, const void* w2,
+                                   const void* shift, void* part, void* sum,
+                                   void* sq, int n, int h, int w, int c,
+                                   int cm, void* stream) {
+  return chain_stats<tc::bf16>(x, a1, b1, w2, shift, part, sum, sq, n, h, w,
+                               c, cm, stream);
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

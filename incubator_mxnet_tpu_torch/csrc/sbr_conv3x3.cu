@@ -1,5 +1,6 @@
 // Fused [BN-apply -> ReLU -> 3x3 stride-1 pad-1 conv] for Hopper
-// (sm_90a), fp32-accurate on the tensor cores.
+// (sm_90a) on the tensor cores, in two forms: fp32 (fp32-accurate,
+// 3xTF32) and bf16.
 //
 // Replaces the TPU kernel incubator_mxnet_tpu/ops/fused_conv.py
 // `_sbr_conv3x3_kernel` (launched by `pl.pallas_call` in
@@ -48,45 +49,67 @@
 //   7x7   (Cout 512): 64 x 64,  200 CTAs (0.29; no tile was faster by
 //                     more than 1%)
 //
-// C interface (ctypes): mx_sbr_conv3x3 returns the CUDA error code of
-// the launch (0 on success).  It allocates nothing; the caller passes
-// contiguous fp32 device pointers and the stream.
+// The bf16 form (mx_sbr_conv3x3_bf16): x, w and out bf16, a, b and the
+// bias fp32, the TPU kernel's arithmetic on bf16 data: the activation
+// rounded to bf16 before the tap mask, bf16 products summed in fp32, acc
+// + bias rounded to bf16 once.  The same tiles and rule on
+// tc_gemm.cuh's bf16 path (64 channels a step, one m16n8k16 mma a
+// fragment).  Bound at b = 32: 0.0077 ms by bytes at 56x56, 0.0075 by
+// operations (989 TFLOP/s) at the other three; it takes 0.081, 0.081,
+// 0.083, 0.122 ms (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+//
+// C interface (ctypes): mx_sbr_conv3x3 and mx_sbr_conv3x3_bf16 return the
+// CUDA error code of the launch (0 on success).  They allocate nothing;
+// the caller passes contiguous device pointers (x, w, out in the form's
+// type, a, b, bias fp32) and the stream.
 
 #include "tc_gemm.cuh"
 
 namespace {
 
-// Epilogue: out[m, n] = acc + bias[n], channels-last
+// Epilogue: out[m, n] = acc + bias[n], channels-last, in the operands'
+// type (bf16: the fp32 sum rounded to nearest even)
+template <class E>
 struct StoreBias {
   const float* bias;
-  float* out;
+  E* out;
   bool vec;   // Cout % 4 == 0, out and bias 16-byte aligned
 
   template <class T>
-  __device__ void operator()(const tc::Conv& p, const tc::Frag<T>& f,
+  __device__ void operator()(const tc::Conv<E>& p, const tc::Frag<T>& f,
                              const tc::Acc<T>& acc, int m0, int n0,
                              float*) const {
     tc::store_bias<T>(acc, f, m0, n0, p.M, p.N, bias, out, vec);
   }
 };
 
-tc::Conv operands(const void* x, const void* a, const void* b,
-                  const void* w, int n, int h, int w_, int c, int cout) {
-  return tc::Conv{static_cast<const float*>(x), static_cast<const float*>(a),
-                  static_cast<const float*>(b), static_cast<const float*>(w),
-                  n * h * w_, c, cout, h, w_,
-                  c % 4 == 0 && tc::aligned16(x) && tc::aligned16(w)};
+template <class E>
+StoreBias<E> epilogue(const void* bias, void* out, int cout) {
+  return StoreBias<E>{static_cast<const float*>(bias), static_cast<E*>(out),
+                      cout % 4 == 0 && tc::aligned16(bias) &&
+                          tc::aligned16(out)};
 }
 
-StoreBias epilogue(const void* bias, void* out, int cout) {
-  return StoreBias{static_cast<const float*>(bias), static_cast<float*>(out),
-                   cout % 4 == 0 && tc::aligned16(bias) &&
-                       tc::aligned16(out)};
-}
+// The tiles, chosen per shape by sbr_conv3x3 (see the note)
+template <class E>
+using Wide = tc::Tile<128, 64, 2, 2, E>;
+template <class E>
+using Small = tc::Tile<64, 64, 2, 2, E>;
 
-// The tiles, chosen per shape by mx_sbr_conv3x3 (see the note)
-using Wide = tc::Tile<128, 64, 2, 2>;
-using Small = tc::Tile<64, 64, 2, 2>;
+template <class E>
+int sbr_conv3x3(const void* x, const void* a, const void* b, const void* w,
+                const void* bias, void* out, int n, int h, int w_, int c,
+                int cout, void* stream) {
+  const tc::Conv<E> p = tc::conv_operands<E>(x, a, b, w, n, h, w_, c, cout);
+  if (p.M <= 0 || c <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
+  const StoreBias<E> epi = epilogue<E>(bias, out, cout);
+  int sms = 0;
+  if (int err = tc::sm_count(&sms)) return err;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (cout <= 64 || tc::ctas<Wide<E>>(p) >= 2LL * sms)
+    return tc::launch_conv3x3<Wide<E>>(p, epi, s);
+  return tc::launch_conv3x3<Small<E>>(p, epi, s);
+}
 
 }  // namespace
 
@@ -94,15 +117,16 @@ extern "C" int mx_sbr_conv3x3(const void* x, const void* a, const void* b,
                               const void* w, const void* bias, void* out,
                               int n, int h, int w_, int c, int cout,
                               void* stream) {
-  const tc::Conv p = operands(x, a, b, w, n, h, w_, c, cout);
-  if (p.M <= 0 || c <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
-  const StoreBias epi = epilogue(bias, out, cout);
-  int sms = 0;
-  if (int err = tc::sm_count(&sms)) return err;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (cout <= 64 || tc::ctas<Wide>(p) >= 2LL * sms)
-    return tc::launch_conv3x3<Wide>(p, epi, s);
-  return tc::launch_conv3x3<Small>(p, epi, s);
+  return sbr_conv3x3<float>(x, a, b, w, bias, out, n, h, w_, c, cout,
+                            stream);
+}
+
+extern "C" int mx_sbr_conv3x3_bf16(const void* x, const void* a,
+                                   const void* b, const void* w,
+                                   const void* bias, void* out, int n, int h,
+                                   int w_, int c, int cout, void* stream) {
+  return sbr_conv3x3<tc::bf16>(x, a, b, w, bias, out, n, h, w_, c, cout,
+                               stream);
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

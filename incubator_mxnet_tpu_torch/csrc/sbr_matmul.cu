@@ -1,5 +1,5 @@
-// Fused [BN-apply -> ReLU -> 1x1 conv] for Hopper (sm_90a), fp32-accurate
-// on the tensor cores.
+// Fused [BN-apply -> ReLU -> 1x1 conv] for Hopper (sm_90a) on the tensor
+// cores, in two forms: fp32 (fp32-accurate, 3xTF32) and bf16.
 //
 // Replaces the TPU kernel incubator_mxnet_tpu/ops/fused_conv.py
 // `_sbr_matmul_kernel` (launched by `pl.pallas_call` in
@@ -53,54 +53,85 @@
 // take 0.046-0.057 ms a shape; one CTA an SM runs those phases one after
 // the other instead of beside the products.
 //
-// C interface (ctypes): mx_sbr_matmul returns the CUDA error code of
-// the launch (0 on success).  It allocates nothing; the caller passes
-// contiguous fp32 device pointers and the stream.
+// The bf16 form (mx_sbr_matmul_bf16): x, W and out bf16, a, b and c
+// fp32, the TPU kernel's arithmetic on bf16 data: relu(x * a + b) in fp32
+// rounded to bf16, bf16 products summed in fp32, acc + c rounded to bf16
+// once.  The same walker and tile on tc_gemm.cuh's bf16 path: one
+// m16n8k16 mma a fragment, and the operand pass only activates A in
+// place (B is used as it lands).  At b = 32 half the bytes make the
+// first three shapes bound by bytes (0.0192, 0.0096, 0.0050 ms at 3.35
+// TB/s), the last by operations (0.0033 ms at 989 TFLOP/s); it takes
+// 0.075, 0.052, 0.055, 0.042 ms (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+//
+// C interface (ctypes): mx_sbr_matmul and mx_sbr_matmul_bf16 return the
+// CUDA error code of the launch (0 on success).  They allocate nothing;
+// the caller passes contiguous device pointers (x, W, out in the form's
+// type, a, b, c fp32) and the stream.
 
 #include "tc_gemm.cuh"
 
 namespace {
 
-// Epilogue: out[m, n] = acc + bias[n], channels-last
+// Epilogue: out[m, n] = acc + bias[n], channels-last, in the operands'
+// type (bf16: the fp32 sum rounded to nearest even)
+template <class E>
 struct StoreBias {
   const float* bias;
-  float* out;
+  E* out;
   bool vec;   // Cout % 4 == 0, out and bias 16-byte aligned
 
   template <class T>
-  __device__ void operator()(const tc::Gemm1x1& p, const tc::Frag<T>& f,
+  __device__ void operator()(const tc::Gemm1x1<E>& p, const tc::Frag<T>& f,
                              const tc::Acc<T>& acc, int m0, int n0) const {
     tc::store_bias<T>(acc, f, m0, n0, p.M, p.N, bias, out, vec);
   }
 };
 
-tc::Gemm1x1 operands(const void* x, const void* a, const void* b,
-                     const void* w, int m, int k, int cout) {
-  return tc::Gemm1x1{static_cast<const float*>(x),
-                     static_cast<const float*>(a),
-                     static_cast<const float*>(b),
-                     static_cast<const float*>(w), m, k, cout,
-                     k % 4 == 0 && tc::aligned16(x) && tc::aligned16(w)};
+template <class E>
+tc::Gemm1x1<E> operands(const void* x, const void* a, const void* b,
+                        const void* w, int m, int k, int cout) {
+  return tc::Gemm1x1<E>{static_cast<const E*>(x),
+                        static_cast<const float*>(a),
+                        static_cast<const float*>(b),
+                        static_cast<const E*>(w), m, k, cout,
+                        k % tc::Geo<E>::VEC == 0 && tc::aligned16(x) &&
+                            tc::aligned16(w)};
 }
 
-StoreBias epilogue(const void* bias, void* out, int cout) {
-  return StoreBias{static_cast<const float*>(bias), static_cast<float*>(out),
-                   cout % 4 == 0 && tc::aligned16(bias) &&
-                       tc::aligned16(out)};
+template <class E>
+StoreBias<E> epilogue(const void* bias, void* out, int cout) {
+  return StoreBias<E>{static_cast<const float*>(bias), static_cast<E*>(out),
+                      cout % 4 == 0 && tc::aligned16(bias) &&
+                          tc::aligned16(out)};
 }
 
 // The tile (see the note)
-using Wide = tc::Tile<128, 128, 2, 4>;
+template <class E>
+using Wide = tc::Tile<128, 128, 2, 4, E>;
+
+template <class E>
+int sbr_matmul(const void* x, const void* a, const void* b, const void* w,
+               const void* bias, void* out, int m, int k, int cout,
+               void* stream) {
+  if (m <= 0 || k <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
+  return tc::launch_gemm1x1<Wide<E>>(operands<E>(x, a, b, w, m, k, cout),
+                                     epilogue<E>(bias, out, cout),
+                                     static_cast<cudaStream_t>(stream));
+}
 
 }  // namespace
 
 extern "C" int mx_sbr_matmul(const void* x, const void* a, const void* b,
                              const void* w, const void* bias, void* out,
                              int m, int k, int cout, void* stream) {
-  if (m <= 0 || k <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
-  const tc::Gemm1x1 p = operands(x, a, b, w, m, k, cout);
-  const StoreBias epi = epilogue(bias, out, cout);
-  return tc::launch_gemm1x1<Wide>(p, epi, static_cast<cudaStream_t>(stream));
+  return sbr_matmul<float>(x, a, b, w, bias, out, m, k, cout, stream);
+}
+
+extern "C" int mx_sbr_matmul_bf16(const void* x, const void* a,
+                                  const void* b, const void* w,
+                                  const void* bias, void* out, int m, int k,
+                                  int cout, void* stream) {
+  return sbr_matmul<tc::bf16>(x, a, b, w, bias, out, m, k, cout, stream);
 }
 
 extern "C" const char* mx_cuda_error_string(int code) {

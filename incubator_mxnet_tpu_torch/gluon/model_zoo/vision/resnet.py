@@ -35,8 +35,13 @@ blocks, stages and widths, for inference and training.
   ``(N, classes)`` logits.
 * Train mode (``net.train()``) takes every BatchNorm's batch statistics
   and moves its running ones towards them; ``parallel.TrainStep`` trains.
-* Not ported yet, and raising ``MXNetError``: ResNet V2,
-  ``mxu_stem=True`` (a TPU stem) and ``pretrained=True``.
+* ``mxu_stem=True`` builds the stem the JAX package computes by
+  space-to-depth (``MXUStemConv2D``, the same convolution reshaped for
+  the TPU's 128-lane matrix unit, with the parameters and names of the
+  plain conv) as that plain 7x7 stride-2 conv: on the card a strided
+  conv has no such shape to fix, and checkpoints interchange either way.
+* Not ported yet, and raising ``MXNetError``: ResNet V2 and
+  ``pretrained=True``.
 """
 from __future__ import annotations
 
@@ -170,9 +175,6 @@ class ResNetV1(nn.Module):
         if len(layers) != len(channels) - 1:
             raise MXNetError(f"{len(layers)} stages need {len(layers) + 1} "
                              f"widths, got {channels}")
-        if mxu_stem:
-            raise MXNetError("mxu_stem=True (the TPU space-to-depth stem) "
-                             "is not ported")
         if fuse_block not in (False, True, "chain", "1x1", "chain34"):
             raise _unknown_mode(fuse_block)
         device = resolve_device(device)

@@ -105,11 +105,15 @@ class FusedBNReLUConv2D(nn.Module):
     Its children ``bn`` (``BatchNorm``) and ``conv`` (``Conv2D``) hold
     the parameters, so the layer's names are those of the unfused
     sequence.  Inside the kernels' envelope (``ops.fused_conv.
-    supported``: ``layout="NHWC"``, fp32, stride 1, ungrouped, 1x1 pad 0
-    or 3x3 pad 1) and with ``fuse=True`` it runs ``ops.fused_conv.
-    fused_bn_relu_conv``, which on the card is one kernel launch; else it
-    runs the plain composition BN, ReLU, ``F.conv2d``.  The choice is
-    made here, from the configuration, and read from ``self.fused``.
+    supported``: ``layout="NHWC"``, fp32 or bf16, stride 1, ungrouped,
+    1x1 pad 0 or 3x3 pad 1) and with ``fuse=True`` it runs
+    ``ops.fused_conv.fused_bn_relu_conv``, which on the card is one
+    kernel launch in the dtype of the tensors it is given (a layer built
+    in fp32 and run over bf16 copies of its parameters, as
+    ``TrainStep(bf16_compute=True)`` runs it, launches the bf16 form);
+    else it runs the plain composition BN, ReLU, ``F.conv2d``.  The
+    choice is made here, from the configuration, and read from
+    ``self.fused``.
     ``bn_relu=True`` makes ``bn`` a ``BNReLU`` (the same names), and the
     plain composition then runs BN and ReLU as that one op: the model
     zoo's ``fuse_bn_relu`` for a boundary that is not fused into the

@@ -19,6 +19,16 @@ normalised, so the chain runs as two passes over the saved conv1 output
 
 In eval the statistics are the moving ones and pass 1 is skipped.
 
+* Two forms, as in ``ops.fused_conv``: fp32, and bf16 c1, w2, w3 and
+  output (the affines, the shift, b3 and the sums fp32).  The bf16 form
+  is the Pallas kernel's arithmetic: conv2 of the bf16-rounded
+  activation summed in fp32 and never rounded (pass 1 reduces it, pass
+  2 applies BN2 to it in fp32), ``relu(c2*a2 + b2)`` rounded to bf16
+  before conv3, conv3 summed in fp32 plus b3, rounded to bf16 once.
+  The plain composition ``_chain_plain`` (the JAX ``xla_forward``, the
+  backward's source) rounds c2 to bf16 instead; the two forms differ
+  by that rounding.
+
 * Layout as in ``ops.fused_conv``: NCHW-indexed tensors, channels-last
   in memory; w2 ``(Cm, C, 3, 3)`` channels-last (read as OHWI), w3
   ``(Co, Cm, 1, 1)`` (read as ``(Co, Cm)`` rows).
@@ -43,44 +53,57 @@ import torch.nn.functional as F
 from .. import _build
 from ..base import MXNetError
 from .fused_conv import (_INDEX_LIMIT, _activate, _dispatch, bn_affine,
-                         bn_coefficients, launch, recompute_vjp)
+                         bn_coefficients, check_dtypes, count_launch, launch,
+                         recompute_vjp)
 
-__all__ = ["CHAIN_MAX_CM", "chain_emit", "chain_stats", "chain_supported",
-           "fused_bottleneck_chain"]
+__all__ = ["CHAIN_MAX_CM", "CHAIN_MAX_CM_BF16", "chain_emit", "chain_stats",
+           "chain_supported", "fused_bottleneck_chain"]
 
-# the widest conv2 output whose y2 tile (48 rows of Cm fp32, padded)
-# fits chain_emit's 227 KB of shared memory beside its operand ring
-CHAIN_MAX_CM = 768
+# the widest conv2 output whose y2 tile (48 rows of Cm elements, padded)
+# fits chain_emit's 227 KB of shared memory beside its operand ring: in
+# the fp32 form and in the bf16 one
+CHAIN_MAX_CM, CHAIN_MAX_CM_BF16 = 768, 1536
+_MAX_CM = {torch.float32: CHAIN_MAX_CM, torch.bfloat16: CHAIN_MAX_CM_BF16}
 
 
 def chain_supported(mid_channels, layout="NHWC", dtype=torch.float32):
     """The chain kernels' envelope, decided from a layer's
-    configuration: channels-last (``layout="NHWC"``), fp32, and at most
-    ``CHAIN_MAX_CM`` conv2 output channels (ResNet-50's widest is 512).
-    The geometry (3x3 stride-1 pad-1 ungrouped conv2, 1x1 conv3 with
-    bias) is the layer's structure, checked where it is built."""
-    return layout == "NHWC" and dtype == torch.float32 and \
-        0 < mid_channels <= CHAIN_MAX_CM
+    configuration: channels-last (``layout="NHWC"``), fp32 or bf16, and
+    at most ``CHAIN_MAX_CM`` (fp32) or ``CHAIN_MAX_CM_BF16`` conv2
+    output channels (ResNet-50's widest is 512).  The geometry (3x3 stride-1 pad-1 ungrouped conv2,
+    1x1 conv3 with bias) is the layer's structure, checked where it is
+    built."""
+    return layout == "NHWC" and dtype in _MAX_CM and \
+        0 < mid_channels <= _MAX_CM[dtype]
 
 
 def _conv2(x, a1, b1, w2):
     """conv2 of relu(x*a1 + b1), zero padding after the activation, in
-    x's dtype (fp32 for the kernels)."""
+    x's dtype (the plain composition's form)."""
     return F.conv2d(_activate(x, a1, b1), w2.to(x.dtype), padding=1)
+
+
+def _conv2_sums(x, a1, b1, w2):
+    """conv2 as the kernels compute it: relu(x*a1 + b1) rounded to x's
+    dtype, convolved with w2 in fp32 (a bf16 x bf16 product is exact in
+    fp32); the fp32 sums, not rounded to x's dtype."""
+    return F.conv2d(_activate(x, a1, b1).float(), w2.float(), padding=1)
 
 
 def _chain_stats_plain(x, a1, b1, w2, shift):
     """Plain version of pass 1: ``(sum, sq)`` over (N, H, W) of
-    ``c2 - shift`` and its square, fp32."""
-    d = _conv2(x, a1, b1, w2) - shift.float().view(1, -1, 1, 1)
+    ``c2 - shift`` and its square, fp32, c2 as the kernel computes it
+    (``_conv2_sums``)."""
+    d = _conv2_sums(x, a1, b1, w2) - shift.float().view(1, -1, 1, 1)
     return d.sum((0, 2, 3)), d.square().sum((0, 2, 3))
 
 
 def _chain_emit_plain(x, a1, b1, w2, a2, b2, w3, b3):
-    """Plain version of pass 2: ``conv1x1(relu(c2*a2 + b2), w3) + b3``,
-    in x's dtype (fp32 for the kernel)."""
-    return F.conv2d(_activate(_conv2(x, a1, b1, w2), a2, b2),
-                    w3.to(x.dtype), b3.to(x.dtype))
+    """Plain version of pass 2, in its arithmetic: ``relu(c2*a2 + b2)``
+    of the fp32 c2 (``_conv2_sums``) rounded to x's dtype, then
+    ``conv1x1(., w3) + b3`` in fp32, rounded to x's dtype once."""
+    y2 = _activate(_conv2_sums(x, a1, b1, w2), a2, b2).to(x.dtype)
+    return F.conv2d(y2.float(), w3.float(), b3.float()).to(x.dtype)
 
 
 def _check(name, x, vectors, w2, w3=None):
@@ -96,13 +119,12 @@ def _check(name, x, vectors, w2, w3=None):
     if w3 is not None:
         grids["w3"] = (w3, (co, cm, 1, 1))
     flat = {k: (t, (size,)) for k, (t, size) in vectors.items()}
+    check_dtypes(name, x, {k: t for k, (t, _) in {**grids, **flat}.items()},
+                 grids)
     for key, (t, shape) in {**grids, **flat}.items():
         if t.device != x.device:
             raise MXNetError(f"{name}: {key} is on {t.device}, c1 on "
                              f"{x.device}")
-        if t.dtype != torch.float32:
-            raise MXNetError(f"{name} kernel takes float32, {key} is "
-                             f"{t.dtype}")
         if tuple(t.shape) != shape:
             raise MXNetError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
@@ -111,9 +133,9 @@ def _check(name, x, vectors, w2, w3=None):
         if not contiguous:
             raise MXNetError(f"{name} kernel reads contiguous (channels-last"
                              f" for 4-D) storage: {key} is not")
-    if not 0 < cm <= CHAIN_MAX_CM:
-        raise MXNetError(f"{name} kernel takes 1..{CHAIN_MAX_CM} conv2 "
-                         f"channels, got {cm}")
+    if not 0 < cm <= _MAX_CM[x.dtype]:
+        raise MXNetError(f"{name} kernel takes 1..{_MAX_CM[x.dtype]} conv2 "
+                         f"channels in {x.dtype}, got {cm}")
     if x.numel() >= _INDEX_LIMIT or n * h * w * max(cm, co) >= _INDEX_LIMIT:
         raise MXNetError(f"{name} kernel: tensor too large for 32-bit "
                          f"indices ({tuple(x.shape)} -> {cm} -> {co})")
@@ -124,10 +146,11 @@ def _check(name, x, vectors, w2, w3=None):
 def chain_stats(x, a1, b1, w2, shift):
     """Pass 1: ``(sum, sq)``, the fp32 sums over (N, H, W) of ``c2 -
     shift`` and of its square, with ``c2 = conv3x3(relu(x*a1 + b1), w2)``
-    (pad 1 after the activation).  x: ``(N, C, H, W)`` channels-last;
-    a1, b1: ``(C,)``; w2: ``(Cm, C, 3, 3)`` channels-last; shift:
-    ``(Cm,)``.  On the card two launches (tiles, then the ordered sum of
-    their partials): deterministic, no float atomics."""
+    (pad 1 after the activation).  x: ``(N, C, H, W)`` channels-last,
+    fp32 or bf16; w2: ``(Cm, C, 3, 3)`` channels-last in x's dtype; a1,
+    b1: ``(C,)`` and shift: ``(Cm,)``, fp32.  On the card two launches
+    (tiles, then the ordered sum of their partials): deterministic, no
+    float atomics."""
     if not _dispatch("chain_stats", x):
         return _chain_stats_plain(x, a1, b1, w2, shift)
     cm = w2.shape[0]
@@ -139,14 +162,15 @@ def chain_stats(x, a1, b1, w2, shift):
     sums = torch.empty((cm,), device=x.device, dtype=torch.float32)
     sqs = torch.empty_like(sums)
     launch("chain_stats", (x, a1, b1, w2, shift, part, sums, sqs),
-           (n, h, w, c, cm), x.device)
-    chain_stats.launches += 1
+           (n, h, w, c, cm), x.device, x.dtype)
+    count_launch(chain_stats, x.dtype)
     return sums, sqs
 
 
 def _workspace(m, cm):
-    """Floats of chain_stats' per-tile partial sums, as the kernel
-    library sizes them (``mx_chain_stats_workspace``)."""
+    """Floats of chain_stats' per-tile partial sums (fp32 in both
+    forms), as the kernel library sizes them
+    (``mx_chain_stats_workspace``)."""
     fn = _build.load("chain_stats").mx_chain_stats_workspace
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -156,8 +180,9 @@ def _workspace(m, cm):
 def chain_emit(x, a1, b1, w2, a2, b2, w3, b3):
     """Pass 2: ``conv1x1(relu(c2*a2 + b2), w3) + b3`` with c2 as in
     ``chain_stats``; neither c2 nor its activation reaches device
-    memory on the card.  a2, b2: ``(Cm,)``; w3: ``(Co, Cm, 1, 1)``; b3:
-    ``(Co,)``.  Returns ``(N, Co, H, W)`` channels-last."""
+    memory on the card.  a2, b2: ``(Cm,)`` fp32; w3: ``(Co, Cm, 1, 1)``
+    in x's dtype; b3: ``(Co,)`` fp32.  Returns ``(N, Co, H, W)``
+    channels-last in x's dtype."""
     if not _dispatch("chain_emit", x):
         return _chain_emit_plain(x, a1, b1, w2, a2, b2, w3, b3)
     cm, co = w2.shape[0], w3.shape[0]
@@ -165,16 +190,16 @@ def chain_emit(x, a1, b1, w2, a2, b2, w3, b3):
     _check("chain_emit", x, {"a1": (a1, c), "b1": (b1, c), "a2": (a2, cm),
                              "b2": (b2, cm), "b3": (b3, co)}, w2, w3)
     n, _, h, w = x.shape
-    out = torch.empty((n, co, h, w), device=x.device, dtype=torch.float32,
+    out = torch.empty((n, co, h, w), device=x.device, dtype=x.dtype,
                       memory_format=torch.channels_last)
     launch("chain_emit", (x, a1, b1, w2, a2, b2, w3, b3, out),
-           (n, h, w, c, cm, co), x.device)
-    chain_emit.launches += 1
+           (n, h, w, c, cm, co), x.device, x.dtype)
+    count_launch(chain_emit, x.dtype)
     return out
 
 
-chain_stats.launches = 0
-chain_emit.launches = 0
+chain_stats.launches = chain_stats.launches_bf16 = 0
+chain_emit.launches = chain_emit.launches_bf16 = 0
 
 
 def _chain_plain(c1, g1, bt1, mm1, mv1, w2, g2, bt2, mm2, mv2, w3, b3, eps,

@@ -9,6 +9,12 @@ the activated image), become ``csrc/sbr_matmul.cu`` and
 activated tensor never written to device memory (each source's note says
 how they are tiled for the card).
 
+* Two forms, as the TPU kernels take the dtype they are given: fp32
+  (x, weight and output fp32) and bf16 (x, weight and output bf16; the
+  affine ``(a, b)`` and the bias fp32 in both).  The bf16 form is the
+  Pallas kernel's arithmetic: ``relu(x*a + b)`` in fp32 rounded to bf16,
+  bf16 products summed in fp32, ``+ bias`` in fp32, rounded to bf16
+  once.  Any other mix (fp16, x and weight of different dtypes) raises.
 * Tensors use the port's layout: NCHW-indexed, channels-last in memory
   (``torch.channels_last``), so a kernel reads the storage as
   ``(N*H*W, C)`` rows.  Weights are OIHW; the 3x3 kernel reads a
@@ -19,7 +25,8 @@ how they are tiled for the card).
   ``_sbr_conv3x3_plain``), which the CPU tests hold against the JAX
   package and ``chip_smoke.py`` holds the kernels against on the card.
 * ``sbr_matmul.launches`` and ``sbr_conv3x3.launches`` count kernel
-  launches, so a run can show that its main path went through them.
+  launches of both forms, ``.launches_bf16`` those of the bf16 form, so
+  a run can show that its main path went through them.
 * ``fused_bn_relu_conv`` is the JAX op ``_FusedBNReluConv``: with
   ``train_stats`` the BN statistics are the batch's (``bn_stats``, the
   single-pass fp32 formula of the JAX ``_bn_stats``), else the running
@@ -42,46 +49,66 @@ __all__ = ["bn_affine", "bn_stats", "fused_bn_relu_conv", "sbr_conv3x3",
            "sbr_matmul", "supported"]
 
 _INDEX_LIMIT = 2 ** 31
+# the operand dtypes of the kernels' two forms (the affine vectors and
+# the bias are fp32 in both)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _bound = {}
 
 
-def _lib(name, nptrs, nints):
+def _lib(name, symbol, nptrs, nints):
     """The kernel library ``name``, built at first use, with its C
-    signature ``mx_<name>``: ``nptrs`` pointers, ``nints`` ints, the
+    function ``symbol`` bound: ``nptrs`` pointers, ``nints`` ints, the
     stream."""
-    lib = _bound.get(name)
+    lib = _bound.get((name, symbol))
     if lib is None:
         lib = _build.load(name)
-        fn = getattr(lib, f"mx_{name}")
+        fn = getattr(lib, symbol)
         fn.argtypes = [ctypes.c_void_p] * nptrs + [ctypes.c_int] * nints + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mx_cuda_error_string.restype = ctypes.c_char_p
-        _bound[name] = lib
+        _bound[(name, symbol)] = lib
     return lib
 
 
-def launch(name, tensors, ints, device):
-    """Call ``mx_<name>`` with the tensors' pointers, the ints and the
-    current stream of ``device``; raise MXNetError on a launch error."""
-    lib = _lib(name, len(tensors), len(ints))
+def launch(name, tensors, ints, device, dtype=torch.float32):
+    """Call the ``dtype`` form of kernel ``name`` (``mx_<name>``, or
+    ``mx_<name>_bf16`` for bf16) with the tensors' pointers, the ints
+    and the current stream of ``device``; raise MXNetError on a launch
+    error."""
+    symbol = f"mx_{name}" + ("_bf16" if dtype == torch.bfloat16 else "")
+    lib = _lib(name, symbol, len(tensors), len(ints))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"mx_{name}")(
+        rc = getattr(lib, symbol)(
             *(t.data_ptr() for t in tensors), *ints, stream)
     if rc:
         raise MXNetError(f"{name} kernel launch failed: "
                          f"{lib.mx_cuda_error_string(rc).decode()} ({rc})")
 
 
+def check_dtypes(name, x, tensors, data_keys):
+    """The kernels' dtypes: x in ``KERNEL_DTYPES``, the tensors named in
+    ``data_keys`` in x's dtype, every other one fp32; raises on anything
+    else.  ``tensors``: ``{name: tensor}``."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise MXNetError(f"{name} kernel takes float32 or bfloat16 data, "
+                         f"got {x.dtype}")
+    for key, t in tensors.items():
+        want = x.dtype if key in data_keys else torch.float32
+        if t.dtype != want:
+            raise MXNetError(f"{name} kernel takes {key} in {want} with "
+                             f"{x.dtype} data, got {t.dtype}")
+
+
 def supported(kernel, stride=(1, 1), pad=(0, 0), groups=1, layout="NHWC",
               dtype=torch.float32):
     """The kernels' envelope, decided from a layer's configuration:
-    channels-last (``layout="NHWC"``), fp32, ungrouped, stride 1, and a
-    1x1 kernel with pad 0 or a 3x3 kernel with pad 1."""
+    channels-last (``layout="NHWC"``), fp32 or bf16, ungrouped, stride 1,
+    and a 1x1 kernel with pad 0 or a 3x3 kernel with pad 1."""
     kernel, stride, pad = tuple(kernel), tuple(stride), tuple(pad)
-    if layout != "NHWC" or dtype != torch.float32 or groups != 1:
+    if layout != "NHWC" or dtype not in KERNEL_DTYPES or groups != 1:
         return False
     if stride != (1, 1):
         return False
@@ -130,29 +157,30 @@ def bn_coefficients(data, gamma, beta, running_mean, running_var, eps,
 def _activate(x, a, b):
     """relu(x*a + b) over the channel axis (dim 1), computed in fp32 and
     returned in x's dtype, which the conv after it runs in (the JAX op
-    rounds the activation to the data's dtype the same way; a no-op
-    for fp32, the kernels' only dtype)."""
+    rounds the activation to the data's dtype the same way: to nearest
+    even for bf16, a no-op for fp32)."""
     shape = (1, -1, 1, 1)
     return torch.relu(x.float() * a.view(shape) + b.view(shape)).to(x.dtype)
 
 
 def _sbr_matmul_plain(x, a, b, weight, bias):
-    """Plain version of the 1x1 kernel: ``relu(x*a + b)`` as ``(N*H*W,
-    C)`` rows times the ``(Cout, C)`` weight, plus bias, in x's dtype
-    (fp32 for the kernel)."""
+    """Plain version of the 1x1 kernel, in its arithmetic: ``relu(x*a +
+    b)`` rounded to x's dtype, as ``(N*H*W, C)`` rows times the ``(Cout,
+    C)`` weight in fp32 (a bf16 x bf16 product is exact in fp32), plus
+    the fp32 bias, rounded to x's dtype once."""
     n, c, h, w = x.shape
-    y = _activate(x, a, b).permute(0, 2, 3, 1).reshape(-1, c)
-    out = torch.matmul(y, weight.to(x.dtype).reshape(-1, c).t()) + \
-        bias.to(x.dtype)
-    return out.reshape(n, h, w, -1).permute(0, 3, 1, 2)
+    y = _activate(x, a, b).float().permute(0, 2, 3, 1).reshape(-1, c)
+    out = torch.matmul(y, weight.float().reshape(-1, c).t()) + bias.float()
+    return out.to(x.dtype).reshape(n, h, w, -1).permute(0, 3, 1, 2)
 
 
 def _sbr_conv3x3_plain(x, a, b, weight, bias):
-    """Plain version of the 3x3 kernel: ``relu(x*a + b)``, then
-    ``F.conv2d`` with padding 1 (zeros after the activation), in x's
-    dtype (fp32 for the kernel)."""
-    return F.conv2d(_activate(x, a, b), weight.to(x.dtype),
-                    bias.to(x.dtype), padding=1)
+    """Plain version of the 3x3 kernel, in its arithmetic: ``relu(x*a +
+    b)`` rounded to x's dtype, then ``F.conv2d`` with padding 1 (zeros
+    after the activation) in fp32 with the fp32 bias, rounded to x's
+    dtype once."""
+    return F.conv2d(_activate(x, a, b).float(), weight.float(),
+                    bias.float(), padding=1).to(x.dtype)
 
 
 def _check(name, x, a, b, weight, bias, kernel):
@@ -164,14 +192,12 @@ def _check(name, x, a, b, weight, bias, kernel):
     cout = weight.shape[0]
     want = {"x": (n, c, h, w), "a": (c,), "b": (c,),
             "weight": (cout, c) + kernel, "bias": (cout,)}
-    for key, t in (("x", x), ("a", a), ("b", b), ("weight", weight),
-                   ("bias", bias)):
+    tensors = {"x": x, "a": a, "b": b, "weight": weight, "bias": bias}
+    check_dtypes(name, x, tensors, ("x", "weight"))
+    for key, t in tensors.items():
         if t.device != x.device:
             raise MXNetError(f"{name}: {key} is on {t.device}, x on "
                              f"{x.device}")
-        if t.dtype != torch.float32:
-            raise MXNetError(f"{name} kernel takes float32, {key} is "
-                             f"{t.dtype}")
         if tuple(t.shape) != want[key]:
             raise MXNetError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {want[key]}")
@@ -194,10 +220,19 @@ def _check(name, x, a, b, weight, bias, kernel):
 
 def _launch(name, ints, x, a, b, weight, bias):
     out = torch.empty((x.shape[0], weight.shape[0]) + tuple(x.shape[2:]),
-                      device=x.device, dtype=torch.float32,
+                      device=x.device, dtype=x.dtype,
                       memory_format=torch.channels_last)
-    launch(name, (x, a, b, weight, bias, out), ints, x.device)
+    launch(name, (x, a, b, weight, bias, out), ints, x.device, x.dtype)
     return out
+
+
+def count_launch(fn, dtype):
+    """One launch of the kernel behind wrapper ``fn``, in ``dtype``'s
+    form: ``fn.launches`` counts both forms, ``fn.launches_bf16`` the
+    bf16 one."""
+    fn.launches += 1
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
 
 
 def _dispatch(name, x):
@@ -212,37 +247,38 @@ def _dispatch(name, x):
 
 def sbr_matmul(x, a, b, weight, bias):
     """``relu(x*a + b)`` through a 1x1 stride-1 conv, plus ``bias``.
-    x: ``(N, C, H, W)`` channels-last; a, b: ``(C,)`` fp32; weight:
-    ``(Cout, C, 1, 1)``; bias: ``(Cout,)``.  Returns ``(N, Cout, H, W)``
-    channels-last."""
+    x: ``(N, C, H, W)`` channels-last, fp32 or bf16; a, b: ``(C,)``
+    fp32; weight: ``(Cout, C, 1, 1)`` in x's dtype; bias: ``(Cout,)``
+    fp32.  Returns ``(N, Cout, H, W)`` channels-last in x's dtype."""
     if not _dispatch("sbr_matmul", x):
         return _sbr_matmul_plain(x, a, b, weight, bias)
     _check("sbr_matmul", x, a, b, weight, bias, (1, 1))
     n, c, h, w = x.shape
     out = _launch("sbr_matmul", (n * h * w, c, weight.shape[0]), x, a, b,
                   weight, bias)
-    sbr_matmul.launches += 1
+    count_launch(sbr_matmul, x.dtype)
     return out
 
 
 def sbr_conv3x3(x, a, b, weight, bias):
     """The 3x3 stride-1 pad-1 conv of ``relu(x*a + b)`` (zero padding
     after the activation), plus ``bias``.  x: ``(N, C, H, W)``
-    channels-last; weight: ``(Cout, C, 3, 3)``, channels-last on CUDA
-    (its storage is the OHWI order the kernel reads).  Returns
-    ``(N, Cout, H, W)`` channels-last."""
+    channels-last, fp32 or bf16; weight: ``(Cout, C, 3, 3)`` in x's
+    dtype, channels-last on CUDA (its storage is the OHWI order the
+    kernel reads); a, b, bias fp32.  Returns ``(N, Cout, H, W)``
+    channels-last in x's dtype."""
     if not _dispatch("sbr_conv3x3", x):
         return _sbr_conv3x3_plain(x, a, b, weight, bias)
     _check("sbr_conv3x3", x, a, b, weight, bias, (3, 3))
     n, c, h, w = x.shape
     out = _launch("sbr_conv3x3", (n, h, w, c, weight.shape[0]), x, a, b,
                   weight, bias)
-    sbr_conv3x3.launches += 1
+    count_launch(sbr_conv3x3, x.dtype)
     return out
 
 
-sbr_matmul.launches = 0
-sbr_conv3x3.launches = 0
+sbr_matmul.launches = sbr_matmul.launches_bf16 = 0
+sbr_conv3x3.launches = sbr_conv3x3.launches_bf16 = 0
 
 
 def recompute_vjp(plain, args, needs, cotangents):

@@ -23,9 +23,11 @@ What one step does is the JAX step body's:
   bf16 mean cast to fp32; the gradients reach the fp32 masters through
   the casts, and the update is fp32.  The moving statistics take the
   forward's bf16 update, cast back to fp32 (JAX folds them in bf16 over
-  the bf16-cast buffers too).  The hand-written kernels B1-B4 are fp32
-  only: a net whose fused layers would launch them (on a CUDA device)
-  raises ``MXNetError`` when the step is built.
+  the bf16-cast buffers too).  On a CUDA device a net's fused layers
+  launch the bf16 forms of the hand-written kernels B1-B4 on those
+  copies (``ops.fused_conv``, ``ops.fused_chain``), as the JAX step runs
+  its Pallas kernels in bf16; on the CPU their plain versions run the
+  same arithmetic.
 * ``grad_accum=k``: the batch is split into k microbatches along axis 0
   (it must divide evenly); each microbatch's forward sees the moving
   statistics the previous one left (they compound), the loss is the
@@ -75,26 +77,6 @@ def _check_placement(owner, block, device):
     if where and where != {device}:
         raise MXNetError(f"{owner} on {device}, but the block's parameters "
                          f"are on {sorted(map(str, where))}")
-
-
-def _check_bf16(owner, block, device):
-    """Refuse bf16 compute for a net whose fused layers launch the fp32
-    kernels on ``device``: there is no quiet route to their plain
-    composition on a CUDA tensor."""
-    if device.type != "cuda":
-        return
-    from ..gluon.nn import FusedBNReLUConv2D, FusedBottleneckChain
-    live = [name for name, m in block.named_modules()
-            if isinstance(m, (FusedBNReLUConv2D, FusedBottleneckChain))
-            and m.fused]
-    if live:
-        raise MXNetError(
-            f"{owner}(bf16_compute=True): the hand-written kernels B1-B4 "
-            "(sbr_matmul, sbr_conv3x3, chain_stats, chain_emit) have no "
-            f"bf16 form yet, and {len(live)} fused layers of this net "
-            f"launch them on {device} (the first: {live[0]!r}); train "
-            "such a net in fp32, or build it with fuse_block=False "
-            "(fuse_bn_relu=True keeps BNReLU)")
 
 
 def _half(t):
@@ -151,8 +133,6 @@ class TrainStep:
                              f"{grad_accum!r}")
         self.device = resolve_device(device)
         self._bf16 = bool(bf16_compute)
-        if self._bf16:
-            _check_bf16("TrainStep", block, self.device)
         _check_placement("TrainStep", block, self.device)
         self._block = block
         self._loss_fn = loss_fn
@@ -274,8 +254,6 @@ class EvalStep:
                              ("autotune", bool(autotune))))
         self.device = resolve_device(device)
         self._bf16 = bool(bf16_compute)
-        if self._bf16:
-            _check_bf16("EvalStep", block, self.device)
         _check_placement("EvalStep", block, self.device)
         self._block = block
 

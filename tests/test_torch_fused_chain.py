@@ -451,3 +451,156 @@ def test_3xtf32_split_keeps_the_stress_case_shifted_variance():
     shifted, raw = errs
     assert shifted <= STRESS_VAR_RTOL, errs
     assert raw > 0.05, errs
+
+
+# ---- the bf16 form.  On the CPU the op runs the kernels' plain versions
+# in the Pallas kernel's bf16 arithmetic: conv2 of the bf16-rounded
+# activation summed in fp32 and never rounded (pass 1 reduces it, pass 2
+# applies BN2 to it), relu(c2*a2 + b2) rounded to bf16 before conv3,
+# conv3 summed in fp32 plus b3, rounded once.  The JAX op's XLA
+# composition (impl="xla", and the port's ``_chain_plain``, the
+# backward's source) rounds c2 to bf16 instead.  Tolerances, in bf16
+# ulps of max |out| (BF16_ULPS): against ``pallas_interpret`` observed 0;
+# the statistics, rounded to bf16 as the JAX op returns them, equal.
+# The kernel form and the XLA form differ by that c2 rounding: 1 bf16
+# ulp of max, 0.40-0.56% of max at these shapes (BF16_FORMS_APART is
+# the least of it that ``test_bf16_kernel_form_is_not_the_xla_form``
+# asks for).  Gradients within BF16_GRAD_RTOL of each gradient's max:
+# against ``pallas_interpret`` every one equal but b3's (1.0-2.1%: the
+# frameworks reduce the bf16 cotangent in other precisions); against
+# ``xla``, whose forward and so its cotangent differs, <= 2.1%.
+BF16_ULPS, BF16_GRAD_RTOL, BF16_FORMS_APART = 2, 4e-2, 2.5e-3
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at magnitude ``v`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+def _f32(a):
+    return np.asarray(a).astype(np.float32)
+
+
+def _bf16_args(seed, shape):
+    """``_args`` rounded to bf16: (JAX arrays, the port's tensors)."""
+    args = _args(seed, *shape)
+    t = [torch.from_numpy(a).bfloat16() for a in args]
+    t[0] = t[0].permute(0, 3, 1, 2)
+    return [jnp.asarray(a, jnp.bfloat16) for a in args], t
+
+
+def _err_ulps(got, ref):
+    """max |got - ref| in bf16 ulps of max |ref| (NHWC ref)."""
+    r = _f32(ref)
+    return np.abs(_nhwc(got.float()) - r).max() / bf16_ulp(np.abs(r).max())
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_op_matches_jax_kernel(train, shape):
+    """The op's bf16 output and its four statistics against the JAX op
+    through its Pallas kernels in interpret mode."""
+    jargs, targs = _bf16_args(sum(shape), shape)
+    ref = _fused_bottleneck_chain(*jargs, layout="NHWC", eps=1e-5,
+                                  impl="pallas_interpret", is_train=train)
+    before = (chain_stats.launches, chain_emit.launches)
+    got = fused_bottleneck_chain(*targs, eps=1e-5, train_stats=train)
+    assert got[0].dtype == torch.bfloat16
+    assert got[0].is_contiguous(memory_format=CL)
+    assert _err_ulps(got[0], ref[0]) <= BF16_ULPS
+    for g, r in zip(got[1:], ref[1:]):
+        r = _f32(r)
+        err = np.abs(g.bfloat16().float().numpy() - r).max()
+        assert err <= bf16_ulp(np.abs(r).max()), err
+    assert (chain_stats.launches, chain_emit.launches) == before
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_plain_versions_match_pallas_kernels(shape):
+    """``_chain_stats_plain`` and ``_chain_emit_plain`` against the JAX
+    package's two Pallas kernels in interpret mode on the same bf16 c1
+    and weights and fp32 affines: BN2's mean and variance from the sums
+    (fp32, other summation orders: STAT_TOL), and pass 2's bf16 output."""
+    from incubator_mxnet_tpu.ops import fused_chain as jfc
+    n, h, w, c, cm, co = shape
+    jargs, targs = _bf16_args(200 + sum(shape), shape)
+    rs = np.random.RandomState(sum(shape))
+    vec = [(rs.rand(k) + 0.5).astype(np.float32) if i % 2 == 0 else
+           (rs.randn(k) * 0.1).astype(np.float32)
+           for i, k in enumerate((c, c, cm, cm))]
+    shift = (rs.randn(cm) * 0.1).astype(np.float32)
+    a1, b1, a2, b2 = vec
+    b3 = _f32(jargs[11])
+    mean2, var2 = jfc._pallas_chain_stats(
+        jargs[0], jnp.asarray(a1), jnp.asarray(b1), jfc._merge_w2(jargs[5]),
+        jnp.asarray(shift), cm, co, True)
+    out = jfc._pallas_chain_emit(
+        jargs[0], jnp.asarray(a1), jnp.asarray(b1), jfc._merge_w2(jargs[5]),
+        jnp.asarray(a2), jnp.asarray(b2),
+        jargs[10].reshape(co, cm).T, jnp.asarray(b3), True)
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(a1=a1, b1=b1, a2=a2, b2=b2, shift=shift, b3=b3).items()}
+    x, w2, w3 = targs[0], targs[5], targs[10]
+    sums, sqs = fused_chain._chain_stats_plain(x, t["a1"], t["b1"], w2,
+                                               t["shift"])
+    count = n * h * w
+    mean_d = sums / count
+    np.testing.assert_allclose((mean_d + t["shift"]).numpy(), _f32(mean2),
+                               **STAT_TOL)
+    np.testing.assert_allclose(
+        torch.clamp(sqs / count - mean_d.square(), min=0).numpy(),
+        _f32(var2), **STAT_TOL)
+    got = fused_chain._chain_emit_plain(x, t["a1"], t["b1"], w2, t["a2"],
+                                        t["b2"], w3, t["b3"])
+    assert got.dtype == torch.bfloat16
+    assert _err_ulps(got, out) <= BF16_ULPS
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_bf16_kernel_form_is_not_the_xla_form(train):
+    """The op's forward (the kernels' form: c2 kept in fp32) equals the
+    Pallas kernel's, and ``_chain_plain`` (the XLA composition: c2
+    rounded to bf16) the JAX XLA form's, each within one bf16 ulp of max;
+    the two forms lie BF16_FORMS_APART of max or more apart, so neither
+    can quietly take the other's place."""
+    jargs, targs = _bf16_args(sum(SHAPES[0]), SHAPES[0])
+    ref = {impl: _fused_bottleneck_chain(*jargs, layout="NHWC", eps=1e-5,
+                                         impl=impl, is_train=train)[0]
+           for impl in ("pallas_interpret", "xla")}
+    kernel_form = fused_bottleneck_chain(*targs, eps=1e-5,
+                                         train_stats=train)[0]
+    xla_form = fused_chain._chain_plain(*targs[:11], targs[11].float(),
+                                        1e-5, False, train)[0]
+    assert _err_ulps(kernel_form, ref["pallas_interpret"]) <= 1
+    assert _err_ulps(xla_form, ref["xla"]) <= 1
+    for got, other in ((kernel_form, ref["xla"]),
+                       (xla_form, ref["pallas_interpret"])):
+        r = _f32(other)
+        apart = np.abs(_nhwc(got.float()) - r).max() / np.abs(r).max()
+        assert apart >= BF16_FORMS_APART, apart
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_gradients_match_jax(impl, shape):
+    """The autograd.Function's bf16 gradients of c1, both BNs' gamma and
+    beta, w2, w3 and b3 under the chain-gradient loss (on the outputs
+    cast to fp32) against jax.grad of the JAX op in bf16."""
+    jargs, targs = _bf16_args(100 + sum(shape), shape)
+
+    def jloss(*a):
+        out = _fused_bottleneck_chain(*a, layout="NHWC", eps=1e-5,
+                                      impl=impl)
+        return _loss([o.astype(jnp.float32) for o in out])
+
+    ref = jax.grad(jloss, argnums=DIFF)(*jargs)
+    for i in DIFF:
+        targs[i] = targs[i].detach().requires_grad_(True)
+    out = fused_bottleneck_chain(*targs, eps=1e-5)
+    _loss([o.float() for o in out]).backward()
+    for i, r in zip(DIFF, ref):
+        g = targs[i].grad.float()
+        got = _nhwc(g) if i == 0 else g.numpy()
+        r = _f32(r)
+        err = np.abs(got - r).max()
+        assert err <= BF16_GRAD_RTOL * np.abs(r).max(), (i, err)

@@ -16,6 +16,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import jax
 import jax.numpy as jnp
 import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu.gluon import nn as jax_nn
@@ -375,3 +376,107 @@ def test_3xtf32_split_holds_the_conv1x1_gate_and_one_pass_does_not(shape):
     split, once = err("3xtf32"), err("tf32")
     assert split * SPLIT_MARGIN <= CONV_RTOL, (split, once)
     assert once > CONV_RTOL, (split, once)
+
+
+# ---- the bf16 form.  On the CPU the op runs the kernels' plain
+# versions in their bf16 arithmetic (the Pallas kernels': relu(x*a + b)
+# in fp32 rounded to bf16, bf16 products summed in fp32, plus the fp32
+# bias, rounded to bf16 once); the reference is the JAX op on the same
+# bf16 inputs.  Tolerances, in bf16 ulps of max |out| (BF16_ULPS): against
+# ``pallas_interpret`` observed 0 (1x1) and <= 0.125 (3x3: fp32 sums in
+# another order); against ``xla`` 0 without a bias and 1.0 with one (the
+# XLA composition rounds the conv to bf16, then adds the bf16 bias and
+# rounds again).  The statistics, rounded to bf16 as the JAX op returns
+# them, are equal.  Gradients (autograd of the plain composition, as the
+# JAX op's custom_vjp is jax.vjp of its XLA composition) within
+# BF16_GRAD_RTOL of each gradient's max |value|: against
+# ``pallas_interpret`` every gradient is equal but the bias's (1.2-1.9%:
+# the two frameworks reduce the bf16 cotangent over N*H*W in other
+# precisions), against ``xla`` (whose forward, and so its cotangent,
+# differs by the bias rounding) <= 1.6%.
+BF16_ULPS, BF16_GRAD_RTOL = 2, 4e-2
+BF16_CASES = [((1, 1), (2, 8, 8, 16, 32)), ((3, 3), (2, 9, 10, 16, 24))]
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at magnitude ``v`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+def _jbf(a):
+    return None if a is None else jnp.asarray(a, jnp.bfloat16)
+
+
+def _tbf(a):
+    return None if a is None else torch.from_numpy(a).bfloat16()
+
+
+def _f32(a):
+    return np.asarray(a).astype(np.float32)
+
+
+def _jax_bf16(args, kern, impl, train):
+    return _fused_bn_relu_conv(
+        *args, kernel=kern, stride=(1, 1), pad=(kern[0] // 2,) * 2,
+        layout="NHWC", eps=1e-5, impl=impl, is_train=train)
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("kern,shape", BF16_CASES)
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_op_matches_jax_op(impl, kern, shape, bias, train):
+    args = _op_args(sum(shape) + bias, *shape, kern, bias)
+    ref = _jax_bf16([_jbf(a) for a in args], kern, impl, train)
+    before = (sbr_matmul.launches, sbr_conv3x3.launches)
+    t = [_tbf(a) for a in args]
+    got = fused_bn_relu_conv(t[0].permute(0, 3, 1, 2), *t[1:], kernel=kern,
+                             eps=1e-5, train_stats=train,
+                             output_mean_var=True)
+    assert got[0].dtype == torch.bfloat16
+    assert got[0].is_contiguous(memory_format=CL)
+    r = _f32(ref[0])
+    err = np.abs(_nhwc(got[0].float()) - r).max()
+    assert err <= BF16_ULPS * bf16_ulp(np.abs(r).max()), err
+    for g, r in zip(got[1:], ref[1:]):       # the statistics
+        np.testing.assert_array_equal(g.bfloat16().float().numpy(), _f32(r))
+    assert (sbr_matmul.launches, sbr_conv3x3.launches) == before
+
+
+@pytest.mark.parametrize("impl", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("kern,shape", BF16_CASES)
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_gradients_match_jax(impl, kern, shape, train):
+    """Gradients of x, gamma, beta, the weight and the bias under a loss
+    of the output and both statistics, against jax.grad of the JAX op,
+    all in bf16."""
+    args = _op_args(7 + sum(shape), *shape, kern, True)
+    jargs = [_jbf(a) for a in args]
+    diff = (0, 1, 2, 5, 6)
+
+    def loss(out, mean, var):
+        return (out.astype(jnp.float32) ** 2).sum() + \
+            mean.astype(jnp.float32).sum() + 2 * var.astype(jnp.float32).sum()
+
+    def jloss(*d):
+        a = list(jargs)
+        for i, v in zip(diff, d):
+            a[i] = v
+        return loss(*_jax_bf16(a, kern, impl, train))
+
+    ref = jax.grad(jloss, argnums=tuple(range(len(diff))))(
+        *[jargs[i] for i in diff])
+    t = [_tbf(a) for a in args]
+    t[0] = t[0].permute(0, 3, 1, 2)
+    for i in diff:
+        t[i].requires_grad_(True)
+    out, mean, var = fused_bn_relu_conv(*t, kernel=kern, eps=1e-5,
+                                        train_stats=train,
+                                        output_mean_var=True)
+    ((out.float() ** 2).sum() + mean.sum() + 2 * var.sum()).backward()
+    for i, r in zip(diff, ref):
+        g = t[i].grad.float()
+        got = _nhwc(g) if i == 0 else g.numpy()
+        r = _f32(r)
+        err = np.abs(got - r).max()
+        assert err <= BF16_GRAD_RTOL * np.abs(r).max(), (i, err)

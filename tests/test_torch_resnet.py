@@ -190,7 +190,6 @@ def test_seeded_init_is_deterministic_and_order_one():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mxu_stem=True), "not ported"),
     (dict(fuse_block="chain2"), "unknown fuse_block"),
     (dict(version=2), "version 2"),
     (dict(pretrained=True), "pretrained")])

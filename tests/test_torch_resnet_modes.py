@@ -6,7 +6,9 @@ Each mode's JAX net (``fuse_bn_relu=True`` on bottlenecks; ``"1x1"``;
 ``"chain34"`` on a net whose last stage has a 256-channel 3x3, so it
 holds both chain and ``BNReLU`` bottlenecks; ``"chain"`` on basic blocks
 with the 7x7 stem, where it means ``fuse_bn_relu=True`` and the stem's
-BN + ReLU is a ``BNReLU`` too) gets seeded numpy weights and BN
+BN + ReLU is a ``BNReLU`` too; ``mxu_stem=True``, whose JAX stem is the
+space-to-depth ``MXUStemConv2D`` and the port's the plain strided conv
+with the same parameters and names) gets seeded numpy weights and BN
 statistics, which move to the port through
 ``convert.resnet_params_from_numpy``.  The JAX nets are built once per
 module (their first forward compiles their ops, ~10-25 s each).
@@ -41,6 +43,8 @@ MODES = {
     "chain34": (SPEC34, dict(THUMB, fuse_block="chain34"), SHAPE),
     "basic_chain": (18, dict(THUMB, thumbnail=False, fuse_block="chain",
                              fuse_bn_relu=True), (2, 32, 32, 3)),
+    "mxu_stem": (18, dict(THUMB, thumbnail=False, mxu_stem=True),
+                 (2, 32, 32, 3)),
 }
 
 

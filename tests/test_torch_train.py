@@ -443,30 +443,101 @@ def test_train_step_refuses_what_is_not_ported(kw, match):
         TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(), device="cpu", **kw)
 
 
+def _wrapper_args(name, dtype=torch.bfloat16, weight_dtype=None):
+    """Tiny arguments of kernel wrapper ``name``'s contract check: data
+    and weights in ``dtype`` (the weights in ``weight_dtype`` if
+    given), the per-channel vectors fp32."""
+    from incubator_mxnet_tpu_torch.ops import fused_chain as fch
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fcv
+    wd = dtype if weight_dtype is None else weight_dtype
+
+    def grid(*shape, dt):
+        return torch.zeros(shape, dtype=dt).contiguous(memory_format=CL)
+    x, v = grid(2, 8, 5, 7, dt=dtype), torch.zeros(8)
+    if name in ("sbr_matmul", "sbr_conv3x3"):
+        k = (1, 1) if name == "sbr_matmul" else (3, 3)
+        return lambda: fcv._check(name, x, v, v, grid(4, 8, *k, dt=wd),
+                                  torch.zeros(4), k)
+    w2, w3 = grid(6, 8, 3, 3, dt=wd), grid(16, 6, 1, 1, dt=wd)
+    vec = {"a1": (v, 8), "b1": (v, 8)}
+    if name == "chain_stats":
+        return lambda: fch._check(name, x, dict(vec, shift=(
+            torch.zeros(6), 6)), w2)
+    return lambda: fch._check(name, x, dict(
+        vec, a2=(torch.zeros(6), 6), b2=(torch.zeros(6), 6),
+        b3=(torch.zeros(16), 16)), w2, w3)
+
+
+@pytest.mark.parametrize("name", ["sbr_matmul", "sbr_conv3x3",
+                                  "chain_stats", "chain_emit"])
+def test_bf16_kernel_contract(name):
+    """The wrappers of B1-B4 take bf16 data and weights with fp32
+    per-channel vectors (the bf16 form) as they take fp32 ones, and
+    refuse fp16, and bf16 data with fp32 weights (no silent cast)."""
+    _wrapper_args(name)()
+    _wrapper_args(name, torch.float32)()
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        _wrapper_args(name, torch.float16)()
+    with pytest.raises(MXNetError, match="in torch.bfloat16"):
+        _wrapper_args(name, weight_dtype=torch.float32)()
+
+
 @pytest.mark.parametrize("mode", ["chain", True, "1x1", "chain34"])
-def test_bf16_refuses_a_live_kernel_net_on_the_card(monkeypatch, mode):
+def test_bf16_steps_build_a_live_kernel_net_on_the_card(monkeypatch, mode):
     """bf16_compute on a CUDA device with a net whose fused layers
-    launch the fp32 kernels B1-B4 raises when the step is built, naming
-    the missing bf16 form; a net that launches none (fuse_block=False,
-    with BNReLU) passes that check (and here fails only on its CPU
-    parameters), and on the CPU the plain versions run bf16."""
+    launch the kernels B1-B4: TrainStep and EvalStep build (their bf16
+    forms run there; the device is mocked, and so is the placement check
+    the CPU parameters would fail), the net's fused layers are live, and
+    on the CPU the plain versions run bf16."""
+    import incubator_mxnet_tpu_torch.parallel.step as step_mod
+    from incubator_mxnet_tpu_torch.gluon.nn import (FusedBNReLUConv2D,
+                                                    FusedBottleneckChain)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     spec = ([1, 1, 1, 1], [16, 32, 64, 128, 1024])
     net = ResNetV1(BottleneckV1, *spec, fuse_block=mode, device="cpu",
                    **NET)
-    for build in (lambda: TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(),
-                                    bf16_compute=True, device="cuda:0"),
-                  lambda: EvalStep(net, bf16_compute=True, device="cuda:0")):
-        with pytest.raises(MXNetError, match="no bf16 form"):
-            build()
-    plain = ResNetV1(BottleneckV1, *spec, fuse_bn_relu=True, device="cpu",
-                     **NET)
+    live = [m for m in net.modules()
+            if isinstance(m, (FusedBNReLUConv2D, FusedBottleneckChain))
+            and m.fused]
+    assert live
     with pytest.raises(MXNetError, match="parameters are on"):
-        TrainStep(plain, SoftmaxCrossEntropyLoss(), SGD(),
-                  bf16_compute=True, device="cuda:0")
+        TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(), bf16_compute=True,
+                  device="cuda:0")
+    monkeypatch.setattr(step_mod, "_check_placement", lambda *a: None)
+    step = TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(),
+                     bf16_compute=True, device="cuda:0")
+    evaluate = EvalStep(net, bf16_compute=True, device="cuda:0")
+    assert step.device == evaluate.device == torch.device("cuda:0")
     out = EvalStep(net, bf16_compute=True, device="cpu")(_batch()[0])
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+
+
+def test_bf16_layers_are_fused():
+    """A fused layer or chain built in bf16 is inside the kernels'
+    envelope (``fused``) as in fp32; the chain's envelope is twice as
+    wide in bf16 (its y2 tile takes half the shared memory); fp16 is
+    outside both."""
+    from incubator_mxnet_tpu_torch.gluon.nn import (FusedBNReLUConv2D,
+                                                    FusedBottleneckChain)
+    from incubator_mxnet_tpu_torch.ops.fused_chain import (
+        CHAIN_MAX_CM, CHAIN_MAX_CM_BF16)
+
+    def layers(dtype, cm=8):
+        first = FusedBNReLUConv2D(cm, 3, 1, 1, layout="NHWC", in_channels=8,
+                                  device="cpu", dtype=dtype)
+        second = FusedBNReLUConv2D(16, 1, 1, 0, layout="NHWC",
+                                   in_channels=cm, use_bias=True,
+                                   device="cpu", dtype=dtype)
+        return first, second, FusedBottleneckChain(first, second)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        assert all(m.fused for m in layers(dtype))
+    assert not any(m.fused for m in layers(torch.float16))
+    assert CHAIN_MAX_CM_BF16 == 2 * CHAIN_MAX_CM
+    assert layers(torch.bfloat16, CHAIN_MAX_CM_BF16)[2].fused
+    assert not layers(torch.bfloat16, CHAIN_MAX_CM_BF16 + 1)[2].fused
+    assert not layers(torch.float32, CHAIN_MAX_CM + 1)[2].fused
 
 
 def test_train_step_device_rules(monkeypatch):

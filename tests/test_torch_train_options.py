@@ -54,7 +54,8 @@ from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
 from incubator_mxnet_tpu_torch.numerics import LossScaler, program_overflow
 from incubator_mxnet_tpu_torch.optimizer import SGD
 from incubator_mxnet_tpu_torch.parallel import EvalStep, TrainStep
-from torch_port_helpers import jax_resnet_of, jax_train, port_state
+from torch_port_helpers import (change_errs as _change_errs, jax_resnet_of,
+                                jax_train, port_state)
 
 SPEC = ([1, 2, 1, 1], [16, 32, 64, 128, 256])
 NET = dict(classes=10, thumbnail=True, layout="NHWC", fuse_bn_relu=True)
@@ -102,17 +103,6 @@ def _worst(got, ref, keys):
     largest magnitude (plus STEP_ATOL)."""
     return max((got[k] - ref[k]).abs().max().item() /
                (ref[k].abs().max().item() + STEP_ATOL) for k in keys)
-
-
-def _change_errs(got, ref, init, keys):
-    """Per key, how far ``got`` moved from ``init`` other than ``ref``
-    did: ``|d_got - d_ref| / |d_ref|`` over the changes ``d`` (L2)."""
-    errs = {}
-    for k in keys:
-        d_got, d_ref = got[k] - init[k], ref[k] - init[k]
-        errs[k] = ((d_got - d_ref).double().norm() /
-                   d_ref.double().norm()).item()
-    return errs
 
 
 def _close_state(got, ref):

@@ -142,3 +142,16 @@ def split_tf32(t):
     """``(big, small)``, both TF32, with big + small = t to ~2^-22."""
     big = tf32_rna(t)
     return big, tf32_rna(t - big)
+
+
+def change_errs(got, ref, init, keys):
+    """Per key, how far ``got`` moved from ``init`` other than ``ref``
+    did: ``|d_got - d_ref| / |d_ref|`` over the changes ``d`` (L2) —
+    the per-leaf measure of a bf16 training step against a reference
+    step (tests/test_torch_train_options.py, test_torch_train_modes.py)."""
+    errs = {}
+    for k in keys:
+        d_got, d_ref = got[k] - init[k], ref[k] - init[k]
+        errs[k] = ((d_got - d_ref).double().norm() /
+                   d_ref.double().norm()).item()
+    return errs

@@ -74,9 +74,8 @@ ROUND = "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;\n"
 DIAG = {
     "cvt": [(ROUND, '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : '
                     '"=r"(r) : "f"(x));\n  return r;\n')],
-    "nopro": [("const float y = fmaxf(\n"
-               "            fmaf(__uint_as_float(r[q]), ca[kk][q / 2], "
-               "cb[kk][q / 2]), 0.f);",
+    "nopro": [("const float y = fmaxf(fmaf(__uint_as_float(r[q]), a[0], "
+               "b[0]), 0.f);",
                "const float y = __uint_as_float(r[q]);"),
               ("split(in[i][q % 2] ? y : 0.f, ab[q], asm_[q]);",
                "split(y, ab[q], asm_[q]);")],
@@ -95,7 +94,8 @@ DIAG = {
                  "        if (m < M && nc < N && M < 0) {\n")],
     "nosync": [("    __syncthreads();             // step s split; slot (s-1) "
                 "free\n", "")],
-    "noldsm": [("      ldsm4(abig, ab + off);\n      ldsm4(asml, as + off);\n",
+    "noldsm": [("      ldsm4(abig, ab + off);\n"
+                "      if constexpr (T::TF32) ldsm4(asml, as + off);\n",
                 "      for (int q = 0; q < 4; ++q)\n"
                 "        abig[q] = asml[q] = off + q;\n"),
                ("  ldsm4(r, big + off);\n  ldsm4(q, small + off);\n",
@@ -112,15 +112,15 @@ extern "C" int mx_chain_emit_tile(const void* x, const void* a1,
     const void* b1, const void* w2, const void* a2, const void* b2,
     const void* w3, const void* b3, void* out, int n, int h, int w, int c,
     int cm, int co, void* stream, int tile) {
-  const tc::Conv p{static_cast<const float*>(x),
-                   static_cast<const float*>(a1),
-                   static_cast<const float*>(b1),
-                   static_cast<const float*>(w2), n * h * w, c, cm, h, w,
-                   c % 4 == 0 && aligned16(x) && aligned16(w2)};
-  const Emit e{static_cast<const float*>(a2), static_cast<const float*>(b2),
-               static_cast<const float*>(w3), static_cast<const float*>(b3),
-               static_cast<float*>(out), co, cm % 4 == 0 && aligned16(w3),
-               co % 4 == 0 && aligned16(out) && aligned16(b3)};
+  const tc::Conv<float> p =
+      tc::conv_operands<float>(x, a1, b1, w2, n, h, w, c, cm);
+  const Emit<float> e{static_cast<const float*>(a2),
+                      static_cast<const float*>(b2),
+                      static_cast<const float*>(w3),
+                      static_cast<const float*>(b3),
+                      static_cast<float*>(out), co,
+                      cm % 4 == 0 && aligned16(w3),
+                      co % 4 == 0 && aligned16(out) && aligned16(b3)};
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem,
@@ -141,7 +141,8 @@ extern "C" int mx_chain_stats_tile(const void* x, const void* a1,
     const void* b1, const void* w2, const void* shift, void* part,
     void* sum, void* sq, int n, int h, int w, int c, int cm, void* stream,
     int tile) {
-  const tc::Conv p = operands(x, a1, b1, w2, n, h, w, c, cm);
+  const tc::Conv<float> p =
+      tc::conv_operands<float>(x, a1, b1, w2, n, h, w, c, cm);
   const TileSums epi{static_cast<const float*>(shift),
                      static_cast<float*>(part)};
   auto s = static_cast<cudaStream_t>(stream);
@@ -158,8 +159,9 @@ extern "C" int mx_chain_stats_tile(const void* x, const void* a1,
 extern "C" int mx_sbr_conv3x3_tile(const void* x, const void* a,
     const void* b, const void* w, const void* bias, void* out, int n, int h,
     int w_, int c, int cout, void* stream, int tile) {
-  const tc::Conv p = operands(x, a, b, w, n, h, w_, c, cout);
-  const StoreBias epi = epilogue(bias, out, cout);
+  const tc::Conv<float> p =
+      tc::conv_operands<float>(x, a, b, w, n, h, w_, c, cout);
+  const StoreBias<float> epi = epilogue<float>(bias, out, cout);
   auto s = static_cast<cudaStream_t>(stream);
   switch (tile) {
 @CASES@
@@ -174,8 +176,8 @@ extern "C" int mx_sbr_conv3x3_tile(const void* x, const void* a,
 extern "C" int mx_sbr_matmul_tile(const void* x, const void* a,
     const void* b, const void* w, const void* bias, void* out, int m, int k,
     int cout, void* stream, int tile) {
-  const tc::Gemm1x1 p = operands(x, a, b, w, m, k, cout);
-  const StoreBias epi = epilogue(bias, out, cout);
+  const tc::Gemm1x1<float> p = operands<float>(x, a, b, w, m, k, cout);
+  const StoreBias<float> epi = epilogue<float>(bias, out, cout);
   auto s = static_cast<cudaStream_t>(stream);
   switch (tile) {
 @CASES@
