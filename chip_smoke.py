@@ -12,7 +12,15 @@ launch counts set to 0 just before it and read just after:
 * the continuous-batching generation server at GPT-2-small widths
   (vocab 50257, dim 768, 12 heads, 12 layers, max_len 1024), checked
   against the same weights on the CPU, then the same traffic under
-  torch.profiler;
+  torch.profiler; then its paged stages (phase ``generation_stages``):
+  the prefix cache, on by default, with speculative decoding (K=4, a
+  2-layer self-draft) over 8 prompts that share a 512-token lead, then
+  the same 8 again (terminal prefix hits, no prefill) and one sampled
+  prompt twice, held token for token against the plain engine; and
+  chunked prefill (256-token chunks, with spec) of one 1000-token prompt
+  with 7 short ones submitted after it, whose first tokens must come
+  first, held against the chunk-only engine and, for the two shortest,
+  the CPU;
 * ResNet-50 v1 inference (He et al. 2016, 224x224, 1000 classes;
   ``fuse_block=True``, channels-last) through ``ModelServer`` over
   ``BlockPredictor`` at ``max_batch=32``: a burst of 224 images from 8
@@ -229,6 +237,15 @@ GPT2_SMALL = dict(vocab=50257, dim=768, heads=12, depth=12, max_len=1024)
 PROMPT_LENGTHS = (9, 16, 33, 100, 250, 511, 700, 1000)
 SAMPLED_LEN, SAMPLED_TWICE = 40, 2  # one sampled prompt, submitted twice
 MAX_NEW = 16
+# generation_stages: 8 greedy prompts sharing a 512-token lead (32 full
+# blocks) with distinct tails, each tail leaving a partial block; the
+# prefix engine runs spec with a 2-layer self-draft
+STAGES_LEAD, STAGES_NEW = 512, 32
+STAGES_TAILS = (40, 75, 110, 150, 190, 230, 265, 300)
+STAGES_SPEC_K, STAGES_DRAFT = 4, 2
+# the chunked engine: one long prompt, then 7 short ones just after it
+CHUNK, CHUNK_LONG, CHUNK_NEW = 256, 1000, 16
+CHUNK_SHORTS = (20, 35, 50, 70, 90, 110, 130)
 
 # ---- rtc user kernels (compiled through mx.rtc.CudaModule) and their
 # plain mx.nd versions.  --fmad=false: no multiply-add contraction, so a
@@ -2187,6 +2204,185 @@ def phase_reference(net, greedy, outs):
              f"{[o.tolist() for o in outs[:2]]}")
 
 
+def _stage_engine(net, device="cuda:0", **knobs):
+    from incubator_mxnet_tpu_torch.serving import GenerationEngine
+    eng = GenerationEngine(net, device=device, slots=8,
+                           max_len=GPT2_SMALL["max_len"], kv_layout="paged",
+                           block_size=16, **knobs)
+    eng.warmup()
+    return eng
+
+
+def _timed(eng, prompts, **kw):
+    """Submit every prompt at once.  Returns (outputs, the futures,
+    wall seconds)."""
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, **kw) for p in prompts]
+    outs = [f.result(timeout=600) for f in futs]
+    return outs, futs, time.perf_counter() - t0
+
+
+def _ttft(futs):
+    """Each request's time to first token, in seconds."""
+    return [f.first_token_at - f.submitted_at for f in futs]
+
+
+def _same(got, want, what):
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not np.array_equal(g, w)]
+    if bad or len(got) != len(want):
+        fail(f"{what}: requests {bad} differ: "
+             f"{[got[i].tolist() for i in bad]} vs "
+             f"{[want[i].tolist() for i in bad]}")
+
+
+def phase_generation_stages(net, seed):
+    """The generation engine's paged stages at GPT-2-small width on the
+    card: (1) the prefix cache (on by default) with spec decoding (K=4,
+    a 2-layer draft) over 8 prompts sharing a 512-token lead, submitted
+    at once, then the same 8 again (terminal hits), then one sampled
+    prompt twice; (2) chunked prefill (256) with spec, one 1000-token
+    prompt and 7 short ones just after it.  Greedy outputs are held
+    against the plain / chunk-only engine on the card, the two shortest
+    chunked requests against the port's CPU chunked engine."""
+    from incubator_mxnet_tpu_torch.gluon.decoder import TransformerDecoder
+    from incubator_mxnet_tpu_torch.parallel import flash_attention
+    from incubator_mxnet_tpu_torch.serving import GenerationEngine
+    rs = np.random.RandomState(seed + 11)
+    vocab, depth = GPT2_SMALL["vocab"], GPT2_SMALL["depth"]
+    lead = rs.randint(0, vocab, STAGES_LEAD).tolist()
+    greedy = [lead + rs.randint(0, vocab, n).tolist() for n in STAGES_TAILS]
+    sampled = rs.randint(0, vocab, SAMPLED_LEN).tolist()
+    new = dict(max_new_tokens=STAGES_NEW)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain = _stage_engine(net, prefix_cache=False, spec_k=0)
+    try:
+        ref, _, plain_wall = _timed(plain, greedy, **new)
+    finally:
+        plain.close()
+    eng = _stage_engine(net, spec_k=STAGES_SPEC_K,
+                        spec_draft_layers=STAGES_DRAFT)
+    try:
+        _zero_counts()
+        cold, futs, wall_cold = _timed(eng, greedy, **new)
+        ttft_cold = _ttft(futs)
+        st1, fl1 = eng.stats(), flash_attention.launches
+        warm, futs, wall_warm = _timed(eng, greedy, **new)
+        ttft_warm = _ttft(futs)
+        st2, fl2 = eng.stats(), flash_attention.launches
+        pair = [eng.submit(sampled, temperature=0.8, seed=123, **new)
+                .result(timeout=600) for _ in range(2)]
+        st, launches = eng.stats(), flash_attention.launches
+        live, free, info = eng.live_blocks(), eng.free_blocks(), \
+            eng.kv_info()
+    finally:
+        eng.close()
+    _same(cold, ref, "prefix+spec engine vs the plain engine (cold)")
+    _same(warm, ref, "prefix+spec engine vs the plain engine (hits)")
+    for o in cold + pair:
+        if o.shape != (STAGES_NEW,) or o.min() < 0 or o.max() >= vocab:
+            fail(f"bad generated tokens {o!r}")
+    if st2["prefix_hit"] - st1["prefix_hit"] != len(greedy) or \
+            fl2 != fl1 or st2["prefills"] != st1["prefills"]:
+        fail(f"the {len(greedy)} repeats made "
+             f"{st2['prefix_hit'] - st1['prefix_hit']} prefix hits, "
+             f"{st2['prefills'] - st1['prefills']} prefills and "
+             f"{fl2 - fl1} flash launches")
+    if launches != depth * st["prefills"]:
+        fail(f"flash launched {launches} times for {st['prefills']} "
+             f"prefills of {depth} layers")
+    if st["spec_proposed"] <= 0 or st["spec_proposed"] != \
+            st["spec_accepted"] + st["spec_rollback"]:
+        fail(f"spec counters inconsistent: {st}")
+    if not np.array_equal(pair[0], pair[1]):
+        fail(f"sampled request (seed 123) differed between submissions: "
+             f"{pair[0].tolist()} vs {pair[1].tolist()}")
+    held = info["prefix"]["blocks"] + info["prefix"]["terminals"]
+    if live != held or live + free != info["num_blocks"] - 1 or \
+            info["reserved"]:
+        fail(f"pool not back to the cache's holdings ({held} blocks): "
+             f"{info}")
+    peak_prefix = torch.cuda.max_memory_allocated() / 1e9
+
+    # (2) chunked prefill with spec: the long prompt first
+    long = rs.randint(0, vocab, CHUNK_LONG).tolist()
+    shorts = [rs.randint(0, vocab, n).tolist() for n in CHUNK_SHORTS]
+    chunk_new = dict(max_new_tokens=CHUNK_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    ck = _stage_engine(net, prefill_chunk=CHUNK, spec_k=STAGES_SPEC_K,
+                       spec_draft_layers=STAGES_DRAFT)
+    try:
+        _zero_counts()
+        outs, futs, wall_chunk = _timed(ck, [long] + shorts, **chunk_new)
+        ck_stats, ck_flash = ck.stats(), flash_attention.launches
+    finally:
+        ck.close()
+    peak_chunk = torch.cuda.max_memory_allocated() / 1e9
+    ttft_chunk = _ttft(futs)
+    last_short = max(f.first_token_at for f in futs[1:])
+    if last_short >= futs[0].first_token_at:
+        fail(f"chunked prefill did not interleave: the long prompt's "
+             f"first token came {futs[0].first_token_at - last_short} s "
+             f"before the last short one's")
+    only = _stage_engine(net, prefill_chunk=CHUNK, spec_k=0)
+    try:
+        want, _, _ = _timed(only, [long] + shorts, **chunk_new)
+    finally:
+        only.close()
+    _same(outs, want, "chunk+spec engine vs the chunk-only engine")
+    cpu = TransformerDecoder(device="cpu", **GPT2_SMALL)
+    cpu.load_state_dict(net.state_dict())
+    two = sorted(range(len(shorts)), key=lambda i: len(shorts[i]))[:2]
+    with GenerationEngine(cpu, device="cpu", slots=2,
+                          max_len=GPT2_SMALL["max_len"], block_size=16,
+                          prefill_chunk=CHUNK) as ceng:
+        cref = [ceng.submit(shorts[i], **chunk_new).result(timeout=600)
+                for i in two]
+    _same([outs[1 + i] for i in two], cref,
+          "chunked engine, card vs CPU (two shortest requests)")
+    med = lambda v: float(np.median(v))   # noqa: E731
+    tokens = lambda o: int(sum(x.size for x in o))   # noqa: E731
+    emit({"phase": "generation_stages",
+          "prefix_spec": {
+              "requests": len(greedy), "lead_tokens": STAGES_LEAD,
+              "tails": list(STAGES_TAILS), "new_tokens": STAGES_NEW,
+              "spec_k": STAGES_SPEC_K, "draft_layers": STAGES_DRAFT,
+              "cold_partial_tokens_per_s": tokens(cold) / wall_cold,
+              "terminal_tokens_per_s": tokens(warm) / wall_warm,
+              "plain_tokens_per_s": tokens(ref) / plain_wall,
+              "ttft_cold_s": ttft_cold[0],
+              "ttft_partial_s_median": med(ttft_cold[1:]),
+              "ttft_terminal_s_median": med(ttft_warm),
+              "ttft_cold_burst_s": ttft_cold, "ttft_terminal_s": ttft_warm,
+              "prefills": st["prefills"], "flash_launches": launches,
+              "prefix_hit": st["prefix_hit"],
+              "prefix_miss": st["prefix_miss"],
+              "prefix_saved_tokens": st["prefix_saved_tokens"],
+              "kv_cow": st["kv_cow"],
+              "spec_proposed": st["spec_proposed"],
+              "spec_accepted": st["spec_accepted"],
+              "spec_rollback": st["spec_rollback"],
+              "spec_accept_rate": st["spec_accepted"] / st["spec_proposed"],
+              "decodes": st["decodes"], "prefill_s": st["prefill_s"],
+              "decode_s": st["decode_s"], "live_blocks": live,
+              "cache_holds": info["prefix"], "peak_mem_gb": peak_prefix},
+          "chunked_spec": {
+              "long_tokens": CHUNK_LONG, "shorts": list(CHUNK_SHORTS),
+              "chunk": CHUNK, "new_tokens": CHUNK_NEW,
+              "tokens_per_s": tokens(outs) / wall_chunk,
+              "ttft_long_s": ttft_chunk[0], "ttft_short_s": ttft_chunk[1:],
+              "prefill_chunks": ck_stats["prefill_chunks"],
+              "prefills": ck_stats["prefills"], "flash_launches": ck_flash,
+              "spec_accept_rate": ck_stats["spec_accepted"]
+              / max(ck_stats["spec_proposed"], 1),
+              "decodes": ck_stats["decodes"],
+              "prefill_s": ck_stats["prefill_s"],
+              "decode_s": ck_stats["decode_s"],
+              "cpu_equal_requests": [len(shorts[i]) for i in two],
+              "peak_mem_gb": peak_chunk}})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2210,6 +2406,7 @@ def main():
              f"weighs the buckets {prefill_buckets()}")
     kernels[0]["launches"] = launches
     phase_profile(net, greedy, sampled)
+    phase_generation_stages(net, args.seed)
     del net
     torch.cuda.empty_cache()
     conv_launches, rnet, server, images = phase_resnet_serving(args.seed)

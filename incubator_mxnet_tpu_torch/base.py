@@ -24,9 +24,9 @@ mx_real_t = np.float32
 
 _TORCH_OF = {"float32": torch.float32, "float64": torch.float64,
              "float16": torch.float16, "uint8": torch.uint8,
-             "int8": torch.int8, "int16": torch.int16,
-             "int32": torch.int32, "int64": torch.int64,
-             "bool": torch.bool}
+             "uint32": torch.uint32, "int8": torch.int8,
+             "int16": torch.int16, "int32": torch.int32,
+             "int64": torch.int64, "bool": torch.bool}
 _NUMPY_OF = {v: np.dtype(k) for k, v in _TORCH_OF.items()}
 
 

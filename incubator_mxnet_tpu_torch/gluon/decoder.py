@@ -2,7 +2,7 @@
 ``incubator_mxnet_tpu/gluon/decoder.py`` (the model half of the
 generation engine).
 
-One parameter set, four call modes (the JAX module's docstring has the
+One parameter set, seven call modes (the JAX module's docstring has the
 full contract):
 
 * ``forward(tokens)`` — full causal LM forward ``[B, T] -> [B, T, V]``;
@@ -17,11 +17,27 @@ full contract):
   — the same over the paged block pool; each slot's blocks are gathered
   into the contiguous view first, so paged equals dense bit for bit.
 
-The speculative-decoding and chunked-prefill modes
-(``decode_step_paged_partial``/``_window``, ``prefill_chunk``) come
-with those stages.  Parameters are created on ``device`` (``None`` ->
-``cuda:0``, raising without a GPU) and drawn from ``seed`` on the CPU,
-so a seed gives the same weights on every device.
+* ``decode_step_paged_partial(..., layers)`` — the self-draft of
+  speculative decoding: ``decode_step_paged`` through the first
+  ``layers`` layers only, the shared ``ln_f``/``head`` reading the
+  truncated hidden state.
+* ``decode_step_paged_window(tokens, positions, k_pool, v_pool,
+  page_table)`` — the batched verify pass: a ``[slots, W]`` window of
+  consecutive tokens at full depth, each layer gathering the pool once
+  and substituting the window's own K/V rows at their absolute columns,
+  so row ``t`` sees what the ``t``-th sequential ``decode_step_paged``
+  would see.
+* ``prefill_chunk(tokens, start, length, k_pool, v_pool, page_table)``
+  — one bounded chunk of a prompt: ``C`` tokens attend the slot's
+  filled cache rows (``< start``) plus causally within the chunk.  Its
+  attention is einsums in ``forward_step``'s order, not the flash
+  kernel, so a chunked engine is its own numerics configuration.
+
+These three attentions are einsums outside any kernel, as in the JAX
+package: fp32 scores, ``-inf`` masks, one softmax over the context and
+window columns together.  Parameters are created on ``device``
+(``None`` -> ``cuda:0``, raising without a GPU) and drawn from ``seed``
+on the CPU, so a seed gives the same weights on every device.
 """
 from __future__ import annotations
 
@@ -95,8 +111,19 @@ class DecoderLayer(nn.Module):
         writes k_new/v_new at ``positions`` after this call, which equals
         write-then-attend since the current token enters the softmax
         explicitly."""
+        return self._step(x, self.qkv(self.ln1(x)), k_ctx, v_ctx, positions)
+
+    def _step(self, x, qkv, k_ctx, v_ctx, positions):
+        """``forward_step`` from its QKV projection on."""
+        o, k_new, v_new = self._attend(qkv, k_ctx, v_ctx, positions)
+        x = x + self.proj(o)
+        x = x + self._mlp(self.ln2(x))
+        return x, k_new, v_new
+
+    def _attend(self, qkv, k_ctx, v_ctx, positions):
+        """The decode step's attention: qkv [S, 3D] -> (o [S, D], k_new
+        [S, H, hd], v_new [S, H, hd])."""
         h, d = self._heads, self._dim // self._heads
-        qkv = self.qkv(self.ln1(x))
         s, m = k_ctx.shape[0], k_ctx.shape[2]
         q, k_new, v_new = qkv.split(self._dim, dim=-1)
         q = q.reshape(s, h, d).float()
@@ -108,17 +135,84 @@ class DecoderLayer(nn.Module):
         # a gathered paged view give bit-identical results
         k_ctx, v_ctx = k_ctx.contiguous(), v_ctx.contiguous()
         scores = torch.einsum("shd,shmd->shm", q, k_ctx.float()) * scale
-        idx = torch.arange(m, device=x.device)
+        idx = torch.arange(m, device=qkv.device)
         valid = idx[None, None, :] < positions.long()[:, None, None]
         scores = scores.masked_fill(~valid, float("-inf"))
         self_s = (q * k_new.float()).sum(-1, keepdim=True) * scale
         w = torch.softmax(torch.cat([scores, self_s], dim=-1), dim=-1)
         o = torch.einsum("shm,shmd->shd", w[..., :m], v_ctx.float()) \
             + w[..., m:] * v_new.float()
-        o = o.reshape(s, h * d).to(qkv.dtype)
+        return o.reshape(s, h * d).to(qkv.dtype), k_new, v_new
+
+    def forward_window(self, x, k_ctx, v_ctx, start):
+        """One prefill chunk: x [1, C, D] (prompt tokens at absolute
+        positions ``start..start+C-1``), k_ctx/v_ctx [1, H, M, hd] (the
+        slot's gathered rows; rows < ``start`` are valid), ``start`` an
+        int.  Queries attend the context rows plus causally within the
+        chunk; the chunk's own K/V are returned for the caller to
+        scatter.  Returns (out [1, C, D], k_new [1, H, C, hd], v_new
+        [1, H, C, hd]); rows past the prompt are padding garbage."""
+        b, c, _ = x.shape
+        h, d = self._heads, self._dim // self._heads
+        m = k_ctx.shape[2]
+        qkv = self.qkv(self.ln1(x))
+        q, k_new, v_new = qkv.split(self._dim, dim=-1)
+
+        def split(a):
+            return a.reshape(b, c, h, d).transpose(1, 2)
+
+        q, k_new, v_new = split(q).float(), split(k_new), split(v_new)
+        scale = 1.0 / math.sqrt(d)
+        s_ctx = torch.einsum("bhcd,bhmd->bhcm", q, k_ctx.float()) * scale
+        ctx_ok = torch.arange(m, device=x.device) < int(start)
+        s_ctx = s_ctx.masked_fill(~ctx_ok, float("-inf"))
+        s_win = torch.einsum("bhcd,bhjd->bhcj", q, k_new.float()) * scale
+        causal = torch.ones((c, c), dtype=torch.bool,
+                            device=x.device).tril()
+        s_win = s_win.masked_fill(~causal, float("-inf"))
+        w = torch.softmax(torch.cat([s_ctx, s_win], dim=-1), dim=-1)
+        o = torch.einsum("bhcm,bhmd->bhcd", w[..., :m], v_ctx.float()) \
+            + torch.einsum("bhcj,bhjd->bhcd", w[..., m:], v_new.float())
+        o = o.transpose(1, 2).reshape(b, c, h * d).to(qkv.dtype)
         x = x + self.proj(o)
         x = x + self._mlp(self.ln2(x))
         return x, k_new, v_new
+
+    def forward_step_window(self, x, k_ctx, v_ctx, positions):
+        """Batched speculative-verify window: x [S, W, D] (row t at
+        absolute position ``positions + t``), k_ctx/v_ctx [S, H, M, hd]
+        (gathered rows; rows < ``positions`` are valid), positions [S].
+        The window's own K/V rows are substituted into the context at
+        their absolute columns, so row t sees the rows the t-th
+        sequential ``forward_step`` would see; columns from
+        ``positions + t`` on carry weight 0.  Each row then runs
+        ``forward_step``'s own code on ``[S, D]`` operands: a GEMM over
+        ``S * W`` rows may sum in another order than one over ``S``
+        rows, and the row-count-invariant form keeps row t equal to the
+        t-th sequential step bit for bit.  Returns (out [S, W, D], k_new
+        [S, W, H, hd], v_new [S, W, H, hd])."""
+        s, w, _ = x.shape
+        h, d = self._heads, self._dim // self._heads
+        m = k_ctx.shape[2]
+        rows = [x[:, t].contiguous() for t in range(w)]
+        qkvs = [self.qkv(self.ln1(r)) for r in rows]
+        k_new = torch.stack([q.split(self._dim, dim=-1)[1].reshape(s, h, d)
+                             for q in qkvs], 1)
+        v_new = torch.stack([q.split(self._dim, dim=-1)[2].reshape(s, h, d)
+                             for q in qkvs], 1)
+        posw = positions.long()[:, None] + \
+            torch.arange(w, device=x.device)[None, :]
+        # JAX drops the rows past the gathered depth; clamped here, they
+        # land in the last column, which only rows past the cache depth
+        # read (rows whose tokens the engine never keeps)
+        cols = posw.clamp(max=m - 1)
+        sidx = torch.arange(s, device=x.device)[:, None].expand(s, w)
+        k_sub, v_sub = k_ctx.contiguous().clone(), v_ctx.contiguous().clone()
+        k_sub[sidx, :, cols] = k_new.to(k_sub.dtype)
+        v_sub[sidx, :, cols] = v_new.to(v_sub.dtype)
+        out = [self._step(rows[t], qkvs[t], k_sub, v_sub, posw[:, t])[0]
+               for t in range(w)]
+        return torch.stack(out, 1), k_new, v_new
 
 
 class TransformerDecoder(nn.Module):
@@ -231,6 +325,75 @@ class TransformerDecoder(nn.Module):
             vs.append(vn)
         logits = self.head(self.ln_f(x))
         return logits, torch.stack(ks, 1), torch.stack(vs, 1)
+
+    def decode_step_paged_partial(self, tokens, positions, k_pool,
+                                  v_pool, page_table, layers):
+        """``decode_step_paged`` through the first ``layers`` (an int,
+        ``1 <= layers <= depth``) decoder layers only — the self-draft
+        of speculative decoding; ``ln_f``/``head`` read the truncated
+        hidden state.  Returns (logits [S, V], k_new [S, layers, H, hd],
+        v_new [S, layers, H, hd]) for the layer-sliced
+        ``write_token_rows``."""
+        x = self.embed(tokens) + self._pos_rows(positions)
+        ks, vs = [], []
+        for li, layer in enumerate(self.layers[:layers]):
+            kc = gather_layer_blocks(k_pool, page_table, li)
+            vc = gather_layer_blocks(v_pool, page_table, li)
+            x, kn, vn = layer.forward_step(x, kc, vc, positions)
+            ks.append(kn)
+            vs.append(vn)
+        logits = self.head(self.ln_f(x))
+        return logits, torch.stack(ks, 1), torch.stack(vs, 1)
+
+    def decode_step_paged_window(self, tokens, positions, k_pool, v_pool,
+                                 page_table):
+        """Batched verify pass of speculative decoding: tokens [S, W]
+        (row t at absolute position ``positions + t``), positions [S]
+        (pool rows below it are valid), pools / page_table as in
+        ``decode_step_paged``.  Returns (logits [S, W, V], k_new [S, W,
+        layers, H, hd], v_new [S, W, layers, H, hd]); the caller writes
+        row j with ``write_token_rows`` at ``positions + j``."""
+        w = tokens.shape[1]
+        pos = positions.long()[:, None] + \
+            torch.arange(w, device=tokens.device)[None, :]
+        x = self.embed(tokens) + self._pos_rows(pos)
+        ks, vs = [], []
+        for li, layer in enumerate(self.layers):
+            kc = gather_layer_blocks(k_pool, page_table, li)
+            vc = gather_layer_blocks(v_pool, page_table, li)
+            x, kn, vn = layer.forward_step_window(x, kc, vc, positions)
+            ks.append(kn)
+            vs.append(vn)
+        # row by row, in the decode step's [S, D] shape (see
+        # forward_step_window)
+        logits = torch.stack([self.head(self.ln_f(x[:, t].contiguous()))
+                              for t in range(w)], 1)
+        return logits, torch.stack(ks, 2), torch.stack(vs, 2)
+
+    def prefill_chunk(self, tokens, start, length, k_pool, v_pool,
+                      page_table):
+        """One bounded prompt chunk of ONE slot: tokens [1, C] (prompt
+        rows ``start..start+C-1``, zero past ``length``), start / length
+        ints, pools as in ``decode_step_paged``, page_table [1,
+        max_blocks] (rows < ``start`` are filled).  Returns (logits
+        [1, V] at prompt position ``length - 1``, meaningful only on the
+        chunk that holds it, k [layers, H, C, hd], v [layers, H, C, hd])
+        for whole-block scatter."""
+        c = tokens.shape[1]
+        start = int(start)
+        x = self.embed(tokens) + self._pos_rows(
+            start + torch.arange(c, device=tokens.device))[None]
+        ks, vs = [], []
+        for li, layer in enumerate(self.layers):
+            kc = gather_layer_blocks(k_pool, page_table, li)
+            vc = gather_layer_blocks(v_pool, page_table, li)
+            x, k, v = layer.forward_window(x, kc, vc, start)
+            ks.append(k[0])
+            vs.append(v[0])
+        hidden = self.ln_f(x)
+        last = min(max(int(length) - 1 - start, 0), c - 1)
+        logits = self.head(hidden[0, last][None])
+        return logits, torch.stack(ks, 0), torch.stack(vs, 0)
 
     def decode_step_paged(self, tokens, positions, k_pool, v_pool,
                           page_table):

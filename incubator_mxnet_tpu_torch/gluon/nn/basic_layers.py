@@ -109,12 +109,15 @@ class BatchNorm(nn.Module):
     that dtype: the statistics rounded to it, then ``(x - mean) * inv *
     gamma + beta``.
 
-    ``scale=False`` fixes gamma at 1 (the reference's ``fix_gamma``).
-    ``gamma``/``beta`` are parameters, ``running_mean``/``running_var``
-    buffers, under the reference's names."""
+    ``scale=False`` fixes gamma at 1 (the reference's ``fix_gamma``) and
+    ``center=False`` keeps beta at the value it holds (0 as the model zoo
+    initialises it): neither then requires a gradient, so no step
+    updates or decays it (the JAX layer's ``grad_req="null"``).
+    ``gamma``/``beta`` are parameters either way, ``running_mean``/
+    ``running_var`` buffers, under the reference's names."""
 
     def __init__(self, in_channels, epsilon=1e-5, momentum=0.9, scale=True,
-                 device=None, dtype=torch.float32):
+                 center=True, device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         if in_channels < 1:
@@ -127,6 +130,8 @@ class BatchNorm(nn.Module):
                                               dtype=dtype))
         self.beta = nn.Parameter(torch.empty((in_channels,), device=device,
                                              dtype=dtype))
+        self.gamma.requires_grad_(bool(scale))
+        self.beta.requires_grad_(bool(center))
         self.register_buffer("running_mean", torch.empty(
             (in_channels,), device=device, dtype=dtype))
         self.register_buffer("running_var", torch.empty(

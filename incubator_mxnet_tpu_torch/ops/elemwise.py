@@ -51,8 +51,42 @@ class _Abs(torch.autograd.Function):
 abs_ = _Abs.apply
 
 
-def _cbrt(x):
-    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+class _Cbrt(torch.autograd.Function):
+    """Cube root with ``lax.cbrt``'s derivative ``g / (3 y^2)``: +inf at
+    0, where autograd of ``sign(x) |x|^(1/3)`` gives NaN."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * ((1.0 / 3.0) * torch.reciprocal(y * y))
+
+
+_cbrt = _Cbrt.apply
+
+
+def _sign(x):
+    """``torch.sign`` with NaN kept, as ``jnp.sign`` keeps it (torch
+    gives 0); no gradient, as the JAX op has none."""
+    return torch.where(torch.isnan(x), x.detach(), torch.sign(x))
+
+
+def _hypot(a, b):
+    """``jnp.hypot``'s composition, so that autograd gives JAX's
+    gradient: 0.5 for each input at (0, 0), where ``torch.hypot``'s is
+    NaN."""
+    a, b = abs_(a), abs_(b)
+    inf = torch.isposinf(a) | torch.isposinf(b)
+    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+    zero = hi == 0
+    r = lo / torch.where(zero, torch.ones_like(hi), hi)
+    out = torch.where(zero, hi, hi * torch.sqrt(1 + torch.square(r)))
+    return torch.where(inf, torch.full_like(out, float("inf")), out)
 
 
 # ---------------------------------------------------------------- unary math
@@ -60,7 +94,7 @@ _UNARY = {
     "negative": torch.neg,
     "reciprocal": torch.reciprocal,
     "abs": abs_,
-    "sign": torch.sign,
+    "sign": _sign,
     "round": torch.round,
     "rint": torch.round,
     "ceil": torch.ceil,
@@ -117,8 +151,18 @@ register_op("make_loss", lambda x: x, aliases=("MakeLoss",))
 
 @register_op("Cast", aliases=("cast",))
 def _cast(x, *, dtype):
-    """Differentiable cast: the gradient is cast back to x's dtype."""
-    return x.to(torch_dtype(dtype))
+    """Differentiable cast: the gradient is cast back to x's dtype.  A
+    float cast to an integer dtype saturates as XLA's does: NaN to 0,
+    values past the range to its ends (torch wraps them)."""
+    dt = torch_dtype(dtype)
+    if not x.is_floating_point() or dt.is_floating_point or \
+            dt == torch.bool:
+        return x.to(dt)
+    info = torch.iinfo(dt)
+    out = x.to(dt)
+    out = torch.where(x >= info.max, info.max, out)
+    out = torch.where(x <= info.min, info.min, out)
+    return torch.where(torch.isnan(x), 0, out)
 
 
 @register_op("amp_cast")
@@ -129,7 +173,11 @@ def _amp_cast(x, *, dtype):
 @register_op("clip")
 def _clip(x, *, a_min, a_max):
     """``jnp.clip``'s form, maximum then minimum, so the gradient at
-    ``a_min`` or ``a_max`` is 0.5 as there (``torch.clamp`` gives 1)."""
+    ``a_min`` or ``a_max`` is 0.5 as there (``torch.clamp`` gives 1).
+    An integer array with a float bound computes in float32, as JAX
+    promotes it."""
+    for bound in (a_min, a_max):
+        x, _ = _sc(x, bound)
     if a_min is not None:
         x = torch.maximum(x, _full(x, a_min))
     if a_max is not None:
@@ -149,7 +197,7 @@ _BINARY = {
     "broadcast_power": torch.pow,
     "broadcast_maximum": torch.maximum,
     "broadcast_minimum": torch.minimum,
-    "broadcast_hypot": torch.hypot,
+    "broadcast_hypot": _hypot,
 }
 _BINARY_ALIASES = {
     "broadcast_add": ("elemwise_add", "_plus", "_add", "_Plus"),
@@ -204,7 +252,7 @@ _SCALAR = {
     "_rpower_scalar": lambda x, s: torch.pow(s, x),
     "_maximum_scalar": lambda x, s: torch.maximum(x, _full(x, s)),
     "_minimum_scalar": lambda x, s: torch.minimum(x, _full(x, s)),
-    "_hypot_scalar": lambda x, s: torch.hypot(x, _full(x, s)),
+    "_hypot_scalar": lambda x, s: _hypot(x, _full(x, s)),
 }
 for _name, _f in _SCALAR.items():
     register_op(_name,

@@ -58,7 +58,10 @@ def _one_hot(indices, *, depth, on_value=1.0, off_value=0.0,
 def _topk(x, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
           dtype="float32"):
     ax = axis % x.ndim if axis is not None else x.ndim - 1
-    vals, idx = torch.topk(x, k, dim=ax, largest=not is_ascend, sorted=True)
+    # a stable sort breaks ties by the lower index, as jax.lax.top_k
+    # does (torch.topk leaves their order open)
+    vals, idx = torch.sort(x, dim=ax, descending=not is_ascend, stable=True)
+    vals, idx = vals.narrow(ax, 0, k), idx.narrow(ax, 0, k)
     idx = idx.to(torch_dtype(dtype))
     if ret_typ == "value":
         return vals

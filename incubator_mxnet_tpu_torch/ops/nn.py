@@ -52,15 +52,20 @@ def _activation(data, *, act_type):
     return _ACTIVATIONS[act_type](data)
 
 
+def _float(x):
+    """An integer array as float32, as JAX promotes it."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
 @register_op("softmax")
 def _softmax(data, *, axis=-1, temperature=None):
-    x = data / temperature if temperature else data
+    x = data / temperature if temperature else _float(data)
     return torch.softmax(x, dim=axis)
 
 
 @register_op("log_softmax")
 def _log_softmax(data, *, axis=-1, temperature=None):
-    x = data / temperature if temperature else data
+    x = data / temperature if temperature else _float(data)
     return torch.log_softmax(x, dim=axis)
 
 

@@ -4,9 +4,9 @@ src/operator/tensor/broadcast_reduce_op_*.cc).
 
 MXNet axis semantics: ``axis`` may be None (all), an int or a tuple,
 with ``keepdims`` and ``exclude``.  Output dtypes are the JAX
-package's: sum and prod keep an integer input's dtype (bool sums to
-int32), mean of an integer array is float32, argmax/argmin return
-float32 indices.
+package's: sum and prod widen bool, int8 and int16 to int32 and uint8
+to uint32 and keep any other integer dtype, mean of an integer array is
+float32, argmax/argmin return float32 indices.
 """
 from __future__ import annotations
 
@@ -31,9 +31,14 @@ def _norm_axis(axis, ndim, exclude=False):
     return ax
 
 
+_WIDENED = {torch.bool: torch.int32, torch.int8: torch.int32,
+            torch.int16: torch.int32, torch.uint8: torch.uint32}
+
+
 def _int_result(x):
-    """The dtype an integer sum or product keeps (bool -> int32)."""
-    return torch.int32 if x.dtype == torch.bool else x.dtype
+    """The dtype of an integer sum or product, widened as JAX widens it
+    (torch accumulates in int64; the cast wraps as an int32 sum does)."""
+    return _WIDENED.get(x.dtype, x.dtype)
 
 
 def _sum(x, ax, keepdims):

@@ -17,11 +17,17 @@ stand-in for buffer donation — and return it for symmetry.
 Indices are never checked on the device: CUDA indexing out of range
 raises a device-side assert that poisons the process's CUDA context.
 Callers keep them in range as the engine's invariants do (block ids
-< num_blocks, positions clamped to ``max_len - 1``).  The speculative
-decoding extensions of ``write_token_rows`` (``limit``/``layers``) come
-with that stage.
+< num_blocks, positions clamped to ``max_len - 1``).
+
+``write_token_rows`` has the JAX helper's two extensions for the
+speculative-decoding window: ``limit`` routes rows at positions
+``>= limit`` to the null block (a verify window may overshoot the cache
+depth near retirement), and ``layers`` writes only the first ``layers``
+layer rows (the truncated-layer self-draft owns no deeper rows).
 """
 from __future__ import annotations
+
+import torch
 
 __all__ = ["gather_layer_blocks", "scatter_prompt_blocks",
            "write_token_rows", "copy_blocks"]
@@ -49,15 +55,24 @@ def scatter_prompt_blocks(pool, kv, block_ids, block_size):
     return pool
 
 
-def write_token_rows(pool, page_table, positions, rows, block_size):
+def write_token_rows(pool, page_table, positions, rows, block_size,
+                     limit=None, layers=None):
     """Append one K/V row per slot, in place: rows [S, layers, H, hd]
     land at physical block ``page_table[s, pos // bs]``, offset
     ``pos % bs``.  Inactive slots (page-table row all null) write into
-    block 0."""
+    block 0.  ``limit``: positions >= limit write into block 0 too.
+    ``layers``: rows hold only the first ``layers`` pool layers; deeper
+    layers keep their bytes."""
     pos = positions.long()
+    if limit is not None:
+        # index with the clamped position (keeps the page-table gather
+        # in range) but route the overshoot to the null block
+        pos = pos.clamp(max=limit - 1)
     blk = page_table.long().gather(1, (pos // block_size)[:, None])[:, 0]
+    if limit is not None:
+        blk = torch.where(positions.long() < limit, blk, 0)
     off = pos % block_size
-    pool[blk, :, :, off] = rows.to(pool.dtype)
+    pool[blk, :layers, :, off] = rows.to(pool.dtype)
     return pool
 
 

@@ -175,8 +175,10 @@ class TrainStep:
         for xi, yi in zip(x.chunk(accum), y.chunk(accum)):
             with torch.enable_grad():
                 lv = self._forward_loss(xi, yi)
+                # a block with nothing to train (every BatchNorm gamma
+                # and beta fixed) still steps its moving statistics
                 g = torch.autograd.grad(lv if scaler is None else lv * scale,
-                                        self._params)
+                                        self._params) if self._params else []
             if scaler is not None:
                 g = [gi / scale for gi in g]
             lv = lv.detach()

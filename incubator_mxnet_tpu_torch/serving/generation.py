@@ -11,9 +11,28 @@ layout) and an iteration-level continuous-batching scheduler.
   never run dry mid-decode; a request that does not fit stays queued.
   ``kv_layout="dense"`` keeps the per-slot ``[slots, layers, heads,
   max_len, head_dim]`` cache, and greedy output is identical on both.
+* **Prefix cache** (``MXNET_GEN_PREFIX_CACHE``, on by default; paged
+  only) — full prompt blocks are chain-hashed and refcounted.  A
+  repeated prompt runs no prefill: its first token is drawn from the
+  cached last-position logits.  A prompt that shares warm full blocks
+  maps them instead of writing them again, and the first decode write
+  into a shared block copies it first (copy-on-write).  Under memory
+  pressure admission evicts cold entries, least recently used first.
+* **Speculative decoding** (``MXNET_GEN_SPEC_K=K``, off by default;
+  paged only) — the first ``spec_draft_layers`` layers propose K tokens
+  per slot, one full-depth window verifies all K+1 rows, and the host
+  keeps the accepted prefix; rejected rows stay behind ``cache_len``
+  and the next window writes over them.  Greedy acceptance compares
+  tokens; sampled acceptance is the rejection rule ``u q(d) <= p(d)``
+  with a residual resample.
+* **Chunked prefill** (``MXNET_GEN_PREFILL_CHUNK=C``, off by default;
+  paged only) — prompts prefill in block-aligned C-token chunks, one
+  chunk of one slot per scheduler pass between decode iterations, so a
+  long prompt cannot hold the loop.  A partial prefix hit adopts the
+  warm lead blocks and fills only the tail.
 * **Scheduler** — one background thread runs the loop: admit queued
-  requests into free slots (one prefill each, bucketed to a power of
-  two), then one decode step over the full slot capacity, then retire
+  requests into free slots, one prefill chunk when chunking, then one
+  decode step (or spec window) over the full slot capacity, then retire
   (EOS / max tokens / max_len / deadline) and reuse the slot at once.
   Futures stream tokens as they are produced.
 
@@ -22,18 +41,22 @@ What differs from the JAX engine:
 * PyTorch runs eagerly, so there are no compiled program families; the
   pools are updated in place (the stand-in for buffer donation) on the
   scheduler thread's current CUDA stream, and each iteration reads back
-  only its O(slots) sampled token ids.
+  only its O(slots) sampled token ids (O(slots * (K+1)) with spec).
 * Sampling.  The JAX engine draws with ``fold_in(PRNGKey(seed), pos)``,
   whose bits torch cannot reproduce.  Greedy decoding (temperature 0)
   is token-identical to the JAX engine; a sampled draw here is
   Gumbel-max with noise from a CPU ``torch.Generator`` seeded by a
   splitmix64 mix of (seed as uint32, absolute position), so within the
   port it stays a pure function of (seed, position) whatever the slot,
-  batch composition or device.
-* Not ported yet: the prefix cache (default off here; ``prefix_cache=
-  True`` raises), speculative decoding, chunked prefill, and the
-  telemetry / tracing / request-journal hooks.  ``stats()`` returns the
-  engine's own counters instead.
+  batch composition or device.  Speculative decoding's extra draws XOR
+  the JAX engine's role salts into the seed.
+* The spec window runs each of its rows in the decode step's own shapes
+  (``gluon.decoder.DecoderLayer.forward_step_window``), so speculative
+  greedy output equals the plain engine's bit for bit on any device.
+* Admission reserves the spec window's overshoot too (``worst_blocks``
+  counts it; the JAX admission leaves it out).
+* Not ported yet: the telemetry / tracing / request-journal hooks.
+  ``stats()`` returns the engine's own counters instead.
 * Prompt token ids are validated at submit against the decoder's
   vocabulary: an out-of-range id would be a device-side assert on CUDA.
 """
@@ -42,6 +65,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import hashlib
 import logging
 import queue as _queuemod
 import threading
@@ -77,6 +101,25 @@ def gen_blocks():
     return max(0, get_env("MXNET_GEN_BLOCKS", 0, int))
 
 
+def gen_spec_k():
+    """MXNET_GEN_SPEC_K: draft tokens proposed per decode iteration
+    (paged layout only); 0 turns speculative decoding off."""
+    return max(0, get_env("MXNET_GEN_SPEC_K", 0, int))
+
+
+def gen_prefill_chunk():
+    """MXNET_GEN_PREFILL_CHUNK: prefill chunk length in tokens (paged
+    layout only, rounded down to whole blocks, at least one); 0 turns
+    chunked prefill off."""
+    return max(0, get_env("MXNET_GEN_PREFILL_CHUNK", 0, int))
+
+
+def prefix_cache_enabled():
+    """MXNET_GEN_PREFIX_CACHE=0 turns the prefix cache off, whatever an
+    engine asks for."""
+    return get_env("MXNET_GEN_PREFIX_CACHE", 1, int) != 0
+
+
 def _default_buckets(max_len):
     """Pow-2 chain 16, 32, ... capped at max_len (always >= one
     bucket)."""
@@ -97,14 +140,17 @@ class GenerationConfig:
     """Validated knobs of the generation engine: ``slots``,
     ``max_len``, ``prefill_buckets``, ``kv_layout`` (``"paged"`` or
     ``"dense"``), ``block_size``, ``num_blocks``, ``prefix_cache``
-    (must stay off until the prefix cache is ported), ``eos_id``,
+    (``None``: on for the paged layout), ``spec_k`` /
+    ``spec_draft_layers``, ``prefill_chunk``, ``eos_id``,
     ``max_new_tokens``, ``queue_depth``, ``timeout_ms`` — the JAX
-    package's ``GenerationConfig`` documents each."""
+    package's ``GenerationConfig`` documents each.  The dense layout
+    turns the three paged stages off."""
 
     def __init__(self, slots=None, max_len=None, prefill_buckets=None,
                  eos_id=None, max_new_tokens=64, queue_depth=256,
                  timeout_ms=None, kv_layout="paged", block_size=None,
-                 num_blocks=None, prefix_cache=False):
+                 num_blocks=None, prefix_cache=None, spec_k=None,
+                 spec_draft_layers=1, prefill_chunk=None):
         self.slots = int(slots if slots is not None else gen_slots())
         if self.slots < 1:
             raise MXNetError(
@@ -136,11 +182,7 @@ class GenerationConfig:
             raise MXNetError(
                 f"kv_layout must be 'paged' or 'dense', got {kv_layout!r}")
         self.kv_layout = kv_layout
-        if prefix_cache:
-            raise MXNetError(
-                "prefix_cache=True: the prefix cache is not ported to "
-                "incubator_mxnet_tpu_torch yet (the JAX engine has it)")
-        self.prefix_cache = False
+        self.spec_draft_layers = max(1, int(spec_draft_layers))
         if kv_layout == "paged":
             # the default block size clamps to the smallest bucket so
             # prefill always scatters whole blocks (both are pow-2)
@@ -155,7 +197,8 @@ class GenerationConfig:
                     f"bucket ({buckets[0]}) — prefill could not scatter "
                     "whole blocks")
             self.max_blocks = _ceil_div(self.max_len, bs)
-            # auto: dense-equivalent capacity + one spare + the null block
+            # auto: dense-equivalent capacity + one block of
+            # copy-on-write headroom + the null block
             auto = self.slots * self.max_blocks + 2
             self.num_blocks = int(num_blocks) if num_blocks else \
                 (gen_blocks() or auto)
@@ -163,10 +206,28 @@ class GenerationConfig:
                 raise MXNetError(
                     f"num_blocks ({self.num_blocks}) must be >= 2 "
                     "(the null block + at least one allocatable block)")
+            # the env switch wins over the knob
+            self.prefix_cache = bool(
+                True if prefix_cache is None else prefix_cache) \
+                and prefix_cache_enabled()
+            self.spec_k = max(0, int(spec_k) if spec_k is not None
+                              else gen_spec_k())
+            chunk = max(0, int(prefill_chunk) if prefill_chunk is not None
+                        else gen_prefill_chunk())
+            if chunk:
+                # block-aligned, so every chunk scatters whole blocks
+                chunk = max(bs, chunk - chunk % bs)
+                chunk = min(chunk, self.max_blocks * bs)
+            self.prefill_chunk = chunk
         else:
             self.block_size = int(block_size or 0)
             self.max_blocks = 0
             self.num_blocks = 0
+            # the three stages are paged constructions; the dense oracle
+            # layout stays the plain engine
+            self.prefix_cache = False
+            self.spec_k = 0
+            self.prefill_chunk = 0
         self.eos_id = eos_id
         self.max_new_tokens = int(max_new_tokens)
         self.queue_depth = int(queue_depth)
@@ -181,13 +242,23 @@ class GenerationConfig:
             f"({self.prefill_buckets[-1]}); raise "
             "MXNET_GEN_PREFILL_BUCKETS / MXNET_GEN_MAX_LEN")
 
-    def worst_blocks(self, prompt_len, max_new):
-        """Worst-case blocks a request can ever hold: cache rows max out
-        at min(L + max_new - 1, max_len) (the last sampled token needs
-        no row)."""
-        rows = max(prompt_len,
-                   min(prompt_len + max_new - 1, self.max_len))
+    def total_blocks(self, prompt_len, max_new):
+        """Blocks a request's rows can ever span: rows max out at
+        min(L + max_new - 1, max_len) (the last sampled token needs no
+        row), and a spec window overshoots the retirement row by up to
+        ``spec_k`` rows (written, then rolled back)."""
+        rows = max(prompt_len, min(prompt_len + max_new - 1 + self.spec_k,
+                                   self.max_len))
         return _ceil_div(rows, self.block_size)
+
+    def worst_blocks(self, prompt_len, max_new):
+        """Worst-case private blocks a request can ever hold:
+        ``total_blocks`` plus one copy-on-write block when the prefix
+        cache will share its partial tail."""
+        need = self.total_blocks(prompt_len, max_new)
+        if self.prefix_cache and prompt_len % self.block_size:
+            need += 1
+        return need
 
     def __repr__(self):
         return (f"GenerationConfig(slots={self.slots}, "
@@ -195,7 +266,10 @@ class GenerationConfig:
                 f"kv_layout={self.kv_layout!r}, "
                 f"block_size={self.block_size}, "
                 f"num_blocks={self.num_blocks}, "
+                f"prefix_cache={self.prefix_cache}, "
                 f"prefill_buckets={self.prefill_buckets}, "
+                f"spec_k={self.spec_k}, "
+                f"prefill_chunk={self.prefill_chunk}, "
                 f"eos_id={self.eos_id}, "
                 f"max_new_tokens={self.max_new_tokens})")
 
@@ -205,13 +279,20 @@ class GenerationFuture(concurrent.futures.Future):
     ``np.int32`` array of generated token ids (EOS included when hit);
     ``stream()`` yields ids as the scheduler produces them.  Failures:
     QueueFullError / DeadlineExceededError (``.tokens`` holds the
-    partial output) / ServerClosedError / WorkerCrashedError."""
+    partial output) / ServerClosedError / WorkerCrashedError.
+    ``submitted_at`` and ``first_token_at`` are ``time.perf_counter()``
+    readings (the latter None until a token exists): their difference
+    is the request's time to first token."""
 
     def __init__(self):
         super().__init__()
         self._token_q = _queuemod.Queue()
+        self.submitted_at = time.perf_counter()
+        self.first_token_at = None
 
     def _emit_token(self, tok):
+        if self.first_token_at is None:
+            self.first_token_at = time.perf_counter()
         self._token_q.put(int(tok))
 
     def _end_stream(self):
@@ -252,21 +333,27 @@ class _Request:
 
 class _Slot:
     __slots__ = ("req", "cache_len", "last_token", "generated", "blocks",
-                 "reserve_left")
+                 "reserve_left", "chunk_pos", "chunk_hashes")
 
-    def __init__(self, req, cache_len, last_token, reserve_left=0):
+    def __init__(self, req, cache_len, last_token, blocks=None,
+                 reserve_left=0):
         self.req = req
         self.cache_len = cache_len        # valid K/V rows of this sequence
         self.last_token = last_token      # token the next iteration feeds
         self.generated = [last_token]
-        self.blocks = []                  # physical pool blocks, in
+        self.blocks = blocks or []        # physical pool blocks, in
                                           # logical order (paged only)
         self.reserve_left = reserve_left  # worst-case blocks still owed
+        self.chunk_pos = -1               # next prompt row a chunked
+                                          # prefill fills; -1: decoding
+        self.chunk_hashes = None          # prefix chain hashes, kept for
+                                          # registration at chunk finish
 
 
 class _BlockPool:
     """Host-side physical-block allocator + refcounts (scheduler-thread
-    state).  Block 0 is the reserved null block — never allocated."""
+    state; the engine's condition guards cross-thread reads).  Block 0
+    is the reserved null block — never allocated, never refcounted."""
 
     def __init__(self, num_blocks):
         self.num_blocks = num_blocks
@@ -283,6 +370,9 @@ class _BlockPool:
         self.ref[b] = 1
         return b
 
+    def retain(self, b):
+        self.ref[b] += 1
+
     def release(self, b):
         self.ref[b] -= 1
         if self.ref[b] <= 0:
@@ -296,7 +386,125 @@ class _BlockPool:
         return self.num_blocks - 1 - len(self._free)
 
 
+class _PrefixCache:
+    """Block-hash prompt cache (scheduler-thread state), as the JAX
+    engine's.  Full prompt blocks are chain-hashed over their int32
+    token bytes (hash i folds hash i-1, so equal hashes mean equal
+    positions and equal preceding tokens: the condition for K/V reuse).
+    ``blocks`` maps a chain hash to a physical block (one cache ref
+    each); ``terminals`` maps a whole prompt to its chain hashes, its
+    partial tail block (one cache ref) and its last-position logits (on
+    the host) — a terminal hit runs no prefill.  Eviction is LRU under
+    admission pressure: terminals first, then blocks; a block returns
+    to the free list once no slot holds it either."""
+
+    def __init__(self, pool, block_size):
+        self._pool = pool
+        self._bs = block_size
+        self.blocks = collections.OrderedDict()     # hash -> block id
+        self.terminals = collections.OrderedDict()  # bytes -> entry
+
+    @staticmethod
+    def _key(prompt):
+        return np.ascontiguousarray(prompt, np.int32).tobytes()
+
+    def chain_hashes(self, prompt):
+        prompt = np.ascontiguousarray(prompt, np.int32)
+        out, h = [], b"gen-prefix-v1"
+        for i in range(prompt.size // self._bs):
+            h = hashlib.sha1(
+                h + prompt[i * self._bs:(i + 1) * self._bs].tobytes()
+            ).digest()
+            out.append(h)
+        return out
+
+    def lead(self, hashes):
+        """Blocks of the longest warm leading full-block run
+        (LRU-touched)."""
+        out = []
+        for h in hashes:
+            b = self.blocks.get(h)
+            if b is None:
+                break
+            self.blocks.move_to_end(h)
+            out.append(b)
+        return out
+
+    def terminal(self, prompt):
+        """(entry, full block ids) of an exact-prompt hit, or None.  A
+        terminal whose chain blocks were evicted is stale and dropped."""
+        key = self._key(prompt)
+        ent = self.terminals.get(key)
+        if ent is None:
+            return None
+        ids = []
+        for h in ent["chains"]:
+            b = self.blocks.get(h)
+            if b is None:
+                self._drop_terminal(key)
+                return None
+            self.blocks.move_to_end(h)
+            ids.append(b)
+        self.terminals.move_to_end(key)
+        return ent, ids
+
+    def register(self, prompt, hashes, slot, logits):
+        """After a cold prefill: take cache refs on the slot's full
+        blocks (moving the slot onto an already-cached block with the
+        same hash, and freeing its duplicate) and record the terminal
+        entry (tail block + last-position logits)."""
+        for i, h in enumerate(hashes):
+            cached = self.blocks.get(h)
+            if cached is None:
+                self.blocks[h] = slot.blocks[i]
+                self._pool.retain(slot.blocks[i])
+            elif cached != slot.blocks[i]:
+                self._pool.retain(cached)
+                self._pool.release(slot.blocks[i])
+                slot.blocks[i] = cached
+        key = self._key(prompt)
+        if key not in self.terminals:
+            tail_len = prompt.size % self._bs
+            tail = slot.blocks[len(hashes)] if tail_len else None
+            if tail is not None:
+                self._pool.retain(tail)
+            self.terminals[key] = {
+                "chains": hashes, "tail": tail, "tail_len": tail_len,
+                "logits": logits, "length": int(prompt.size)}
+
+    def _drop_terminal(self, key):
+        ent = self.terminals.pop(key, None)
+        if ent is not None and ent["tail"] is not None:
+            self._pool.release(ent["tail"])
+        return ent
+
+    def evict(self, want_blocks):
+        """LRU-evict until ``want_blocks`` blocks returned to the free
+        list (or nothing evictable remains); returns the number
+        freed."""
+        before = self._pool.free_count()
+        for key in list(self.terminals):
+            if self._pool.free_count() - before >= want_blocks:
+                break
+            self._drop_terminal(key)
+        for h in list(self.blocks):
+            if self._pool.free_count() - before >= want_blocks:
+                break
+            self._pool.release(self.blocks.pop(h))
+        return self._pool.free_count() - before
+
+    def size(self):
+        return {"blocks": len(self.blocks),
+                "terminals": len(self.terminals)}
+
+
 _MASK64 = (1 << 64) - 1
+# role salts of the speculative window's extra draws (the JAX engine's):
+# each is XORed into the request seed, so every draw stays a pure
+# function of (seed, absolute position, role)
+_SPEC_DRAFT_SALT = 0x9E3779B1   # draft proposals
+_SPEC_ACCEPT_SALT = 0x85EBCA6B  # rejection-rule uniforms
+_SPEC_RESID_SALT = 0xC2B2AE35   # residual resamples
 
 
 def _draw_seed(seed, pos):
@@ -310,19 +518,28 @@ def _draw_seed(seed, pos):
     return (z ^ (z >> 31)) >> 1
 
 
+def _salted(seeds, salt):
+    """Request seeds (numpy) with a role salt XORed into their uint32."""
+    return (np.asarray(seeds, np.int64) & 0xFFFFFFFF) ^ salt
+
+
+def _uniforms(seed, pos, n):
+    """``n`` U[0, 1) draws (float64), a pure function of (seed, pos)."""
+    gen = torch.Generator().manual_seed(_draw_seed(seed, pos))
+    return torch.rand(n, generator=gen, dtype=torch.float64)
+
+
 def _gumbel(seed, pos, vocab):
     """Gumbel(0, 1) noise [vocab], a pure function of (seed, pos)."""
-    gen = torch.Generator().manual_seed(_draw_seed(seed, pos))
-    u = torch.rand(vocab, generator=gen, dtype=torch.float64)
+    u = _uniforms(seed, pos, vocab)
     return (-torch.log(-torch.log(u.clamp_min(1e-300)))).float()
 
 
-def _sample(logits, temps, seeds, positions):
-    """Next token per row: greedy argmax at temperature 0, else
-    Gumbel-max over ``logits / temperature`` with noise keyed by
-    (seed, absolute position).  logits [S, V] on the engine's device;
-    temps/seeds/positions numpy [S].  Returns np.int32 [S] (the one
-    device-to-host read of an iteration)."""
+def _draw(logits, temps, seeds, positions):
+    """Next token per row, on the logits' device: greedy argmax at
+    temperature 0, else Gumbel-max over ``logits / temperature`` with
+    noise keyed by (seed, absolute position).  logits [S, V];
+    temps/seeds/positions numpy [S].  Returns a long tensor [S]."""
     logits = logits.float()
     out = logits.argmax(dim=-1)
     hot = np.flatnonzero(temps > 0)
@@ -334,27 +551,83 @@ def _sample(logits, temps, seeds, positions):
         temp = torch.from_numpy(np.maximum(temps[hot], 1e-6)
                                 .astype(np.float32)).to(logits.device)
         out[idx] = (logits[idx] / temp[:, None] + noise).argmax(dim=-1)
-    return out.cpu().numpy().astype(np.int32)
+    return out
+
+
+def _sample(logits, temps, seeds, positions):
+    """``_draw`` read back as np.int32 [S] (the one device-to-host read
+    of an iteration)."""
+    return _draw(logits, temps, seeds, positions).cpu().numpy() \
+        .astype(np.int32)
 
 
 def _sample_one(logits, temp, seed, pos):
-    """One next token from logits [V] (see ``_sample``)."""
+    """One next token from logits [V] (see ``_draw``)."""
     return int(_sample(logits[None], np.array([temp], np.float32),
                        np.array([seed], np.int64),
                        np.array([pos], np.int64))[0])
 
 
+def _accept(drafts, dlog, outs, tlog, temps, seeds, positions):
+    """The acceptance half of a spec window (the JAX engine's math).
+    drafts / outs: K / K+1 long tensors [S] (the draft's proposals and
+    the target's own draws); dlog / tlog: their logits.  Greedy rows
+    accept a proposal equal to the target's draw; sampled rows take the
+    rejection rule ``u q(d) <= p(d)`` and, on rejection, a draw from
+    ``max(p - q, 0)``.  Returns (tokens np.int32 [S, K+1], accepted
+    np.int32 [S]); a slot keeps ``tokens[:accepted + 1]``."""
+    k = len(drafts)
+    hot = np.flatnonzero(temps > 0)
+    accs, emit = [], []
+    for j in range(k):
+        d, t = drafts[j], outs[j]
+        acc, tok = d == t, t.clone()
+        if hot.size:
+            dev = t.device
+            idx = torch.from_numpy(hot).to(dev)
+            temp = torch.from_numpy(np.maximum(temps[hot], 1e-6)
+                                    .astype(np.float32)).to(dev)[:, None]
+            p = torch.softmax(tlog[j][idx].float() / temp, dim=-1)
+            q = torch.softmax(dlog[j][idx].float() / temp, dim=-1)
+            dh = d[idx][:, None]
+            p_d, q_d = p.gather(1, dh)[:, 0], q.gather(1, dh)[:, 0]
+            pos = positions + j + 1
+            acc_seeds = _salted(seeds, _SPEC_ACCEPT_SALT)
+            u = torch.stack([_uniforms(acc_seeds[i], pos[i], 1)[0]
+                             for i in hot]).float().to(dev)
+            resid_seeds = _salted(seeds, _SPEC_RESID_SALT)
+            noise = torch.stack([_gumbel(resid_seeds[i], pos[i], p.shape[-1])
+                                 for i in hot]).to(dev)
+            resid = (torch.log((p - q).clamp_min(0.0) + 1e-30) + noise) \
+                .argmax(dim=-1)
+            ok = u * q_d <= p_d
+            acc[idx] = ok
+            tok[idx] = torch.where(ok, d[idx], resid)
+        accs.append(acc)
+        emit.append(tok)
+    emit.append(outs[k])       # the bonus token on full acceptance
+    acc_m = torch.stack(accs, 1).int()
+    n_acc = acc_m.cumprod(dim=1).sum(dim=1)
+    return (torch.stack(emit, 1).cpu().numpy().astype(np.int32),
+            n_acc.cpu().numpy().astype(np.int32))
+
+
 _COUNTERS = ("requests", "rejects", "tokens", "prefills", "decodes",
-             "queued_on_memory", "retire_eos", "retire_max_tokens",
-             "retire_max_len", "retire_deadline", "retire_error")
+             "queued_on_memory", "kv_cow", "prefix_hit", "prefix_miss",
+             "prefix_saved_tokens", "prefix_evict", "spec_proposed",
+             "spec_accepted", "spec_rollback", "prefill_chunks",
+             "retire_eos", "retire_max_tokens", "retire_max_len",
+             "retire_deadline", "retire_error")
 
 
 class GenerationEngine:
     """Continuous-batching autoregressive server over one
     ``gluon.decoder.TransformerDecoder``-contract module
     (``cache_spec`` / ``prefill`` / ``decode_step`` /
-    ``decode_step_paged``).  ``device`` (``None`` -> ``cuda:0``) is where
-    the cache lives and must be where the decoder's parameters are.
+    ``decode_step_paged``, plus ``decode_step_paged_partial`` /
+    ``decode_step_paged_window`` with spec and ``prefill_chunk`` with
+    chunking).  ``device`` (``None`` -> ``cuda:0``) is where the cache
+    lives and must be where the decoder's parameters are.
 
     Usage::
 
@@ -377,6 +650,10 @@ class GenerationEngine:
         self._paged = config.kv_layout == "paged"
         hooks = ["cache_spec", "prefill",
                  "decode_step_paged" if self._paged else "decode_step"]
+        if config.spec_k:
+            hooks += ["decode_step_paged_partial", "decode_step_paged_window"]
+        if config.prefill_chunk:
+            hooks.append("prefill_chunk")
         for hook in hooks:
             if not callable(getattr(decoder, hook, None)):
                 raise MXNetError(
@@ -393,17 +670,25 @@ class GenerationEngine:
             raise MXNetError(
                 f"decoder position table ({block_max}) is shorter than "
                 f"max_len ({config.max_len})")
+        layers, heads, hd = decoder.cache_spec()
+        if config.spec_k and config.spec_draft_layers >= layers:
+            raise MXNetError(
+                f"spec_draft_layers ({config.spec_draft_layers}) must be < "
+                f"the decoder depth ({layers}) — a self-draft the size of "
+                "the target proposes nothing cheaper")
         self._cfg = config
         self._block = decoder
         self._vocab = getattr(decoder, "vocab", None)
-        layers, heads, hd = decoder.cache_spec()
         if self._paged:
             shape = (config.num_blocks, layers, heads, config.block_size,
                      hd)
             self._pool = _BlockPool(config.num_blocks)
+            self._prefix = _PrefixCache(self._pool, config.block_size) \
+                if config.prefix_cache else None
         else:
             shape = (config.slots, layers, heads, config.max_len, hd)
             self._pool = None
+            self._prefix = None
         # the device-resident cache, updated in place; its contents never
         # cross to the host
         self._kv_k = torch.zeros(shape, dtype=torch.float32,
@@ -415,6 +700,7 @@ class GenerationEngine:
         self._slots = [None] * config.slots
         self._free = list(range(config.slots))[::-1]
         self._admitting = None   # the request between queue and slot
+        self._chunk_rr = 0       # round-robin cursor over mid-prefill slots
         self._closed = False
         self._drain = True
         self._crash = None
@@ -436,24 +722,53 @@ class GenerationEngine:
         with self._cond:
             return len(self._free)
 
+    def queue_depth(self):
+        with self._cond:
+            return len(self._queue)
+
+    def free_blocks(self):
+        """Unallocated physical pool blocks (paged layout; else None)."""
+        with self._cond:
+            return self._pool.free_count() if self._pool else None
+
+    def live_blocks(self):
+        """Allocated pool blocks — slots' and the prefix cache's (paged
+        layout; else None)."""
+        with self._cond:
+            return self._pool.live_count() if self._pool else None
+
     def kv_info(self):
-        """Paged-pool occupancy: block geometry, live/free counts and
-        outstanding worst-case reservations."""
+        """Paged-pool occupancy: block geometry, live/free counts,
+        outstanding worst-case reservations and the prefix cache's
+        sizes."""
         if not self._paged:
             return {"layout": "dense"}
         with self._cond:
-            return {"layout": "paged",
-                    "block_size": self._cfg.block_size,
-                    "num_blocks": self._cfg.num_blocks,
-                    "max_blocks_per_slot": self._cfg.max_blocks,
-                    "live": self._pool.live_count(),
-                    "free": self._pool.free_count(),
-                    "reserved": self._pool.reserved}
+            out = {"layout": "paged",
+                   "block_size": self._cfg.block_size,
+                   "num_blocks": self._cfg.num_blocks,
+                   "max_blocks_per_slot": self._cfg.max_blocks,
+                   "live": self._pool.live_count(),
+                   "free": self._pool.free_count(),
+                   "reserved": self._pool.reserved}
+            if self._prefix is not None:
+                out["prefix"] = self._prefix.size()
+            return out
+
+    def cache_info(self):
+        """Where the KV cache lives: {"bytes", "shape", "devices",
+        "layout"}."""
+        return {"bytes": int(self._kv_k.nbytes + self._kv_v.nbytes),
+                "shape": tuple(self._kv_k.shape),
+                "devices": [str(self._kv_k.device)],
+                "layout": self._cfg.kv_layout}
 
     def stats(self):
         """The engine's counters: requests, rejects, tokens, prefills,
-        decodes, queued_on_memory, retire_{eos,max_tokens,max_len,
-        deadline,error}, and the busy seconds of prefill and decode."""
+        decodes, queued_on_memory, kv_cow, prefix_{hit, miss,
+        saved_tokens, evict}, spec_{proposed, accepted, rollback},
+        prefill_chunks, retire_{eos, max_tokens, max_len, deadline,
+        error}, and the busy seconds of prefill and decode."""
         out = dict(self._counts)
         out["prefill_s"] = self._busy_prefill_s
         out["decode_s"] = self._busy_decode_s
@@ -465,25 +780,41 @@ class GenerationEngine:
         return contextlib.nullcontext()
 
     def warmup(self):
-        """Build the kernels and touch every code path once — one
-        prefill at the smallest bucket and one decode step, neither of
-        which writes the cache — so the first request pays neither the
-        kernel build nor CUDA start-up."""
-        cfg, dev = self._cfg, self._device
+        """Build the kernels and touch every code path once — the
+        prefill (one chunk when chunking, else the smallest bucket) and
+        the decode step (the draft and the verify window with spec),
+        none of which writes the cache — so the first request pays
+        neither the kernel build nor CUDA start-up."""
+        cfg, dev, blk = self._cfg, self._device, self._block
         n = cfg.slots
         with torch.inference_mode(), self._device_scope():
-            b0 = cfg.prefill_buckets[0]
-            self._block.prefill(
-                torch.zeros((1, b0), dtype=torch.long, device=dev), 1)
             zeros = torch.zeros((n,), dtype=torch.long, device=dev)
-            if self._paged:
+            if not self._paged:
+                blk.prefill(torch.zeros((1, cfg.prefill_buckets[0]),
+                                        dtype=torch.long, device=dev), 1)
+                blk.decode_step(zeros, zeros, self._kv_k, self._kv_v)
+            else:
                 pt = torch.zeros((n, cfg.max_blocks), dtype=torch.long,
                                  device=dev)
-                self._block.decode_step_paged(zeros, zeros, self._kv_k,
-                                              self._kv_v, pt)
-            else:
-                self._block.decode_step(zeros, zeros, self._kv_k,
-                                        self._kv_v)
+                if cfg.prefill_chunk:
+                    c = cfg.prefill_chunk
+                    blk.prefill_chunk(
+                        torch.zeros((1, c), dtype=torch.long, device=dev),
+                        0, 1, self._kv_k, self._kv_v, pt[:1])
+                else:
+                    blk.prefill(torch.zeros((1, cfg.prefill_buckets[0]),
+                                            dtype=torch.long, device=dev), 1)
+                if cfg.spec_k:
+                    blk.decode_step_paged_partial(zeros, zeros, self._kv_k,
+                                                  self._kv_v, pt,
+                                                  cfg.spec_draft_layers)
+                    blk.decode_step_paged_window(
+                        torch.zeros((n, cfg.spec_k + 1), dtype=torch.long,
+                                    device=dev), zeros, self._kv_k,
+                        self._kv_v, pt)
+                else:
+                    blk.decode_step_paged(zeros, zeros, self._kv_k,
+                                          self._kv_v, pt)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
@@ -510,7 +841,9 @@ class GenerationEngine:
                 (prompt.min() < 0 or prompt.max() >= self._vocab):
             raise MXNetError(
                 f"prompt token ids must lie in [0, {self._vocab})")
-        self._cfg.bucket_for(prompt.size)
+        if not self._cfg.prefill_chunk:
+            # chunked prefill has no bucket family to validate against
+            self._cfg.bucket_for(prompt.size)
         max_new = int(max_new_tokens if max_new_tokens is not None
                       else self._cfg.max_new_tokens)
         if self._paged:
@@ -546,6 +879,16 @@ class GenerationEngine:
     def _active(self):
         return [i for i, s in enumerate(self._slots) if s is not None]
 
+    def _chunking(self):
+        """Slots mid-chunked-prefill."""
+        return [i for i, s in enumerate(self._slots)
+                if s is not None and s.chunk_pos >= 0]
+
+    def _decode_ready(self):
+        """Slots that feed the decode batch (prefill complete)."""
+        return [i for i, s in enumerate(self._slots)
+                if s is not None and s.chunk_pos < 0]
+
     def _loop(self):
         try:
             # grad mode and the current CUDA device are per thread
@@ -564,7 +907,11 @@ class GenerationEngine:
                     if closed and not self._queue and not self._active():
                         return
                     self._admit()
-                    if self._active():
+                    if self._cfg.prefill_chunk and self._chunking():
+                        # ONE bounded chunk per pass, between decode
+                        # iterations
+                        self._prefill_chunk_step()
+                    if self._decode_ready():
                         self._decode_iteration()
         except Exception as e:   # containment: fail every future
             self._on_crash(e)
@@ -597,10 +944,11 @@ class GenerationEngine:
 
     # ----------------------------------------------------------- admission
     def _admit(self):
-        """Prefill queued requests into free slots.  Paged admission
-        also reserves the request's worst-case block need; when that
-        does not fit the unreserved pool, the request stays at the front
-        of the queue until retirements free blocks."""
+        """Admit queued requests into free slots.  Paged admission also
+        reserves the request's worst-case block need, evicting cold
+        prefix entries when it does not fit; when it still does not, the
+        request stays at the front of the queue until retirements free
+        blocks."""
         while True:
             with self._cond:
                 if not self._queue or not self._free:
@@ -614,28 +962,76 @@ class GenerationEngine:
                     self._fail(req, exc)
                     continue
                 slot = self._free.pop()
-            reserve = self._reserve(req) if self._paged else 0
-            if reserve is None:
+            self._admitting = req
+            if self._paged:
+                admitted = self._admit_paged(req, slot)
+            else:
+                self._prefill(req, slot)
+                admitted = True
+            self._admitting = None
+            if not admitted:
                 with self._cond:
                     self._queue.appendleft(req)
                     self._free.append(slot)
                 return
-            self._admitting = req
-            self._prefill(req, slot, reserve)
-            self._admitting = None
 
-    def _reserve(self, req):
-        """Reserve the request's worst-case blocks; None when they do
-        not fit the unreserved pool."""
-        need = self._cfg.worst_blocks(int(req.prompt.size), req.max_new)
-        if need > self._pool.free_count() - self._pool.reserved:
+    def _admit_paged(self, req, slot):
+        """Reserve and start one request: a terminal prefix hit, a
+        chunked or bucketed prefill (adopting a warm lead run).  False
+        when its blocks do not fit even after eviction."""
+        cfg = self._cfg
+        L = int(req.prompt.size)
+        bs = cfg.block_size
+        nfull, tail_len = L // bs, L % bs
+        total = cfg.total_blocks(L, req.max_new)
+        warm = hashes = lead = None
+        if self._prefix is not None:
+            hashes = self._prefix.chain_hashes(req.prompt)
+            warm = self._prefix.terminal(req.prompt)
+            if warm is None:
+                lead = self._prefix.lead(hashes)
+        if cfg.prefill_chunk and lead:
+            # the final chunk must compute row L-1's hidden state: the
+            # first token's logits come from it
+            lead = lead[:min(len(lead), (L - 1) // bs)]
+        if warm is not None:
+            need = total - nfull
+            ent, ids = warm
+            pins = ids + ([ent["tail"]] if ent["tail"] is not None else [])
+        elif lead:
+            need = total - len(lead) + (1 if tail_len else 0)
+            pins = lead
+        else:
+            need = total + (1 if self._prefix is not None and tail_len
+                            else 0)
+            pins = []
+        # pin the blocks this request maps before evicting: the eviction
+        # may drop their own cache entries, and a pinned block stays off
+        # the free list (the JAX engine retains them only after it)
+        for b in pins:
+            self._pool.retain(b)
+        avail = self._pool.free_count() - self._pool.reserved
+        if need > avail and self._prefix is not None:
+            self._counts["prefix_evict"] += self._prefix.evict(need - avail)
+            avail = self._pool.free_count() - self._pool.reserved
+        if need > avail:
+            for b in pins:
+                self._pool.release(b)
             self._counts["queued_on_memory"] += 1
-            return None
+            return False
         self._pool.reserved += need
-        return need
+        if warm is not None:
+            self._prefix_hit(req, slot, warm, need)
+        elif cfg.prefill_chunk:
+            self._start_chunked(req, slot, hashes, lead or [], need)
+        else:
+            self._prefill(req, slot, hashes=hashes, lead=lead or [],
+                          reserve=need)
+        return True
 
     def _alloc_block(self, s):
-        """One block for slot ``s``, drawing down its reservation."""
+        """One private block for slot ``s``, drawing down its
+        reservation."""
         b = self._pool.alloc()
         if s.reserve_left > 0:
             s.reserve_left -= 1
@@ -651,7 +1047,98 @@ class GenerationEngine:
             self._pool.release(b)
         s.blocks = []
 
-    def _prefill(self, req, slot, reserve):
+    def _prefix_hit(self, req, slot, warm, reserve):
+        """Terminal prefix hit: map the cached blocks and draw the first
+        token from the cached last-position logits — no prefill runs."""
+        ent, full_ids = warm
+        blocks = list(full_ids)      # pinned by ``_admit_paged``
+        if ent["tail"] is not None:
+            blocks.append(ent["tail"])
+        L = ent["length"]
+        tok = _sample_one(ent["logits"], req.temperature, req.seed, L)
+        self._counts["prefix_hit"] += 1
+        self._counts["prefix_saved_tokens"] += L
+        s = _Slot(req, cache_len=L, last_token=tok, blocks=blocks,
+                  reserve_left=reserve)
+        self._slots[slot] = s
+        self._emit(s, slot, tok)
+
+    def _register(self, req, s, hashes, logits):
+        """Prefix registration after a cold prompt's prefill; keeps its
+        last-position logits on the host."""
+        self._counts["prefix_miss"] += 1
+        self._prefix.register(req.prompt, hashes or [], s,
+                              logits.float().cpu())
+
+    # ----------------------------------------------------- chunked prefill
+    def _start_chunked(self, req, slot, hashes, lead, reserve):
+        """Park a slot mid-prefill, adopting the warm lead blocks (pinned
+        by ``_admit_paged``); ``_prefill_chunk_step`` fills the rest
+        between decode iterations."""
+        bs = self._cfg.block_size
+        s = _Slot(req, cache_len=0, last_token=0, blocks=list(lead),
+                  reserve_left=reserve)
+        s.generated = []          # no token exists until the last chunk
+        s.chunk_pos = s.cache_len = len(lead) * bs
+        s.chunk_hashes = hashes or []
+        self._counts["prefix_saved_tokens"] += len(lead) * bs
+        self._slots[slot] = s
+
+    def _prefill_chunk_step(self):
+        """ONE chunk of ONE mid-prefill slot, round-robin."""
+        cfg, dev = self._cfg, self._device
+        chunking = self._chunking()
+        self._chunk_rr += 1
+        i = chunking[self._chunk_rr % len(chunking)]
+        s = self._slots[i]
+        req = s.req
+        if req.expired():
+            # frees the partly filled blocks without running the tail
+            return self._retire(i, "deadline")
+        C, bs = cfg.prefill_chunk, cfg.block_size
+        L = int(req.prompt.size)
+        start = s.chunk_pos
+        end = min(start + C, L)
+        toks = np.zeros((1, C), np.int64)
+        toks[0, :end - start] = req.prompt[start:end]
+        prompt_blocks = _ceil_div(L, bs)
+        ids = np.zeros((C // bs,), np.int64)   # padding -> null block
+        for j in range(C // bs):
+            b = start // bs + j
+            if b >= prompt_blocks:
+                break
+            if b >= len(s.blocks):
+                s.blocks.append(self._alloc_block(s))
+            ids[j] = s.blocks[b]
+        pt = np.zeros((1, cfg.max_blocks), np.int64)
+        pt[0, :len(s.blocks)] = s.blocks
+        t0 = time.perf_counter()
+        logits, k, v = self._block.prefill_chunk(
+            torch.from_numpy(toks).to(dev), start, L, self._kv_k,
+            self._kv_v, torch.from_numpy(pt).to(dev))
+        ids = torch.from_numpy(ids).to(dev)
+        _pa.scatter_prompt_blocks(self._kv_k, k, ids, bs)
+        _pa.scatter_prompt_blocks(self._kv_v, v, ids, bs)
+        done = end >= L
+        if done:
+            # the first generated token sits at absolute position L
+            tok = _sample_one(logits[0], req.temperature, req.seed, L)
+        self._busy_prefill_s += time.perf_counter() - t0
+        self._counts["prefill_chunks"] += 1
+        s.chunk_pos = s.cache_len = end
+        if not done:
+            return
+        if self._prefix is not None:
+            self._register(req, s, s.chunk_hashes, logits[0])
+        s.chunk_pos = -1
+        s.chunk_hashes = None
+        s.last_token = tok
+        s.generated = [tok]
+        self._counts["prefills"] += 1
+        self._emit(s, i, tok)
+
+    # ------------------------------------------------------------- prefill
+    def _prefill(self, req, slot, hashes=None, lead=(), reserve=0):
         cfg, dev = self._cfg, self._device
         L = int(req.prompt.size)
         bucket = cfg.bucket_for(L)
@@ -662,13 +1149,14 @@ class GenerationEngine:
                                            L)
         if self._paged:
             bs = cfg.block_size
-            s = _Slot(req, cache_len=L, last_token=0,
+            s = _Slot(req, cache_len=L, last_token=0, blocks=list(lead),
                       reserve_left=reserve)
-            for _ in range(_ceil_div(L, bs)):
+            for _ in range(_ceil_div(L, bs) - len(lead)):
                 s.blocks.append(self._alloc_block(s))
-            # padding blocks past the prompt route to the null block
+            # the warm lead and the padding blocks past the prompt
+            # scatter into the null block
             ids = np.zeros((bucket // bs,), np.int64)
-            ids[:len(s.blocks)] = s.blocks
+            ids[len(lead):len(s.blocks)] = s.blocks[len(lead):]
             ids = torch.from_numpy(ids).to(dev)
             _pa.scatter_prompt_blocks(self._kv_k, k, ids, bs)
             _pa.scatter_prompt_blocks(self._kv_v, v, ids, bs)
@@ -679,6 +1167,8 @@ class GenerationEngine:
             s = _Slot(req, cache_len=L, last_token=0)
         # the first generated token sits at absolute position L
         tok = _sample_one(logits[0], req.temperature, req.seed, L)
+        if self._prefix is not None:
+            self._register(req, s, hashes, logits[0])
         s.last_token = tok
         s.generated = [tok]
         self._busy_prefill_s += time.perf_counter() - t0
@@ -688,19 +1178,21 @@ class GenerationEngine:
 
     # -------------------------------------------------------------- decode
     def _decode_iteration(self):
-        """ONE decode step over the full slot capacity; retire and free
-        slots right after.  Free slots feed token 0 at position 0 with an
-        all-null page-table row, so every index stays in range and their
-        writes land in the null block."""
+        """ONE decode step over the full slot capacity (with spec, one
+        draft + verify window: up to K+1 tokens per slot); retire and
+        free slots right after.  Free slots feed token 0 at position 0
+        with an all-null page-table row, so every index stays in range
+        and their writes land in the null block."""
         cfg, dev = self._cfg, self._device
-        n = cfg.slots
+        n, spec = cfg.slots, cfg.spec_k
         tokens = np.zeros((n,), np.int64)
         positions = np.zeros((n,), np.int64)
         temps = np.zeros((n,), np.float32)
         seeds = np.zeros((n,), np.int64)
-        active = self._active()
+        active = self._decode_ready()
         if self._paged:
             pt = np.zeros((n, cfg.max_blocks), np.int64)
+            cow_dst, cow_src = [], []
         for i in active:
             s = self._slots[i]
             tokens[i] = s.last_token
@@ -708,15 +1200,42 @@ class GenerationEngine:
             temps[i] = s.req.temperature
             seeds[i] = s.req.seed
             if self._paged:
-                # extend at a block boundary
-                if s.cache_len // cfg.block_size >= len(s.blocks):
+                # extend at a block boundary; copy-on-write when the
+                # write block is shared with the prefix cache or a
+                # sibling slot
+                b = s.cache_len // cfg.block_size
+                if b >= len(s.blocks):
                     s.blocks.append(self._alloc_block(s))
+                elif self._pool.ref[s.blocks[b]] > 1:
+                    old = s.blocks[b]
+                    s.blocks[b] = self._alloc_block(s)
+                    self._pool.release(old)
+                    cow_dst.append(s.blocks[b])
+                    cow_src.append(old)
+                    self._counts["kv_cow"] += 1
+                if spec:
+                    # the window's later blocks lie past the sequence
+                    # end, always fresh; rows past max_len go to the
+                    # null block
+                    last_b = min(s.cache_len + spec, cfg.max_len - 1) \
+                        // cfg.block_size
+                    while len(s.blocks) <= last_b:
+                        s.blocks.append(self._alloc_block(s))
                 pt[i, :len(s.blocks)] = s.blocks
         t0 = time.perf_counter()
+        if self._paged and cow_dst:
+            dst = torch.tensor(cow_dst, device=dev)
+            src = torch.tensor(cow_src, device=dev)
+            _pa.copy_blocks(self._kv_k, dst, src)
+            _pa.copy_blocks(self._kv_v, dst, src)
         tok_t = torch.from_numpy(tokens).to(dev)
         pos_t = torch.from_numpy(positions).to(dev)
-        pos_c = pos_t.clamp(0, cfg.max_len - 1)
-        if self._paged:
+        if spec:
+            out, acc = self._spec_window(tok_t, pos_t,
+                                         torch.from_numpy(pt).to(dev),
+                                         temps, seeds, positions)
+        elif self._paged:
+            pos_c = pos_t.clamp(0, cfg.max_len - 1)
             pt_t = torch.from_numpy(pt).to(dev)
             logits, k_new, v_new = self._block.decode_step_paged(
                 tok_t, pos_t, self._kv_k, self._kv_v, pt_t)
@@ -725,22 +1244,72 @@ class GenerationEngine:
             _pa.write_token_rows(self._kv_v, pt_t, pos_c, v_new,
                                  cfg.block_size)
         else:
+            pos_c = pos_t.clamp(0, cfg.max_len - 1)
             logits, k_new, v_new = self._block.decode_step(
                 tok_t, pos_t, self._kv_k, self._kv_v)
             rows = torch.arange(n, device=dev)
             self._kv_k[rows, :, :, pos_c] = k_new
             self._kv_v[rows, :, :, pos_c] = v_new
-        # the sampled token lands at absolute position `positions + 1`
-        out = _sample(logits, temps, seeds, positions + 1)
+        if not spec:
+            # the sampled token lands at absolute position `positions + 1`
+            out = _sample(logits, temps, seeds, positions + 1)[:, None]
+            acc = np.zeros((n,), np.int32)
         self._busy_decode_s += time.perf_counter() - t0
         self._counts["decodes"] += 1
         for i in active:
             s = self._slots[i]
-            s.cache_len += 1           # the fed token's row was written
-            tok = int(out[i])
-            s.last_token = tok
-            s.generated.append(tok)
-            self._emit(s, i, tok)
+            a = int(acc[i])
+            if spec:
+                self._counts["spec_proposed"] += spec
+                self._counts["spec_accepted"] += a
+                # the rejected tail is the rollback: its rows stay past
+                # cache_len, and the next window writes over them
+                self._counts["spec_rollback"] += spec - a
+            for j in range(a + 1):
+                s.cache_len += 1       # the fed token's row was written
+                tok = int(out[i, j])
+                s.last_token = tok
+                s.generated.append(tok)
+                self._emit(s, i, tok)
+                if self._slots[i] is not s:
+                    # retired inside the window: the later accepted
+                    # tokens are dropped, as a sequential engine would
+                    # never have produced them
+                    break
+
+    def _spec_window(self, tok_t, pos_t, pt_t, temps, seeds, positions):
+        """Draft K tokens with the first ``spec_draft_layers`` layers,
+        verify the K+1-row window at full depth, and accept (``_accept``).
+        Every row is written into the pool; rows past the accepted ones
+        are rolled back by the host not advancing ``cache_len``."""
+        cfg, blk = self._cfg, self._block
+        K, dl, bs, lim = (cfg.spec_k, cfg.spec_draft_layers,
+                          cfg.block_size, cfg.max_len)
+        kk, vv = self._kv_k, self._kv_v
+        cur, drafts, dlog = tok_t, [], []
+        draft_seeds = _salted(seeds, _SPEC_DRAFT_SALT)
+        for j in range(K):
+            lg, kn, vn = blk.decode_step_paged_partial(cur, pos_t + j, kk,
+                                                       vv, pt_t, dl)
+            _pa.write_token_rows(kk, pt_t, pos_t + j, kn, bs, limit=lim,
+                                 layers=dl)
+            _pa.write_token_rows(vv, pt_t, pos_t + j, vn, bs, limit=lim,
+                                 layers=dl)
+            cur = _draw(lg, temps, draft_seeds, positions + j + 1)
+            drafts.append(cur)
+            dlog.append(lg)
+        feed = torch.stack([tok_t] + drafts, 1)
+        lgw, knw, vnw = blk.decode_step_paged_window(feed, pos_t, kk, vv,
+                                                     pt_t)
+        outs = []
+        for j in range(K + 1):
+            _pa.write_token_rows(kk, pt_t, pos_t + j, knw[:, j], bs,
+                                 limit=lim)
+            _pa.write_token_rows(vv, pt_t, pos_t + j, vnw[:, j], bs,
+                                 limit=lim)
+            outs.append(_draw(lgw[:, j], temps, seeds, positions + j + 1))
+        return _accept(drafts, dlog, outs, [lgw[:, j] for j in range(K)],
+                       temps, seeds, positions)
 
     def _emit(self, s, slot, tok):
         """Stream one token and apply the retirement rules."""

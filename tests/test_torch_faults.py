@@ -1,0 +1,240 @@
+"""The port's faults C1-C7 (ROADMAP §C), each held to the JAX package's
+value on the same inputs, on the CPU.  One parametrised case per fault
+input; every case failed before its repair.
+
+* C1 ``topk`` breaks ties by the lower index (``jax.lax.top_k``).
+* C2 ``sum``/``prod`` widen bool, int8 and int16 to int32 and uint8 to
+  uint32.
+* C3 ``clip`` of an integer array with float bounds, and ``softmax`` /
+  ``log_softmax`` of an integer array, compute in float32.
+* C4 ``BatchNorm(scale=False)`` / ``center=False``: gamma / beta take no
+  gradient, so a ``TrainStep`` runs and leaves them where they were,
+  weight decay included; both still travel in the ``state_dict``.
+* C5 the gradients of ``broadcast_hypot`` / ``_hypot_scalar`` at (0, 0)
+  (0.5 each) and of ``cbrt`` / ``rcbrt`` at 0 (+inf / -inf).
+* C6 ``sign(NaN)`` is NaN.
+* C7 ``Cast`` of out-of-range floats to integers saturates, NaN to 0.
+
+Tolerances: exact (value and dtype) for C1-C3 and C5-C7 (the same IEEE
+operations on both sides), except softmax (relative 1e-6, other
+exponentials); C4's parameters and statistics after a step 1e-6 of each
+tensor's max, and the fixed ones exactly.
+"""
+import numpy as np
+import pytest
+import torch
+
+import incubator_mxnet_tpu as jmx
+import incubator_mxnet_tpu_torch as tmx
+from incubator_mxnet_tpu import gluon as jgluon
+from incubator_mxnet_tpu import parallel as jparallel
+from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.nn import BatchNorm, BNReLU
+from incubator_mxnet_tpu_torch.optimizer import SGD
+from incubator_mxnet_tpu_torch.parallel import TrainStep
+
+
+def _both(f):
+    """``f(mod)`` on the JAX package, then on the port on the CPU, each
+    result as a list of numpy arrays."""
+    def run(mod):
+        out = f(mod)
+        out = out if isinstance(out, (list, tuple)) else [out]
+        return [o.asnumpy() for o in out]
+    want = run(jmx)
+    with tmx.cpu():
+        got = run(tmx)
+    return got, want
+
+
+def _exact(got, want, what):
+    assert len(got) == len(want), what
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype, f"{what}: dtype {g.dtype} != {w.dtype}"
+        np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+# ------------------------------------------------------------------ C1
+TIES = np.array([[2, 2, 2, 2], [1, 3, 3, 0]], np.float32)
+
+
+@pytest.mark.parametrize("is_ascend", [False, True])
+@pytest.mark.parametrize("ret_typ", ["indices", "both", "mask"])
+def test_c1_topk_ties_take_the_lower_index(ret_typ, is_ascend):
+    got, want = _both(lambda m: m.nd.topk(
+        m.nd.array(TIES), k=2, ret_typ=ret_typ, is_ascend=is_ascend))
+    _exact(got, want, f"topk {ret_typ} ascend={is_ascend}")
+
+
+def test_c1_topk_ties_along_axis_0():
+    got, want = _both(lambda m: m.nd.topk(
+        m.nd.array(TIES.T.copy()), axis=0, k=3, ret_typ="both"))
+    _exact(got, want, "topk axis 0")
+
+
+# ------------------------------------------------------------------ C2
+@pytest.mark.parametrize("op", ["sum", "prod"])
+@pytest.mark.parametrize("dtype", ["int8", "int16", "uint8"])
+def test_c2_small_integer_reductions_widen(op, dtype):
+    x = np.array([100, 100, 100] if op == "sum" else [100, 3, 2])
+    x = x.astype(dtype)
+    got, want = _both(lambda m: getattr(m.nd, op)(m.nd.array(x,
+                                                             dtype=dtype)))
+    _exact(got, want, f"{op} {dtype}")
+
+
+# ------------------------------------------------------------------ C3
+@pytest.mark.parametrize("bounds", [(0.5, 2.5), (-0.5, 1.5), (0.25, 7.0)])
+def test_c3_clip_integers_with_float_bounds(bounds):
+    x = np.array([-2, 0, 1, 3], np.int32)
+    got, want = _both(lambda m: m.nd.clip(m.nd.array(x, dtype="int32"),
+                                          a_min=bounds[0], a_max=bounds[1]))
+    _exact(got, want, f"clip {bounds}")
+
+
+@pytest.mark.parametrize("op", ["softmax", "log_softmax"])
+def test_c3_softmax_of_integers(op):
+    x = np.array([[1, 2, 3], [0, -4, 2]], np.int32)
+    got, want = _both(lambda m: getattr(m.nd, op)(m.nd.array(x,
+                                                             dtype="int32")))
+    assert got[0].dtype == want[0].dtype == np.float32
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=0)
+
+
+# ------------------------------------------------------------------ C4
+BN_KEYS = ("gamma", "beta", "running_mean", "running_var")
+
+
+def _bn_values(seed):
+    rs = np.random.RandomState(seed)
+    return {"gamma": rs.uniform(0.5, 1.5, 4).astype(np.float32),
+            "beta": (0.1 * rs.randn(4)).astype(np.float32),
+            "running_mean": (0.1 * rs.randn(4)).astype(np.float32),
+            "running_var": rs.uniform(0.5, 1.5, 4).astype(np.float32),
+            "x": rs.randn(8, 4).astype(np.float32),
+            "y": rs.randint(0, 4, 8).astype(np.float32)}
+
+
+def _jax_step(layer_cls, scale, center, v, wd):
+    net = layer_cls(scale=scale, center=center, in_channels=4)
+    net.initialize()
+    for k in BN_KEYS:
+        getattr(net, k).set_data(jmx.nd.array(v[k]))
+    step = jparallel.TrainStep(
+        net, jgluon.loss.SoftmaxCrossEntropyLoss(),
+        jmx.optimizer.SGD(learning_rate=0.1, momentum=0.9, wd=wd))
+    loss = float(step(jmx.nd.array(v["x"]), jmx.nd.array(v["y"]))
+                 .asscalar())
+    step.sync_params()
+    return loss, {k: getattr(net, k).data().asnumpy() for k in BN_KEYS}
+
+
+@pytest.mark.parametrize("scale,center", [(False, True), (True, False),
+                                          (False, False)])
+@pytest.mark.parametrize("layer", ["BatchNorm", "BNReLU"])
+def test_c4_fixed_gamma_beta_train_like_jax(layer, scale, center):
+    """One SGD step (lr 0.1, momentum 0.9, wd 1e-2) over a lone
+    BatchNorm / BNReLU: the port's step runs, its loss, parameters and
+    moving statistics equal JAX's, and the fixed gamma / beta keep their
+    exact values, weight decay notwithstanding."""
+    v = _bn_values(3)
+    wd = 1e-2
+    jloss, want = _jax_step(getattr(jgluon.nn, layer), scale, center, v,
+                            wd)
+    cls = {"BatchNorm": BatchNorm, "BNReLU": BNReLU}[layer]
+    net = cls(4, scale=scale, center=center, device="cpu")
+    assert set(net.state_dict()) == set(BN_KEYS)
+    net.load_state_dict({k: torch.from_numpy(v[k]) for k in BN_KEYS})
+    step = TrainStep(net, SoftmaxCrossEntropyLoss(),
+                     SGD(learning_rate=0.1, momentum=0.9, wd=wd),
+                     device="cpu")
+    loss = float(step(v["x"], v["y"]))
+    assert abs(loss - jloss) <= 1e-6 * max(abs(jloss), 1.0)
+    for k in BN_KEYS:
+        got = getattr(net, k).detach().numpy()
+        np.testing.assert_allclose(got, want[k], rtol=0,
+                                   atol=1e-6 * np.abs(want[k]).max(),
+                                   err_msg=k)
+    if not scale:
+        np.testing.assert_array_equal(net.gamma.detach().numpy(),
+                                      v["gamma"])
+    if not center:
+        np.testing.assert_array_equal(net.beta.detach().numpy(),
+                                      v["beta"])
+
+
+def test_c4_bnrelu_fixed_gamma_stays_one_under_weight_decay():
+    net = BNReLU(4, scale=False, device="cpu")
+    v = _bn_values(5)
+    v["gamma"] = np.ones(4, np.float32)
+    net.load_state_dict({k: torch.from_numpy(v[k]) for k in BN_KEYS})
+    step = TrainStep(net, SoftmaxCrossEntropyLoss(),
+                     SGD(learning_rate=0.1, wd=1e-2), device="cpu")
+    step(v["x"], v["y"])
+    assert torch.equal(net.gamma, torch.ones(4))
+    assert not net.beta.eq(torch.from_numpy(v["beta"])).all()
+
+
+# ------------------------------------------------------------------ C5
+def _grad_at(mod, f, values):
+    xs = [mod.nd.array(np.array(v, np.float32)) for v in values]
+    for x in xs:
+        x.attach_grad()
+    with mod.autograd.record():
+        y = f(mod, *xs)
+    y.backward()
+    return [y] + [x.grad for x in xs]
+
+
+ZERO_GRADS = {
+    "broadcast_hypot": (lambda m, a, b: m.nd.broadcast_hypot(a, b),
+                        [[0.0, 3.0, 0.0], [0.0, 4.0, -2.0]]),
+    "_hypot_scalar": (lambda m, a: m.nd._hypot_scalar(a, scalar=0.0),
+                      [[0.0, -3.0]]),
+    "cbrt": (lambda m, a: m.nd.cbrt(a), [[0.0, 8.0, -8.0]]),
+    "rcbrt": (lambda m, a: m.nd.rcbrt(a), [[0.0, 8.0, -8.0]]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZERO_GRADS))
+def test_c5_gradient_at_zero_matches_jax(name):
+    f, values = ZERO_GRADS[name]
+    got, want = _both(lambda m: _grad_at(m, f, values))
+    for g, w, what in zip(got, want, ("value", "grad a", "grad b")):
+        assert not np.isnan(g).any(), f"{name} {what}: {g}"
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=0,
+                                   err_msg=f"{name} {what}")
+
+
+# ------------------------------------------------------------------ C6
+def test_c6_sign_keeps_nan():
+    x = np.array([np.nan, -1.5, 0.0, -0.0, 2.0], np.float32)
+    got, want = _both(lambda m: m.nd.sign(m.nd.array(x)))
+    _exact(got, want, "sign")
+
+
+# ------------------------------------------------------------------ C7
+@pytest.mark.parametrize("dtype,value", [
+    ("int32", 1e10), ("int32", np.nan), ("int32", np.inf),
+    ("uint8", 300.0), ("uint8", -5.0), ("int8", 200.0), ("int8", -200.0),
+    ("int16", 1e6)])
+def test_c7_cast_saturates_like_xla(dtype, value):
+    x = np.array([value, 1.5], np.float32)
+    got, want = _both(lambda m: m.nd.Cast(m.nd.array(x), dtype=dtype))
+    _exact(got, want, f"Cast {value} to {dtype}")
+
+
+def test_c2_c7_values_the_repairs_leave_alone():
+    """What was right before the repairs stays right: bool sums and
+    products (int32), and casts at the ends of the range and inside it
+    (truncation toward 0)."""
+    b = np.array([True, True, False])
+    for op in ("sum", "prod"):
+        _exact(*_both(lambda m: getattr(m.nd, op)(m.nd.array(b,
+                                                              dtype="bool"))),
+               f"{op} bool")
+    for dtype, vals in (("int32", [-1e10, 2147483520.0, -3.7, 3.7]),
+                        ("uint8", [np.nan, 255.5, 0.5, 254.0])):
+        x = np.array(vals, np.float32)
+        _exact(*_both(lambda m: m.nd.Cast(m.nd.array(x), dtype=dtype)),
+               f"Cast {vals} to {dtype}")

@@ -64,7 +64,11 @@ def test_slot_reuse_after_eos_retirement():
         assert all(o.tolist() == [first] for o in outs)
         assert eng.stats()["retire_eos"] == 6
         assert eng.free_slots() == 2
-        assert eng.kv_info()["live"] == 0            # every block back
+        # every slot's block back: the prefix cache (on by default)
+        # holds the one tail block of [3, 1, 4], which the 6 repeats hit
+        assert eng.kv_info()["live"] == 1
+        assert eng.kv_info()["prefix"] == {"blocks": 0, "terminals": 1}
+        assert eng.stats()["prefix_hit"] == 6
         assert eng.kv_info()["reserved"] == 0
 
 
@@ -206,8 +210,13 @@ def test_max_len_retirement_and_prompt_validation():
 
 
 def test_config_validation():
-    with pytest.raises(MXNetError, match="prefix"):
-        GenerationConfig(slots=2, max_len=64, prefix_cache=True)
+    # the prefix cache is ported: on by default on the paged layout, as
+    # in the JAX engine, and off on the dense one
+    assert GenerationConfig(slots=2, max_len=64).prefix_cache is True
+    assert GenerationConfig(slots=2, max_len=64,
+                            prefix_cache=True).prefix_cache is True
+    assert GenerationConfig(slots=2, max_len=64, kv_layout="dense",
+                            prefix_cache=True).prefix_cache is False
     with pytest.raises(MXNetError):
         GenerationConfig(slots=2, max_len=64, prefill_buckets=[12])
     with pytest.raises(MXNetError):
