@@ -59,7 +59,19 @@ launch counts set to 0 just before it and read just after:
   compiled at run time through ``mx.rtc.CudaModule`` (NVRTC), one
   launch per parameter; held against the same loop with the ``nd``
   update on the card and on the CPU, then ``nd.save`` on the card and
-  ``nd.load`` on the CPU, and 5 steps under torch.profiler.
+  ``nd.load`` on the CPU, and 5 steps under torch.profiler;
+* Gluon over NDArray: B1-B4 through ``nd._FusedBNReluConv`` and
+  ``nd._FusedBottleneckChain`` at ResNet-50 stage-2 widths (phase
+  ``kernels_gluon``: launches, plain versions, the moving-statistic
+  fold); ResNet-50's stage-2 bottleneck with a classifier head written
+  as JAX Gluon code (a HybridBlock over ``FusedBNReLUConv2D`` and a
+  deferred ``Dense``, Xavier, ``gluon.Trainer`` with a FactorScheduler,
+  metrics), 3 steps at b=32 held against the CPU (``gluon_layers``); and
+  ResNet-50 v1 (``fuse_block=True``) trained through
+  ``gluon.Trainer(net.collect_params(), "sgd", ...)`` at b=32, its first
+  step held against ``TrainStep`` (``gluon_train``).  The kernel line
+  gives each kernel's launches on these two paths
+  (``launches_gluon``).
 
 The rtc user kernels (``axpy``, a per-row sum that stages its row in
 more than 48 KB of dynamic shared memory, and a ``scale_add`` template
@@ -1088,7 +1100,8 @@ def _zero_counts():
 
 
 def _train_step(net, **kw):
-    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.gluon.nn._modules import (
+        SoftmaxCrossEntropyLoss)
     from incubator_mxnet_tpu_torch.optimizer import SGD
     from incubator_mxnet_tpu_torch.parallel import TrainStep
     return TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(**SGD_KW),
@@ -1384,6 +1397,7 @@ def phase_fused_train(seed):
           "steps": FUSED_TRAIN_STEPS, "losses": losses,
           "ms_per_step": wall / FUSED_TRAIN_STEPS * 1e3,
           "launches": launches})
+    return wall / FUSED_TRAIN_STEPS * 1e3
 
 
 def phase_resnet_train_bench(seed):
@@ -2383,6 +2397,469 @@ def phase_generation_stages(net, seed):
               "peak_mem_gb": peak_chunk}})
 
 
+# ---------------------------------------------------------------- Gluon
+GLUON_WIDTHS = dict(cin=512, mid=128, classes=1000)  # ResNet-50 stage 2
+GLUON_SHAPE = (32, 28, 28, 512)                     # b=32, NHWC
+GLUON_STEPS = 3
+GLUON_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+# card vs CPU after 3 Gluon steps: of each tensor's largest magnitude,
+# plus STEP_ATOL (the conv biases before a BatchNorm get a gradient that
+# is 0 in exact arithmetic: their values are rounding noise)
+GLUON_RTOL = 1e-4
+GLUON_METRIC_RTOL = 1e-5
+GLUON_TRAIN_BATCH, GLUON_TRAIN_STEPS = 32, 5
+# one Trainer step vs one TrainStep step on the same weights and batch:
+# the loss's sum with rescale_grad 1/32 and its mean differ by a power
+# of two, so the two agree bit for bit on the CPU; on the card cuDNN's
+# backward sums in an order that varies from call to call
+GLUON_STEP_RTOL = 1e-6
+GLUON_ZERO_GRAD_LEAVES = ("body.0.bias", "body.2.conv.bias")
+GLUON_KERNEL_SHAPE = (32, 28, 28, 128)   # stage 2's conv1 output
+
+
+def gluon_bottleneck(mx, cin=512, mid=128, classes=1000, fused=True):
+    """ResNet-50 v1's stage-2 bottleneck (cin -> mid -> cin channels,
+    NHWC) with a classifier head, written as a user writes JAX Gluon
+    code: a HybridBlock with hybrid_forward over ``mx``'s layers (the
+    JAX package or the port; only the package differs).  Its [BN -> ReLU
+    -> conv] boundaries are ``FusedBNReLUConv2D`` layers; ``fused=False``
+    runs them as BatchNorm, ReLU and Conv2D over the same parameters
+    (the unfused formulation).  The head's Dense infers its input width
+    at the first forward."""
+    nn = mx.gluon.nn
+
+    class Bottleneck(mx.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.conv1 = nn.Conv2D(mid, 1, layout="NHWC",
+                                       in_channels=cin)
+                self.fused2 = nn.FusedBNReLUConv2D(
+                    mid, 3, 1, 1, layout="NHWC", in_channels=mid)
+                self.fused3 = nn.FusedBNReLUConv2D(
+                    cin, 1, layout="NHWC", in_channels=mid, use_bias=True)
+                self.bn3 = nn.BatchNorm(axis=3, in_channels=cin)
+                self.act = nn.Activation("relu")
+                self.pool = nn.GlobalAvgPool2D(layout="NHWC")
+                self.flat = nn.Flatten()
+                self.fc = nn.Dense(classes)
+
+        def _boundary(self, F, layer, x):
+            if fused:
+                return layer(x)
+            return layer.conv(F.relu(layer.bn(x)))
+
+        def hybrid_forward(self, F, x):
+            out = self._boundary(F, self.fused2, self.conv1(x))
+            out = self.bn3(self._boundary(F, self.fused3, out))
+            out = self.act(out + x)
+            return self.fc(self.flat(self.pool(out)))
+
+    return Bottleneck(prefix="bottleneck_")
+
+
+def gluon_loop(mx, net, x, y, ctx, steps):
+    """The JAX Gluon training loop as written for JAX: ``steps`` of
+    record, softmax cross-entropy, backward and ``Trainer.step`` (SGD
+    with momentum, weight decay and a FactorScheduler), with
+    ``metric.Accuracy`` and ``metric.CrossEntropy``.  Returns the losses,
+    the metrics and each step's logits."""
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(
+        GLUON_OPT, lr_scheduler=mx.lr_scheduler.FactorScheduler(
+            step=1, factor=0.5)))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    acc, ce = mx.metric.Accuracy(), mx.metric.CrossEntropy()
+    losses, logits = [], []
+    with ctx:
+        xx, yy = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+        for _ in range(steps):
+            with mx.autograd.record():
+                out = net(xx)
+                loss = loss_fn(out, yy)
+            loss.backward()
+            trainer.step(x.shape[0])
+            acc.update([yy], [out])
+            ce.update([yy], [mx.nd.softmax(out)])
+            losses.append(float(loss.mean().asscalar()))
+            logits.append(out.asnumpy())
+    return {"losses": losses, "metrics": [(name, float(value)) for name, value
+                                          in (acc.get(), ce.get())],
+            "logits": logits}
+
+
+def _numpy_metrics(logits, y):
+    """Accuracy and cross-entropy of each step's logits, in numpy."""
+    hits = ce = count = 0.0
+    for z in logits:
+        z = z.astype(np.float64)
+        p = np.exp(z - z.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        hits += float((z.argmax(1) == y).sum())
+        ce += float(-np.log(p[np.arange(len(y)), y.astype(np.int64)]
+                            + 1e-12).sum())
+        count += len(y)
+    return hits / count, ce / count
+
+
+def _stat_key(name):
+    return name.endswith(("running_mean", "running_var"))
+
+
+def _tensor_dict(net):
+    return {n: p.data()._data.detach().float().cpu()
+            for n, p in net.collect_params().items()}
+
+
+def _launch_delta(before):
+    after = _counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _fold(moving, batch, momentum):
+    """The moving-statistic fold by hand, in the statistics' dtype."""
+    m = torch.tensor(momentum, dtype=moving.dtype).item()
+    rest = torch.tensor(1 - momentum, dtype=moving.dtype).item()
+    return m * moving + rest * batch.to(moving.dtype)
+
+
+def _nd_case_conv(gen, kern, cout, dt):
+    n, h, w, c = GLUON_KERNEL_SHAPE
+    taps = kern[0] * kern[1]
+    x = torch.randn((n, h, w, c), device="cuda", generator=gen).to(dt)
+    vec = [torch.rand((c,), device="cuda", generator=gen) + 0.5,
+           torch.randn((c,), device="cuda", generator=gen) * 0.1,
+           torch.randn((c,), device="cuda", generator=gen) * 0.1,
+           torch.rand((c,), device="cuda", generator=gen) + 0.5]
+    wt = (torch.randn((cout, c) + kern, device="cuda", generator=gen)
+          * math.sqrt(2.0 / (c * taps))).to(dt)
+    bias = torch.randn((cout,), device="cuda", generator=gen) * 0.1
+    return [x] + vec + [wt, bias]
+
+
+def _nd_case_chain(gen, dt):
+    n, h, w, c = GLUON_KERNEL_SHAPE
+    cm, co = 128, 512
+
+    def bn(k):
+        return [torch.rand((k,), device="cuda", generator=gen) + 0.5,
+                torch.randn((k,), device="cuda", generator=gen) * 0.1,
+                torch.randn((k,), device="cuda", generator=gen) * 0.1,
+                torch.rand((k,), device="cuda", generator=gen) + 0.5]
+    c1 = torch.randn((n, h, w, c), device="cuda", generator=gen).to(dt)
+    w2 = (torch.randn((cm, c, 3, 3), device="cuda", generator=gen)
+          * math.sqrt(2.0 / (c * 9))).to(dt)
+    w3 = (torch.randn((co, cm, 1, 1), device="cuda", generator=gen)
+          * math.sqrt(2.0 / cm)).to(dt)
+    b3 = torch.randn((co,), device="cuda", generator=gen) * 0.1
+    return [c1] + bn(c) + [w2] + bn(cm) + [w3, b3]
+
+
+def phase_kernels_gluon(seed):
+    """B1-B4 through the ``nd`` front end: ``nd._FusedBNReluConv`` (1x1
+    -> 512 and 3x3 -> 128 channels) and ``nd._FusedBottleneckChain``
+    (128 -> 128 -> 512) on CUDA NDArrays at ResNet-50 stage-2 widths,
+    b=32, in fp32 and bf16, under ``autograd.record()``.  Each call must
+    launch its kernels once (the counters read around it), agree with
+    the kernels' plain versions on the same inputs (B1, B2, B4 fp32 1e-4
+    of max |out|, bf16 2 ulps; B3 fp32 1e-5 of its sums' mass, bf16 one
+    bf16 ulp of its statistics), and leave the moving statistics at the
+    fold computed by hand from the batch statistics it returned.  The
+    fp32 cases also time the ``nd`` call against the direct wrapper."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from incubator_mxnet_tpu_torch.ops import fused_chain as fch
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+    gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+    eps, momentum = 1e-5, 0.9
+    rows = []
+    for name, kern, cout in (("sbr_matmul", (1, 1), 512),
+                             ("sbr_conv3x3", (3, 3), 128)):
+        for dt in FORMS:
+            args = _nd_case_conv(gen, kern, cout, dt)
+            before_stats = [t.clone() for t in args[3:5]]
+            arrays = [NDArray(t) for t in args]
+            attrs = dict(kernel=kern, pad=(kern[0] // 2,) * 2,
+                         layout="NHWC", eps=eps, momentum=momentum)
+            before = _counts()
+            with mx.autograd.record():
+                out, mean, var = mx.nd._FusedBNReluConv(
+                    *arrays, output_mean_var=True, **attrs)
+            torch.cuda.synchronize()
+            key = name + FORMS[dt]
+            _expect(_launch_delta(before), {key: 1}, f"nd {key}")
+            xv = args[0].permute(0, 3, 1, 2)
+            a, b, _, _ = fc.bn_coefficients(xv, args[1], args[2],
+                                            *before_stats, eps, False, True)
+            plain = (fc._sbr_matmul_plain if kern == (1, 1)
+                     else fc._sbr_conv3x3_plain)(xv, a, b, args[5], args[6])
+            ref = plain.permute(0, 2, 3, 1).float()
+            err = (out._data.float() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            limit = _gate(f"nd {key}", dt, err, scale, GLUON_KERNEL_SHAPE)
+            for i, stat in ((3, mean), (4, var)):
+                if not torch.equal(arrays[i]._data, _fold(
+                        before_stats[i - 3], stat._data, momentum)):
+                    fail(f"nd {key}: moving statistic {i} is not the fold "
+                         "of the batch statistics")
+            row = {"op": "_FusedBNReluConv", "kernel": key,
+                   "shape": list(GLUON_KERNEL_SHAPE), "cout": cout,
+                   "max_abs_err": err, "ref_abs_max": scale,
+                   "limit": limit, "fold": "exact"}
+            if dt == torch.float32:
+                x, g, bt, rm, rv, wt, bias = args
+                wcl = wt.contiguous(memory_format=torch.channels_last)
+                row["nd_ms"] = time_ms(lambda: mx.nd._FusedBNReluConv(
+                    *arrays, **attrs))
+                row["direct_ms"] = time_ms(lambda: fc.fused_bn_relu_conv(
+                    xv, g, bt, rm, rv, wcl, bias, kern, eps))
+            rows.append(row)
+    for dt in FORMS:
+        args = _nd_case_chain(gen, dt)
+        before_stats = [args[i].clone() for i in (3, 4, 8, 9)]
+        arrays = [NDArray(t) for t in args]
+        before = _counts()
+        with mx.autograd.record():
+            out = mx.nd._FusedBottleneckChain(
+                *arrays, layout="NHWC", eps=eps, momentum=momentum,
+                output_mean_var=True)
+        torch.cuda.synchronize()
+        suffix = FORMS[dt]
+        _expect(_launch_delta(before), {"chain_stats" + suffix: 1,
+                                        "chain_emit" + suffix: 1},
+                f"nd _FusedBottleneckChain ({dt})")
+        x = args[0].permute(0, 3, 1, 2)
+        a1, b1, _, _ = fc.bn_coefficients(x, args[1], args[2],
+                                          *before_stats[:2], eps, False,
+                                          True)
+        shift = before_stats[2].float()
+        sums, sqs = fch._chain_stats_plain(x, a1, b1, args[5], shift)
+        count = x.shape[0] * x.shape[2] * x.shape[3]
+        mean_d = sums / count
+        var2 = torch.clamp(sqs / count - mean_d.square(), min=0.0)
+        mean2 = mean_d + shift
+        a2, b2 = fc.bn_affine(args[6], args[7], mean2, var2, eps)
+        ref = fch._chain_emit_plain(x, a1, b1, args[5], a2, b2, args[10],
+                                    args[11]).permute(0, 2, 3, 1).float()
+        err = (out[0]._data.float() - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        limit = _gate(f"nd chain_emit{suffix}", dt, err, scale,
+                      GLUON_KERNEL_SHAPE)
+        got_m, got_v = out[3]._data.float(), out[4]._data.float()
+        if dt == torch.float32:
+            # 1e-5 of the sums' mass, per channel: (sum of |c2 - s|) /
+            # count <= sqrt(E[(c2 - s)^2]), and the var adds 2|mean_d|
+            mass = var2 + mean_d.square()
+            lim_m = CHAIN_STATS_RTOL * mass.sqrt()
+            lim_v = 3 * CHAIN_STATS_RTOL * mass
+        else:
+            lim_m, lim_v = (torch.tensor(
+                [bf16_ulp(v) for v in t.abs().tolist()], device="cuda")
+                for t in (mean2, var2))
+        lim_m, lim_v = lim_m.clamp(min=1e-30), lim_v.clamp(min=1e-30)
+        stats_err = max(((got_m - mean2).abs() / lim_m).max().item(),
+                        ((got_v - var2).abs() / lim_v).max().item())
+        if stats_err > 1.0:
+            fail(f"nd chain_stats{suffix} statistics off their plain "
+                 f"version: {stats_err} x the bound")
+        for i, b, stat in zip((3, 4, 8, 9), before_stats, out[1:]):
+            if not torch.equal(arrays[i]._data,
+                               _fold(b, stat._data, momentum)):
+                fail(f"nd chain ({dt}): moving statistic {i} is not the "
+                     "fold of the batch statistics")
+        rows.append({"op": "_FusedBottleneckChain",
+                     "kernel": f"chain_stats{suffix}+chain_emit{suffix}",
+                     "shape": list(GLUON_KERNEL_SHAPE), "cm": 128,
+                     "co": 512, "max_abs_err": err, "ref_abs_max": scale,
+                     "limit": limit, "stats_err_over_bound": stats_err,
+                     "fold": "exact"})
+    emit({"phase": "kernels_gluon", "rows": rows})
+
+
+def phase_gluon_layers(seed):
+    """JAX Gluon code as a user writes it (``gluon_bottleneck``,
+    ``gluon_loop``) on the card: Xavier initialisation on gpu(0), one
+    paused forward that materialises the deferred Dense, the parameters
+    to the CPU by ``save_params`` / ``load_params``, then 3 Trainer steps
+    on the card with the launch counts read around them (B1 and B2 once
+    per forward each) and on the CPU, twice there (fused layers, and
+    BatchNorm / ReLU / Conv2D over the same parameters) for the spread
+    of fp32 itself.  Every parameter and moving statistic of the card
+    within GLUON_RTOL of its max (+ STEP_ATOL) of the CPU's, or within
+    SPREAD_FACTOR x the CPU spread where that is larger (the line says
+    which); the metrics finite and equal to numpy's on the logits."""
+    import tempfile
+    import incubator_mxnet_tpu_torch as mx
+    rs = np.random.RandomState(seed + 40)
+    x = rs.randn(*GLUON_SHAPE).astype(np.float32)
+    y = rs.randint(0, GLUON_WIDTHS["classes"],
+                   GLUON_SHAPE[0]).astype(np.float32)
+    gpu = mx.gpu(0)
+    net = gluon_bottleneck(mx, **GLUON_WIDTHS)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    with mx.autograd.pause():
+        net(mx.nd.array(x, ctx=gpu))
+    cpu_nets = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/bottleneck.params"
+        net.save_params(path)
+        for fused in (True, False):
+            cpu_nets[fused] = gluon_bottleneck(mx, fused=fused,
+                                               **GLUON_WIDTHS)
+            with mx.cpu():
+                cpu_nets[fused].load_params(path, ctx=mx.cpu())
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    card = gluon_loop(mx, net, x, y, gpu, GLUON_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(sbr_matmul=GLUON_STEPS, sbr_conv3x3=GLUON_STEPS)
+    _expect(launches, want, "gluon_layers")
+    t0 = time.perf_counter()
+    cpu = {f: gluon_loop(mx, n, x, y, mx.cpu(), GLUON_STEPS)
+           for f, n in cpu_nets.items()}
+    cpu_s = time.perf_counter() - t0
+    got, ref, alt = (_tensor_dict(net), _tensor_dict(cpu_nets[True]),
+                     _tensor_dict(cpu_nets[False]))
+    stats = [k for k in ref if _stat_key(k)]
+    params = [k for k in ref if k not in stats]
+    stats_worst, stats_key = _worst(got, ref, stats, GLUON_RTOL)
+    params_worst, params_key = _worst(got, ref, params, GLUON_RTOL)
+    spread, spread_key = _worst(alt, ref, params, GLUON_RTOL)
+    bound = max(1.0, SPREAD_FACTOR * spread)
+    metrics = card["metrics"]
+    want_acc, want_ce = _numpy_metrics(card["logits"], y)
+    emit({"phase": "gluon_layers", "shape": list(GLUON_SHAPE),
+          "widths": GLUON_WIDTHS, "steps": GLUON_STEPS,
+          "losses_card": card["losses"], "losses_cpu": cpu[True]["losses"],
+          "launches": launches, "ms_per_step": wall / GLUON_STEPS * 1e3,
+          "metrics": metrics, "numpy_metrics": [want_acc, want_ce],
+          "rtol": GLUON_RTOL, "atol": STEP_ATOL,
+          "params_worst_over_bound": params_worst,
+          "params_worst": params_key,
+          "stats_worst_over_bound": stats_worst, "stats_worst": stats_key,
+          "cpu_spread_worst_over_bound": spread,
+          "cpu_spread_worst": spread_key,
+          "bound_used": "1e-4 of max" if bound == 1.0 else
+          f"{SPREAD_FACTOR} x the CPU spread",
+          "tensors": len(ref), "cpu_seconds": cpu_s})
+    if params_worst > bound or stats_worst > bound:
+        fail(f"gluon_layers card vs CPU after {GLUON_STEPS} steps: "
+             f"{params_key} {params_worst}, {stats_key} {stats_worst} x "
+             f"the bound (CPU spread {spread})")
+    acc, ce = metrics[0][1], metrics[1][1]
+    if not (math.isfinite(acc) and math.isfinite(ce)) or \
+            abs(acc - want_acc) > GLUON_METRIC_RTOL * max(want_acc, 1e-12) \
+            or abs(ce - want_ce) > GLUON_METRIC_RTOL * want_ce:
+        fail(f"gluon_layers metrics {metrics} vs numpy "
+             f"{(want_acc, want_ce)}")
+    return launches
+
+
+def phase_gluon_train(seed, fused_train_ms):
+    """ResNet-50 v1 (fuse_block=True, NHWC, 224x224, fp32) trained by the
+    JAX Gluon loop: ``gluon.Trainer(net.collect_params(), "sgd", ...)``
+    with a FactorScheduler, ``gluon.loss.SoftmaxCrossEntropyLoss`` and
+    ``metric.Accuracy``, GLUON_TRAIN_STEPS steps at b=32, with the
+    launch counts read around them (16 B1 and 16 B2 launches a step).
+    The parameters and moving statistics after the first step are held
+    against one ``TrainStep`` step of the same seeded net on the same
+    batch (GLUON_STEP_RTOL of each tensor's max).  Reports ms a step,
+    the host ms inside ``trainer.step`` and the device idle share of one
+    profiled step, beside ``fused_train``'s TrainStep at the same
+    batch."""
+    import incubator_mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    gpu = mx.gpu(0)
+    net = get_resnet(1, 50, device="cuda:0", seed=seed + 41, **RESNET50)
+    x, y = _train_batch(seed + 42, GLUON_TRAIN_BATCH)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(
+        GLUON_OPT, lr_scheduler=mx.lr_scheduler.FactorScheduler(
+            step=1, factor=0.5)))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    acc = mx.metric.Accuracy()
+    xx, yy = mx.nd.array(x, ctx=gpu), mx.nd.array(y, ctx=gpu)
+    host_ms, losses = [], []
+
+    def one_step():
+        with mx.autograd.record():
+            out = net(xx)
+            loss = loss_fn(out, yy)
+        loss.backward()
+        t = time.perf_counter()
+        trainer.step(GLUON_TRAIN_BATCH)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        acc.update([yy], [out])
+        losses.append(float(loss.mean().asscalar()))
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    one_step()
+    torch.cuda.synchronize()
+    after_one = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    t0 = time.perf_counter()
+    for _ in range(GLUON_TRAIN_STEPS - 1):
+        one_step()
+    torch.cuda.synchronize()
+    ms_per_step = (time.perf_counter() - t0) / (GLUON_TRAIN_STEPS - 1) * 1e3
+    launches = _counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(sbr_matmul=16 * GLUON_TRAIN_STEPS,
+                sbr_conv3x3=16 * GLUON_TRAIN_STEPS)
+    _expect(launches, want, "gluon_train")
+    _finite(losses, "gluon_train")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profiled = _profile_summary(prof, wall)
+    twin = get_resnet(1, 50, device="cuda:0", seed=seed + 41, **RESNET50)
+    xd, yd = (torch.from_numpy(v).cuda() for v in (x, y))
+    _train_step(twin)(xd, yd)
+    ref = twin.state_dict()
+    # the conv biases that feed a BatchNorm (a bottleneck's conv1 and
+    # its 1x1 conv3) have a gradient that is 0 in exact arithmetic: after
+    # one step they hold rounding noise, held to STEP_ATOL absolute;
+    # every other leaf to GLUON_STEP_RTOL of its max
+    zero_grad = [k for k in ref if k.endswith(GLUON_ZERO_GRAD_LEAVES)]
+    worst, worst_key, noise, equal = 0.0, None, 0.0, 0
+    for k, r in ref.items():
+        err = (after_one[k] - r).abs().max().item()
+        equal += err == 0.0
+        if k in zero_grad:
+            noise = max(noise, err)
+            continue
+        ratio = err / max(r.abs().max().item(), 1e-30)
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    emit({"phase": "gluon_train", "batch": GLUON_TRAIN_BATCH,
+          "steps": GLUON_TRAIN_STEPS, "losses": losses,
+          "accuracy": float(acc.get()[1]), "launches": launches,
+          "ms_per_step": ms_per_step,
+          "trainer_step_host_ms": sorted(host_ms)[len(host_ms) // 2],
+          "trainable": sum(p.grad_req != "null"
+                           for p in net.collect_params().values()),
+          "fused_train_ms_per_step": fused_train_ms,
+          "vs_train_step_worst_rel": worst, "vs_train_step_worst": worst_key,
+          "vs_train_step_zero_grad_leaves": len(zero_grad),
+          "vs_train_step_zero_grad_worst_abs": noise,
+          "vs_train_step_bit_equal": f"{equal} of {len(ref)}",
+          "rtol": GLUON_STEP_RTOL, "atol_zero_grad": STEP_ATOL,
+          "profiled_step": {k: profiled[k] for k in (
+              "wall_s", "device_busy_s", "device_idle_share",
+              "device_ms_by_kind")}})
+    if worst > GLUON_STEP_RTOL or noise > STEP_ATOL:
+        fail(f"gluon_train: one Trainer step vs one TrainStep step, "
+             f"{worst_key} is {worst} of its max off (zero-gradient "
+             f"leaves {noise} absolute)")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2426,7 +2903,7 @@ def main():
     torch.cuda.empty_cache()
     phase_resnet_train_reference(args.seed)
     torch.cuda.empty_cache()
-    phase_fused_train(args.seed)
+    fused_train_ms = phase_fused_train(args.seed)
     torch.cuda.empty_cache()
     bnet, step, xd, yd = phase_resnet_train_bench(args.seed)
     phase_resnet_train_profile(step, xd, yd, "resnet_train_bench_profile",
@@ -2470,6 +2947,14 @@ def main():
         "library_ms": axpy_row["library_ms"],
         "per": f"one axpy over n = {axpy_row['n']} floats (resnet50_v1's "
                "parameter count); compiled by NVRTC at run time"})
+    torch.cuda.empty_cache()
+    phase_kernels_gluon(args.seed)
+    gluon_paths = {"gluon_layers": phase_gluon_layers(args.seed)}
+    torch.cuda.empty_cache()
+    gluon_paths["gluon_train"] = phase_gluon_train(args.seed, fused_train_ms)
+    for row in kernels:
+        row["launches_gluon"] = {path: counts.get(row["name"], 0)
+                                 for path, counts in gluon_paths.items()}
     print(smi or "nvidia-smi: not available", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

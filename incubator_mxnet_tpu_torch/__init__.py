@@ -14,12 +14,16 @@ ResNet V1 inference (``gluon.model_zoo.vision``, ``predict.
 BlockPredictor``, ``serving.ModelServer``, the fused BN -> ReLU -> conv
 kernels of ``ops.fused_conv``), ResNet V1 training
 (``parallel.TrainStep`` with bf16 compute, gradient accumulation and
-the ``numerics.LossScaler``, ``parallel.EvalStep``, ``gluon.nn.BNReLU``,
-``gluon.loss``, ``optimizer.SGD``, the bottleneck-chain kernels of
-``ops.fused_chain``) and the imperative
-front end: ``nd`` (``NDArray`` over ``torch.Tensor`` and the op
-registry), ``autograd`` (over ``torch.autograd``), ``random``, and
-``rtc.CudaModule`` (user CUDA C compiled at run time with NVRTC).  So
+the ``numerics.LossScaler``, ``parallel.EvalStep``, the tensor-level
+layers of ``gluon.nn._modules``, ``optimizer.SGD``, the bottleneck-chain
+kernels of ``ops.fused_chain``), the imperative front end: ``nd``
+(``NDArray`` over ``torch.Tensor`` and the op registry), ``autograd``
+(over ``torch.autograd``), ``random``, and ``rtc.CudaModule`` (user
+CUDA C compiled at run time with NVRTC), and Gluon over ``NDArray``
+(``gluon.Block`` / ``HybridBlock``, ``Parameter``, ``Trainer``, the
+``gluon.nn`` layers and ``gluon.loss``, ``initializer`` as ``init``,
+``lr_scheduler``, ``metric``; the model zoo's ResNet also takes
+NDArrays and offers ``collect_params``).  So
 ``import incubator_mxnet_tpu_torch as mx; mx.nd.ones((2,))`` reads as
 it does against the JAX package, except that the default context is
 ``mx.gpu(0)``.
@@ -28,13 +32,15 @@ from . import (base, context, convert, gluon, numerics, ops, optimizer,
                parallel, predict, serving)
 from . import ndarray
 from . import ndarray as nd
-from . import autograd, random, rtc
+from . import autograd, initializer, lr_scheduler, metric, name, random, rtc
+from . import initializer as init
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus, tpu
 
 __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "Context", "autograd", "base", "context",
-           "convert", "cpu", "current_context", "gluon", "gpu", "nd",
-           "ndarray", "num_gpus", "numerics", "ops", "optimizer", "parallel",
-           "predict", "random", "rtc", "serving", "tpu"]
+           "convert", "cpu", "current_context", "gluon", "gpu", "init",
+           "initializer", "lr_scheduler", "metric", "name", "nd", "ndarray",
+           "num_gpus", "numerics", "ops", "optimizer", "parallel", "predict",
+           "random", "rtc", "serving", "tpu"]

@@ -14,7 +14,8 @@ that requires grad and tag it with its NDArray.  ``backward`` walks the
 heads' graph to the tagged leaves and asks ``torch.autograd.grad`` for
 their gradients, then writes each into the NDArray's grad buffer by its
 ``grad_req``: ``write`` overwrites it in place, ``add`` accumulates,
-``null`` leaves it.  Torch's own ``.grad`` fields are never used, so
+``null`` leaves it; a written buffer's array gets ``_fresh_grad``,
+which ``gluon.Trainer.step`` clears.  Torch's own ``.grad`` fields are never used, so
 nothing accumulates behind the caller's back.  The graph is freed after
 ``backward`` unless ``retain_graph=True``, as in the reference (the
 JAX tape keeps it either way).
@@ -223,6 +224,8 @@ def _store(var, g):
         var._grad._data.add_(g)
     else:
         var._grad._data.copy_(g)
+    # the fresh-gradient bit that gluon.Trainer.step reads and clears
+    var._fresh_grad = True
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):

@@ -31,9 +31,12 @@ _NUMPY_OF = {v: np.dtype(k) for k, v in _TORCH_OF.items()}
 
 
 def torch_dtype(dtype):
-    """The torch dtype of a numpy dtype, its name or a torch dtype."""
+    """The torch dtype of a numpy dtype, its name or a torch dtype
+    (``"bfloat16"``, which numpy lacks, by its name)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return torch.bfloat16
     name = np.dtype(dtype).name
     if name not in _TORCH_OF:
         raise MXNetError(f"dtype {name} is not supported by the port")
@@ -62,14 +65,20 @@ def get_env(name, default, typ=None):
 
 class _Registry:
     """Name -> object registry with aliases (the role of dmlc::Registry):
-    one place where a subsystem (the operator table so far) registers
-    named entries.  Lookups fall back to a case-insensitive match."""
+    one place where a subsystem (operators, optimizers, initializers,
+    metrics) registers named entries.  Lookups fall back to a
+    case-insensitive match."""
 
     def __init__(self, kind):
         self.kind = kind
         self._map = {}
 
-    def register(self, name, obj, aliases=()):
+    def register(self, name, obj=None, aliases=()):
+        if obj is None:             # decorator form
+            def _dec(o):
+                self.register(name, o, aliases)
+                return o
+            return _dec
         if name in self._map and self._map[name] is not obj:
             raise ValueError(f"{self.kind} '{name}' already registered")
         self._map[name] = obj

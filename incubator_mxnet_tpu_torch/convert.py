@@ -3,7 +3,8 @@
 ``resnet_params_from_numpy`` does the same for the ResNet V1 model zoo
 (its docstring gives the structure it maps), and
 ``resnet_params_to_numpy`` maps the port's ResNet V1 ``state_dict``
-back to the JAX names, bit for bit.
+back to the JAX names, bit for bit (``resnet_param_names``, which the
+zoo's ``collect_params`` names its Parameters by).
 
 ``params_from_numpy`` takes ``{jax_param_name: np.ndarray}`` — what
 ``TransformerDecoder.collect_params()`` of the JAX package gives, each
@@ -29,8 +30,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["params_from_numpy", "resnet_params_from_numpy",
-           "resnet_params_to_numpy"]
+__all__ = ["params_from_numpy", "resnet_param_names",
+           "resnet_params_from_numpy", "resnet_params_to_numpy"]
 
 # child blocks of a JAX DecoderLayer in creation order -> port names
 _LAYER_CHILDREN = {"layernorm0": "ln1", "dense0": "qkv", "dense1": "proj",
@@ -202,39 +203,38 @@ def resnet_params_from_numpy(named_arrays):
     return out
 
 
-def resnet_params_to_numpy(state_dict, prefix="resnetv10_"):
-    """The port's ResNet V1 ``state_dict`` (any mode) -> ``{jax_param_name:
-    np.ndarray}`` under ``prefix``: the inverse of
-    ``resnet_params_from_numpy``, which maps the result back to the same
-    tensors bit for bit.  The JAX package's ``set_data`` of each name
-    loads it into a JAX net of the same structure.  Raises MXNetError on
-    a key it does not place."""
-    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+def resnet_param_names(keys, prefix="resnetv10_"):
+    """``{jax_param_name: key}`` for the keys of the port's ResNet V1
+    ``state_dict`` (any mode): the JAX package's full name of each
+    parameter and moving statistic under ``prefix``, the naming
+    ``resnet_params_from_numpy`` reads.  Raises MXNetError on a key it
+    does not place."""
+    keys = set(keys)
     out, placed = {}, set()
 
     def take(key, name):
-        out[prefix + name] = sd[key]
+        out[prefix + name] = key
         placed.add(key)
 
     take("features.0.weight", "conv2d0_weight")
-    stem_bn = "features.1.gamma" in sd
+    stem_bn = "features.1.gamma" in keys
     if stem_bn:
         for p in _BN_PARAMS:
             take(f"features.1.{p}", f"batchnorm0_{p}")
     base = 4 if stem_bn else 1
     stage = 1
-    while f"features.{base + stage - 1}.0.body.0.weight" in sd:
+    while f"features.{base + stage - 1}.0.body.0.weight" in keys:
         scope = f"features.{base + stage - 1}."
-        body, body_bn = _BOTTLENECK if f"{scope}0.body.3.gamma" in sd \
+        body, body_bn = _BOTTLENECK if f"{scope}0.body.3.gamma" in keys \
             else _BASIC
         n_conv = n_bn = 0
         blk = 0
-        while f"{scope}{blk}.body.0.weight" in sd:
+        while f"{scope}{blk}.body.0.weight" in keys:
             pre = f"{scope}{blk}."
-            ds = f"{pre}{_DOWNSAMPLE[0]}.weight" in sd
+            ds = f"{pre}{_DOWNSAMPLE[0]}.weight" in keys
             for key in body + (_DOWNSAMPLE[:1] if ds else ()):
                 for p in ("weight", "bias"):
-                    if f"{pre}{key}.{p}" in sd:
+                    if f"{pre}{key}.{p}" in keys:
                         take(f"{pre}{key}.{p}",
                              f"stage{stage}_conv2d{n_conv}_{p}")
                 n_conv += 1
@@ -247,7 +247,17 @@ def resnet_params_to_numpy(state_dict, prefix="resnetv10_"):
         stage += 1
     take("output.weight", "dense0_weight")
     take("output.bias", "dense0_bias")
-    if placed != set(sd):
+    if placed != keys:
         raise MXNetError(f"cannot place the port's keys "
-                         f"{sorted(set(sd) - placed)}")
+                         f"{sorted(keys - placed)}")
     return out
+
+
+def resnet_params_to_numpy(state_dict, prefix="resnetv10_"):
+    """The port's ResNet V1 ``state_dict`` (any mode) -> ``{jax_param_name:
+    np.ndarray}`` under ``prefix`` (``resnet_param_names``): the inverse
+    of ``resnet_params_from_numpy``, which maps the result back to the
+    same tensors bit for bit.  The JAX package's ``set_data`` of each
+    name loads it into a JAX net of the same structure."""
+    return {name: state_dict[key].detach().cpu().numpy()
+            for name, key in resnet_param_names(state_dict, prefix).items()}

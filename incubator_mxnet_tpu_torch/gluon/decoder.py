@@ -50,7 +50,7 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..parallel.flash_attention import flash_attention
 from ..parallel.paged_attention import gather_layer_blocks
-from .nn import Dense, Embedding, LayerNorm
+from .nn._modules import Dense, Embedding, LayerNorm
 
 __all__ = ["DecoderLayer", "TransformerDecoder"]
 

@@ -1,65 +1,223 @@
-"""Losses of the port (counterpart of ``incubator_mxnet_tpu/gluon/loss.py``):
-``SoftmaxCrossEntropyLoss`` so far.  A loss returns one value per sample,
-the batch axis kept and every other axis averaged."""
+"""Gluon losses of the port (counterpart of
+``incubator_mxnet_tpu/gluon/loss.py``; reference
+python/mxnet/gluon/loss.py): every loss is a HybridBlock over the ``nd``
+ops returning one value per sample (the batch axis kept), with
+``sample_weight`` broadcast and a scalar ``weight``.  ``CTCLoss`` waits
+for the contrib CTC op (ROADMAP A8).  The tensor-level
+``SoftmaxCrossEntropyLoss`` that ``parallel.TrainStep`` takes is
+``gluon.nn._modules.SoftmaxCrossEntropyLoss``.
+"""
 from __future__ import annotations
 
-import torch
-from torch import nn
+from .block import HybridBlock
 
-from ..base import MXNetError
+__all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "KLDivLoss", "HuberLoss", "HingeLoss",
+           "SquaredHingeLoss", "LogisticLoss", "TripletLoss"]
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+
+def _apply_weighting(F, loss, weight=None, sample_weight=None):
+    """Weight the sample losses (reference loss.py:_apply_weighting)."""
+    if sample_weight is not None:
+        loss = F.broadcast_mul(loss, sample_weight)
+    if weight is not None:
+        if not isinstance(weight, (float, int)):
+            raise ValueError(f"weight must be a number, got {weight!r}")
+        loss = loss * weight
+    return loss
 
 
-class Loss(nn.Module):
-    """Base class (reference loss.py:Loss): a scalar ``weight`` and the
-    ``batch_axis`` the per-sample losses keep."""
+def _reshape_like(F, x, y):
+    return x.reshape(y.shape)
 
-    def __init__(self, weight=None, batch_axis=0):
-        super().__init__()
-        if weight is not None and not isinstance(weight, (int, float)):
-            raise MXNetError(f"loss weight must be a number, got {weight!r}")
+
+class Loss(HybridBlock):
+    """Base class (reference loss.py:Loss)."""
+
+    def __init__(self, weight, batch_axis, **kwargs):
+        super().__init__(**kwargs)
         self._weight = weight
         self._batch_axis = batch_axis
 
-    def _finish(self, loss, sample_weight):
-        """Apply ``sample_weight`` then ``weight`` and average every axis
-        but the batch axis (reference ``_apply_weighting`` and
-        ``F.mean(loss, axis=batch_axis, exclude=True)``)."""
-        if sample_weight is not None:
-            loss = loss * sample_weight
-        if self._weight is not None:
-            loss = loss * self._weight
-        axis = self._batch_axis % loss.dim()
-        rest = tuple(i for i in range(loss.dim()) if i != axis)
-        return loss.mean(rest) if rest else loss
+    def __repr__(self):
+        return f"{self.__class__.__name__}(batch_axis={self._batch_axis}, " \
+               f"w={self._weight})"
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+
+class L2Loss(Loss):
+    """0.5*(pred-label)^2 (reference loss.py:L2Loss)."""
+
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.square(pred - label)
+        loss = _apply_weighting(F, loss, self._weight / 2, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class L1Loss(Loss):
+    """|pred-label| (reference loss.py:L1Loss)."""
+
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(pred - label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """BCE with optional from_sigmoid (reference loss.py:SigmoidBCELoss),
+    computed in the numerically-stable logits form."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        if not self._from_sigmoid:
+            loss = F.relu(pred) - pred * label + \
+                F.Activation(-F.abs(pred), act_type="softrelu")
+        else:
+            eps = 1e-12
+            loss = -(F.log(pred + eps) * label +
+                     F.log(1.0 - pred + eps) * (1.0 - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
 
 
 class SoftmaxCrossEntropyLoss(Loss):
-    """Softmax cross-entropy in log space (reference loss.py:
-    SoftmaxCELoss): ``-log_softmax(pred)[label]`` along ``axis`` with
-    ``sparse_label`` (integer class labels, given as any numeric dtype
-    and clipped into range, as the reference's ``pick`` does), else
-    ``-sum(log_softmax(pred) * label)``; ``from_logits`` takes ``pred``
-    as log-probabilities already."""
+    """Softmax + CE fused in log-space (reference loss.py:SoftmaxCELoss)."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
-                 weight=None, batch_axis=0):
-        super().__init__(weight, batch_axis)
+                 weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
         self._axis = axis
         self._sparse_label = sparse_label
         self._from_logits = from_logits
 
-    def forward(self, pred, label, sample_weight=None):
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = torch.log_softmax(pred, dim=self._axis)
-        axis = self._axis % pred.dim()
+            pred = F.log_softmax(pred, axis=self._axis)
         if self._sparse_label:
-            idx = label.long().clamp(0, pred.shape[axis] - 1)
-            loss = -torch.gather(pred, axis, idx.unsqueeze(axis))
+            loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
         else:
-            loss = -(pred * label.reshape(pred.shape)).sum(axis, keepdim=True)
-        return self._finish(loss, sample_weight)
+            label = _reshape_like(F, label, pred)
+            loss = -F.sum(pred * label, axis=self._axis, keepdims=True)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    """KL divergence (reference loss.py:KLDivLoss)."""
+
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class HuberLoss(Loss):
+    """Smooth L1 (reference loss.py:HuberLoss)."""
+
+    def __init__(self, rho=1.0, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(pred - label)
+        loss = F.where(loss > self._rho,
+                       loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class HingeLoss(Loss):
+    """max(0, 1 - pred*label) (reference loss.py:HingeLoss)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class SquaredHingeLoss(Loss):
+    """max(0, 1 - pred*label)^2 (reference loss.py:SquaredHingeLoss)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class LogisticLoss(Loss):
+    """log(1+exp(-pred*label)) (reference loss.py:LogisticLoss)."""
+
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+        if self._label_format not in ("signed", "binary"):
+            raise ValueError(
+                f"label_format can only be signed or binary, recieved"
+                f" {label_format}")
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + \
+            F.Activation(-F.abs(pred), act_type="softrelu")
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class TripletLoss(Loss):
+    """max(0, |x-pos|^2 - |x-neg|^2 + margin) (reference loss.py:TripletLoss)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative, sample_weight=None):
+        positive = _reshape_like(F, positive, pred)
+        negative = _reshape_like(F, negative, pred)
+        loss = F.sum(F.square(pred - positive) - F.square(pred - negative),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)

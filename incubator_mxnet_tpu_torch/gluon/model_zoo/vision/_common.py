@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from ...nn import Activation, BatchNorm, BNReLU
+from ...nn._modules import Activation, BatchNorm, BNReLU
 
 __all__ = ["add_bn_relu"]
 

@@ -40,20 +40,41 @@ blocks, stages and widths, for inference and training.
   the TPU's 128-lane matrix unit, with the parameters and names of the
   plain conv) as that plain 7x7 stride-2 conv: on the card a strided
   conv has no such shape to fix, and checkpoints interchange either way.
+* The Gluon surface, beside the tensor one: ``collect_params()``
+  returns Gluon Parameters that view the module's own tensors (no copy)
+  under the JAX package's full names (``convert.resnet_param_names``,
+  ``prefix`` ``resnetv10_`` by default; the moving statistics
+  ``grad_req="null"``), so a ``gluon.Trainer`` over them updates the
+  net in place; ``save_params`` / ``load_params`` use those full names,
+  the form the JAX package's ``load_params`` accepts; called on an
+  ``NDArray`` the net returns an ``NDArray``, recorded under
+  ``autograd.record()``, with the BatchNorm mode following
+  ``autograd.is_training()`` as in JAX (the module's own mode is put
+  back after the call).  A tensor in still gives a tensor out.
+  ``initialize(seed)`` draws the seeded weights below for an int; for an
+  ``Initializer`` or its name it fills every Parameter the Gluon way
+  (by name suffix), whatever they held.
 * Not ported yet, and raising ``MXNetError``: ResNet V2 and
   ``pretrained=True``.
 """
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 from torch import nn
 
+from .... import autograd
 from ....base import MXNetError
-from ....context import resolve_device
-from ...nn import (BatchNorm, Conv2D, Dense, FusedBNReLUConv2D,
-                   FusedBottleneckChain, GlobalAvgPool2D, MaxPool2D)
+from ....context import cpu, resolve_device
+from ....convert import resnet_param_names
+from ....ndarray import utils as nd_utils
+from ....ndarray.ndarray import NDArray
+from ...parameter import Parameter, ParameterDict
+from ...nn._modules import (BatchNorm, Conv2D, Dense, FusedBNReLUConv2D,
+                            FusedBottleneckChain, GlobalAvgPool2D,
+                            MaxPool2D)
 from ._common import add_bn_relu
 
 __all__ = ["BasicBlockV1", "BottleneckV1", "ResNetV1", "resnet_spec",
@@ -166,12 +187,16 @@ class BottleneckV1(_BlockV1):
 class ResNetV1(nn.Module):
     """ResNet V1 (reference resnet.py:ResNetV1): ``features`` (stem,
     four stages, global average pool) then the ``output`` Dense.  The
-    weights are drawn from ``seed`` (``initialize``)."""
+    weights are drawn from ``seed`` (``initialize``); ``prefix`` names
+    the Gluon Parameters (``collect_params``)."""
 
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, mxu_stem=False, layout="NCHW",
-                 fuse_bn_relu=False, fuse_block=False, device=None, seed=0):
+                 fuse_bn_relu=False, fuse_block=False, device=None, seed=0,
+                 prefix="resnetv10_"):
         super().__init__()
+        self.prefix = prefix
+        self._gluon_params = None
         if len(layers) != len(channels) - 1:
             raise MXNetError(f"{len(layers)} stages need {len(layers) + 1} "
                              f"widths, got {channels}")
@@ -203,8 +228,21 @@ class ResNetV1(nn.Module):
         self.output = Dense(classes, channels[-1], device=device)
         self.initialize(seed)
 
+    def initialize(self, init=0, ctx=None, verbose=False,
+                   force_reinit=True, seed=None):
+        """An int (``init`` or ``seed``): the seeded draw of
+        ``_seeded_init``.  An ``Initializer`` or its name: every Gluon
+        Parameter (``collect_params``) filled by it, in place, as
+        ``Block.initialize`` fills a fresh net (``ctx`` must be the
+        net's device, where the Parameters live)."""
+        if seed is not None or isinstance(init, int):
+            self._seeded_init(init if seed is None else seed)
+            return
+        self.collect_params().initialize(init, ctx, verbose,
+                                         force_reinit=True)
+
     @torch.no_grad()
-    def initialize(self, seed=0):
+    def _seeded_init(self, seed=0):
         """Fill every parameter and BN statistic from ``seed``, drawn on
         the CPU in module order and copied to the device:
 
@@ -255,6 +293,85 @@ class ResNetV1(nn.Module):
             x = x.permute(0, 3, 1, 2).contiguous(
                 memory_format=torch.channels_last)
         return self.output(torch.flatten(self.features(x), 1))
+
+    # ------------------------------------------------------------ Gluon
+    def __call__(self, *args, **kwargs):
+        if args and isinstance(args[0], NDArray):
+            return self._call_nd(args[0])
+        return super().__call__(*args, **kwargs)
+
+    def _call_nd(self, x):
+        """The forward of an NDArray: recorded under ``autograd.record()``,
+        BatchNorm in train mode when ``autograd.is_training()``."""
+        was_training = self.training
+        self.train(autograd.is_training())
+        try:
+            with torch.set_grad_enabled(autograd.is_recording()):
+                out = super().__call__(x._data)
+        finally:
+            self.train(was_training)
+        return NDArray(out, x.context)
+
+    def _tensors(self):
+        tensors = dict(self.named_parameters())
+        buffers = dict(self.named_buffers())
+        tensors.update(buffers)
+        return tensors, buffers
+
+    def collect_params(self, select=None):
+        """Gluon Parameters viewing this net's tensors, by their JAX full
+        names; ``select`` is a regex the names must match.  The same
+        Parameter objects on every call while the tensors stay the same
+        (a ``.to()`` of the net makes new ones)."""
+        tensors, buffers = self._tensors()
+        params = self._gluon_params
+        if params is None or any(
+                p._data._data is not tensors[k] for k, p in params.values()):
+            params = {}
+            for name, key in resnet_param_names(tensors,
+                                                self.prefix).items():
+                t = tensors[key]
+                req = "null" if key in buffers or not t.requires_grad \
+                    else "write"
+                p = Parameter.view(name, t, grad_req=req)
+                p._is_aux = key in buffers
+                params[name] = (key, p)
+            self._gluon_params = params
+        pattern = re.compile(select) if select is not None else None
+        out = ParameterDict(self.prefix)
+        out.update({n: p for n, (_, p) in params.items()
+                    if pattern is None or pattern.match(n)})
+        return out
+
+    def save_params(self, filename):
+        """Save every parameter and moving statistic under its full name
+        (``collect_params``), the form the JAX package's ``load_params``
+        reads."""
+        nd_utils.save(filename, {n: p.data() for n, p in
+                                 self.collect_params().items()})
+
+    save_parameters = save_params
+
+    def load_params(self, filename, ctx=None, allow_missing=False,
+                    ignore_extra=False):
+        """Load a file of full names (``save_params``, ``ParameterDict.
+        save``, the JAX ``export``'s ``arg:``/``aux:`` keys) into the
+        net's tensors, in place."""
+        with cpu():
+            loaded = nd_utils.load(filename)
+        by_name = {k.split(":", 1)[-1]: v for k, v in loaded.items()}
+        params = self.collect_params()
+        for name, p in params.items():
+            if name in by_name:
+                p._load_init(by_name[name], ctx)
+            elif not allow_missing:
+                raise IOError(f"Parameter {name} missing in {filename}")
+        extra = sorted(set(by_name) - set(params.keys()))
+        if extra and not ignore_extra:
+            raise IOError(f"Parameters {extra[:5]} in file {filename} are "
+                          "not present in this net")
+
+    load_parameters = load_params
 
 
 resnet_spec = {

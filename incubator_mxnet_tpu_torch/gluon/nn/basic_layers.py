@@ -1,204 +1,360 @@
-"""Basic layers of the port: ``Dense``, ``LayerNorm``, ``Embedding``,
-``BatchNorm``, ``BNReLU`` and ``Flatten`` (counterparts of
-``incubator_mxnet_tpu/gluon/nn/basic_layers.py`` and the
-``FullyConnected``, ``LayerNorm``, ``Embedding``, ``BatchNorm`` and
-``_FusedBatchNormRelu`` ops).
-Plain ``nn.Module``s with explicit ``device``/``dtype``; ``device=None``
-means ``cuda:0`` (``context.resolve_device``: it raises without a GPU).
-Parameters are allocated uninitialised and filled by the owner's
-``initialize`` or a loaded ``state_dict``."""
+"""Basic Gluon layers of the port (counterpart of
+``incubator_mxnet_tpu/gluon/nn/basic_layers.py``; reference
+python/mxnet/gluon/nn/basic_layers.py): ``Sequential``,
+``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``, ``BNReLU``,
+``InstanceNorm``, ``LayerNorm``, ``Embedding``, ``Flatten``, ``Lambda``
+and ``HybridLambda``.
+
+These are the public, Gluon family of ``gluon.nn``: the JAX package's
+constructors, Gluon ``Parameter``s, ``NDArray`` in and out, each
+forward a ``hybrid_forward`` over the ``nd`` ops.  The tensor-level
+``nn.Module`` layers that the model zoo and the training step build on
+are the other family, in ``gluon.nn._modules``.
+"""
 from __future__ import annotations
 
-import functools
+import warnings
 
-import torch
-import torch.nn.functional as F
-from torch import nn
+import numpy as np
 
-from ...base import MXNetError
-from ...context import resolve_device
-from ...ops.fused_conv import bn_affine, bn_stats
-from ...ops.nn import fused_batch_norm_relu
+from ... import ndarray as nd_mod
+from ..block import Block, HybridBlock
+from .activations import Activation
 
-__all__ = ["Dense", "LayerNorm", "Embedding", "BatchNorm", "BNReLU",
-           "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "BNReLU", "Embedding", "Flatten", "Lambda", "HybridLambda",
+           "InstanceNorm", "LayerNorm"]
 
 
-class Dense(nn.Module):
-    """Fully-connected layer ``act(x W^T + b)``.  The weight is
-    ``(units, in_units)`` as in MXNet, which is ``F.linear``'s layout;
-    ``activation`` is None or ``"relu"``."""
+class Sequential(Block):
+    """Stack of Blocks run sequentially (reference basic_layers.py:Sequential)."""
 
-    def __init__(self, units, in_units, activation=None, use_bias=True,
-                 device=None, dtype=torch.float32):
-        super().__init__()
-        device = resolve_device(device)
-        if activation not in (None, "relu"):
-            raise MXNetError(f"Dense activation must be None or 'relu', "
-                             f"got {activation!r}")
-        self._relu = activation == "relu"
-        self.weight = nn.Parameter(torch.empty((units, in_units),
-                                               device=device, dtype=dtype))
-        if use_bias:
-            self.bias = nn.Parameter(torch.empty((units,), device=device,
-                                                 dtype=dtype))
-        else:
-            self.register_parameter("bias", None)
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
 
     def forward(self, x):
-        out = F.linear(x, self.weight, self.bias)
-        return torch.relu(out) if self._relu else out
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+    def hybridize(self, active=True, **kwargs):
+        if self._children and all(isinstance(c, HybridBlock)
+                                  for c in self._children.values()):
+            warnings.warn(
+                "All children of this Sequential layer are HybridBlocks. "
+                "Consider using HybridSequential for the best performance.",
+                stacklevel=2)
+        super().hybridize(active, **kwargs)
 
 
-class LayerNorm(nn.Module):
-    """Layer normalisation over the last axis: biased variance, ``eps``
-    inside the rsqrt, then ``* gamma + beta`` (the MXNet op's
-    definition, which ``F.layer_norm`` computes)."""
+class HybridSequential(HybridBlock):
+    """Hybridizable Sequential (reference basic_layers.py:HybridSequential)."""
 
-    def __init__(self, in_channels, epsilon=1e-5, device=None,
-                 dtype=torch.float32):
-        super().__init__()
-        device = resolve_device(device)
-        self._eps = epsilon
-        self.gamma = nn.Parameter(torch.empty((in_channels,), device=device,
-                                              dtype=dtype))
-        self.beta = nn.Parameter(torch.empty((in_channels,), device=device,
-                                             dtype=dtype))
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
 
-    def forward(self, x):
-        return F.layer_norm(x, self.gamma.shape, self.gamma, self.beta,
-                            self._eps)
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
 
+    def hybrid_forward(self, F, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
 
-class Embedding(nn.Module):
-    """Index -> dense vector lookup, weight ``(input_dim, output_dim)``.
-    Indices must lie in ``[0, input_dim)``: on CUDA an index out of range
-    is a device-side assert (the JAX op fills NaN instead), so callers
-    validate indices that come from outside."""
+    def __len__(self):
+        return len(self._children)
 
-    def __init__(self, input_dim, output_dim, device=None,
-                 dtype=torch.float32):
-        super().__init__()
-        device = resolve_device(device)
-        self.weight = nn.Parameter(torch.empty((input_dim, output_dim),
-                                               device=device, dtype=dtype))
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
 
-    def forward(self, x):
-        return F.embedding(x.long(), self.weight)
+    def __iter__(self):
+        return iter(self._children.values())
 
 
-@functools.lru_cache(maxsize=None)
-def _rounded(value, dtype):
-    """The Python float ``value`` rounded to ``dtype``."""
-    return torch.tensor(value, dtype=dtype).item()
+class Dense(HybridBlock):
+    """Fully-connected layer: out = act(dot(x, W^T) + b)
+    (reference basic_layers.py:Dense; op FullyConnected,
+    src/operator/nn/fully_connected-inl.h)."""
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units = units
+        self._in_units = in_units
+        self._flatten = flatten
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,), dtype=dtype,
+                    init=bias_initializer, allow_deferred_init=True)
+            else:
+                self.bias = None
+            if activation is not None:
+                self.act = Activation(activation, prefix=activation + "_")
+            else:
+                self.act = None
+
+    def infer_shape(self, x, *args):
+        in_units = int(np.prod(x.shape[1:])) if self._flatten else x.shape[-1]
+        self.weight.shape = (self._units, in_units)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                               flatten=self._flatten, no_bias=bias is None)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
+    def __repr__(self):
+        shape = self.weight.shape
+        return f"Dense({shape[1] if shape and len(shape) > 1 else None} -> " \
+               f"{self._units}, " \
+               f"{'linear' if self.act is None else self.act._act_type})"
 
 
-class BatchNorm(nn.Module):
-    """Batch normalisation over dim 1, the channel axis of the port's
-    NCHW-indexed tensors (channels-last or not).
+class Dropout(HybridBlock):
+    """Dropout (reference basic_layers.py:Dropout; op
+    src/operator/nn/dropout-inl.h), active only in train mode
+    (``autograd.record()`` / ``train_mode``)."""
 
-    * Eval: the running statistics, ``(x - running_mean) *
-      rsqrt(running_var + eps) * gamma + beta``.
-    * Train: the batch statistics of ``ops.fused_conv.bn_stats`` (the
-      JAX package's single-pass fp32 ``_bn_stats``, biased variance),
-      then ``update_running`` moves the running statistics towards them.
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = axes
 
-    An fp32 x is normalised as ``x*a + b`` with the fp32 ``(a, b)`` of
-    ``ops.fused_conv.bn_affine`` (one pass); any other dtype (bf16 under
-    ``TrainStep(bf16_compute=True)``) by the JAX op's own formula in
-    that dtype: the statistics rounded to it, then ``(x - mean) * inv *
-    gamma + beta``.
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes)
 
-    ``scale=False`` fixes gamma at 1 (the reference's ``fix_gamma``) and
-    ``center=False`` keeps beta at the value it holds (0 as the model zoo
-    initialises it): neither then requires a gradient, so no step
-    updates or decays it (the JAX layer's ``grad_req="null"``).
-    ``gamma``/``beta`` are parameters either way, ``running_mean``/
-    ``running_var`` buffers, under the reference's names."""
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
 
-    def __init__(self, in_channels, epsilon=1e-5, momentum=0.9, scale=True,
-                 center=True, device=None, dtype=torch.float32):
-        super().__init__()
-        device = resolve_device(device)
-        if in_channels < 1:
-            raise MXNetError(f"BatchNorm needs in_channels >= 1 (the port "
-                             f"does not infer shapes), got {in_channels}")
-        self.eps = float(epsilon)
-        self.momentum = float(momentum)
-        self.fix_gamma = not scale
-        self.gamma = nn.Parameter(torch.empty((in_channels,), device=device,
-                                              dtype=dtype))
-        self.beta = nn.Parameter(torch.empty((in_channels,), device=device,
-                                             dtype=dtype))
-        self.gamma.requires_grad_(bool(scale))
-        self.beta.requires_grad_(bool(center))
-        self.register_buffer("running_mean", torch.empty(
-            (in_channels,), device=device, dtype=dtype))
-        self.register_buffer("running_var", torch.empty(
-            (in_channels,), device=device, dtype=dtype))
 
-    @torch.no_grad()
-    def update_running(self, mean, var):
-        """Move the running statistics towards a batch's: ``running =
-        momentum * running + (1 - momentum) * batch`` for the mean and the
-        biased variance, in place (the JAX frontend's moving-stat update,
-        ``ndarray.py``; ``F.batch_norm`` would use the unbiased
-        variance, with momentum counted the other way).  In the buffers'
-        dtype: for bf16 buffers (``TrainStep(bf16_compute=True)``) the
-        two factors are rounded to bf16 first, as JAX rounds a Python
-        scalar to the dtype of the array it multiplies."""
-        dtype = self.running_mean.dtype
-        m, rest = (_rounded(v, dtype)
-                   for v in (self.momentum, 1 - self.momentum))
-        for run, batch in ((self.running_mean, mean),
-                           (self.running_var, var)):
-            run.copy_(m * run + rest * batch.detach().to(dtype))
+class BatchNorm(HybridBlock):
+    """Batch normalization (reference basic_layers.py:BatchNorm; op
+    src/operator/nn/batch_norm-inl.h).  The moving statistics are
+    auxiliary Parameters (``grad_req='null'``) that the ``nd`` front end
+    folds in training."""
 
-    def forward(self, x):
-        if not self.training:
-            mean, var = self.running_mean, self.running_var
-        else:
-            mean, var = bn_stats(x)
-            self.update_running(mean, var)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        if x.dtype == torch.float32:
-            a, b = bn_affine(self.gamma, self.beta, mean, var, self.eps,
-                             self.fix_gamma)
-            return torch.addcmul(b.view(shape), x, a.view(shape))
-        # four passes, each rounded to x's dtype as the JAX op rounds
-        # them: one addcmul in x's dtype is one bf16 step off at the
-        # largest output in eval, the fp32 affine rounded once two steps
-        # off in train (test_torch_train.py's
-        # test_batchnorm_bf16_matches_jax, 2^-8 of max)
-        mean, var = mean.to(x.dtype), var.to(x.dtype)
-        g = torch.ones_like(self.gamma) if self.fix_gamma else self.gamma
-        # rsqrt rounded once, as XLA's: torch's bf16 rsqrt on the CPU
-        # rounds the sqrt first
-        inv = torch.rsqrt((var + self.eps).float()).to(x.dtype)
-        return (x - mean.view(shape)) * inv.view(shape) * g.view(shape) + \
-            self.beta.view(shape)
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        self._axis = axis
+        self.in_channels = in_channels
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_mean._is_aux = True
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var._is_aux = True
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape = (channels,)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           **self._kwargs)
+
+    def __repr__(self):
+        in_channels = self.gamma.shape[0] if self.gamma.shape else None
+        return f"{type(self).__name__}(axis={self._axis}, " \
+               f"eps={self._kwargs['eps']}, " \
+               f"momentum={self._kwargs['momentum']}, in_channels={in_channels})"
 
 
 class BNReLU(BatchNorm):
-    """BatchNorm + ReLU as one op (reference ``basic_layers.py:BNReLU``):
-    ``ops.nn.fused_batch_norm_relu``, whose backward saves only the
-    normalised tensor and reads one full tensor fewer than autograd of
-    ``BatchNorm`` then ``Activation("relu")``.  The same parameters and
-    buffers under the same names as ``BatchNorm``, so ``state_dict``s
-    interchange with that pair; in train mode ``update_running`` moves
-    the running statistics towards the batch's."""
+    """BatchNorm + ReLU as one op (``_FusedBatchNormRelu``): the math and
+    parameters of BatchNorm then Activation('relu'), with the lean
+    backward that reads one full activation tensor fewer.  Named as
+    BatchNorm, so checkpoints interchange."""
 
-    def forward(self, x):
-        y, mean, var = fused_batch_norm_relu(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
-            self.eps, self.fix_gamma, self.training)
-        if self.training:
-            self.update_running(mean, var)
-        return y
+    def _alias(self):
+        return "batchnorm"
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F._FusedBatchNormRelu(x, gamma, beta, running_mean,
+                                     running_var, **self._kwargs)
 
 
-class Flatten(nn.Module):
-    """``(N, ...) -> (N, prod(...))``."""
+class InstanceNorm(HybridBlock):
+    """Instance normalization (reference src/operator/instance_norm-inl.h)."""
 
-    def forward(self, x):
-        return torch.flatten(x, 1)
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._epsilon = epsilon
+        self._axis = axis
+        self.in_channels = in_channels
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        self.gamma.shape = (channels,)
+        self.beta.shape = (channels,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over the last axis (op LayerNorm)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._epsilon = epsilon
+        self._axis = axis
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        self.gamma.shape = (channels,)
+        self.beta.shape = (channels,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
+class Embedding(HybridBlock):
+    """Index -> dense vector lookup (reference basic_layers.py:Embedding;
+    op src/operator/tensor/indexing_op.cc Embedding), a gather;
+    ``sparse_grad=True`` (a row_sparse gradient) raises until A8."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self._sparse_grad = sparse_grad
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True,
+                grad_stype="row_sparse" if sparse_grad else "default")
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
+    def __repr__(self):
+        return f"Embedding({self._input_dim} -> {self._output_dim}, " \
+               f"{self.weight.dtype})"
+
+
+class Flatten(HybridBlock):
+    """Collapse all but the batch axis (reference basic_layers.py:Flatten)."""
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Lambda(Block):
+    """Wrap a function as a Block (reference basic_layers.py:Lambda)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            if not (hasattr(nd_mod, function)):
+                raise ValueError(f"Function name {function} is not found in ndarray.")
+            self._func_impl = getattr(nd_mod, function)
+        elif callable(function):
+            self._func_impl = function
+        else:
+            raise ValueError("Unrecognized function in lambda")
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """Wrap a function as a HybridBlock (reference basic_layers.py:HybridLambda)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            if not (hasattr(nd_mod, function)):
+                raise ValueError(f"Function name {function} is not found in ndarray.")
+            self._func = lambda F, *args: getattr(F, function)(*args)
+        elif callable(function):
+            self._func = function
+        else:
+            raise ValueError("Unrecognized function in lambda")
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+

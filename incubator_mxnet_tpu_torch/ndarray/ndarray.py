@@ -25,12 +25,15 @@ the recorded values, as the JAX tape does.
 """
 from __future__ import annotations
 
+import functools
+import re
+
 import numpy as np
 import torch
 
 from .. import autograd
 from ..base import MXNetError, mx_real_t, numpy_dtype, torch_dtype
-from ..context import Context, context_of, current_context
+from ..context import Context, context_of, cpu, current_context, gpu, tpu
 from ..ops import get_op, normalize_attrs
 from ..ops.matrix import read_key, write_key
 
@@ -70,7 +73,8 @@ def _key(key):
 class NDArray:
     """An n-dimensional array on a device, with MXNet semantics."""
 
-    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_fresh_grad",
+                 "__weakref__")
 
     def __init__(self, data, ctx=None):
         if isinstance(data, NDArray):
@@ -83,6 +87,7 @@ class NDArray:
         self._ctx = ctx if ctx is not None else context_of(data.device)
         self._grad = None
         self._grad_req = "null"
+        self._fresh_grad = False
 
     # ------------------------------------------------------------ properties
     @property
@@ -110,6 +115,19 @@ class NDArray:
     @property
     def grad(self):
         return self._grad
+
+    @property
+    def stype(self):
+        """Storage type: ``"default"`` (dense), the only one ported."""
+        return "default"
+
+    def tostype(self, stype):
+        """This array in storage ``stype``: itself for ``"default"``;
+        ``row_sparse`` and ``csr`` storage are ROADMAP A8."""
+        if stype == "default":
+            return self
+        raise MXNetError(f"storage type {stype!r} is not ported yet "
+                         "(sparse NDArrays are ROADMAP A8)")
 
     @property
     def T(self):
@@ -417,6 +435,28 @@ class NDArray:
         a = self.asnumpy()
         return a.astype(dtype) if dtype else a
 
+    # pickling (optimizer and trainer states rely on it): the values on
+    # the host and the context's name, as the JAX package pickles them;
+    # bf16, which numpy lacks, travels as fp32 with its dtype's name
+    def __getstate__(self):
+        data = self._data.detach()
+        state = {"ctx": str(self._ctx)}
+        if data.dtype == torch.bfloat16:
+            data, state["dtype"] = data.float(), "bfloat16"
+        state["data"] = data.to("cpu", copy=True).numpy()
+        return state
+
+    def __setstate__(self, state):
+        m = re.fullmatch(r"(cpu|gpu|tpu)\((\d+)\)", state["ctx"])
+        if m is None:
+            raise MXNetError(f"cannot read the context {state['ctx']!r}")
+        ctx = {"cpu": cpu, "gpu": gpu, "tpu": tpu}[m.group(1)](
+            int(m.group(2)))
+        t = torch.from_numpy(np.array(state["data"]))
+        if state.get("dtype") == "bfloat16":
+            t = t.to(torch.bfloat16)
+        self.__init__(t.to(ctx.torch_device()), ctx)
+
 
 # ------------------------------------------------------------------ invoke
 def _as_input(value, device):
@@ -429,6 +469,31 @@ def _as_input(value, device):
     elif arr.dtype == np.int64 and not isinstance(value, np.ndarray):
         arr = arr.astype(np.int32)
     return torch.as_tensor(arr).to(device, copy=True)
+
+
+# ops whose outputs carry BatchNorm statistics, and their count of
+# (mean, var) pairs
+_BN_PAIRS = {"BatchNorm": 1, "_FusedBatchNormRelu": 1,
+             "_FusedBNReluConv": 1, "_FusedBottleneckChain": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value, dtype):
+    """The Python float ``value`` rounded to ``dtype``."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+@torch.no_grad()
+def _fold_moving_stats(inputs, result, n_pairs, momentum):
+    """Move each pair of moving statistics (inputs ``3 + 5 * pair`` and
+    ``4 + 5 * pair``) towards the batch's (outputs ``1 + 2 * pair`` and
+    ``2 + 2 * pair``), in place."""
+    for pair in range(n_pairs):
+        for moving, batch in ((inputs[3 + 5 * pair], result[1 + 2 * pair]),
+                              (inputs[4 + 5 * pair], result[2 + 2 * pair])):
+            t = moving._data
+            m, rest = (_rounded(v, t.dtype) for v in (momentum, 1 - momentum))
+            moving._write(m * t + rest * batch._data.to(t.dtype))
 
 
 def invoke(op_name, inputs, attrs, out=None, ctx=None):
@@ -470,6 +535,16 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
             result = [NDArray(_own(r, tensors), ctx) for r in raw]
         else:
             result = NDArray(_own(raw, tensors), ctx)
+    n_pairs = _BN_PAIRS.get(op.name, 0)
+    if n_pairs and isinstance(result, list) and \
+            len(result) == 1 + 2 * n_pairs:
+        if attrs.get("is_train", True) and \
+                not attrs.get("use_global_stats", False) and \
+                len(inputs) >= 5 * n_pairs:
+            _fold_moving_stats(inputs, result, n_pairs,
+                               attrs.get("momentum", 0.9))
+        if not attrs.get("output_mean_var", False):
+            result = result[0]
     if out is not None:
         outs = result if isinstance(result, list) else [result]
         targets = out if isinstance(out, (list, tuple)) else [out]

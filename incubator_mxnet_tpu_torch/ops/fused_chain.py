@@ -42,6 +42,13 @@ In eval the statistics are the moving ones and pass 1 is skipped.
   ``custom_vjp`` backward is: the JAX package has no backward kernel.
 * ``chain_supported`` is the kernels' envelope, decided from a layer's
   configuration.
+* The registry op ``_FusedBottleneckChain`` (``nd.
+  _FusedBottleneckChain``) takes the JAX op's arguments (NHWC data)
+  and returns ``(out, mean1, var1, mean2, var2)`` in the data's dtype,
+  the front end folding both pairs of moving statistics: NHWC data
+  inside ``chain_supported`` goes to ``fused_bottleneck_chain`` on its
+  NCHW-indexed view (the kernels on the card), anything else to the
+  plain composition ``_chain_plain``, as the JAX op runs its XLA one.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ from ..base import MXNetError
 from .fused_conv import (_INDEX_LIMIT, _activate, _dispatch, bn_affine,
                          bn_coefficients, check_dtypes, count_launch, launch,
                          recompute_vjp)
+from .registry import register_op
 
 __all__ = ["CHAIN_MAX_CM", "CHAIN_MAX_CM_BF16", "chain_emit", "chain_stats",
            "chain_supported", "fused_bottleneck_chain"]
@@ -291,3 +299,49 @@ def fused_bottleneck_chain(c1, g1, bt1, mm1, mv1, w2, g2, bt2, mm2, mv2, w3,
     return _Chain.apply(c1, g1, bt1, mm1, mv1, w2, g2, bt2, mm2, mv2, w3,
                         b3.float(), float(eps), bool(fix_gamma),
                         bool(train_stats))
+
+
+@register_op("_FusedBottleneckChain", num_outputs=5)
+def _fused_bottleneck_chain_op(c1, gamma1, beta1, moving_mean1, moving_var1,
+                               weight2, gamma2, beta2, moving_mean2,
+                               moving_var2, weight3, bias3=None, *,
+                               layout=None, eps=1e-5, momentum=0.9,
+                               fix_gamma=False, use_global_stats=False,
+                               impl="auto", is_train=True,
+                               output_mean_var=False):
+    """[BN -> ReLU -> conv3x3 -> BN -> ReLU -> conv1x1] as one op (the
+    JAX package's ``_FusedBottleneckChain``): ``(out, mean1, var1,
+    mean2, var2)`` in c1's dtype.  conv2 must be 3x3 and conv3 1x1
+    (else ValueError, as in JAX).  NHWC data inside ``chain_supported``
+    goes to ``fused_bottleneck_chain`` (the kernels on the card)
+    through a permuted view; any other layout, or ``impl="xla"``, to
+    the plain composition.  ``output_mean_var`` (an extension, as for
+    ``_FusedBNReluConv``) returns the statistics too."""
+    if tuple(weight2.shape[2:]) != (3, 3) or \
+            tuple(weight3.shape[2:]) != (1, 1):
+        raise ValueError(
+            f"_FusedBottleneckChain needs a 3x3 then a 1x1 kernel; got "
+            f"{tuple(weight2.shape)} / {tuple(weight3.shape)}")
+    train_stats = bool(is_train) and not use_global_stats
+    if bias3 is None:
+        bias3 = torch.zeros((weight3.shape[0],), dtype=torch.float32,
+                            device=weight3.device)
+    fused = layout == "NHWC" and c1.dim() == 4 and chain_supported(
+        weight2.shape[0], layout, c1.dtype)
+    if impl in ("pallas", "pallas_interpret") and not fused:
+        raise ValueError(
+            f"_FusedBottleneckChain kernel path needs channels-last 4D data "
+            f"inside the kernels' envelope; got shape={tuple(c1.shape)} "
+            f"layout={layout}")
+    nhwc = layout == "NHWC"
+    x = c1.contiguous().permute(0, 3, 1, 2) if nhwc else c1
+    args = (x, gamma1, beta1, moving_mean1, moving_var1,
+            weight2.to(c1.dtype), gamma2, beta2, moving_mean2, moving_var2,
+            weight3.to(c1.dtype), bias3)
+    if fused and impl != "xla":
+        outs = fused_bottleneck_chain(*args, eps=eps, fix_gamma=fix_gamma,
+                                      train_stats=train_stats)
+    else:
+        outs = _chain_plain(*args, eps, fix_gamma, train_stats)
+    out = outs[0].permute(0, 2, 3, 1) if nhwc else outs[0]
+    return (out,) + tuple(s.to(c1.dtype) for s in outs[1:])

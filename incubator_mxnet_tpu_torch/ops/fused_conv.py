@@ -34,6 +34,14 @@ how they are tiled for the card).
   of the plain composition, re-run from the saved inputs, as the JAX
   op's ``custom_vjp`` backward is ``jax.vjp`` of its XLA composition:
   the JAX package has no backward kernel.
+* The registry op ``_FusedBNReluConv`` (``nd._FusedBNReluConv``) takes
+  the JAX op's arguments and layout (NHWC data, OIHW weight) and
+  returns ``(out, mean, var)`` in the data's dtype, the front end
+  folding the moving statistics.  Inside ``supported`` (JAX's
+  ``_pallas_supported`` without its TPU tile check) it runs
+  ``fused_bn_relu_conv`` on the data's NCHW-indexed view, which on a
+  CUDA tensor is the kernel; any other configuration runs the plain
+  composition (``_sbrc_plain``), as the JAX op runs its XLA one.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..base import MXNetError
+from .registry import register_op
 
 __all__ = ["bn_affine", "bn_stats", "fused_bn_relu_conv", "sbr_conv3x3",
            "sbr_matmul", "supported"]
@@ -381,3 +390,69 @@ def fused_bn_relu_conv(x, gamma, beta, running_mean, running_var, weight,
         x, gamma, beta, running_mean, running_var, weight, bias.float(),
         kernel, float(eps), bool(fix_gamma), bool(train_stats))
     return (out, mean, var) if output_mean_var else out
+
+
+def _sbrc_plain(data, gamma, beta, running_mean, running_var, weight, bias,
+                kernel, stride, pad, groups, layout, eps, fix_gamma,
+                train_stats):
+    """The JAX op's ``xla_forward`` for any configuration: BN (batch or
+    running statistics) and ReLU in fp32 over the layout's channel
+    axis, rounded to data's dtype, then ``nn.convolution`` plus bias.
+    Returns ``(out, mean, var)``, the statistics fp32."""
+    from .nn import _back, _first, convolution
+    x = _first(data, layout)
+    a, b, mean, var = bn_coefficients(x, gamma, beta, running_mean,
+                                      running_var, eps, fix_gamma,
+                                      train_stats)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    y = torch.relu(x.float() * a.view(shape) + b.view(shape)).to(x.dtype)
+    out = convolution(y, weight, bias.to(x.dtype), kernel=kernel,
+                      stride=stride, pad=pad, num_group=groups)
+    return _back(out, layout), mean, var
+
+
+@register_op("_FusedBNReluConv", num_outputs=3)
+def _fused_bn_relu_conv_op(data, gamma, beta, moving_mean, moving_var,
+                           weight, bias=None, *, kernel, stride=None,
+                           pad=None, num_filter=None, num_group=1,
+                           layout=None, eps=1e-5, momentum=0.9,
+                           fix_gamma=False, use_global_stats=False,
+                           no_bias=False, impl="auto", is_train=True,
+                           output_mean_var=False):
+    """BatchNorm -> ReLU -> Convolution as one op (the JAX package's
+    ``_FusedBNReluConv``): ``(out, mean, var)``, the statistics the
+    batch's with ``is_train`` (and not ``use_global_stats``).  NHWC
+    data, one group, stride 1 and a 1x1 pad-0 or 3x3 pad-1 kernel go to
+    ``fused_bn_relu_conv`` (the kernel on the card), through a permuted
+    view of the data and back; anything else, or ``impl="xla"``, to the
+    plain composition.  ``impl="pallas"`` / ``"pallas_interpret"``
+    raise outside the kernels' envelope, as the JAX op does.
+    ``output_mean_var`` (an extension: the JAX op has no such attribute)
+    makes the front end return the statistics too, as for BatchNorm."""
+    kernel = tuple(kernel)
+    n = len(kernel)
+    stride = tuple(stride) if stride is not None else (1,) * n
+    pad = tuple(pad) if pad is not None else (0,) * n
+    train_stats = bool(is_train) and not use_global_stats
+    if bias is None or no_bias:
+        bias = torch.zeros((weight.shape[0],), dtype=torch.float32,
+                           device=weight.device)
+    fused = data.dim() == 4 and supported(kernel, stride, pad, num_group,
+                                          layout, data.dtype)
+    if impl in ("pallas", "pallas_interpret") and not fused:
+        raise ValueError(
+            f"_FusedBNReluConv kernel path needs channels-last 4D data and "
+            f"a stride-1 1x1 pad=0 / 3x3 pad=1 ungrouped kernel; got "
+            f"kernel={kernel} stride={stride} pad={pad} groups={num_group} "
+            f"layout={layout}")
+    if fused and impl != "xla":
+        x = data.contiguous().permute(0, 3, 1, 2)
+        out, mean, var = fused_bn_relu_conv(
+            x, gamma, beta, moving_mean, moving_var, weight.to(data.dtype),
+            bias, kernel, eps, fix_gamma, train_stats, output_mean_var=True)
+        out = out.permute(0, 2, 3, 1)
+    else:
+        out, mean, var = _sbrc_plain(
+            data, gamma, beta, moving_mean, moving_var, weight, bias, kernel,
+            stride, pad, num_group, layout, eps, fix_gamma, train_stats)
+    return out, mean.to(data.dtype), var.to(data.dtype)

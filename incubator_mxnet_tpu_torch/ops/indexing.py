@@ -3,11 +3,12 @@
 reference src/operator/tensor/indexing_op.cc, ordering_op.cc,
 init_op.cc).
 
-Ported so far: ``pick`` (``indexing.py:36``), ``take``, ``one_hot``,
+Ported so far: ``Embedding`` (``indexing.py:19``), ``pick``
+(``:36``), ``take``, ``one_hot``,
 the ordering ops ``topk`` / ``sort`` / ``argsort`` and the init ops
 (``_zeros``, ``_ones``, ``_full``, ``_eye``, ``_arange``,
-``zeros_like``, ``ones_like``).  Embedding, gather/scatter_nd and the
-legacy indexing ops are ROADMAP A8.  Indices out of range are clipped
+``zeros_like``, ``ones_like``).  gather/scatter_nd and the legacy
+indexing ops are ROADMAP A8.  Indices out of range are clipped
 (``mode="clip"``, the reference's default) or wrapped
 (``mode="wrap"``); ``one_hot`` gives an all-``off_value`` row for an
 index outside ``[0, depth)``, as ``jax.nn.one_hot`` does.
@@ -27,6 +28,21 @@ def _index(indices, n, mode):
     if mode == "wrap":
         return torch.remainder(idx, n)
     return idx.clamp(0, n - 1)
+
+
+@register_op("Embedding")
+def _embedding(data, weight, *, input_dim=None, output_dim=None, dtype=None,
+               sparse_grad=False):
+    """Rows of ``weight`` at the indices ``data``, as the JAX op's
+    ``jnp.take`` gives them: a negative index counts from the end, one
+    outside ``[-input_dim, input_dim)`` gives a row of NaN (the gather
+    itself reads a clamped index, so no device assert)."""
+    idx = data.long()
+    n = weight.shape[0]
+    valid = ((idx >= -n) & (idx < n)).unsqueeze(-1)
+    idx = torch.where(idx < 0, idx + n, idx)
+    rows = weight[idx.clamp(0, n - 1)]
+    return torch.where(valid, rows, torch.full_like(rows, float("nan")))
 
 
 @register_op("take")

@@ -1,24 +1,37 @@
-"""Neural-network operators of the imperative path (counterpart of part
-of ``incubator_mxnet_tpu/ops/nn.py``; reference src/operator/nn/).
+"""Neural-network operators of the imperative path (counterpart of
+``incubator_mxnet_tpu/ops/nn.py``; reference src/operator/nn/).
 
-Ported so far: ``FullyConnected`` (``nn.py:38``), ``Activation``
-(``:209``), ``softmax`` (``:248``), ``log_softmax`` (``:254``) and
-``softmax_cross_entropy`` (``:733``) as registered ops, and the fused
-BatchNorm + ReLU (``_FusedBatchNormRelu``, ``:535``) as
-``fused_batch_norm_relu``, which ``gluon.nn.BNReLU`` calls.  The rest of
-the file (convolution, pooling, BatchNorm as an op, the output layers)
-is ROADMAP A8.  ``FullyConnected`` is a plain product
-(``torch.matmul``), as the JAX package left it to XLA.
+Registered here: ``FullyConnected`` (``nn.py:38``), ``Convolution``
+(``:79``), ``Deconvolution`` (``:116``), ``Pooling`` (``:151``),
+``Activation`` (``:209``), ``LeakyReLU`` (``:226``), ``softmax``
+(``:248``), ``log_softmax`` (``:254``), ``BatchNorm`` (``:408``),
+``_FusedBatchNormRelu`` (``:535``, over ``fused_batch_norm_relu``, which
+``gluon.nn.BNReLU`` also calls), ``InstanceNorm`` (``:550``),
+``LayerNorm`` (``:559``), ``L2Normalization`` (``:570``), ``LRN``
+(``:586``), ``Dropout`` (``:596``), ``Pad`` (``:609``), ``UpSampling``
+(``:621``) and ``softmax_cross_entropy`` (``:733``).  The output layers
+(``SoftmaxOutput`` and the regression outputs), the sequence ops and the
+legacy ops are ROADMAP A8.
+
+Each op is plain PyTorch (``F.conv*d``, ``F.*pool*d``, elementwise
+arithmetic), as the JAX package leaves them to XLA, and its gradient is
+torch autograd's.  Layouts follow the JAX ops: ``layout=None`` or
+``NC*`` puts the channels on axis 1, ``N*C`` on the last axis, with the
+weight in the reference's ``(O, I, *kernel)`` layout either way; a
+channels-last input is convolved as a permuted view.  The BatchNorm-like
+ops return ``(out, mean, var)`` and do not touch the moving statistics:
+``ndarray.invoke`` folds them, as the JAX front end does.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .fused_conv import bn_stats
 from .registry import register_op
 
-__all__ = ["fused_batch_norm_relu"]
+__all__ = ["channels_last", "convolution", "fused_batch_norm_relu"]
 
 
 @register_op("FullyConnected", aliases=("fully_connected",))
@@ -165,3 +178,320 @@ def fused_batch_norm_relu(x, gamma, beta, mmean, mvar, eps=1e-5,
     return _FusedBatchNormRelu.apply(x, gamma, beta, mmean, mvar,
                                      float(eps), bool(fix_gamma),
                                      bool(train_stats))
+
+
+@register_op("_FusedBatchNormRelu", num_outputs=3)
+def _fused_batch_norm_relu_op(data, gamma, beta, moving_mean, moving_var, *,
+                              eps=1e-3, momentum=0.9, fix_gamma=True,
+                              use_global_stats=False, output_mean_var=False,
+                              axis=1, cudnn_off=False, is_train=True):
+    """``relu(BatchNorm(data))`` as one op: ``(out, mean, var)`` as
+    ``BatchNorm`` returns them, by ``fused_batch_norm_relu`` with the
+    channel axis moved to dim 1 (a view)."""
+    ax = axis % data.ndim
+    y, mean, var = fused_batch_norm_relu(
+        data.movedim(ax, 1), gamma, beta, moving_mean, moving_var, eps,
+        fix_gamma, bool(is_train) and not use_global_stats)
+    return y.movedim(1, ax), mean, var
+
+
+# ------------------------------------------------------------- layouts
+def _tup(v, n):
+    if v is None:
+        return (1,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(v)
+
+
+def channels_last(layout):
+    """True for a channels-last layout (``NWC``, ``NHWC``, ``NDHWC``)."""
+    return layout is not None and layout[-1] == "C"
+
+
+def _first(x, layout):
+    """``x`` with its channels on axis 1: a permuted view of
+    channels-last data."""
+    return x.movedim(-1, 1) if channels_last(layout) else x
+
+
+def _back(x, layout):
+    """The inverse of ``_first``."""
+    return x.movedim(1, -1) if channels_last(layout) else x
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+# ------------------------------------------------------------- Convolution
+@register_op("Convolution", aliases=("convolution", "Convolution_v1"))
+def convolution(data, weight, bias=None, *, kernel, stride=None, dilate=None,
+                pad=None, num_filter=None, num_group=1, no_bias=False,
+                layout=None, workspace=1024, cudnn_tune=None,
+                cudnn_off=False):
+    """N-D convolution (reference src/operator/nn/convolution-inl.h):
+    weight ``(O, I/groups, *kernel)`` in every layout, symmetric
+    ``pad``, ``F.conv{1,2,3}d``."""
+    n = len(kernel)
+    pad = _tup(pad, n) if pad is not None else (0,) * n
+    out = _CONV[n](_first(data, layout), weight,
+                   None if no_bias else bias, _tup(stride, n), pad,
+                   _tup(dilate, n), num_group)
+    return _back(out, layout)
+
+
+@register_op("Deconvolution", aliases=("deconvolution",))
+def _deconvolution(data, weight, bias=None, *, kernel, stride=None,
+                   dilate=None, pad=None, adj=None, target_shape=None,
+                   num_filter=None, num_group=1, no_bias=True, layout=None,
+                   workspace=1024, cudnn_tune=None, cudnn_off=False):
+    """Transposed convolution (reference src/operator/nn/
+    deconvolution-inl.h): weight ``(I, O/groups, *kernel)``, output
+    ``(in - 1) * stride - 2 * pad + dilate * (kernel - 1) + 1 + adj``;
+    ``target_shape`` is ignored, as in the JAX op."""
+    n = len(kernel)
+    pad = _tup(pad, n) if pad is not None else (0,) * n
+    adj = _tup(adj, n) if adj is not None else (0,) * n
+    out = _DECONV[n](_first(data, layout), weight,
+                     None if no_bias else bias, _tup(stride, n), pad, adj,
+                     num_group, _tup(dilate, n))
+    return _back(out, layout)
+
+
+# ------------------------------------------------------------- Pooling
+def _sum_pool(x, kernel, stride):
+    """Window sums (average pooling with divisor 1)."""
+    if x.ndim == 3:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if x.ndim == 4 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+@register_op("Pooling", aliases=("pooling", "Pooling_v1"))
+def _pooling(data, *, kernel=(), pool_type="max", global_pool=False,
+             stride=None, pad=None, pooling_convention="valid",
+             count_include_pad=True, cudnn_off=False, layout=None):
+    """Max / avg / sum pooling (reference src/operator/nn/pooling-inl.h).
+    The padding is explicit, as the JAX op's ``reduce_window`` has it:
+    ``-inf`` for max and zeros for avg/sum, and with
+    ``pooling_convention="full"`` extra padding on the high side so that
+    ``ceil((x + 2p - k) / s) + 1`` windows fit; ``avg`` divides by the
+    kernel size, or by the count of real elements without
+    ``count_include_pad``."""
+    x = _first(data, layout)
+    n = x.ndim - 2
+    spatial = tuple(range(2, x.ndim))
+    if global_pool:
+        if pool_type == "max":
+            out = torch.amax(x, dim=spatial, keepdim=True)
+        elif pool_type == "sum":
+            out = x.sum(spatial, keepdim=True)
+        else:
+            out = x.mean(spatial, keepdim=True)
+        return _back(out, layout)
+    kernel, stride = _tup(kernel, n), _tup(stride, n)
+    pad = _tup(pad, n) if pad is not None else (0,) * n
+    widths = []
+    for i in reversed(range(n)):
+        extra = 0
+        if pooling_convention == "full":
+            rem = (x.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
+            extra = (stride[i] - rem) % stride[i] if rem else 0
+        widths += [pad[i], pad[i] + extra]
+    if pool_type == "max":
+        fill = float("-inf") if x.is_floating_point() \
+            else torch.iinfo(x.dtype).min
+        out = _MAXPOOL[n](F.pad(x, widths, value=fill), kernel, stride)
+        return _back(out, layout)
+    summed = _sum_pool(F.pad(x, widths), kernel, stride)
+    if pool_type == "sum":
+        out = summed
+    elif count_include_pad:
+        out = summed / float(np.prod(kernel))
+    else:
+        out = summed / _sum_pool(F.pad(torch.ones_like(x), widths), kernel,
+                                 stride)
+    return _back(out, layout)
+
+
+# ------------------------------------------------------------- LeakyReLU
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register_op("LeakyReLU")
+def _leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334):
+    """leaky / prelu / elu / selu (reference src/operator/
+    leaky_relu-inl.h); rrelu takes its eval-time slope, the mean of its
+    bounds, as in the JAX op."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2)) \
+            if data.ndim > 2 else gamma
+        return torch.where(data > 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(data > 0, data,
+                                         _SELU_ALPHA * torch.expm1(data))
+    if act_type == "rrelu":
+        s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, s * data)
+    raise ValueError(f"unknown act_type {act_type}")
+
+
+# ------------------------------------------------------------- normalization
+def _rsqrt(x):
+    """rsqrt rounded once to x's dtype, as XLA's (torch's bf16 rsqrt on
+    the CPU rounds the sqrt first)."""
+    return torch.rsqrt(x.float()).to(x.dtype)
+
+
+@register_op("BatchNorm", aliases=("batch_norm", "BatchNorm_v1"),
+             num_outputs=3)
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=False,
+                is_train=True):
+    """``(out, mean, var)``: the batch's statistics (``bn_stats``, fp32,
+    then in data's dtype) in training, else the moving ones, and
+    ``(data - mean) * rsqrt(var + eps) * gamma + beta`` in data's dtype
+    (gamma taken as 1 with ``fix_gamma``), the JAX op's formula.  The
+    front end folds the moving statistics."""
+    ax = axis % data.ndim
+    shape = [1] * data.ndim
+    shape[ax] = data.shape[ax]
+    if use_global_stats or not is_train:
+        mean, var = moving_mean, moving_var
+    else:
+        mean32, var32 = bn_stats(data.movedim(ax, 1))
+        mean, var = mean32.to(data.dtype), var32.to(data.dtype)
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    inv = _rsqrt(var + eps)
+    out = (data - mean.reshape(shape)) * inv.reshape(shape) * \
+        g.reshape(shape) + beta.reshape(shape)
+    return out, mean, var
+
+
+@register_op("InstanceNorm")
+def _instance_norm(data, gamma, beta, *, eps=1e-3):
+    red = tuple(range(2, data.ndim))
+    mean = data.mean(red, keepdim=True)
+    var = data.var(red, unbiased=False, keepdim=True)
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return (data - mean) * _rsqrt(var + eps) * gamma.reshape(shape) + \
+        beta.reshape(shape)
+
+
+@register_op("LayerNorm")
+def _layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5,
+                output_mean_var=False):
+    ax = axis % data.ndim
+    mean = data.mean(ax, keepdim=True)
+    var = data.var(ax, unbiased=False, keepdim=True)
+    shape = [1] * data.ndim
+    shape[ax] = data.shape[ax]
+    return (data - mean) * _rsqrt(var + eps) * gamma.reshape(shape) + \
+        beta.reshape(shape)
+
+
+@register_op("L2Normalization")
+def _l2_normalization(data, *, eps=1e-10, mode="instance"):
+    if mode == "instance":
+        norm = torch.sqrt(data.reshape(data.shape[0], -1).square().sum(1) +
+                          eps)
+        return data / norm.reshape((-1,) + (1,) * (data.ndim - 1))
+    if mode == "channel":
+        return data / torch.sqrt(data.square().sum(1, keepdim=True) + eps)
+    if mode == "spatial":
+        red = tuple(range(2, data.ndim))
+        return data / torch.sqrt(data.square().sum(red, keepdim=True) + eps)
+    raise ValueError(mode)
+
+
+@register_op("LRN", aliases=("lrn",))
+def _lrn(data, *, nsize, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalisation across channels (axis 1 of NCHW)."""
+    half = nsize // 2
+    sq = F.pad(data.square(), (0, 0, 0, 0, half, half))
+    windows = sum(sq[:, i:i + data.shape[1]] for i in range(nsize))
+    return data / torch.pow(knorm + alpha * windows / nsize, beta)
+
+
+# ------------------------------------------------------------- dropout
+@register_op("Dropout", aliases=("dropout",), needs_rng=True)
+def _dropout(generator, data, *, p=0.5, mode="training", axes=(),
+             is_train=True):
+    """Inverted dropout in training (identity otherwise): a keep mask
+    drawn from the device's generator, shared along ``axes``.  The
+    mask's bits differ from the JAX package's keys."""
+    if not is_train or p <= 0:
+        return data
+    shape = list(data.shape)
+    for a in axes:
+        shape[a] = 1
+    keep = 1.0 - p
+    mask = torch.rand(shape, generator=generator, device=data.device) < keep
+    return data * mask.to(data.dtype) / keep
+
+
+# ------------------------------------------------------------- Pad
+def _pad_index(n, before, after, mode, device):
+    """Source indices of a padded axis of length ``n``: numpy's
+    ``edge`` (clamped) or ``reflect`` (mirrored without repeating the
+    edge, periodic for any width)."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = torch.remainder(i, period)
+    return torch.where(i >= n, period - i, i)
+
+
+@register_op("Pad", aliases=("pad",))
+def _pad(data, *, mode="constant", pad_width, constant_value=0.0):
+    """Pad every axis by ``pad_width`` (before, after pairs, axis by
+    axis): ``constant``, ``edge`` or ``reflect``, as ``jnp.pad``."""
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(data.ndim)]
+    if mode == "constant":
+        flat = [w for pair in reversed(pw) for w in pair]
+        return F.pad(data, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise ValueError(mode)
+    out = data
+    for ax, (before, after) in enumerate(pw):
+        if before or after:
+            out = torch.index_select(out, ax, _pad_index(
+                data.shape[ax], before, after, mode, data.device))
+    return out
+
+
+@register_op("UpSampling")
+def _upsampling(*args, scale, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest upsampling by ``scale`` on H and W of NCHW inputs (several
+    inputs brought to the largest size, then concatenated on the
+    channels or summed), or bilinear (half-pixel centres, the edge
+    samples clamped: ``jax.image.resize``'s values when enlarging)."""
+    if sample_type != "nearest":
+        return F.interpolate(args[0], scale_factor=scale, mode="bilinear",
+                             align_corners=False)
+
+    def nearest(x, s):
+        return x.repeat_interleave(s, 2).repeat_interleave(s, 3)
+
+    outs = [nearest(d, scale) for d in args]
+    if len(outs) == 1:
+        return outs[0]
+    h = max(o.shape[2] for o in outs)
+    outs = [o if o.shape[2] == h else nearest(o, h // o.shape[2])
+            for o in outs]
+    if multi_input_mode == "sum":
+        return sum(outs)
+    return torch.cat(outs, 1)

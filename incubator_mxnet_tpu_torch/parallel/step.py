@@ -113,6 +113,8 @@ class TrainStep:
         loss = step(x, y)                        # one step, a 0-d tensor
         losses = step.run_steps(x, y, num_steps=100)   # (100,) tensor
 
+    ``loss_fn`` takes tensors (``gluon.nn._modules.
+    SoftmaxCrossEntropyLoss``; the ``gluon.loss`` blocks take NDArrays).
     Inputs are numpy arrays or tensors and are moved to the device;
     losses stay on the device (read them when the window is done).  The
     parameters are the block's own and are updated in place: there is
@@ -139,7 +141,11 @@ class TrainStep:
         self._optimizer = optimizer
         self._grad_accum = int(grad_accum)
         self._params = [p for p in block.parameters() if p.requires_grad]
-        self._states = [optimizer.create_state(p) for p in self._params]
+        # the optimizer reads each parameter's lr_mult / wd_mult by its
+        # index, as gluon.Trainer hands it its Parameters
+        optimizer.param_dict = dict(enumerate(self._params))
+        self._states = [optimizer.create_state_multi_precision(i, p)
+                        for i, p in enumerate(self._params)]
         if loss_scaler is None and self._bf16:
             loss_scaler = LossScaler.from_env()
         self._scaler = loss_scaler
@@ -189,8 +195,9 @@ class TrainStep:
             loss = loss / accum
             grads = [g / accum for g in grads]
         opt = self._optimizer
-        for p, g, s in zip(self._params, grads, self._states):
-            opt.update(p, g, s)
+        for i, (p, g, s) in enumerate(zip(self._params, grads,
+                                          self._states)):
+            opt.update_multi_precision(i, p, g, s)
         if scaler is not None:
             overflow = program_overflow(grads)
             with torch.no_grad():

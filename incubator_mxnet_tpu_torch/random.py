@@ -7,16 +7,24 @@ current seed; ``seed(s)`` reseeds them all (``ctx="all"``) or the one
 of ``ctx``.  Sampling ops get their device's generator from
 ``ndarray.invoke``.  The bits differ from the JAX package's keys;
 within the port the same seed gives the same numbers.
+
+``named_sample`` (the initializers' draws) uses a CPU generator of its
+own per parameter name, seeded from the current seed and the name's
+CRC-32: a parameter's initial values do not depend on the order in
+which parameters are created, as the JAX package folds the name into
+its key.
 """
 from __future__ import annotations
 
+import binascii
 import threading
 
 import torch
 
 from .context import Context
 
-__all__ = ["seed", "generator", "uniform", "normal", "randn", "randint"]
+__all__ = ["seed", "generator", "named_sample", "uniform", "normal", "randn",
+           "randint"]
 
 _DEFAULT_SEED = 0
 _lock = threading.Lock()
@@ -56,6 +64,23 @@ def seed(seed_state, ctx="all"):
                 gen.manual_seed(s)
         return
     generator(Context(ctx).torch_device()).manual_seed(s)
+
+
+def named_sample(name, kind, shape=(), **kw):
+    """A float32 numpy sample of ``shape`` for parameter ``name``:
+    ``kind="uniform"`` on ``[low, high)``, ``"normal"`` with ``loc`` and
+    ``scale``, from a generator seeded by the current seed and the
+    name's CRC-32."""
+    gen = torch.Generator().manual_seed(
+        (_seed[0] << 32) ^ (binascii.crc32(str(name).encode()) & 0x7FFFFFFF))
+    out = torch.empty(tuple(shape), dtype=torch.float32)
+    if kind == "uniform":
+        out.uniform_(kw.get("low", 0.0), kw.get("high", 1.0), generator=gen)
+    elif kind == "normal":
+        out.normal_(kw.get("loc", 0.0), kw.get("scale", 1.0), generator=gen)
+    else:
+        raise ValueError(f"unknown sample kind {kind}")
+    return out.numpy()
 
 
 def _sample(opname, ctx, **kwargs):

@@ -22,7 +22,8 @@ import jax.numpy as jnp
 import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu.gluon import nn as jax_nn
 from incubator_mxnet_tpu.ops.nn import _fused_batch_norm_relu
-from incubator_mxnet_tpu_torch.gluon.nn import Activation, BatchNorm, BNReLU
+from incubator_mxnet_tpu_torch.gluon.nn._modules import (
+    Activation, BatchNorm, BNReLU)
 from incubator_mxnet_tpu_torch.ops.nn import fused_batch_norm_relu
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),

@@ -28,8 +28,8 @@ import incubator_mxnet_tpu as jmx
 import incubator_mxnet_tpu_torch as tmx
 from incubator_mxnet_tpu import gluon as jgluon
 from incubator_mxnet_tpu import parallel as jparallel
-from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-from incubator_mxnet_tpu_torch.gluon.nn import BatchNorm, BNReLU
+from incubator_mxnet_tpu_torch.gluon.nn._modules import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.nn._modules import BatchNorm, BNReLU
 from incubator_mxnet_tpu_torch.optimizer import SGD
 from incubator_mxnet_tpu_torch.parallel import TrainStep
 

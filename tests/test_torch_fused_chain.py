@@ -20,8 +20,8 @@ import jax.numpy as jnp
 import incubator_mxnet_tpu as mx  # noqa: F401  (op registry)
 from incubator_mxnet_tpu.ops.fused_chain import _fused_bottleneck_chain
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.gluon.nn import (FusedBNReLUConv2D,
-                                                FusedBottleneckChain)
+from incubator_mxnet_tpu_torch.gluon.nn._modules import (
+    FusedBNReLUConv2D, FusedBottleneckChain)
 from incubator_mxnet_tpu_torch.ops import fused_chain
 from incubator_mxnet_tpu_torch.ops.fused_chain import (
     CHAIN_MAX_CM, _check, chain_emit, chain_stats, chain_supported,

@@ -22,9 +22,8 @@ import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu.gluon import nn as jax_nn
 from incubator_mxnet_tpu.ops.fused_conv import _fused_bn_relu_conv
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.gluon.nn import (BatchNorm, Conv2D, Dense,
-                                                FusedBNReLUConv2D,
-                                                MaxPool2D)
+from incubator_mxnet_tpu_torch.gluon.nn._modules import (
+    BatchNorm, Conv2D, Dense, FusedBNReLUConv2D, MaxPool2D)
 from incubator_mxnet_tpu_torch.ops import fused_conv
 from incubator_mxnet_tpu_torch.ops.fused_conv import (
     _check, fused_bn_relu_conv, sbr_conv3x3, sbr_matmul, supported)

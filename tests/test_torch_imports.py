@@ -70,6 +70,16 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import incubator_mxnet_tpu_torch.parallel.step\n"
             "import incubator_mxnet_tpu_torch.optimizer\n"
             "import incubator_mxnet_tpu_torch.gluon.loss\n"
+            "import incubator_mxnet_tpu_torch.gluon.block\n"
+            "import incubator_mxnet_tpu_torch.gluon.parameter\n"
+            "import incubator_mxnet_tpu_torch.gluon.trainer\n"
+            "import incubator_mxnet_tpu_torch.gluon.utils\n"
+            "import incubator_mxnet_tpu_torch.gluon.nn\n"
+            "import incubator_mxnet_tpu_torch.gluon.nn._modules\n"
+            "import incubator_mxnet_tpu_torch.initializer\n"
+            "import incubator_mxnet_tpu_torch.lr_scheduler\n"
+            "import incubator_mxnet_tpu_torch.metric\n"
+            "import incubator_mxnet_tpu_torch.name\n"
             "import incubator_mxnet_tpu_torch.ndarray\n"
             "import incubator_mxnet_tpu_torch.autograd\n"
             "import incubator_mxnet_tpu_torch.random\n"

@@ -23,7 +23,7 @@ import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.convert import resnet_params_from_numpy
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
-from incubator_mxnet_tpu_torch.gluon.nn import FusedBNReLUConv2D
+from incubator_mxnet_tpu_torch.gluon.nn._modules import FusedBNReLUConv2D
 from incubator_mxnet_tpu_torch.ops.fused_conv import sbr_conv3x3, sbr_matmul
 from incubator_mxnet_tpu_torch.predict import BlockPredictor
 from incubator_mxnet_tpu_torch.serving import ModelServer

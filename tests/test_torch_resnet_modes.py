@@ -27,8 +27,8 @@ from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.convert import (resnet_params_from_numpy,
                                                resnet_params_to_numpy)
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
-from incubator_mxnet_tpu_torch.gluon.nn import (BNReLU, FusedBNReLUConv2D,
-                                                FusedBottleneckChain)
+from incubator_mxnet_tpu_torch.gluon.nn._modules import (
+    BNReLU, FusedBNReLUConv2D, FusedBottleneckChain)
 from torch_port_helpers import jax_resnet, seeded_fill
 
 REL_TOL = 1e-4

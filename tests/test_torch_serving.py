@@ -20,7 +20,7 @@ import torch
 
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
-from incubator_mxnet_tpu_torch.gluon.nn import Dense
+from incubator_mxnet_tpu_torch.gluon.nn._modules import Dense
 from incubator_mxnet_tpu_torch.predict import BlockPredictor
 from incubator_mxnet_tpu_torch.serving import (DeadlineExceededError,
                                                DynamicBatcher, ModelServer,

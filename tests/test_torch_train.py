@@ -43,10 +43,11 @@ from incubator_mxnet_tpu.ops.optimizer_ops import (_mp_sgd_mom_update,
                                                    _sgd_update)
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.convert import resnet_params_from_numpy
-from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.nn._modules import (
+    BatchNorm, SoftmaxCrossEntropyLoss)
+from incubator_mxnet_tpu_torch.lr_scheduler import FactorScheduler
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
                                                               ResNetV1)
-from incubator_mxnet_tpu_torch.gluon.nn import BatchNorm
 from incubator_mxnet_tpu_torch.ops.fused_chain import (chain_emit,
                                                        chain_stats)
 from incubator_mxnet_tpu_torch.ops.fused_conv import (fused_bn_relu_conv,
@@ -210,8 +211,9 @@ def test_sgd_update_matches_jax(momentum, extra):
     opt = SGD(learning_rate=lr, momentum=momentum, wd=wd, **extra)
     p = torch.nn.Parameter(torch.from_numpy(w.copy()))
     p.lr_mult, p.wd_mult = 2.0, 0.0
-    state = opt.create_state(p)
-    opt.update(p, torch.from_numpy(g), state)
+    opt.param_dict = {0: p}
+    state = opt.create_state(0, p)
+    opt.update(0, p, torch.from_numpy(g), state)
     q, qm = torch.from_numpy(w.copy()), torch.zeros(3, 4)
     if momentum:
         sgd_mom_update(q, torch.from_numpy(g), qm, 2 * lr, momentum, 0.0,
@@ -302,16 +304,16 @@ def test_mp_sgd_update_matches_jax(momentum, extra):
     opt = SGD(learning_rate=lr, momentum=momentum, wd=wd,
               multi_precision=True, **extra)
     p = torch.nn.Parameter(tw.clone())
-    state = opt.create_state(p)
+    state = opt.create_state_multi_precision(0, p)
     assert state[1].dtype == torch.float32 and \
         (state[0] is None) == (not momentum)
     state[1].copy_(torch.from_numpy(w32))
     if momentum:
         state[0].copy_(torch.from_numpy(m))
-    opt.update(p, tg, state)
+    opt.update_multi_precision(0, p, tg, state)
     check([p.data] + ([state[0]] if momentum else []) + [state[1]])
-    assert SGD(multi_precision=True).create_state(
-        torch.zeros(2)) is None
+    assert SGD(multi_precision=True).create_state_multi_precision(
+        0, torch.zeros(2)) is None
 
 
 # ------------------------------------------------------------- TrainStep
@@ -490,8 +492,8 @@ def test_bf16_steps_build_a_live_kernel_net_on_the_card(monkeypatch, mode):
     the CPU parameters would fail), the net's fused layers are live, and
     on the CPU the plain versions run bf16."""
     import incubator_mxnet_tpu_torch.parallel.step as step_mod
-    from incubator_mxnet_tpu_torch.gluon.nn import (FusedBNReLUConv2D,
-                                                    FusedBottleneckChain)
+    from incubator_mxnet_tpu_torch.gluon.nn._modules import (
+        FusedBNReLUConv2D, FusedBottleneckChain)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     spec = ([1, 1, 1, 1], [16, 32, 64, 128, 1024])
@@ -518,8 +520,8 @@ def test_bf16_layers_are_fused():
     envelope (``fused``) as in fp32; the chain's envelope is twice as
     wide in bf16 (its y2 tile takes half the shared memory); fp16 is
     outside both."""
-    from incubator_mxnet_tpu_torch.gluon.nn import (FusedBNReLUConv2D,
-                                                    FusedBottleneckChain)
+    from incubator_mxnet_tpu_torch.gluon.nn._modules import (
+        FusedBNReLUConv2D, FusedBottleneckChain)
     from incubator_mxnet_tpu_torch.ops.fused_chain import (
         CHAIN_MAX_CM, CHAIN_MAX_CM_BF16)
 
@@ -550,8 +552,12 @@ def test_train_step_device_rules(monkeypatch):
     with pytest.raises(MXNetError, match="parameters are on"):
         TrainStep(net.to("meta"), SoftmaxCrossEntropyLoss(), SGD(),
                   device="cpu")
-    with pytest.raises(MXNetError, match="not ported"):
-        SGD(lr_scheduler=object())
+    # SGD takes an lr_scheduler since the Gluon slice: it drives the
+    # learning rate from the update count
+    opt = SGD(learning_rate=1.0,
+              lr_scheduler=FactorScheduler(step=1, factor=0.5))
+    opt.num_update = 3
+    assert opt.learning_rate == 0.25
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="no CUDA device"):
         TrainStep(net, SoftmaxCrossEntropyLoss(), SGD())

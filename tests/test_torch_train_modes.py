@@ -38,11 +38,11 @@ import torch
 
 from incubator_mxnet_tpu.gluon.model_zoo.vision import (
     BasicBlockV1 as JaxBasicBlockV1, BottleneckV1 as JaxBottleneckV1)
-from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.nn._modules import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (BasicBlockV1,
                                                               BottleneckV1,
                                                               ResNetV1)
-from incubator_mxnet_tpu_torch.gluon.nn import BNReLU
+from incubator_mxnet_tpu_torch.gluon.nn._modules import BNReLU
 from incubator_mxnet_tpu_torch.optimizer import SGD
 from incubator_mxnet_tpu_torch.parallel import TrainStep
 from torch_port_helpers import (change_errs, jax_resnet_of, jax_train,

@@ -48,7 +48,7 @@ from incubator_mxnet_tpu.gluon.model_zoo.vision import (
     BottleneckV1 as JaxBottleneckV1)
 from incubator_mxnet_tpu.numerics import LossScaler as JaxLossScaler
 from incubator_mxnet_tpu_torch.base import MXNetError
-from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.nn._modules import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
                                                               ResNetV1)
 from incubator_mxnet_tpu_torch.numerics import LossScaler, program_overflow
