@@ -71,7 +71,27 @@ launch counts set to 0 just before it and read just after:
   ``gluon.Trainer(net.collect_params(), "sgd", ...)`` at b=32, its first
   step held against ``TrainStep`` (``gluon_train``).  The kernel line
   gives each kernel's launches on these two paths
-  (``launches_gluon``).
+  (``launches_gluon``);
+* the data pipeline (phase ``data_train``): 1536 seeded 256x256 images
+  written as JPEG records with an ``.idx`` into a temporary directory,
+  read by ``io.ImageRecordIter`` (224x224 random crops and mirrors,
+  uint8 NHWC, 8 decode threads; OpenCV, else PIL, else the same images
+  through ``io.NDArrayIter``, the choice printed), staged on the card by
+  ``DevicePrefetchIter`` (depth 2, or 0 in the epochs taken without it),
+  cast and normalised on the card by ``uint8_input_prep``, training
+  bench.py's net with ``BENCH_FUSE_BLOCK=chain`` in bf16 at b=128 through
+  ``run_steps(drain=MetricDrain())``: four epochs (prefetch on, off, off,
+  on), the resident step beside them, the decode time of a batch, one
+  profiled fed window; B3/B4's bf16 forms 16 times a step;
+* ResNet-50 v2 (``fuse_block=True``) served in bf16 (phase
+  ``resnet_v2_serving``): ``BlockPredictor`` (bf16 by default on the
+  card) under ``ModelServer(ServingConfig(max_batch=32, queue_depth=64,
+  full_policy="block", watchdog_s=2.0))``, the same burst with
+  ``queue_depth()`` sampled, held against direct forwards, the fp32
+  predictor and the CPU; B1/B2's bf16 forms as many times a forward as
+  the net has fused layers inside their envelope (16 and 13); and a
+  blocking server of queue depth 1.  The kernel line gives each
+  kernel's launches on these two paths (``launches_data``).
 
 The rtc user kernels (``axpy``, a per-row sum that stages its row in
 more than 48 KB of dynamic shared memory, and a ``scale_add`` template
@@ -720,7 +740,9 @@ def phase_resnet_serving(seed):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     net = get_resnet(1, 50, device="cuda:0", seed=seed, **RESNET50)
-    pred = BlockPredictor(net)
+    # fp32, as this phase has always measured it (BlockPredictor's default
+    # on the card is bf16; phase resnet_v2_serving runs that)
+    pred = BlockPredictor(net, bf16_compute=False)
     server = ModelServer(pred, max_batch=MAX_BATCH, input_shapes=[IMAGE])
     server.warmup()
     setup_s = time.perf_counter() - t0
@@ -2860,6 +2882,437 @@ def phase_gluon_train(seed, fused_train_ms):
     return launches
 
 
+# data_train: ResNet-50 v1 training fed by the port's data pipeline.
+# DATA_IMAGES seeded DATA_SIZE^2 RGB images as JPEG records (12 batches
+# of TRAIN_BATCH), read by io.ImageRecordIter at DATA_CROP^2 in uint8 NHWC
+# with random crops and mirrors on DATA_THREADS decode threads, staged on
+# the card by DevicePrefetchIter (depth DATA_DEPTH) or not (depth 0), in
+# epochs taken in turns; cast and normalised on the card by
+# uint8_input_prep (the ImageNet mean and std)
+DATA_IMAGES, DATA_SIZE, DATA_CROP = 1536, 256, 224
+DATA_THREADS, DATA_DEPTH = 8, 2
+DATA_EPOCHS = (DATA_DEPTH, 0, 0, DATA_DEPTH)
+DATA_MEAN = (123.68, 116.28, 103.53)
+DATA_STD = (58.395, 57.12, 57.375)
+DATA_JPEG_QUALITY = 90
+DATA_RESIDENT_STEPS, DATA_PROFILE_STEPS, DATA_DECODE_BATCHES = 5, 3, 4
+# resnet_v2_serving: ResNet-50 v2, fuse_block=True, bf16, served with
+# backpressure (a queue of 64, full_policy="block") and the watchdog on
+V2_QUEUE_DEPTH, V2_WATCHDOG_S = 64, 2.0
+
+
+def _decoders():
+    """Which JPEG decoders this machine has: {"cv2": bool, "PIL": bool}."""
+    found = {}
+    for name in ("cv2", "PIL"):
+        try:
+            __import__(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    return found
+
+
+def _synthetic_image(rs):
+    """A seeded DATA_SIZE^2 RGB uint8 image: a smooth random field (an
+    8x8 grid of colours, bilinearly enlarged) plus pixel noise, so a JPEG
+    of it is ~20 KB, as a photograph's would be."""
+    coarse = torch.from_numpy(rs.rand(1, 3, 8, 8).astype(np.float32))
+    smooth = torch.nn.functional.interpolate(
+        coarse, size=(DATA_SIZE, DATA_SIZE), mode="bilinear",
+        align_corners=False)[0].permute(1, 2, 0).numpy()
+    noise = rs.rand(DATA_SIZE, DATA_SIZE, 3).astype(np.float32)
+    return np.clip(smooth * 230 + noise * 25, 0, 255).astype(np.uint8)
+
+
+def _write_records(prefix, seed, decoders):
+    """DATA_IMAGES seeded images as JPEG records with an .idx (labels i
+    mod 1000): OpenCV's encoder through recordio.pack_img when cv2 is
+    there, else PIL's through recordio.pack.  Returns the .rec bytes."""
+    from incubator_mxnet_tpu_torch import recordio
+    rs = np.random.RandomState(seed)
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(DATA_IMAGES):
+        img = _synthetic_image(rs)
+        header = recordio.IRHeader(0, float(i % 1000), i, 0)
+        if decoders["cv2"]:
+            rec.write_idx(i, recordio.pack_img(header, img,
+                                               quality=DATA_JPEG_QUALITY))
+        else:
+            import io as _stdio
+            from PIL import Image
+            buf = _stdio.BytesIO()
+            Image.fromarray(img[:, :, ::-1]).save(
+                buf, format="JPEG", quality=DATA_JPEG_QUALITY)
+            rec.write_idx(i, recordio.pack(header, buf.getvalue()))
+    rec.close()
+    import os
+    return os.path.getsize(prefix + ".rec")
+
+
+class _KeepDrain:
+    """A MetricDrain that also keeps every tensor pushed, so the drained
+    values can be held against the same tensors read eagerly."""
+
+    def __init__(self):
+        from incubator_mxnet_tpu_torch.pipeline_io import MetricDrain
+        self.drain = MetricDrain()
+        self.kept = []
+
+    def push(self, value):
+        self.kept.append(value)
+        return self.drain.push(value)
+
+    def flush(self):
+        return self.drain.flush()
+
+
+def phase_data_train(seed, tmpdir):
+    """ResNet-50 v1 training (bench.py's net with BENCH_FUSE_BLOCK=chain,
+    TrainStep(bf16_compute=True)) fed by io.ImageRecordIter ->
+    DevicePrefetchIter -> run_steps(drain=MetricDrain()), the images cast
+    and normalised on the card by uint8_input_prep.  Four epochs of the
+    same records in turns, prefetch on (depth 2), off (depth 0), off, on,
+    with the kernel counts set to 0 just before them and read just after:
+    B3 and B4 in their bf16 forms 16 times a step, nothing else.  Gates:
+    a prefetched batch copied back equals its host batch byte for byte;
+    the first batch's step on the prefetched batch has a loss within the
+    spread of the same step fed from host memory twice (each on a fresh
+    copy of the net); the drained losses equal the same tensors read
+    eagerly, bit for bit; every loss is finite."""
+    import os
+    from incubator_mxnet_tpu_torch import io as mio
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    from incubator_mxnet_tpu_torch.parallel import uint8_input_prep
+    from incubator_mxnet_tpu_torch.pipeline_io import DevicePrefetchIter
+    torch.cuda.empty_cache()
+    decoders = _decoders()
+    decoder = "cv2" if decoders["cv2"] else \
+        "python" if decoders["PIL"] else None
+    t0 = time.perf_counter()
+    prefix = os.path.join(tmpdir, "train")
+    rng = np.random.RandomState(seed + 20)
+    if decoder is not None:
+        rec_bytes = _write_records(prefix, seed + 20, decoders)
+    else:
+        # no decoder on this machine: the same seeded images, cropped to
+        # 224 on the host, through NDArrayIter (ROADMAP: the record
+        # reader's decode on the card waits for a decoder there)
+        lo = (DATA_SIZE - DATA_CROP) // 2
+        pixels = np.stack([_synthetic_image(rng)[lo:lo + DATA_CROP,
+                                                 lo:lo + DATA_CROP]
+                           for _ in range(DATA_IMAGES)])
+        labels = (np.arange(DATA_IMAGES) % 1000).astype(np.float32)
+        rec_bytes = 0
+    records_s = time.perf_counter() - t0
+
+    def reader(epoch):
+        if decoder is None:
+            return mio.NDArrayIter(pixels, labels, batch_size=TRAIN_BATCH,
+                                   shuffle=True)
+        return mio.ImageRecordIter(
+            path_imgrec=prefix + ".rec", path_imgidx=prefix + ".idx",
+            data_shape=(3, DATA_CROP, DATA_CROP), batch_size=TRAIN_BATCH,
+            dtype="uint8", layout="NHWC", rand_crop=True, rand_mirror=True,
+            shuffle=True, preprocess_threads=DATA_THREADS, decoder=decoder,
+            seed=seed + epoch)
+
+    # host decode of a batch with no step running, in the steady state
+    # (the first batch, which pays the reader's set-up, left out)
+    it = reader(100)
+    host = [next(it)]
+    t1 = time.perf_counter()
+    host += [next(it) for _ in range(DATA_DECODE_BATCHES)]
+    decode_ms = (time.perf_counter() - t1) / DATA_DECODE_BATCHES * 1e3
+    it.close()
+    hx, hy = host[0].data[0].asnumpy(), host[0].label[0].asnumpy()
+    if hx.shape != (TRAIN_BATCH, DATA_CROP, DATA_CROP, 3) or \
+            hx.dtype != np.uint8:
+        fail(f"data_train: the reader gave {hx.shape} {hx.dtype}")
+
+    def one_batch(depth):
+        """The first host batch, through the prefetcher at depth."""
+        src = mio.NDArrayIter(hx, hy, batch_size=TRAIN_BATCH)
+        pf = DevicePrefetchIter(src, depth=depth)
+        b = next(pf)
+        pf.close()
+        return b
+
+    staged = one_batch(DATA_DEPTH)
+    if staged.data[0]._data.device.type != "cuda" or \
+            not np.array_equal(staged.data[0].asnumpy(), hx) or \
+            not np.array_equal(staged.label[0].asnumpy(), hy):
+        fail("data_train: a prefetched batch copied back differs from its "
+             "host batch")
+    prep = uint8_input_prep(DATA_MEAN, 1.0 / np.asarray(DATA_STD), "NHWC")
+    net = get_resnet(1, 50, device="cuda:0", seed=seed, **BENCH_CHAIN_NET)
+    first = []
+    for fed in ("host", "host", "prefetched"):
+        twin = copy.deepcopy(net)
+        step = _train_step(twin, bf16_compute=True, input_prep=prep)
+        b = one_batch(0) if fed == "host" else staged
+        first.append(step.run_steps(b.data[0], b.label[0],
+                                    num_steps=1)[0].item())
+        del step, twin
+    lo, hi = min(first[:2]), max(first[:2])
+    if not lo <= first[2] <= hi:
+        fail(f"data_train: the first step's loss on the prefetched batch, "
+             f"{first[2]!r}, lies outside the host-fed spread {first[:2]}")
+    step = _train_step(net, bf16_compute=True, input_prep=prep)
+    step.run_steps(staged.data[0], staged.label[0], num_steps=1)  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    epochs, hits, stalls = [], 0, 0
+    drained, kept = [], []
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    step.resident_fastpath = 0
+    for e, depth in enumerate(DATA_EPOCHS):
+        pf = DevicePrefetchIter(reader(e), depth=depth)
+        drain = _KeepDrain()
+        t1 = time.perf_counter()
+        n = 0
+        out = []
+        for b in pf:
+            out += step.run_steps(b.data[0], b.label[0], num_steps=1,
+                                  drain=drain)
+            n += 1
+        out += drain.flush()
+        wall = time.perf_counter() - t1
+        hits, stalls = hits + pf.hits, stalls + pf.stalls
+        pf.close()
+        epochs.append({"prefetch_depth": depth, "steps": n, "wall_s": wall,
+                       "ms_per_step": wall / n * 1e3,
+                       "images_per_s": n * TRAIN_BATCH / wall})
+        drained += out
+        kept += drain.kept
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    fastpath = step.resident_fastpath
+    steps = sum(e["steps"] for e in epochs)
+    want = dict.fromkeys(launches, 0)
+    want.update(chain_stats_bf16=16 * steps, chain_emit_bf16=16 * steps)
+    _expect(launches, want, f"the data-fed bf16 chain training path "
+                            f"({steps} steps)")
+    eager = [t.cpu().numpy() for t in kept]
+    if len(drained) != steps or any(
+            not np.array_equal(d, e) for d, e in zip(drained, eager)):
+        fail("data_train: the drained losses differ from the same tensors "
+             "read eagerly")
+    losses = [float(v[0]) for v in drained]
+    _finite(first + losses, "data-fed training")
+    want_fast = sum(e["steps"] for e in epochs if e["prefetch_depth"])
+    if fastpath != want_fast:
+        fail(f"data_train: {fastpath} steps took the prefetched batch as it "
+             f"was, expected {want_fast}")
+
+    # the resident-batch step of the same net, and one profiled fed window
+    t1 = time.perf_counter()
+    step.run_steps(staged.data[0], staged.label[0],
+                   num_steps=DATA_RESIDENT_STEPS)
+    torch.cuda.synchronize()
+    resident_ms = (time.perf_counter() - t1) / DATA_RESIDENT_STEPS * 1e3
+    from torch.profiler import ProfilerActivity, profile
+    pf = DevicePrefetchIter(reader(99), depth=DATA_DEPTH)
+    batches = [next(pf) for _ in range(DATA_PROFILE_STEPS + 1)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for b in batches[1:]:
+            step.run_steps(b.data[0], b.label[0], num_steps=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    pf.close()
+    on = [e["ms_per_step"] for e in epochs if e["prefetch_depth"]]
+    off = [e["ms_per_step"] for e in epochs if not e["prefetch_depth"]]
+    emit({"phase": "data_train",
+          "reader": "ImageRecordIter" if decoder else "NDArrayIter",
+          "decoder": decoder, "decoders": decoders,
+          "records": DATA_IMAGES, "record_bytes": rec_bytes,
+          "records_s": records_s, "batch": TRAIN_BATCH,
+          "preprocess_threads": DATA_THREADS, "dtype": "bfloat16",
+          "epochs": epochs, "ms_per_step_prefetch_on": on,
+          "ms_per_step_prefetch_off": off,
+          "resident_ms_per_step": resident_ms,
+          "host_decode_ms_per_batch": decode_ms,
+          "prefetch_hits": hits, "prefetch_stalls": stalls,
+          "resident_fastpath": fastpath, "launches": launches,
+          "first_step_losses": {"host": first[:2], "prefetched": first[2]},
+          "losses_first_last": [losses[0], losses[-1]],
+          "peak_mem_gb": peak / 1e9, "setup_s": setup_s,
+          "profiled_fed_window": dict({"steps": DATA_PROFILE_STEPS},
+                                      **_profile_summary(prof, wall))})
+    del step, net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _fused_count(net, kernel):
+    """The FusedBNReLUConv2D layers of ``net`` that run their kernel
+    (inside its envelope) with this kernel size: each launches it once a
+    forward in eval mode."""
+    from incubator_mxnet_tpu_torch.gluon.nn._modules import \
+        FusedBNReLUConv2D
+    return sum(m.fused for m in net.modules()
+               if isinstance(m, FusedBNReLUConv2D)
+               and m.conv.kernel_size == kernel)
+
+
+def phase_resnet_v2_serving(seed):
+    """ResNet-50 v2 (fuse_block=True, NHWC) through BlockPredictor, bf16 on
+    the card by default, under ModelServer(ServingConfig(max_batch=32,
+    queue_depth=64, full_policy="block", watchdog_s=2.0)): warmup, then
+    the burst with the kernel counts set to 0 just before it and read
+    just after, queue_depth() sampled during it.  B1 and B2 run in their
+    bf16 forms: B1 in every bottleneck's fused 1x1, B2 in the fused 3x3s
+    of stride 1, counted from the net.  Gates: served vs direct
+    pred.predict within RESNET_RTOL of max; the bf16 logits within
+    BF16_EVAL_RTOL of max of the same net's fp32 predictor; the card's
+    fp32 logits of 2 images within RESNET_RTOL of max of the port on the
+    CPU; no watchdog stall; a full_policy="block" server of queue depth 1
+    blocks a third submitter instead of raising, and its batcher is
+    closed after close()."""
+    import threading
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    from incubator_mxnet_tpu_torch.predict import BlockPredictor
+    from incubator_mxnet_tpu_torch.serving import ModelServer, ServingConfig
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v2 = dict(RESNET50, layout="NHWC", fuse_block=True)
+    net = get_resnet(2, 50, device="cuda:0", seed=seed, **v2)
+    pred = BlockPredictor(net)
+    if not pred.bf16_compute:
+        fail("BlockPredictor's default on the card is not bf16")
+    per_fwd = {"sbr_matmul_bf16": _fused_count(net, (1, 1)),
+               "sbr_conv3x3_bf16": _fused_count(net, (3, 3))}
+    cfg = ServingConfig(max_batch=MAX_BATCH, queue_depth=V2_QUEUE_DEPTH,
+                        full_policy="block", watchdog_s=V2_WATCHDOG_S)
+    server = ModelServer(pred, config=cfg, input_shapes=[IMAGE],
+                         input_dtypes=["float32"])
+    server.warmup()
+    setup_s = time.perf_counter() - t0
+    n_images = CLIENTS * PER_CLIENT + BATCH_REQS * BATCH_SIZE
+    images = np.random.RandomState(seed + 30).rand(n_images, *IMAGE).astype(
+        np.float32)
+    depths, done = [], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            depths.append(server.queue_depth())
+            time.sleep(0.001)
+    sampler = threading.Thread(target=sample)
+    before = server.stats()
+    _zero_counts()
+    sampler.start()
+    got, lat, wall = _burst(server, images)
+    done.set()
+    sampler.join()
+    launches = _counts()
+    stats = server.stats()
+    forwards = stats["batches"] - before["batches"]
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * forwards for k, v in per_fwd.items()})
+    _expect(launches, want, f"ResNet-50 v2 bf16 serving ({forwards} "
+                            f"forwards of {per_fwd})")
+    stalls = stats["watchdog_stalls"]
+    if stalls:
+        fail(f"the serving watchdog counted {stalls} stalls in the burst")
+    if got.shape != (n_images, 1000) or not np.isfinite(got).all():
+        fail(f"bad served v2 logits: shape {got.shape}")
+    direct = pred.predict(images, batch_size=MAX_BATCH).float().cpu().numpy()
+    err = float(np.abs(got - direct).max())
+    scale = float(np.abs(direct).max())
+    if err > RESNET_RTOL * scale:
+        fail(f"served v2 logits differ from direct forwards by {err} > "
+             f"{RESNET_RTOL} x {scale}")
+    fp32 = BlockPredictor(net, bf16_compute=False)
+    ref = fp32.predict(images[:MAX_BATCH], batch_size=MAX_BATCH).cpu().numpy()
+    bf16_err = float(np.abs(direct[:MAX_BATCH] - ref).max())
+    bf16_scale = float(np.abs(ref).max())
+    if bf16_err > BF16_EVAL_RTOL * bf16_scale:
+        fail(f"v2 bf16 logits differ from fp32 by {bf16_err} > "
+             f"{BF16_EVAL_RTOL} x {bf16_scale}")
+    cpu = get_resnet(2, 50, device="cpu", seed=seed, **v2).eval()
+    cpu.load_state_dict(net.state_dict())
+    with torch.inference_mode():
+        lg_cpu = cpu(torch.from_numpy(images[:2])).numpy()
+    cpu_err = float(np.abs(ref[:2] - lg_cpu).max())
+    cpu_scale = float(np.abs(lg_cpu).max())
+    if cpu_err > RESNET_RTOL * cpu_scale:
+        fail(f"card vs CPU v2 fp32 logits differ by {cpu_err} > "
+             f"{RESNET_RTOL} x {cpu_scale}")
+    peak = torch.cuda.max_memory_allocated()
+    server.close()
+    block = _blocking_check(pred, images[0])
+    lat.sort()
+    emit({"phase": "resnet_v2_serving", "images": n_images,
+          "requests": len(lat), "wall_s": wall,
+          "images_per_s": n_images / wall, "batches": forwards,
+          "mean_fill": (stats["examples"] - before["examples"])
+          / (stats["padded"] - before["padded"]),
+          "e2e_p50_ms": lat[len(lat) // 2],
+          "e2e_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+          "queue_depth_max": max(depths) if depths else 0,
+          "queue_depth_samples": len(depths), "watchdog_stalls": stalls,
+          "launches": launches, "launches_per_forward": per_fwd,
+          "served_vs_direct_max_abs_err": err, "logits_abs_max": scale,
+          "bf16_vs_fp32_max_abs_err": bf16_err,
+          "fp32_logits_abs_max": bf16_scale,
+          "card_vs_cpu_fp32_max_abs_err": cpu_err,
+          "blocking_server": block, "setup_s": setup_s,
+          "peak_mem_gb": peak / 1e9})
+    del server, pred, fp32, net, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _blocking_check(pred, image):
+    """A full_policy="block" server of queue depth 1 over ``pred`` behind
+    a gate: one request in the predictor, one queued, a third submitter
+    must block (not raise) until the gate opens, and the batcher is
+    closed after close()."""
+    import threading
+    from incubator_mxnet_tpu_torch.serving import ModelServer, ServingConfig
+    gate = threading.Event()
+
+    def gated(x):
+        if not gate.wait(60):
+            fail("blocking check: the gate never opened")
+        return pred(x)
+    gated.device = pred.device
+    server = ModelServer(gated, config=ServingConfig(
+        max_batch=1, linger_us=0, queue_depth=1, full_policy="block"),
+        input_shapes=[IMAGE])
+    futs = [server.submit(image)]
+    deadline = time.perf_counter() + 10
+    while server.queue_depth() and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    futs.append(server.submit(image))
+    errors = []
+
+    def third():
+        try:
+            futs.append(server.submit(image))
+        except Exception as e:  # recorded: the gate below fails on it
+            errors.append(repr(e))
+    t = threading.Thread(target=third)
+    t.start()
+    t.join(0.5)
+    blocked = t.is_alive()
+    gate.set()
+    t.join(60)
+    outs = [f.result(timeout=60) for f in futs]
+    server.close()
+    closed = server._batcher.closed
+    if not blocked or errors or len(outs) != 3 or not closed:
+        fail(f"blocking check: blocked={blocked} errors={errors} "
+             f"results={len(outs)} closed={closed}")
+    return {"third_submitter_blocked": blocked, "results": len(outs),
+            "closed_after_close": closed}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2952,9 +3405,16 @@ def main():
     gluon_paths = {"gluon_layers": phase_gluon_layers(args.seed)}
     torch.cuda.empty_cache()
     gluon_paths["gluon_train"] = phase_gluon_train(args.seed, fused_train_ms)
+    torch.cuda.empty_cache()
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmpdir:
+        data_paths = {"data_train": phase_data_train(args.seed, tmpdir)}
+    data_paths["resnet_v2_serving"] = phase_resnet_v2_serving(args.seed)
     for row in kernels:
         row["launches_gluon"] = {path: counts.get(row["name"], 0)
                                  for path, counts in gluon_paths.items()}
+        row["launches_data"] = {path: counts.get(row["name"], 0)
+                                for path, counts in data_paths.items()}
     print(smi or "nvidia-smi: not available", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -23,13 +23,20 @@ CUDA C compiled at run time with NVRTC), and Gluon over ``NDArray``
 (``gluon.Block`` / ``HybridBlock``, ``Parameter``, ``Trainer``, the
 ``gluon.nn`` layers and ``gluon.loss``, ``initializer`` as ``init``,
 ``lr_scheduler``, ``metric``; the model zoo's ResNet also takes
-NDArrays and offers ``collect_params``).  So
+NDArrays and offers ``collect_params``), the data pipeline
+(``recordio``, ``io`` with ``ImageRecordIter``, ``image``,
+``gluon.data`` with its vision datasets and transforms,
+``gluon.contrib.data``, and ``pipeline_io.DevicePrefetchIter`` /
+``MetricDrain``), ResNet V2, and the serving remainder
+(``ServingConfig``'s ``full_policy``/``watchdog_s``, bf16
+``BlockPredictor``).  So
 ``import incubator_mxnet_tpu_torch as mx; mx.nd.ones((2,))`` reads as
 it does against the JAX package, except that the default context is
 ``mx.gpu(0)``.
 """
 from . import (base, context, convert, gluon, numerics, ops, optimizer,
                parallel, predict, serving)
+from . import contrib, image, io, pipeline_io, recordio
 from . import ndarray
 from . import ndarray as nd
 from . import autograd, initializer, lr_scheduler, metric, name, random, rtc
@@ -40,7 +47,8 @@ from .context import Context, cpu, current_context, gpu, num_gpus, tpu
 __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "Context", "autograd", "base", "context",
-           "convert", "cpu", "current_context", "gluon", "gpu", "init",
-           "initializer", "lr_scheduler", "metric", "name", "nd", "ndarray",
-           "num_gpus", "numerics", "ops", "optimizer", "parallel", "predict",
-           "random", "rtc", "serving", "tpu"]
+           "contrib", "convert", "cpu", "current_context", "gluon", "gpu",
+           "image", "init", "initializer", "io", "lr_scheduler", "metric",
+           "name", "nd", "ndarray", "num_gpus", "numerics", "ops",
+           "optimizer", "parallel", "pipeline_io", "predict", "random",
+           "recordio", "rtc", "serving", "tpu"]

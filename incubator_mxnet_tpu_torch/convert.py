@@ -1,10 +1,10 @@
 """Weight transfer from the JAX package's parameter names to the port.
 
-``resnet_params_from_numpy`` does the same for the ResNet V1 model zoo
-(its docstring gives the structure it maps), and
-``resnet_params_to_numpy`` maps the port's ResNet V1 ``state_dict``
-back to the JAX names, bit for bit (``resnet_param_names``, which the
-zoo's ``collect_params`` names its Parameters by).
+``resnet_params_from_numpy`` does the same for the ResNet V1 and V2
+model zoo (its docstring gives the structures it maps), and
+``resnet_params_to_numpy`` maps the port's ResNet ``state_dict`` back
+to the JAX names, bit for bit (``resnet_param_names``, which the zoo's
+``collect_params`` names its Parameters by).
 
 ``params_from_numpy`` takes ``{jax_param_name: np.ndarray}`` — what
 ``TransformerDecoder.collect_params()`` of the JAX package gives, each
@@ -84,12 +84,24 @@ _BOTTLENECK = (("body.0", "body.1.conv", "body.2.conv"),
                ("body.1.bn", "body.2.bn", "body.3"))
 _BASIC = (("body.0", "body.1.conv"), ("body.1.bn", "body.2"))
 _DOWNSAMPLE = ("downsample.0", "downsample.1")
+# ResNet V2 (pre-activation): within a block, the port's convs and the
+# BatchNorm each conv's INPUT goes through (bn1 feeds conv1 and the
+# downsample conv, which has no BatchNorm of its own), in the JAX
+# package's creation order: bn1, conv1, [bn, conv] of fused2 (and of
+# fused3 in a bottleneck), then the downsample conv
+_BOTTLENECK_V2 = (("conv1", "fused2.conv", "fused3.conv"),
+                  ("bn1", "fused2.bn", "fused3.bn"))
+_BASIC_V2 = (("conv1", "fused2.conv"), ("bn1", "fused2.bn"))
+_DOWNSAMPLE_V2 = "downsample"
 
 
 def resnet_params_from_numpy(named_arrays):
     """``{jax_param_name: np.ndarray}`` of a JAX ResNet V1 (any depth,
     any ``fuse_block`` and ``fuse_bn_relu``, thumbnail or not) -> the
-    state_dict of the port's ``gluon.model_zoo.vision.ResNetV1``.
+    state_dict of the port's ``gluon.model_zoo.vision.ResNetV1``; of a
+    JAX ResNet V2 (told apart by its top-level BatchNorms: the stem's
+    on the images, one after the stem conv unless thumbnail, and the
+    closing one) -> that of the port's ``ResNetV2``.
 
     The JAX names are structural: ``<prefix>conv2d0_weight`` and
     ``<prefix>batchnorm0_*`` (the stem; no BN on a thumbnail stem),
@@ -101,10 +113,15 @@ def resnet_params_from_numpy(named_arrays):
     then the downsample (conv, BN); a basic block has one fewer conv and
     BN in its body.  Every mode creates them in that order (a ``BNReLU``
     is named ``batchnorm``, a chain creates BN1, conv2, BN2, conv3).
+    A V2 block creates bn1, conv1, then the BN and conv of each further
+    unit (one in a basic block, two in a bottleneck), then the
+    downsample conv (no BN, no conv bias anywhere); there the k-th
+    BatchNorm normalises the k-th conv's input.
     Each name is placed by that position, whatever the prefix.  Raises
     MXNetError on a name it cannot place and on a shape that does not
-    fit the structure (a BN whose length is not its conv's
-    output channels, a bias or Dense of the wrong length)."""
+    fit the structure (a BN whose length is not its conv's output
+    channels, V2: input channels, a bias or Dense of the wrong
+    length)."""
     dense = [n for n in named_arrays if n.endswith("dense0_weight")]
     if len(dense) != 1:
         raise MXNetError(f"expected one '<prefix>dense0_weight', found "
@@ -126,6 +143,7 @@ def resnet_params_from_numpy(named_arrays):
     if stages != list(range(1, len(stages) + 1)):
         raise MXNetError(f"stages must be numbered 1..n, got {stages}")
     out = {}
+    v2 = len(top.get("batchnorm", {})) >= 2
 
     def put(key, arr, shape=None):
         if shape is not None and tuple(arr.shape) != tuple(shape):
@@ -159,53 +177,107 @@ def resnet_params_from_numpy(named_arrays):
                              f"{sorted(got)}")
         return [got[i] for i in range(len(got))]
 
-    top_convs, top_bns = indexed(top, "conv2d"), indexed(top, "batchnorm")
-    if len(top_convs) != 1 or len(top_bns) > 1 or \
-            sorted(top.get("dense", {})) != [0]:
-        raise MXNetError("expected the stem conv2d0, at most one stem "
-                         "batchnorm0 and dense0 at the top level")
-    ch = place_conv("features.0", top_convs[0], {"weight"})
-    if top_bns:
-        place_bn("features.1", top_bns[0], ch)
-    base = 4 if top_bns else 1            # stem layers before stage 1
-    for s in stages:
-        convs = indexed(scopes[s], "conv2d")
-        bns = indexed(scopes[s], "batchnorm")
-        if not convs or len(convs) != len(bns):
-            raise MXNetError(f"stage {s}: {len(convs)} convs and "
-                             f"{len(bns)} batchnorms do not pair up")
-        bottleneck = convs[0]["weight"].shape[2:] == (1, 1)
-        body, body_bn = _BOTTLENECK if bottleneck else _BASIC
-        per = len(body)
-        if len(convs) % per not in (0, 1):
-            raise MXNetError(f"stage {s}: {len(convs)} convs do not make "
-                             f"whole blocks of {per}")
-        has_ds = len(convs) % per == 1
-        keys, bn_keys = [], []
-        for blk in range(len(convs) // per):
-            pre = f"features.{base + s - 1}.{blk}."
-            keys += [pre + k for k in body]
-            bn_keys += [pre + k for k in body_bn]
-            if blk == 0 and has_ds:
-                keys.append(pre + _DOWNSAMPLE[0])
-                bn_keys.append(pre + _DOWNSAMPLE[1])
-        for key, bn_key, conv, bn in zip(keys, bn_keys, convs, bns):
-            allowed = {"weight", "bias"} if key.endswith(
-                ("body.0", "body.2.conv")) and bottleneck else {"weight"}
-            place_bn(bn_key, bn, place_conv(key, conv, allowed))
+    if v2:
+        last = _v2_from_scopes(top, stages, scopes, indexed, place_conv,
+                               place_bn)
+    else:
+        top_convs, top_bns = indexed(top, "conv2d"), indexed(top, "batchnorm")
+        if len(top_convs) != 1 or len(top_bns) > 1 or \
+                sorted(top.get("dense", {})) != [0]:
+            raise MXNetError("expected the stem conv2d0, at most one stem "
+                             "batchnorm0 and dense0 at the top level")
+        ch = place_conv("features.0", top_convs[0], {"weight"})
+        if top_bns:
+            place_bn("features.1", top_bns[0], ch)
+        base = 4 if top_bns else 1            # stem layers before stage 1
+        for s in stages:
+            convs = indexed(scopes[s], "conv2d")
+            bns = indexed(scopes[s], "batchnorm")
+            if not convs or len(convs) != len(bns):
+                raise MXNetError(f"stage {s}: {len(convs)} convs and "
+                                 f"{len(bns)} batchnorms do not pair up")
+            bottleneck = convs[0]["weight"].shape[2:] == (1, 1)
+            body, body_bn = _BOTTLENECK if bottleneck else _BASIC
+            per = len(body)
+            if len(convs) % per not in (0, 1):
+                raise MXNetError(f"stage {s}: {len(convs)} convs do not make "
+                                 f"whole blocks of {per}")
+            has_ds = len(convs) % per == 1
+            keys, bn_keys = [], []
+            for blk in range(len(convs) // per):
+                pre = f"features.{base + s - 1}.{blk}."
+                keys += [pre + k for k in body]
+                bn_keys += [pre + k for k in body_bn]
+                if blk == 0 and has_ds:
+                    keys.append(pre + _DOWNSAMPLE[0])
+                    bn_keys.append(pre + _DOWNSAMPLE[1])
+            for key, bn_key, conv, bn in zip(keys, bn_keys, convs, bns):
+                allowed = {"weight", "bias"} if key.endswith(
+                    ("body.0", "body.2.conv")) and bottleneck else {"weight"}
+                place_bn(bn_key, bn, place_conv(key, conv, allowed))
+        last = None
     dense = top["dense"][0]
     w = dense.get("weight")
     if set(dense) != {"weight", "bias"} or w.ndim != 2:
         raise MXNetError(f"dense0: expected a 2-D weight and a bias, got "
                          f"{sorted(dense)}")
+    if last is not None and w.shape[1] != last:
+        raise MXNetError(f"dense0: {w.shape[1]} inputs do not fit the "
+                         f"closing BatchNorm's {last} channels")
     put("output.weight", w)
     put("output.bias", dense["bias"], (w.shape[0],))
     return out
 
 
+def _v2_from_scopes(top, stages, scopes, indexed, place_conv, place_bn):
+    """Place a JAX ResNet V2's arrays (``resnet_params_from_numpy``'s
+    helpers); returns the closing BatchNorm's channels."""
+    top_convs, top_bns = indexed(top, "conv2d"), indexed(top, "batchnorm")
+    if len(top_convs) != 1 or len(top_bns) not in (2, 3) or \
+            sorted(top.get("dense", {})) != [0]:
+        raise MXNetError("expected the stem batchnorm0, conv2d0, one or no "
+                         "stem batchnorm after it, the closing batchnorm "
+                         "and dense0 at the top level")
+    stem = top_convs[0]["weight"]
+    place_bn("features.0", top_bns[0], stem.shape[1])
+    ch = place_conv("features.1", top_convs[0], {"weight"})
+    thumbnail = len(top_bns) == 2
+    if not thumbnail:
+        place_bn("features.2", top_bns[1], ch)
+    base = 2 if thumbnail else 5          # stem layers before stage 1
+    for s in stages:
+        convs = indexed(scopes[s], "conv2d")
+        bns = indexed(scopes[s], "batchnorm")
+        if not convs or not bns:
+            raise MXNetError(f"stage {s}: no convs or no batchnorms")
+        bottleneck = convs[0]["weight"].shape[2:] == (1, 1)
+        body, body_bn = _BOTTLENECK_V2 if bottleneck else _BASIC_V2
+        per = len(body)
+        blocks = len(bns) // per
+        has_ds = len(convs) - per * blocks
+        if len(bns) % per or has_ds not in (0, 1):
+            raise MXNetError(f"stage {s}: {len(convs)} convs and "
+                             f"{len(bns)} batchnorms do not make whole "
+                             f"blocks of {per}")
+        ci = bi = 0
+        for blk in range(blocks):
+            pre = f"features.{base + s - 1}.{blk}."
+            for key, bn_key in zip(body, body_bn):
+                conv, bn = convs[ci], bns[bi]
+                ci, bi = ci + 1, bi + 1
+                place_conv(pre + key, conv, {"weight"})
+                place_bn(pre + bn_key, bn, conv["weight"].shape[1])
+            if blk == 0 and has_ds:
+                place_conv(pre + _DOWNSAMPLE_V2, convs[ci], {"weight"})
+                ci += 1
+        ch = convs[ci - 1]["weight"].shape[0]
+    place_bn(f"features.{base + len(stages)}", top_bns[-1], ch)
+    return ch
+
+
 def resnet_param_names(keys, prefix="resnetv10_"):
-    """``{jax_param_name: key}`` for the keys of the port's ResNet V1
-    ``state_dict`` (any mode): the JAX package's full name of each
+    """``{jax_param_name: key}`` for the keys of the port's ResNet V1 or
+    V2 ``state_dict`` (any mode): the JAX package's full name of each
     parameter and moving statistic under ``prefix``, the naming
     ``resnet_params_from_numpy`` reads.  Raises MXNetError on a key it
     does not place."""
@@ -216,6 +288,12 @@ def resnet_param_names(keys, prefix="resnetv10_"):
         out[prefix + name] = key
         placed.add(key)
 
+    if "features.0.weight" not in keys and "features.0.gamma" in keys:
+        _v2_names(keys, take)
+        if placed != keys:
+            raise MXNetError(f"cannot place the port's keys "
+                             f"{sorted(keys - placed)}")
+        return out
     take("features.0.weight", "conv2d0_weight")
     stem_bn = "features.1.gamma" in keys
     if stem_bn:
@@ -253,9 +331,51 @@ def resnet_param_names(keys, prefix="resnetv10_"):
     return out
 
 
+def _v2_names(keys, take):
+    """``resnet_param_names`` of a port ResNet V2's keys."""
+    for p in _BN_PARAMS:
+        take(f"features.0.{p}", f"batchnorm0_{p}")
+    take("features.1.weight", "conv2d0_weight")
+    stem_bn = "features.2.gamma" in keys
+    n_top_bn = 1
+    if stem_bn:
+        for p in _BN_PARAMS:
+            take(f"features.2.{p}", f"batchnorm1_{p}")
+        n_top_bn = 2
+    base = 5 if stem_bn else 2
+    stage = 1
+    while f"features.{base + stage - 1}.0.conv1.weight" in keys:
+        scope = f"features.{base + stage - 1}."
+        body, body_bn = _BOTTLENECK_V2 \
+            if f"{scope}0.fused3.conv.weight" in keys else _BASIC_V2
+        n_conv = n_bn = 0
+        blk = 0
+        while f"{scope}{blk}.conv1.weight" in keys:
+            pre = f"{scope}{blk}."
+            for key, bn_key in zip(body, body_bn):
+                for p in _BN_PARAMS:
+                    take(f"{pre}{bn_key}.{p}",
+                         f"stage{stage}_batchnorm{n_bn}_{p}")
+                n_bn += 1
+                take(f"{pre}{key}.weight",
+                     f"stage{stage}_conv2d{n_conv}_weight")
+                n_conv += 1
+            if f"{pre}{_DOWNSAMPLE_V2}.weight" in keys:
+                take(f"{pre}{_DOWNSAMPLE_V2}.weight",
+                     f"stage{stage}_conv2d{n_conv}_weight")
+                n_conv += 1
+            blk += 1
+        stage += 1
+    for p in _BN_PARAMS:
+        take(f"features.{base + stage - 1}.{p}", f"batchnorm{n_top_bn}_{p}")
+    take("output.weight", "dense0_weight")
+    take("output.bias", "dense0_bias")
+
+
 def resnet_params_to_numpy(state_dict, prefix="resnetv10_"):
-    """The port's ResNet V1 ``state_dict`` (any mode) -> ``{jax_param_name:
-    np.ndarray}`` under ``prefix`` (``resnet_param_names``): the inverse
+    """The port's ResNet V1 or V2 ``state_dict`` (any mode) ->
+    ``{jax_param_name: np.ndarray}`` under ``prefix``
+    (``resnet_param_names``): the inverse
     of ``resnet_params_from_numpy``, which maps the result back to the
     same tensors bit for bit.  The JAX package's ``set_data`` of each
     name loads it into a JAX net of the same structure."""

@@ -2,15 +2,16 @@
 reference python/mxnet/gluon/): ``Block`` / ``HybridBlock`` over
 ``NDArray``, ``Parameter`` / ``ParameterDict``, ``Trainer``, the
 ``nn`` layers, the losses, ``utils``, the model zoo and the decoder of
-the generation server."""
-from . import loss, model_zoo, nn, utils
+the generation server, and ``data`` (datasets, samplers, the DataLoader,
+vision datasets and transforms) with ``contrib.data``."""
+from . import contrib, data, loss, model_zoo, nn, utils
 from .block import Block, HybridBlock, SymbolBlock
 from .decoder import DecoderLayer, TransformerDecoder
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["Block", "Constant", "DecoderLayer",
+__all__ = ["Block", "Constant", "DecoderLayer", "contrib", "data",
            "DeferredInitializationError", "HybridBlock", "Parameter",
            "ParameterDict", "SymbolBlock", "Trainer", "TransformerDecoder",
            "loss", "model_zoo", "nn", "utils"]

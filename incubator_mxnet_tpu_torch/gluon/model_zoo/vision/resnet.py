@@ -1,4 +1,4 @@
-"""ResNet V1 of the port (counterpart of
+"""ResNet V1 and V2 of the port (counterpart of
 ``incubator_mxnet_tpu/gluon/model_zoo/vision/resnet.py``): the same
 blocks, stages and widths, for inference and training.
 
@@ -54,8 +54,24 @@ blocks, stages and widths, for inference and training.
   ``initialize(seed)`` draws the seeded weights below for an int; for an
   ``Initializer`` or its name it fills every Parameter the Gluon way
   (by name suffix), whatever they held.
-* Not ported yet, and raising ``MXNetError``: ResNet V2 and
-  ``pretrained=True``.
+* ResNet V2 (pre-activation; ``BasicBlockV2``, ``BottleneckV2``,
+  ``ResNetV2``, ``get_resnet(2, ...)``): a stem ``BatchNorm(scale=False,
+  center=False)`` on the images, the stem conv (BN + ReLU and max pool
+  unless ``thumbnail``), the stages, a closing BN + ReLU, pool and
+  ``output``.  A V2 block is ``bn1`` (+ ReLU), its downsample conv on
+  that activation, ``conv1``, then ``fused2`` and ``fused3`` (a basic
+  block: ``fused2`` only), each a ``FusedBNReLUConv2D`` [BN -> ReLU ->
+  conv], and the residual add without a ReLU.  The stride sits on the
+  3x3 ``fused2`` of a bottleneck and on ``conv1`` of a basic block.  The
+  modes are the JAX package's: ``fuse_block=True`` makes ``bn1`` a
+  ``BNReLU`` and fuses ``fused2`` and ``fused3`` (a strided ``fused2``
+  runs its plain composition, as JAX gives it its exact XLA form, so B2
+  runs only in the bottlenecks of stride 1); ``"1x1"`` fuses only
+  ``fused3`` (``fused2`` as ``BNReLU`` then the conv); ``"chain"`` and
+  ``"chain34"`` become ``"1x1"`` in a bottleneck and, as for V1,
+  ``fuse_bn_relu=True`` in a basic block.  The Gluon names use the
+  prefix ``resnetv20_``.
+* Not ported, and raising ``MXNetError``: ``pretrained=True``.
 """
 from __future__ import annotations
 
@@ -72,14 +88,16 @@ from ....convert import resnet_param_names
 from ....ndarray import utils as nd_utils
 from ....ndarray.ndarray import NDArray
 from ...parameter import Parameter, ParameterDict
-from ...nn._modules import (BatchNorm, Conv2D, Dense, FusedBNReLUConv2D,
-                            FusedBottleneckChain, GlobalAvgPool2D,
-                            MaxPool2D)
+from ...nn._modules import (BatchNorm, BNReLU, Conv2D, Dense, Flatten,
+                            FusedBNReLUConv2D, FusedBottleneckChain,
+                            GlobalAvgPool2D, MaxPool2D)
 from ._common import add_bn_relu
 
-__all__ = ["BasicBlockV1", "BottleneckV1", "ResNetV1", "resnet_spec",
-           "get_resnet", "resnet18_v1", "resnet34_v1", "resnet50_v1",
-           "resnet101_v1", "resnet152_v1"]
+__all__ = ["BasicBlockV1", "BottleneckV1", "ResNetV1", "BasicBlockV2",
+           "BottleneckV2", "ResNetV2", "resnet_spec", "get_resnet",
+           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
+           "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
+           "resnet101_v2", "resnet152_v2"]
 
 IMAGE_CHANNELS = 3
 
@@ -184,16 +202,104 @@ class BottleneckV1(_BlockV1):
                                       device) if downsample else None
 
 
-class ResNetV1(nn.Module):
-    """ResNet V1 (reference resnet.py:ResNetV1): ``features`` (stem,
-    four stages, global average pool) then the ``output`` Dense.  The
-    weights are drawn from ``seed`` (``initialize``); ``prefix`` names
-    the Gluon Parameters (``collect_params``)."""
+class _BlockV2(nn.Module):
+    """``body(x) + residual`` of a pre-activation block: ``bn1`` (a
+    ``BNReLU``, or a ``BatchNorm`` followed by a ReLU), the downsample
+    conv on that activation when there is one, ``conv1``, then each
+    [BN -> ReLU -> conv] unit of ``units``."""
 
-    def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, mxu_stem=False, layout="NCHW",
-                 fuse_bn_relu=False, fuse_block=False, device=None, seed=0,
-                 prefix="resnetv10_"):
+    def _pre(self, channels, stride, downsample, in_channels, layout,
+             fused, device):
+        self.bn1 = (BNReLU if fused else BatchNorm)(in_channels,
+                                                   device=device)
+        self._relu1 = not fused
+        self.downsample = Conv2D(channels, 1, stride, use_bias=False,
+                                 in_channels=in_channels, layout=layout,
+                                 device=device) if downsample else None
+
+    def forward(self, x):
+        residual = x
+        x = self.bn1(x)
+        if self._relu1:
+            x = torch.relu(x)
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        for unit in self.units:
+            x = unit(x)
+        return x + residual
+
+
+class BasicBlockV2(_BlockV2):
+    """Pre-activation 3x3 + 3x3 block (reference resnet.py:BasicBlockV2):
+    ``bn1``, ``conv1`` (the stride), ``fused2``; ``fuse_block=True`` fuses
+    ``fused2`` into one kernel and makes ``bn1`` a ``BNReLU``; ``"1x1"``,
+    ``"chain"`` and ``"chain34"`` run as ``fuse_bn_relu=True``."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", fuse_bn_relu=False, fuse_block=False,
+                 device=None):
+        super().__init__()
+        if fuse_block in ("1x1", "chain", "chain34"):
+            fuse_block, fuse_bn_relu = False, True
+        if fuse_block not in (False, True):
+            raise _unknown_mode(fuse_block)
+        fused = bool(fuse_bn_relu or fuse_block)
+        self._pre(channels, stride, downsample, in_channels, layout, fused,
+                  device)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout, device)
+        self.fused2 = FusedBNReLUConv2D(channels, 3, 1, 1, layout=layout,
+                                        in_channels=channels,
+                                        fuse=fuse_block,
+                                        bn_relu=fused and not fuse_block,
+                                        device=device)
+        self.units = (self.fused2,)
+
+
+class BottleneckV2(_BlockV2):
+    """Pre-activation 1x1 - 3x3 - 1x1 bottleneck (reference
+    resnet.py:BottleneckV2), the stride on the 3x3 ``fused2``.
+    ``fuse_block=True`` fuses ``fused2`` (inside the kernels' envelope,
+    so not when strided) and ``fused3``; ``"1x1"`` fuses ``fused3``
+    only; ``"chain"`` and ``"chain34"`` are ``"1x1"`` here (JAX
+    ``resnet.py:220-223``).  Any fused mode, or ``fuse_bn_relu``, makes
+    every BN + ReLU that no kernel fuses a ``BNReLU``."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", fuse_bn_relu=False, fuse_block=False,
+                 device=None):
+        super().__init__()
+        if fuse_block in ("chain", "chain34"):
+            fuse_block = "1x1"
+        if fuse_block not in (False, True, "1x1"):
+            raise _unknown_mode(fuse_block)
+        fused = bool(fuse_bn_relu or fuse_block)
+        mid = channels // 4
+        self._pre(channels, stride, downsample, in_channels, layout, fused,
+                  device)
+        self.conv1 = Conv2D(mid, 1, 1, use_bias=False,
+                            in_channels=in_channels, layout=layout,
+                            device=device)
+        self.fused2 = FusedBNReLUConv2D(mid, 3, stride, 1, layout=layout,
+                                        in_channels=mid,
+                                        fuse=fuse_block is True,
+                                        bn_relu=fused and
+                                        fuse_block is not True,
+                                        device=device)
+        self.fused3 = FusedBNReLUConv2D(channels, 1, 1, 0, layout=layout,
+                                        in_channels=mid,
+                                        fuse=bool(fuse_block),
+                                        bn_relu=fused and not fuse_block,
+                                        device=device)
+        self.units = (self.fused2, self.fused3)
+
+
+class _ResNet(nn.Module):
+    """What ResNet V1 and V2 share: the seeded initialisation, the
+    forward (an NHWC model takes ``(N, H, W, 3)`` images), and the Gluon
+    surface (``collect_params`` and the rest) under ``prefix``."""
+
+    def __init__(self, layers, channels, layout, fuse_block, prefix):
         super().__init__()
         self.prefix = prefix
         self._gluon_params = None
@@ -202,31 +308,7 @@ class ResNetV1(nn.Module):
                              f"widths, got {channels}")
         if fuse_block not in (False, True, "chain", "1x1", "chain34"):
             raise _unknown_mode(fuse_block)
-        device = resolve_device(device)
         self.layout = layout
-        if thumbnail:
-            feats = [_conv3x3(channels[0], 1, IMAGE_CHANNELS, layout,
-                              device)]
-        else:
-            feats = [Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                            in_channels=IMAGE_CHANNELS, layout=layout,
-                            device=device)]
-            add_bn_relu(feats, fuse_bn_relu, channels[0], device=device)
-            feats.append(MaxPool2D(3, 2, 1))
-        opts = dict(layout=layout, fuse_bn_relu=fuse_bn_relu,
-                    fuse_block=fuse_block, device=device)
-        for i, num in enumerate(layers):
-            stride = 1 if i == 0 else 2
-            out_ch, in_ch = channels[i + 1], channels[i]
-            stage = [block(out_ch, stride, out_ch != in_ch,
-                           in_channels=in_ch, **opts)]
-            stage += [block(out_ch, 1, False, in_channels=out_ch, **opts)
-                      for _ in range(num - 1)]
-            feats.append(nn.Sequential(*stage))
-        feats.append(GlobalAvgPool2D())
-        self.features = nn.Sequential(*feats)
-        self.output = Dense(classes, channels[-1], device=device)
-        self.initialize(seed)
 
     def initialize(self, init=0, ctx=None, verbose=False,
                    force_reinit=True, seed=None):
@@ -248,11 +330,12 @@ class ResNetV1(nn.Module):
 
         * conv weights Kaiming-normal, N(0, 2 / fan_in); conv biases 0;
         * every BatchNorm: gamma ~ U(0.5, 1), beta ~ N(0, 0.1^2),
-          running_mean ~ N(0, 0.1^2), running_var ~ U(0.5, 1.5); the
-          BatchNorm that closes a block's body (its residual branch) has
-          gamma scaled by 0.25, so the residual stream grows by only a
-          few percent a block and activations stay O(1) through all
-          stages;
+          running_mean ~ N(0, 0.1^2), running_var ~ U(0.5, 1.5); in
+          V1 the BatchNorm that closes a block's body (its residual
+          branch) has gamma scaled by 0.25, so the residual stream grows
+          by only a few percent a block and activations stay O(1)
+          through all stages; a BatchNorm built ``scale=False`` keeps
+          gamma 1 and one built ``center=False`` beta 0 (V2's stem);
         * the output Dense: weight N(0, 1 / in_units), bias 0.
         """
         gen = torch.Generator().manual_seed(int(seed))
@@ -260,8 +343,7 @@ class ResNetV1(nn.Module):
         def draw(t, fill):
             t.copy_(fill(torch.empty(t.shape)).to(t.device))
 
-        closing = {id(blk.body[-1]) for stage in self.features
-                   if isinstance(stage, nn.Sequential) for blk in stage}
+        closing = self._closing_norms()
         for mod in self.modules():
             if isinstance(mod, Conv2D):
                 fan_in = mod.weight[0].numel()
@@ -278,6 +360,10 @@ class ResNetV1(nn.Module):
                     0, 0.1, generator=gen))
                 draw(mod.running_var, lambda t: t.uniform_(
                     0.5, 1.5, generator=gen))
+                if mod.fix_gamma:               # scale=False: gamma is 1
+                    mod.gamma.fill_(1.0)
+                if not mod.beta.requires_grad:  # center=False: beta is 0
+                    mod.beta.zero_()
             elif isinstance(mod, Dense):
                 draw(mod.weight, lambda t: t.normal_(
                     0, 1.0 / math.sqrt(mod.weight.shape[1]), generator=gen))
@@ -285,7 +371,7 @@ class ResNetV1(nn.Module):
 
     def forward(self, x):
         if x.dim() != 4:
-            raise MXNetError(f"ResNetV1 takes 4-D images, got "
+            raise MXNetError(f"{type(self).__name__} takes 4-D images, got "
                              f"{tuple(x.shape)}")
         if self.layout == "NHWC":
             # (N, H, W, C) -> NCHW-indexed channels-last: a view of
@@ -374,6 +460,98 @@ class ResNetV1(nn.Module):
     load_parameters = load_params
 
 
+class ResNetV1(_ResNet):
+    """ResNet V1 (reference resnet.py:ResNetV1): ``features`` (stem,
+    four stages, global average pool) then the ``output`` Dense.  The
+    weights are drawn from ``seed`` (``initialize``); ``prefix`` names
+    the Gluon Parameters (``collect_params``)."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, mxu_stem=False, layout="NCHW",
+                 fuse_bn_relu=False, fuse_block=False, device=None, seed=0,
+                 prefix="resnetv10_"):
+        super().__init__(layers, channels, layout, fuse_block, prefix)
+        device = resolve_device(device)
+        if thumbnail:
+            feats = [_conv3x3(channels[0], 1, IMAGE_CHANNELS, layout,
+                              device)]
+        else:
+            feats = [Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                            in_channels=IMAGE_CHANNELS, layout=layout,
+                            device=device)]
+            add_bn_relu(feats, fuse_bn_relu, channels[0], device=device)
+            feats.append(MaxPool2D(3, 2, 1))
+        opts = dict(layout=layout, fuse_bn_relu=fuse_bn_relu,
+                    fuse_block=fuse_block, device=device)
+        for i, num in enumerate(layers):
+            stride = 1 if i == 0 else 2
+            out_ch, in_ch = channels[i + 1], channels[i]
+            stage = [block(out_ch, stride, out_ch != in_ch,
+                           in_channels=in_ch, **opts)]
+            stage += [block(out_ch, 1, False, in_channels=out_ch, **opts)
+                      for _ in range(num - 1)]
+            feats.append(nn.Sequential(*stage))
+        feats.append(GlobalAvgPool2D())
+        self.features = nn.Sequential(*feats)
+        self.output = Dense(classes, channels[-1], device=device)
+        self.initialize(seed)
+
+    def _closing_norms(self):
+        """The BatchNorm that closes each block's body (its residual
+        branch), whose gamma the seeded draw scales by 0.25."""
+        return {id(blk.body[-1]) for stage in self.features
+                if isinstance(stage, nn.Sequential) for blk in stage}
+
+
+class ResNetV2(_ResNet):
+    """ResNet V2 (reference resnet.py:ResNetV2): ``features`` (the stem
+    ``BatchNorm(scale=False, center=False)`` on the images, the stem
+    conv, BN + ReLU and max pool unless ``thumbnail``, the stages, a
+    closing BN + ReLU, global average pool, flatten) then the ``output``
+    Dense.  The weights are drawn from ``seed``; ``prefix`` names the
+    Gluon Parameters."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, mxu_stem=False, layout="NCHW",
+                 fuse_bn_relu=False, fuse_block=False, device=None, seed=0,
+                 prefix="resnetv20_"):
+        super().__init__(layers, channels, layout, fuse_block, prefix)
+        device = resolve_device(device)
+        feats = [BatchNorm(IMAGE_CHANNELS, scale=False, center=False,
+                           device=device)]
+        if thumbnail:
+            feats.append(_conv3x3(channels[0], 1, IMAGE_CHANNELS, layout,
+                                  device))
+        else:
+            feats.append(Conv2D(channels[0], 7, 2, 3, use_bias=False,
+                                in_channels=IMAGE_CHANNELS, layout=layout,
+                                device=device))
+            add_bn_relu(feats, fuse_bn_relu, channels[0], device=device)
+            feats.append(MaxPool2D(3, 2, 1))
+        opts = dict(layout=layout, fuse_bn_relu=fuse_bn_relu,
+                    fuse_block=fuse_block, device=device)
+        in_ch = channels[0]
+        for i, num in enumerate(layers):
+            stride = 1 if i == 0 else 2
+            out_ch = channels[i + 1]
+            stage = [block(out_ch, stride, out_ch != in_ch,
+                           in_channels=in_ch, **opts)]
+            stage += [block(out_ch, 1, False, in_channels=out_ch, **opts)
+                      for _ in range(num - 1)]
+            feats.append(nn.Sequential(*stage))
+            in_ch = out_ch
+        add_bn_relu(feats, fuse_bn_relu, in_ch, device=device)
+        feats += [GlobalAvgPool2D(), Flatten()]
+        self.features = nn.Sequential(*feats)
+        self.output = Dense(classes, in_ch, device=device)
+        self.initialize(seed)
+
+    def _closing_norms(self):
+        """None: a pre-activation block's residual branch ends in a
+        conv."""
+        return set()
+
+
 resnet_spec = {
     18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
     34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
@@ -381,7 +559,9 @@ resnet_spec = {
     101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048])}
 
-_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+_NETS = {1: ResNetV1, 2: ResNetV2}
+_BLOCKS = {1: {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+           2: {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}}
 
 
 def get_resnet(version, num_layers, pretrained=False, device=None, seed=0,
@@ -391,15 +571,15 @@ def get_resnet(version, num_layers, pretrained=False, device=None, seed=0,
     if num_layers not in resnet_spec:
         raise MXNetError(f"Invalid number of layers: {num_layers}. Options "
                          f"are {sorted(resnet_spec)}")
-    if version != 1:
-        raise MXNetError(f"ResNet version {version} is not ported yet: "
-                         "only version 1")
+    if version not in _NETS:
+        raise MXNetError(f"Invalid resnet version: {version}. Options are "
+                         "1 and 2.")
     if pretrained:
         raise MXNetError("pretrained weights are unavailable offline; "
                          "load a state_dict instead")
     block_type, layers, channels = resnet_spec[num_layers]
-    return ResNetV1(_BLOCKS[block_type], layers, channels, device=device,
-                    seed=seed, **kwargs)
+    return _NETS[version](_BLOCKS[version][block_type], layers, channels,
+                          device=device, seed=seed, **kwargs)
 
 
 def resnet18_v1(**kwargs):
@@ -420,3 +600,23 @@ def resnet101_v1(**kwargs):
 
 def resnet152_v1(**kwargs):
     return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

@@ -73,8 +73,10 @@ def _key(key):
 class NDArray:
     """An n-dimensional array on a device, with MXNet semantics."""
 
+    # _pipeline_stamp: set (only) by pipeline_io.DevicePrefetchIter on
+    # the NDArrays it stages
     __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_fresh_grad",
-                 "__weakref__")
+                 "_pipeline_stamp", "__weakref__")
 
     def __init__(self, data, ctx=None):
         if isinstance(data, NDArray):

@@ -42,10 +42,19 @@ What one step does is the JAX step body's:
   The scale state is a device float32 ``[scale, streak]``;
   ``loss_scale()`` reads it.
 
+Inputs are numpy arrays, tensors or NDArrays.  A batch that
+``pipeline_io.DevicePrefetchIter`` staged (every input stamped) is taken
+as it is, with no copy and no placement check; ``resident_fastpath``
+counts those calls.  ``input_prep`` (``uint8_input_prep`` for the
+uint8 NHWC batches of ``io.ImageRecordIter(dtype="uint8")``) runs on
+each data input on the device before the forward, as the JAX step runs
+it inside its program.  ``run_steps(drain=d)`` pushes the window's
+losses through a ``pipeline_io.MetricDrain`` and returns what matured.
+
 Not ported yet, and raising ``MXNetError`` when asked for: ``mesh``,
-``mirror``, ``input_prep``, ``autotune=True``, ``run_steps(stacked=True)``
-and ``run_steps(drain=...)``; the persistent compile cache and the
-numerics sentinels have no counterpart.
+``mirror``, ``autotune=True`` and ``run_steps(stacked=True)``; the
+persistent compile cache and the numerics sentinels have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -53,11 +62,13 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import pipeline_io as _pipeline_io
 from ..base import MXNetError
 from ..context import resolve_device
+from ..ndarray.ndarray import NDArray
 from ..numerics import LossScaler, program_overflow
 
-__all__ = ["EvalStep", "TrainStep"]
+__all__ = ["EvalStep", "TrainStep", "uint8_input_prep"]
 
 
 def _refuse(owner, asked):
@@ -67,9 +78,41 @@ def _refuse(owner, asked):
 
 
 def _to_device(x, device):
+    if isinstance(x, NDArray):
+        return x._data.to(device)
     t = torch.from_numpy(np.ascontiguousarray(x)) \
         if isinstance(x, np.ndarray) else torch.as_tensor(x)
     return t.to(device)
+
+
+def _inputs(step, batch):
+    """The batch's tensors on ``step.device``: a stamped batch (every
+    input staged by ``DevicePrefetchIter``) as it is, counted in
+    ``step.resident_fastpath``; anything else copied there."""
+    if _pipeline_io.enabled and \
+            _pipeline_io.match_stamp(batch)[0] is not None:
+        step.resident_fastpath += 1
+        return [b._data for b in batch]
+    return [_to_device(b, step.device) for b in batch]
+
+
+def uint8_input_prep(mean=0.0, scale=1.0, layout="NCHW"):
+    """Input prep for the uint8 NHWC batches of
+    ``io.ImageRecordIter(dtype="uint8", layout="NHWC")``: on the device,
+    cast to fp32, ``(x - mean) * scale`` per channel, and for an NCHW
+    model the relayout (JAX ``step.py:uint8_input_prep``).  A non-uint8
+    input passes through untouched, so one step serves both feeds."""
+    mean_a = torch.as_tensor(np.asarray(mean, np.float32))
+    scale_a = torch.as_tensor(np.asarray(scale, np.float32))
+
+    def prep(a):
+        if a.dtype != torch.uint8:
+            return a
+        x = (a.float() - mean_a.to(a.device)) * scale_a.to(a.device)
+        return x.permute(0, 3, 1, 2) if layout == "NCHW" and x.dim() == 4 \
+            else x
+
+    return prep
 
 
 def _check_placement(owner, block, device):
@@ -115,10 +158,12 @@ class TrainStep:
 
     ``loss_fn`` takes tensors (``gluon.nn._modules.
     SoftmaxCrossEntropyLoss``; the ``gluon.loss`` blocks take NDArrays).
-    Inputs are numpy arrays or tensors and are moved to the device;
-    losses stay on the device (read them when the window is done).  The
-    parameters are the block's own and are updated in place: there is
-    nothing to sync back (``sync_params`` is kept for the API)."""
+    Inputs are numpy arrays, tensors or NDArrays and are moved to the
+    device (a prefetched batch is already there); losses stay on the
+    device (read them when the window is done, or through a
+    ``MetricDrain``).  The parameters are the block's own and are
+    updated in place: there is nothing to sync back (``sync_params`` is
+    kept for the API)."""
 
     def __init__(self, block, loss_fn, optimizer, mesh=None, batch_axis=0,
                  grad_accum=1, donate=True, bf16_compute=False, mirror=None,
@@ -126,7 +171,6 @@ class TrainStep:
                  device=None):
         _refuse("TrainStep", (("mesh", mesh is not None),
                               ("mirror", bool(mirror)),
-                              ("input_prep", input_prep is not None),
                               ("autotune", bool(autotune))))
         if batch_axis != 0:
             raise MXNetError("TrainStep takes the batch on axis 0")
@@ -139,6 +183,9 @@ class TrainStep:
         self._block = block
         self._loss_fn = loss_fn
         self._optimizer = optimizer
+        self._input_prep = input_prep
+        #: calls that took a prefetched batch as it was (no copy)
+        self.resident_fastpath = 0
         self._grad_accum = int(grad_accum)
         self._params = [p for p in block.parameters() if p.requires_grad]
         # the optimizer reads each parameter's lr_mult / wd_mult by its
@@ -226,19 +273,24 @@ class TrainStep:
     def run_steps(self, x, y, num_steps=None, stacked=False, drain=None):
         """``num_steps`` steps on the one batch ``(x, y)`` (the
         benchmark's resident batch); returns the ``(num_steps,)`` fp32
-        losses on the device."""
-        _refuse("run_steps", (("stacked=True", stacked),
-                              ("drain", drain is not None)))
+        losses on the device.  With ``drain`` (a ``pipeline_io.
+        MetricDrain``) the losses are pushed through it and the list of
+        matured host losses of earlier windows is returned instead
+        (empty until the drain fills)."""
+        _refuse("run_steps", (("stacked=True", stacked),))
         if num_steps is None or num_steps < 1:
             raise MXNetError(f"run_steps needs num_steps >= 1, got "
                              f"{num_steps}")
-        x, y = _to_device(x, self.device), _to_device(y, self.device)
+        x, y = _inputs(self, (x, y))
+        if self._input_prep is not None:
+            x = self._input_prep(x)
         if x.shape[0] % self._grad_accum or y.shape[0] != x.shape[0]:
             raise MXNetError(
                 f"grad_accum={self._grad_accum} splits the batch along axis "
                 f"0 into equal microbatches: got {x.shape[0]} samples and "
                 f"{y.shape[0]} labels")
-        return torch.stack([self._step(x, y) for _ in range(num_steps)])
+        losses = torch.stack([self._step(x, y) for _ in range(num_steps)])
+        return losses if drain is None else drain.push(losses)
 
 
 class EvalStep:
@@ -253,25 +305,31 @@ class EvalStep:
 
         logits = EvalStep(net)(x)
 
-    Not ported yet, and raising ``MXNetError``: ``mesh``,
-    ``input_prep`` and ``autotune=True``."""
+    Inputs are taken as ``TrainStep`` takes them (a prefetched batch as
+    it is, counted in ``resident_fastpath``), and ``input_prep`` runs on
+    each of them.  Not ported yet, and raising ``MXNetError``: ``mesh``
+    and ``autotune=True``."""
 
     def __init__(self, block, mesh=None, bf16_compute=False,
                  input_prep=None, autotune=None, device=None):
         _refuse("EvalStep", (("mesh", mesh is not None),
-                             ("input_prep", input_prep is not None),
                              ("autotune", bool(autotune))))
         self.device = resolve_device(device)
         self._bf16 = bool(bf16_compute)
         _check_placement("EvalStep", block, self.device)
         self._block = block
+        self._input_prep = input_prep
+        #: calls that took a prefetched batch as it was (no copy)
+        self.resident_fastpath = 0
 
     def __call__(self, *batch):
-        """What the block returns for ``batch`` (numpy arrays or
-        tensors, moved to the device)."""
+        """What the block returns for ``batch`` (numpy arrays, tensors
+        or NDArrays, moved to the device)."""
         block = self._block
         was_training = block.training
-        inputs = [_to_device(b, self.device) for b in batch]
+        inputs = _inputs(self, batch)
+        if self._input_prep is not None:
+            inputs = [self._input_prep(b) for b in inputs]
         block.eval()
         try:
             with torch.no_grad():

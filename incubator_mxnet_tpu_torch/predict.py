@@ -3,9 +3,11 @@
 
 The JAX predictor compiles one ``EvalStep`` program per input shape;
 PyTorch runs eagerly, so here a forward is the module's own call under
-``torch.inference_mode()``.  The symbol ``Predictor``, the exported
-``CompiledPredictor``, the ``mesh=`` sharding and ``bf16_compute`` are
-not ported yet.
+``torch.inference_mode()``, or with ``bf16_compute`` the port's
+``EvalStep(bf16_compute=True)`` (bf16 copies of the fp32 parameters and
+inputs; on the card the bf16 forms of the fused kernels).  The symbol
+``Predictor`` and the exported ``CompiledPredictor`` wait for ROADMAP
+A7, the ``mesh=`` sharding for A6.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from .base import MXNetError
 from .context import resolve_device
+from .parallel.step import EvalStep
 
 __all__ = ["BlockPredictor"]
 
@@ -35,21 +38,28 @@ class BlockPredictor:
     Calls are serialised by a lock and may come from any thread: each
     runs under ``torch.inference_mode()`` with the predictor's CUDA
     device current, since both are per-thread state.  Inputs are copied
-    to the device (numpy arrays through pageable host memory)."""
+    to the device (numpy arrays through pageable host memory).
+
+    ``bf16_compute``: ``None`` (the default) means bf16 on a CUDA device
+    and fp32 on the CPU, as the JAX predictor's default is bf16 on its
+    accelerator; a bf16 forward returns bf16 outputs."""
 
     def __init__(self, block, device=None, mesh=None, bf16_compute=None):
         if mesh is not None:
             raise MXNetError("BlockPredictor(mesh=...) is not ported yet: "
-                             "one device only")
-        if bf16_compute:
-            raise MXNetError("BlockPredictor(bf16_compute=True) is not "
-                             "ported yet: the port computes in fp32")
+                             "one device only (ROADMAP A6)")
         self.device = resolve_device(device)
         where = {p.device for p in block.parameters()}
         if where and where != {self.device}:
             raise MXNetError(f"BlockPredictor on {self.device}, but the "
                              f"block's parameters are on {sorted(map(str, where))}")
+        if bf16_compute is None:
+            bf16_compute = self.device.type == "cuda"
+        self.bf16_compute = bool(bf16_compute)
         self._block = block.eval()
+        self._forward = EvalStep(block, bf16_compute=True,
+                                 device=self.device) \
+            if self.bf16_compute else block
         self._lock = threading.Lock()
 
     def _scope(self):
@@ -66,7 +76,7 @@ class BlockPredictor:
         """Forward one batch (each input with its batch dim); returns
         the module's output, on the device."""
         with self._lock, torch.inference_mode(), self._scope():
-            return self._block(*(self._to_device(x) for x in batch))
+            return self._forward(*(self._to_device(x) for x in batch))
 
     def predict(self, data, batch_size=None):
         """Minibatched forward over a large array.  Every minibatch,

@@ -6,7 +6,11 @@ Requests (one example or a small batch each) wait in a bounded FIFO;
 the server's worker pulls a coalesced batch when the queue holds
 ``max_batch`` examples or ``linger_us`` has passed since the pull began.
 A multi-example request is never split across batches.  Admission
-control happens at submit: a full queue fast-rejects.  Deadlines are enforced
+control happens at submit: a full queue fast-rejects
+(``full_policy="reject"``) or blocks the caller as backpressure
+(``"block"``) until a pop frees space, its deadline passes
+(DeadlineExceededError) or ``close()`` wakes it (ServerClosedError).
+Deadlines are enforced
 at pop: an expired request fails with ``DeadlineExceededError`` and
 never takes a batch slot, nor does one whose future the caller
 cancelled; a popped request's future is running and can no longer be
@@ -91,21 +95,43 @@ class DynamicBatcher:
         with self._cond:
             return len(self._queue)
 
+    @property
+    def closed(self):
+        """True once ``close()`` (or a worker crash) stopped admission."""
+        return self._closed
+
     def _refuse(self, exc):
         self.rejected += 1
         raise exc
 
     def submit(self, req):
         """Enqueue a Request, honouring admission control.  Raises
-        ServerClosedError / QueueFullError."""
+        ServerClosedError / QueueFullError, or with ``full_policy=
+        "block"`` DeadlineExceededError when the deadline passes while
+        waiting for space."""
         cfg = self._cfg
         with self._cond:
             if self._closed:
                 self._refuse(ServerClosedError("server is closed"))
             if len(self._queue) >= cfg.queue_depth:
-                self._refuse(QueueFullError(
-                    f"serving queue full ({cfg.queue_depth} requests); "
-                    "raise MXNET_SERVING_QUEUE_DEPTH or add capacity"))
+                if cfg.full_policy == "reject":
+                    self._refuse(QueueFullError(
+                        f"serving queue full ({cfg.queue_depth} requests); "
+                        "raise MXNET_SERVING_QUEUE_DEPTH, add capacity, or "
+                        "use full_policy='block' for backpressure"))
+                while len(self._queue) >= cfg.queue_depth \
+                        and not self._closed:
+                    timeout = None
+                    if req.deadline is not None:
+                        timeout = req.deadline - time.perf_counter()
+                        if timeout <= 0:
+                            self.expired += 1
+                            raise DeadlineExceededError(
+                                "deadline expired while blocked on queue "
+                                "space (backpressure)")
+                    self._cond.wait(timeout)
+                if self._closed:
+                    self._refuse(ServerClosedError("server is closed"))
             self._queue.append(req)
             self._examples += req.n
             self.accepted += 1
@@ -148,6 +174,7 @@ class DynamicBatcher:
                     continue
                 batch.append(req)
                 total += req.n
+            self._cond.notify_all()             # space freed for producers
             return batch
 
     def close(self):

@@ -7,13 +7,16 @@ readable from the environment.
   more requests before dispatching (default 2000 µs; 0 dispatches what
   is queued at once).
 * ``MXNET_SERVING_QUEUE_DEPTH`` — queued requests before submits are
-  rejected (default 256).
+  rejected, or block, per ``full_policy`` (default 256).
+* ``MXNET_SERVING_WATCHDOG_S`` — worker stall watchdog: when > 0 and the
+  worker makes no progress for this many seconds while requests are
+  queued, the server logs every thread's stack and counts a stall in
+  ``stats()["watchdog_stalls"]`` (default 0: off).
 
 Every coalesced batch is padded up to one of a fixed, sorted set of
 bucket sizes (default the power-of-two chain 1, 2, 4, ... max_batch), so
 the forward sees ``len(buckets)`` shapes whatever the traffic.  The
-stall watchdog, the blocking ``full_policy`` and the autotune consult
-of the JAX package are not ported yet.
+autotune consult of the JAX package is not ported (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -35,13 +38,19 @@ def pow2_buckets(max_batch):
 
 
 class ServingConfig:
-    """Validated knobs: ``max_batch``, ``linger_us``, ``queue_depth``
-    (environment defaults above), ``buckets`` (sorted, deduplicated, the
-    largest equal to ``max_batch``; default ``pow2_buckets``) and
-    ``timeout_ms``, the default per-request deadline (None: none)."""
+    """Validated knobs, in the JAX package's order: ``max_batch``,
+    ``linger_us``, ``queue_depth`` (environment defaults above),
+    ``buckets`` (sorted, deduplicated, the largest equal to
+    ``max_batch``; default ``pow2_buckets``), ``full_policy``
+    (``"reject"``: a full queue fast-rejects with QueueFullError;
+    ``"block"``: the submitting thread waits for space or its
+    deadline), ``timeout_ms``, the default per-request deadline (None:
+    none), and ``watchdog_s`` (environment default above; 0 disables
+    the watchdog)."""
 
     def __init__(self, max_batch=None, linger_us=None, queue_depth=None,
-                 buckets=None, timeout_ms=None):
+                 buckets=None, full_policy="reject", timeout_ms=None,
+                 watchdog_s=None):
         self.max_batch = int(max_batch if max_batch is not None
                              else get_env("MXNET_SERVING_MAX_BATCH", 32, int))
         self.linger_us = int(linger_us if linger_us is not None
@@ -57,6 +66,17 @@ class ServingConfig:
         if self.queue_depth < 1:
             raise MXNetError(
                 f"queue_depth must be >= 1, got {self.queue_depth}")
+        self.watchdog_s = float(
+            watchdog_s if watchdog_s is not None
+            else get_env("MXNET_SERVING_WATCHDOG_S", 0.0, float))
+        if self.watchdog_s < 0:
+            raise MXNetError(
+                f"watchdog_s must be >= 0, got {self.watchdog_s}")
+        if full_policy not in ("reject", "block"):
+            raise MXNetError(
+                f"full_policy must be 'reject' or 'block', got "
+                f"{full_policy!r}")
+        self.full_policy = full_policy
         self.timeout_ms = timeout_ms
         if buckets is None:
             buckets = pow2_buckets(self.max_batch)
@@ -81,4 +101,6 @@ class ServingConfig:
         return (f"ServingConfig(max_batch={self.max_batch}, "
                 f"linger_us={self.linger_us}, "
                 f"queue_depth={self.queue_depth}, buckets={self.buckets}, "
-                f"timeout_ms={self.timeout_ms})")
+                f"full_policy={self.full_policy!r}, "
+                f"timeout_ms={self.timeout_ms}, "
+                f"watchdog_s={self.watchdog_s})")

@@ -8,19 +8,33 @@ batch up to a bucket size on the host (numpy), runs the predictor — a
 ``BlockPredictor`` or any callable, which copies the batch to its device
 — and delivers each request's slice of the output as host numpy arrays.
 
+``input_dtypes`` declares each input's dtype beside ``input_shapes``
+(float32 by default); ``queue_depth()`` reads the queue; with
+``ServingConfig(watchdog_s=s)`` a watchdog thread logs every thread's
+stack and counts a stall (``stats()["watchdog_stalls"]``) when the
+worker makes no progress for ``s`` seconds while requests are queued.
+A worker that dies outside its per-batch handler fails every queued
+future with WorkerCrashedError and refuses new submits.
+
 What differs from the JAX server: only the Block backend (``_BlockRunner``)
-is ported — the symbol ``Predictor`` and ``CompiledPredictor`` backends,
-the autotune consult, fleet shedding, the watchdog, and the telemetry,
-tracing, request-journal, fault-injection and diagnostics hooks are not
-yet.  ``stats()`` returns the server's own counters instead.
+is ported — the symbol ``Predictor`` and ``CompiledPredictor`` backends
+wait for ROADMAP A7; the autotune consult, fleet shedding, the telemetry,
+tracing, request-journal and fault-injection hooks, and the watchdog's
+flight-recorder dump (``diagnostics.dump_state``) wait for A9.
+``stats()`` returns the server's own counters instead.  Outputs in bf16
+(``BlockPredictor(bf16_compute=True)``) leave the server widened to
+float32, which is exact: numpy has no bf16 (the JAX server hands back
+``ml_dtypes`` bf16 arrays).
 """
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
 import logging
+import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -38,8 +52,21 @@ _logger = logging.getLogger(__name__)
 
 def _to_numpy(out):
     if isinstance(out, torch.Tensor):
-        return out.detach().cpu().numpy()
+        out = out.detach()
+        if out.dtype == torch.bfloat16:
+            out = out.float()              # numpy has no bf16; exact
+        return out.cpu().numpy()
     return np.asarray(out)
+
+
+def _thread_stacks():
+    """Every thread's current stack, as text (the watchdog's evidence)."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    parts = []
+    for ident, frame in sys._current_frames().items():
+        parts.append(f"--- thread {names.get(ident, '?')} ({ident})\n"
+                     + "".join(traceback.format_stack(frame)))
+    return "\n".join(parts)
 
 
 class _BlockRunner:
@@ -69,8 +96,9 @@ class ModelServer:
         server.close()                     # drain + join
 
     ``input_shapes`` are the per-example shapes (no batch dim) of the
-    model's float32 inputs, for validation and ``warmup``; without them
-    the first request defines the contract.  ``device`` (``None``:
+    model's inputs and ``input_dtypes`` their dtypes (default float32),
+    for validation and ``warmup``; without shapes the first request
+    defines the contract.  ``device`` (``None``:
     ``cuda:0``, raising without a GPU) is where the predictor runs; a
     predictor that names its own ``device`` must agree.
     Futures resolve to numpy arrays (a list when the model has several
@@ -79,7 +107,7 @@ class ModelServer:
     """
 
     def __init__(self, predictor, config=None, input_shapes=None,
-                 device=None, **knobs):
+                 input_dtypes=None, device=None, **knobs):
         if config is None:
             config = ServingConfig(**knobs)
         elif knobs:
@@ -101,7 +129,10 @@ class ModelServer:
         if input_shapes is not None:
             shapes = list(input_shapes.values()) \
                 if isinstance(input_shapes, dict) else list(input_shapes)
-            self._specs = [(tuple(s), np.dtype(np.float32)) for s in shapes]
+            if input_dtypes is None:
+                input_dtypes = ["float32"] * len(shapes)
+            self._specs = [(tuple(s), np.dtype(d))
+                           for s, d in zip(shapes, input_dtypes)]
         self._batcher = DynamicBatcher(config)
         # serialises predictor execution between the worker and warmup()
         self._exec_lock = threading.Lock()
@@ -112,10 +143,23 @@ class ModelServer:
         self._counts = {"batches": 0, "examples": 0, "padded": 0,
                         "errors": 0}
         self._exec_s = 0.0
+        #: monotone worker progress counter the watchdog compares
+        self._hb = 0
+        self._stalls = 0
         self._worker = threading.Thread(target=self._worker_loop,
                                         name="mxnet-serving-worker",
                                         daemon=True)
         self._worker.start()
+        self._watchdog = None
+        if config.watchdog_s > 0:
+            self._watchdog = threading.Thread(
+                target=self._watchdog_loop, args=(float(config.watchdog_s),),
+                name="mxnet-serving-watchdog", daemon=True)
+            self._watchdog.start()
+
+    def queue_depth(self):
+        """Requests currently queued."""
+        return len(self._batcher)
 
     # ------------------------------------------------------------- submit
     def submit(self, *inputs, timeout_ms=None):
@@ -196,10 +240,12 @@ class ModelServer:
             with self._scope():
                 while True:
                     batch = self._batcher.next_batch()
+                    self._hb += 1             # progress heartbeat
                     if batch is None:
                         return                # closed and drained
                     if batch:                 # else: all had expired
                         self._run_batch(batch)
+                    self._hb += 1
         except Exception as e:
             # containment: a worker dying outside the per-batch handler
             # must not leave queued futures blocking forever
@@ -248,6 +294,31 @@ class ModelServer:
                 sliced = [o[0] for o in sliced]
             r.future.set_result(sliced[0] if len(sliced) == 1 else sliced)
 
+    # ----------------------------------------------------------- watchdog
+    def _watchdog_loop(self, wd_s):
+        """Stall detector: when the worker's heartbeat does not advance
+        for ``wd_s`` seconds while requests are queued, log every
+        thread's stack and count a stall (once per stalled period)."""
+        poll = max(0.02, min(wd_s / 4.0, 1.0))
+        last_hb = self._hb
+        last_progress = time.perf_counter()
+        while not self._closed:
+            time.sleep(poll)
+            hb = self._hb
+            now = time.perf_counter()
+            if hb != last_hb or len(self._batcher) == 0:
+                last_hb = hb
+                last_progress = now
+                continue
+            if now - last_progress >= wd_s:
+                self._stalls += 1
+                _logger.error(
+                    "serving worker made no progress for %.2fs with %d "
+                    "queued request(s); thread stacks:\n%s",
+                    now - last_progress, len(self._batcher),
+                    _thread_stacks())
+                last_progress = now    # re-arm: one report per period
+
     # ------------------------------------------------------------ control
     def warmup(self):
         """Run zeros through the predictor at every bucket size, so the
@@ -268,9 +339,11 @@ class ModelServer:
     def stats(self):
         """The server's counters: requests, batches, examples, padded
         (bucket slots run), errors, rejected, expired, ``mean_fill``
-        (examples / padded slots) and ``exec_s`` (host seconds in the
-        predictor, including the copies to and from the device)."""
+        (examples / padded slots), ``exec_s`` (host seconds in the
+        predictor, including the copies to and from the device) and
+        ``watchdog_stalls``."""
         out = dict(self._counts)
+        out["watchdog_stalls"] = self._stalls
         out["requests"] = self._batcher.accepted
         out["rejected"] = self._batcher.rejected
         out["expired"] = self._batcher.expired
@@ -290,6 +363,8 @@ class ModelServer:
             self._batcher.cancel_pending()
         self._batcher.close()
         self._worker.join()
+        if self._watchdog is not None:
+            self._watchdog.join(timeout=2.0)
 
     def __enter__(self):
         return self

@@ -14,6 +14,11 @@ input; every case failed before its repair.
   (0.5 each) and of ``cbrt`` / ``rcbrt`` at 0 (+inf / -inf).
 * C6 ``sign(NaN)`` is NaN.
 * C7 ``Cast`` of out-of-range floats to integers saturates, NaN to 0.
+* C8 ``ServingConfig`` takes JAX's arguments in JAX's order
+  (``max_batch, linger_us, queue_depth, buckets, full_policy,
+  timeout_ms, watchdog_s``): the port took ``timeout_ms`` fifth, so
+  ``ServingConfig(8, 100, 16, None, "block")`` set ``timeout_ms="block"``
+  without an error, and refused ``full_policy``/``watchdog_s``.
 
 Tolerances: exact (value and dtype) for C1-C3 and C5-C7 (the same IEEE
 operations on both sides), except softmax (relative 1e-6, other
@@ -32,6 +37,8 @@ from incubator_mxnet_tpu_torch.gluon.nn._modules import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.gluon.nn._modules import BatchNorm, BNReLU
 from incubator_mxnet_tpu_torch.optimizer import SGD
 from incubator_mxnet_tpu_torch.parallel import TrainStep
+from incubator_mxnet_tpu.serving import ServingConfig as JaxServingConfig
+from incubator_mxnet_tpu_torch.serving import ServingConfig
 
 
 def _both(f):
@@ -238,3 +245,36 @@ def test_c2_c7_values_the_repairs_leave_alone():
         x = np.array(vals, np.float32)
         _exact(*_both(lambda m: m.nd.Cast(m.nd.array(x), dtype=dtype)),
                f"Cast {vals} to {dtype}")
+
+
+# ------------------------------------------------------------------ C8
+SERVING_ATTRS = ("max_batch", "linger_us", "queue_depth", "buckets",
+                 "full_policy", "timeout_ms", "watchdog_s")
+
+
+@pytest.mark.parametrize("args,kwargs", [
+    ((8, 100, 16, None, "block"), {}),
+    ((8, 100, 16, [2, 8], "reject", 250.0, 1.5), {}),
+    ((8,), dict(full_policy="block")),
+    ((8,), dict(full_policy="block", timeout_ms=5, watchdog_s=0.5)),
+    ((), dict(max_batch=4, buckets=[1, 4], watchdog_s=2))])
+def test_c8_serving_config_takes_jax_arguments(args, kwargs):
+    got, want = ServingConfig(*args, **kwargs), \
+        JaxServingConfig(*args, **kwargs)
+    for attr in SERVING_ATTRS:
+        assert getattr(got, attr) == getattr(want, attr), attr
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(full_policy="drop"), dict(watchdog_s=-1.0)])
+def test_c8_serving_config_validates_like_jax(kwargs):
+    with pytest.raises(jmx.MXNetError):
+        JaxServingConfig(8, **kwargs)
+    with pytest.raises(tmx.MXNetError):
+        ServingConfig(8, **kwargs)
+
+
+def test_c8_serving_watchdog_from_the_environment(monkeypatch):
+    monkeypatch.setenv("MXNET_SERVING_WATCHDOG_S", "0.25")
+    assert ServingConfig().watchdog_s == JaxServingConfig().watchdog_s \
+        == 0.25

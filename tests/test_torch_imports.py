@@ -84,6 +84,18 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import incubator_mxnet_tpu_torch.autograd\n"
             "import incubator_mxnet_tpu_torch.random\n"
             "import incubator_mxnet_tpu_torch.rtc\n"
+            "import incubator_mxnet_tpu_torch.recordio\n"
+            "import incubator_mxnet_tpu_torch.io\n"
+            "import incubator_mxnet_tpu_torch.pipeline_io\n"
+            "import incubator_mxnet_tpu_torch.image\n"
+            "import incubator_mxnet_tpu_torch.gluon.data\n"
+            "import incubator_mxnet_tpu_torch.gluon.data.vision.datasets\n"
+            "import incubator_mxnet_tpu_torch.gluon.data.vision.transforms\n"
+            "import incubator_mxnet_tpu_torch.gluon.contrib.data\n"
+            "import incubator_mxnet_tpu_torch.gluon.contrib.data.text\n"
+            "import incubator_mxnet_tpu_torch.contrib.text\n"
+            "import incubator_mxnet_tpu_torch.serving.batcher\n"
+            "import incubator_mxnet_tpu_torch.serving.config\n"
             f"bad = sorted(m for m in sys.modules if any(m == f or "
             f"m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print('BAD', bad)\n")

@@ -191,10 +191,18 @@ def test_seeded_init_is_deterministic_and_order_one():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(fuse_block="chain2"), "unknown fuse_block"),
-    (dict(version=2), "version 2"),
+    # ResNet V2 is ported: version 2 builds a ResNetV2, version 3 raises
+    pytest.param(dict(version=2), "version 2", id="kw1-version 2"),
     (dict(pretrained=True), "pretrained")])
 def test_unported_options_raise(kw, match):
     version = kw.pop("version", 1)
+    if version == 2:
+        net = vision.get_resnet(version, 18, device="cpu", classes=10, **kw)
+        assert isinstance(net, vision.ResNetV2)
+        assert "features.0.gamma" in net.state_dict()   # the stem norm
+        with pytest.raises(MXNetError, match="version: 3"):
+            vision.get_resnet(3, 18, device="cpu", **kw)
+        return
     with pytest.raises(MXNetError, match=match):
         vision.get_resnet(version, 18, device="cpu", **kw)
 

@@ -356,9 +356,20 @@ def test_block_predictor_eval_and_device_rules():
     assert isinstance(out, torch.Tensor) and not out.requires_grad
     with pytest.raises(MXNetError, match="parameters are on"):
         BlockPredictor(_dense().to("meta"), device="cpu")
-    for kw in (dict(mesh=object()), dict(bf16_compute=True)):
-        with pytest.raises(MXNetError, match="not ported"):
-            BlockPredictor(_dense(), device="cpu", **kw)
+    with pytest.raises(MXNetError, match="not ported"):
+        BlockPredictor(_dense(), device="cpu", mesh=object())
+    # bf16_compute is ported: bf16 copies of the fp32 weights and input,
+    # a bf16 output within bf16's rounding of the fp32 one, the module
+    # left in eval() with fp32 parameters; the CPU default stays fp32
+    net = _dense()
+    x = np.random.RandomState(0).rand(3, 12).astype("float32")
+    bf16 = BlockPredictor(net, device="cpu", bf16_compute=True)
+    got = bf16(x)
+    assert bf16.bf16_compute and got.dtype == torch.bfloat16
+    assert not net.training and net.weight.dtype == torch.float32
+    ref = BlockPredictor(net, device="cpu")(x)
+    assert not BlockPredictor(net, device="cpu").bf16_compute
+    torch.testing.assert_close(got.float(), ref, rtol=2 ** -6, atol=2 ** -6)
 
 
 @pytest.mark.parametrize("n,batch_size,padded", [
@@ -375,3 +386,182 @@ def test_block_predict_pads_to_a_fixed_shape(n, batch_size, padded):
         np.testing.assert_allclose(got.numpy(),
                                    net(torch.from_numpy(X)).numpy(),
                                    rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------- the surface against JAX's
+# The same traffic through the JAX package's ModelServer and the port's,
+# over a plain callable predictor: the outcomes must be the same.
+def _jax_serving():
+    from incubator_mxnet_tpu import serving as jserving
+    return jserving
+
+
+def _make(mod, pred, **kw):
+    if mod.__name__.startswith("incubator_mxnet_tpu_torch"):
+        return mod.ModelServer(pred, device="cpu", **kw)
+    return mod.ModelServer(pred, **kw)
+
+
+def _gated():
+    """A predictor that returns 2 * x once ``gate`` is set."""
+    gate = threading.Event()
+
+    def pred(x):
+        assert gate.wait(10)
+        return 2 * x
+    return pred, gate
+
+
+def _outcome(fut, timeout=10):
+    try:
+        return ("ok", fut.result(timeout=timeout).tolist())
+    except Exception as e:      # the outcome is the exception's type
+        return (type(e).__name__,)
+
+
+def _policy_run(mod, policy):
+    """One request runs (stuck in the predictor), one waits in the queue
+    of depth 1, a third arrives: rejected, or blocked until the gate
+    opens; then a fourth with a 50 ms deadline; returns the outcomes and
+    the queue depths seen."""
+    pred, gate = _gated()
+    server = _make(mod, pred, config=mod.ServingConfig(
+        max_batch=1, linger_us=0, queue_depth=1, full_policy=policy),
+        input_shapes=[(2,)])
+    first = server.submit(np.ones(2, "float32"))
+    deadline = time.time() + 5
+    while server.queue_depth() and time.time() < deadline:
+        time.sleep(0.005)                       # the worker took it
+    second = server.submit(np.full(2, 2.0, "float32"))
+    depths = [server.queue_depth()]
+    third, err = [], []
+
+    def submit_third():
+        try:
+            third.append(server.submit(np.full(2, 3.0, "float32")))
+        except Exception as e:   # the outcome is the exception's type
+            err.append(type(e).__name__)
+    t = threading.Thread(target=submit_third)
+    t.start()
+    t.join(0.3)
+    blocked = t.is_alive()
+    late = None
+    if policy == "block":
+        try:
+            server.submit(np.zeros(2, "float32"), timeout_ms=50)
+        except Exception as e:   # the outcome is the exception's type
+            late = type(e).__name__
+    gate.set()
+    t.join(10)
+    assert not t.is_alive()
+    outs = [_outcome(f) for f in [first, second] + third]
+    depths.append(server.queue_depth())
+    server.close()
+    return dict(blocked=blocked, err=err, late=late, outs=outs,
+                depths=depths, closed=server._batcher.closed)
+
+
+@pytest.mark.parametrize("policy", ["reject", "block"])
+def test_full_policy_like_jax(policy):
+    got = _policy_run(sys.modules["incubator_mxnet_tpu_torch.serving"],
+                      policy)
+    want = _policy_run(_jax_serving(), policy)
+    assert got == want
+    assert got["blocked"] == (policy == "block")
+    assert got["err"] == ([] if policy == "block" else ["QueueFullError"])
+    assert got["closed"] and got["depths"] == [1, 0]
+    if policy == "block":
+        assert got["late"] == "DeadlineExceededError"
+        assert got["outs"][2] == ("ok", [6.0, 6.0])
+
+
+def test_close_wakes_a_blocked_submitter_like_jax():
+    for mod in (sys.modules["incubator_mxnet_tpu_torch.serving"],
+                _jax_serving()):
+        pred, gate = _gated()
+        server = _make(mod, pred, config=mod.ServingConfig(
+            max_batch=1, linger_us=0, queue_depth=1, full_policy="block"),
+            input_shapes=[(2,)])
+        futs = [server.submit(np.ones(2, "float32"))]
+        deadline = time.time() + 5
+        while server.queue_depth() and time.time() < deadline:
+            time.sleep(0.005)
+        futs.append(server.submit(np.ones(2, "float32")))
+        errs = []
+
+        def blocked():
+            try:
+                server.submit(np.ones(2, "float32"))
+            except Exception as e:   # the outcome is the exception's type
+                errs.append(type(e).__name__)
+        t = threading.Thread(target=blocked)
+        t.start()
+        t.join(0.2)
+        assert t.is_alive()
+        closer = threading.Thread(target=server.close)
+        closer.start()
+        t.join(5)
+        gate.set()
+        closer.join(10)
+        assert errs == ["ServerClosedError"], mod
+        assert [_outcome(f) for f in futs] == [("ok", [2.0, 2.0])] * 2
+        assert server._batcher.closed
+
+
+def test_input_dtypes_in_warmup_like_jax():
+    def run(mod):
+        seen = []
+
+        def pred(a, b):
+            seen.append((a.shape, a.dtype.name, b.shape, b.dtype.name))
+            return a.sum(1) + b.sum(1)
+        server = _make(mod, pred, max_batch=4, input_shapes=[(3,), (2,)],
+                       input_dtypes=["float32", "int32"])
+        server.warmup()
+        out = server.submit(np.ones(3), np.array([1.7, 2.2])).result(10)
+        server.close()
+        return seen, float(out)
+
+    got, want = run(sys.modules["incubator_mxnet_tpu_torch.serving"]), \
+        run(_jax_serving())
+    assert got == want
+    assert [s[3] for s in got[0]] == ["int32"] * 4 and got[1] == 6.0
+
+
+def test_watchdog_counts_a_stall_and_logs_the_stacks(caplog):
+    """A predictor that sleeps 0.6 s with requests queued behind it:
+    the watchdog (0.1 s) counts a stall and logs every thread's stack,
+    the worker's in the predictor included; a fast server counts none."""
+    def sleepy(x):
+        time.sleep(0.6)
+        return x
+    with caplog.at_level("ERROR"):
+        server = ModelServer(sleepy, device="cpu", config=ServingConfig(
+            max_batch=1, linger_us=0, watchdog_s=0.1), input_shapes=[(2,)])
+        futs = [server.submit(np.ones(2, "float32")) for _ in range(3)]
+        for f in futs:
+            f.result(10)
+        server.close()
+    assert server.stats()["watchdog_stalls"] >= 1
+    text = "\n".join(r.getMessage() for r in caplog.records)
+    assert "no progress" in text and "mxnet-serving-worker" in text
+    assert "sleepy" in text
+    fast = ModelServer(lambda x: x, device="cpu", config=ServingConfig(
+        max_batch=2, watchdog_s=0.05), input_shapes=[(2,)])
+    for f in [fast.submit(np.ones(2, "float32")) for _ in range(8)]:
+        f.result(10)
+    time.sleep(0.15)
+    fast.close()
+    assert fast.stats()["watchdog_stalls"] == 0
+    assert not any(t.name == "mxnet-serving-watchdog" and t.is_alive()
+                   for t in threading.enumerate())
+
+
+def test_bf16_outputs_leave_the_server_as_float32():
+    def half(x):
+        return torch.from_numpy(x).to(torch.bfloat16) * 3
+    server = ModelServer(half, device="cpu", max_batch=2,
+                         input_shapes=[(2,)])
+    out = server.submit(np.array([1.0, 0.5], "float32")).result(10)
+    server.close()
+    assert out.dtype == np.float32 and out.tolist() == [3.0, 1.5]

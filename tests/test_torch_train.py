@@ -437,10 +437,20 @@ def test_chain_state_dict_interchanges_with_fused(jax_runs):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=object()), "mesh"),
-    (dict(mirror=True), "mirror"), (dict(input_prep=abs), "input_prep"),
+    (dict(mirror=True), "mirror"),
+    # input_prep is ported: the step runs it on the data input only
+    pytest.param(dict(input_prep=abs), "input_prep", id="kw2-input_prep"),
     (dict(autotune=True), "autotune"), (dict(batch_axis=1), "axis 0")])
 def test_train_step_refuses_what_is_not_ported(kw, match):
     net = ResNetV1(BottleneckV1, *SPEC, device="cpu", **NET)
+    if "input_prep" in kw:
+        seen = []
+        step = TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(), device="cpu",
+                         input_prep=lambda x: seen.append(x.dtype) or x.abs())
+        y = np.zeros(BATCH[0], np.float32)
+        assert torch.isfinite(step(-np.ones(BATCH, np.float32), y))
+        assert seen == [torch.float32]
+        return
     with pytest.raises(MXNetError, match=match):
         TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(), device="cpu", **kw)
 

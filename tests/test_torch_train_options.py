@@ -302,10 +302,18 @@ def test_eval_step_matches_jax(jax_runs, bf16):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "mesh"), (dict(input_prep=abs), "input_prep"),
+    (dict(mesh=object()), "mesh"),
+    # input_prep is ported: EvalStep runs it on every input
+    pytest.param(dict(input_prep=abs), "input_prep", id="kw1-input_prep"),
     (dict(autotune=True), "autotune")])
 def test_eval_step_refuses_what_is_not_ported(kw, match):
     net = ResNetV1(BottleneckV1, *SPEC, device="cpu", **NET)
+    if "input_prep" in kw:
+        x = np.random.RandomState(0).randn(2, 16, 16, 3).astype(np.float32)
+        got = EvalStep(net, device="cpu", input_prep=torch.abs)(x)
+        torch.testing.assert_close(got, EvalStep(net, device="cpu")(
+            np.abs(x)), rtol=0, atol=0)
+        return
     with pytest.raises(MXNetError, match=match):
         EvalStep(net, device="cpu", **kw)
 
