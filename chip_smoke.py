@@ -91,7 +91,21 @@ launch counts set to 0 just before it and read just after:
   predictor and the CPU; B1/B2's bf16 forms as many times a forward as
   the net has fused layers inside their envelope (16 and 13); and a
   blocking server of queue depth 1.  The kernel line gives each
-  kernel's launches on these two paths (``launches_data``).
+  kernel's launches on these two paths (``launches_data``);
+* the symbolic API: examples/train_imagenet.py's ResNet-50 v2 symbol
+  (NCHW, fp32, SoftmaxOutput; its builder copied below) trained through
+  ``mx.mod.Module(net, context=mx.gpu(0)).fit`` with the example's
+  settings for one epoch of data_train's records read by
+  ``ImageRecordIter`` (phase ``symbolic_train``: then resident steps,
+  one profiled, and one b=2 step held against the CPU); its checkpoint
+  served by ``load_checkpoint_predictor`` under ``ModelServer``
+  (``symbolic_serving``: V1 serving's burst, served vs direct, Predictor
+  vs Module); and the same weights in the NHWC graph whose BN -> ReLU ->
+  conv nodes are ``_FusedBNReluConv`` (``symbolic_fused``: B1 33 and B2
+  13 times a b=32 forward, the logits against the unfused graph's, each
+  kernel at the path's shapes against its plain version).  The kernel
+  line gives each kernel's launches on these three paths
+  (``launches_symbolic``).
 
 The rtc user kernels (``axpy``, a per-row sum that stages its row in
 more than 48 KB of dynamic shared memory, and a ``scale_add`` template
@@ -3313,6 +3327,632 @@ def _blocking_check(pred, image):
             "closed_after_close": closed}
 
 
+# ----------------------------------------------------------------- symbolic
+# examples/train_imagenet.py's symbolic ResNet v2 (reference
+# example/image-classification/symbols/resnet.py), copied here because
+# examples/ imports the JAX package.  ``mx`` is the package that builds
+# it (the port here; the tests also build it with the JAX package).
+def sym_residual_unit(mx, data, num_filter, stride, dim_match, name,
+                      bottle_neck=True):
+    """The v2 pre-activation unit (train_imagenet.py:37-84)."""
+    sym = mx.sym
+    bn1 = sym.BatchNorm(data, fix_gamma=False, eps=2e-5, momentum=0.9,
+                        name=name + "_bn1")
+    act1 = sym.Activation(bn1, act_type="relu", name=name + "_relu1")
+    if bottle_neck:
+        conv1 = sym.Convolution(act1, num_filter=num_filter // 4,
+                                kernel=(1, 1), stride=(1, 1), pad=(0, 0),
+                                no_bias=True, name=name + "_conv1")
+        bn2 = sym.BatchNorm(conv1, fix_gamma=False, eps=2e-5, momentum=0.9,
+                            name=name + "_bn2")
+        act2 = sym.Activation(bn2, act_type="relu", name=name + "_relu2")
+        conv2 = sym.Convolution(act2, num_filter=num_filter // 4,
+                                kernel=(3, 3), stride=stride, pad=(1, 1),
+                                no_bias=True, name=name + "_conv2")
+        bn3 = sym.BatchNorm(conv2, fix_gamma=False, eps=2e-5, momentum=0.9,
+                            name=name + "_bn3")
+        act3 = sym.Activation(bn3, act_type="relu", name=name + "_relu3")
+        body = sym.Convolution(act3, num_filter=num_filter, kernel=(1, 1),
+                               stride=(1, 1), pad=(0, 0), no_bias=True,
+                               name=name + "_conv3")
+    else:
+        conv1 = sym.Convolution(act1, num_filter=num_filter, kernel=(3, 3),
+                                stride=stride, pad=(1, 1), no_bias=True,
+                                name=name + "_conv1")
+        bn2 = sym.BatchNorm(conv1, fix_gamma=False, eps=2e-5, momentum=0.9,
+                            name=name + "_bn2")
+        act2 = sym.Activation(bn2, act_type="relu", name=name + "_relu2")
+        body = sym.Convolution(act2, num_filter=num_filter, kernel=(3, 3),
+                               stride=(1, 1), pad=(1, 1), no_bias=True,
+                               name=name + "_conv2")
+    if dim_match:
+        shortcut = data
+    else:
+        shortcut = sym.Convolution(act1, num_filter=num_filter,
+                                   kernel=(1, 1), stride=stride,
+                                   no_bias=True, name=name + "_sc")
+    return body + shortcut
+
+
+def sym_resnet(mx, units, filter_list, num_classes, image_shape,
+               bottle_neck=True):
+    """The v2 network (train_imagenet.py:87-121), ending in
+    SoftmaxOutput."""
+    sym = mx.sym
+    data = sym.var("data")
+    (nchannel, height, _) = image_shape
+    body = sym.BatchNorm(data, fix_gamma=True, eps=2e-5, momentum=0.9,
+                         name="bn_data")
+    if height <= 32:  # CIFAR-style stem
+        body = sym.Convolution(body, num_filter=filter_list[0],
+                               kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                               no_bias=True, name="conv0")
+    else:
+        body = sym.Convolution(body, num_filter=filter_list[0],
+                               kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                               no_bias=True, name="conv0")
+        body = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=0.9,
+                             name="bn0")
+        body = sym.Activation(body, act_type="relu", name="relu0")
+        body = sym.Pooling(body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                           pool_type="max")
+    for i, num_stage_units in enumerate(units):
+        stride = (1, 1) if i == 0 else (2, 2)
+        body = sym_residual_unit(mx, body, filter_list[i + 1], stride, False,
+                                 name=f"stage{i+1}_unit1",
+                                 bottle_neck=bottle_neck)
+        for j in range(num_stage_units - 1):
+            body = sym_residual_unit(mx, body, filter_list[i + 1], (1, 1),
+                                     True, name=f"stage{i+1}_unit{j+2}",
+                                     bottle_neck=bottle_neck)
+    bn1 = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=0.9,
+                        name="bn1")
+    relu1 = sym.Activation(bn1, act_type="relu", name="relu1")
+    pool1 = sym.Pooling(relu1, global_pool=True, kernel=(7, 7),
+                        pool_type="avg", name="pool1")
+    flat = sym.Flatten(pool1)
+    fc1 = sym.FullyConnected(flat, num_hidden=num_classes, name="fc1")
+    return sym.SoftmaxOutput(fc1, name="softmax")
+
+
+def sym_get_resnet(mx, num_layers, num_classes, image_shape):
+    """Depth -> unit config (train_imagenet.py:124-140)."""
+    if image_shape[1] <= 32:
+        assert (num_layers - 2) % 9 == 0
+        n = (num_layers - 2) // 9
+        return sym_resnet(mx, [n, n, n], [16, 64, 128, 256], num_classes,
+                          image_shape)
+    configs = {18: ([2, 2, 2, 2], False), 34: ([3, 4, 6, 3], False),
+               50: ([3, 4, 6, 3], True), 101: ([3, 4, 23, 3], True),
+               152: ([3, 8, 36, 3], True)}
+    units, bottle = configs[num_layers]
+    filters = ([64, 64, 128, 256, 512] if not bottle
+               else [64, 256, 512, 1024, 2048])
+    return sym_resnet(mx, units, filters, num_classes, image_shape,
+                      bottle_neck=bottle)
+
+
+def _sym_bn_vars(mx, name):
+    return {k: mx.sym.var(f"{name}_{k}")
+            for k in ("gamma", "beta", "moving_mean", "moving_var")}
+
+
+def _fusable(kernel, stride, pad):
+    """Inside the fused kernels' envelope: stride 1 and a 1x1 pad-0 or
+    3x3 pad-1 kernel."""
+    return stride == (1, 1) and (kernel, pad) in (((1, 1), (0, 0)),
+                                                  ((3, 3), (1, 1)))
+
+
+def _sym_bn_relu_conv(mx, data, bn, bn_vars, conv, num_filter, kernel,
+                      stride, pad, impl, fuse=True):
+    """NHWC BatchNorm ``bn`` -> ReLU -> Convolution ``conv``: one
+    ``_FusedBNReluConv`` node (its first output) inside the kernels'
+    envelope when ``fuse``, else the three ops; either way under the
+    checkpoint's parameter names."""
+    sym = mx.sym
+    if fuse and _fusable(kernel, stride, pad):
+        kw = {} if impl is None else {"impl": impl}
+        return sym._FusedBNReluConv(
+            data, weight=sym.var(conv + "_weight"), kernel=kernel,
+            stride=stride, pad=pad, num_filter=num_filter, no_bias=True,
+            layout="NHWC", eps=2e-5, momentum=0.9, name=conv, **bn_vars,
+            **kw)[0]
+    act = sym.Activation(sym.BatchNorm(
+        data, fix_gamma=False, eps=2e-5, momentum=0.9, axis=3, name=bn,
+        **bn_vars), act_type="relu", name=bn + "_relu")
+    return sym.Convolution(act, weight=sym.var(conv + "_weight"),
+                           num_filter=num_filter, kernel=kernel,
+                           stride=stride, pad=pad, no_bias=True,
+                           layout="NHWC", name=conv)
+
+
+def sym_resnet_fused(mx, units, filter_list, num_classes, image_shape,
+                     impl=None, fuse=True):
+    """``sym_resnet``'s bottleneck network (the same stem for
+    ``image_shape``) rebuilt in NHWC with every
+    pre-activation BN -> ReLU -> conv of a stride-1 1x1 or 3x3 conv as a
+    ``_FusedBNReluConv`` node (B1 and B2 on the card), the same parameter
+    names, ending in the logits (``fc1``).  ``impl`` is the fused nodes'
+    attribute (the JAX op's ``pallas_interpret`` / ``xla`` in the
+    tests).  With ``fuse=False`` the same NHWC graph has no fused node
+    (BatchNorm, Activation and Convolution throughout).  Returns
+    (symbol, 1x1 fused nodes, 3x3 fused nodes)."""
+    sym = mx.sym
+    data = sym.var("data")
+    body = sym.BatchNorm(data, fix_gamma=True, eps=2e-5, momentum=0.9,
+                         axis=3, name="bn_data")
+    counts = {(1, 1): 0, (3, 3): 0}
+
+    def brc(x, bn, bn_vars, conv, num_filter, kernel, stride, pad):
+        if fuse and _fusable(kernel, stride, pad):
+            counts[kernel] += 1
+        return _sym_bn_relu_conv(mx, x, bn, bn_vars, conv, num_filter,
+                                 kernel, stride, pad, impl, fuse)
+    if image_shape[1] <= 32:  # CIFAR-style stem
+        body = sym.Convolution(body, num_filter=filter_list[0],
+                               kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                               no_bias=True, layout="NHWC", name="conv0")
+    else:
+        body = sym.Convolution(body, num_filter=filter_list[0],
+                               kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                               no_bias=True, layout="NHWC", name="conv0")
+        body = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=0.9,
+                             axis=3, name="bn0")
+        body = sym.Activation(body, act_type="relu", name="relu0")
+        body = sym.Pooling(body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                           pool_type="max", layout="NHWC")
+    for i, n_units in enumerate(units):
+        nf = filter_list[i + 1]
+        for j in range(n_units):
+            name = f"stage{i+1}_unit{j+1}"
+            stride = (2, 2) if i > 0 and j == 0 else (1, 1)
+            v1 = _sym_bn_vars(mx, name + "_bn1")
+            x = brc(body, name + "_bn1", v1, name + "_conv1", nf // 4,
+                    (1, 1), (1, 1), (0, 0))
+            x = brc(x, name + "_bn2", _sym_bn_vars(mx, name + "_bn2"),
+                    name + "_conv2", nf // 4, (3, 3), stride, (1, 1))
+            x = brc(x, name + "_bn3", _sym_bn_vars(mx, name + "_bn3"),
+                    name + "_conv3", nf, (1, 1), (1, 1), (0, 0))
+            shortcut = body if j > 0 else brc(
+                body, name + "_bn1", v1, name + "_sc", nf, (1, 1), stride,
+                (0, 0))
+            body = x + shortcut
+    body = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=0.9,
+                         axis=3, name="bn1")
+    body = sym.Activation(body, act_type="relu", name="relu1")
+    body = sym.Pooling(body, global_pool=True, kernel=(7, 7),
+                       pool_type="avg", layout="NHWC", name="pool1")
+    fc1 = sym.FullyConnected(sym.Flatten(body), num_hidden=num_classes,
+                             name="fc1")
+    return fc1, counts[(1, 1)], counts[(3, 3)]
+
+
+def sym_fused_params(fused, arg_params, aux_params):
+    """A checkpoint's (arg, aux) params as the fused symbol binds them:
+    the moving statistics that only _FusedBNReluConv nodes read are
+    arguments there (the JAX package's classification), so their
+    ``aux:`` entries move to ``arg:``, by name."""
+    args = set(fused.list_arguments())
+    moved = {k: v for k, v in aux_params.items() if k in args}
+    out_args = dict(arg_params, **moved)
+    out_aux = {k: v for k, v in aux_params.items() if k not in args}
+    return out_args, out_aux, sorted(moved)
+
+
+# symbolic_train: examples/train_imagenet.py's ResNet-50 v2 through
+# Module.fit with the example's settings, from data_train's records
+SYM_LAYERS, SYM_CLASSES, SYM_IMAGE = 50, 1000, (3, 224, 224)
+SYM_UNITS, SYM_FILTERS = [3, 4, 6, 3], [64, 256, 512, 1024, 2048]
+SYM_OPT = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+SYM_MEAN = dict(mean_r=123.68, mean_g=116.78, mean_b=103.94)
+SYM_THREADS, SYM_SPEEDOMETER = 4, 5
+SYM_RESIDENT_STEPS, SYM_REF_BATCH = 5, 2
+# symbolic_serving: the checkpoint behind ModelServer at MAX_BATCH
+SYM_SERVE_RTOL = 1e-4
+
+
+def _sym_module_step(mx, sym, ctx, arg_params, aux_params, x, y):
+    """One forward_backward + update of a Module on ``ctx`` from the given
+    weights: (softmax outputs, mean cross-entropy, {name: tensor} of the
+    updated arguments and moving statistics)."""
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mod.init_params(arg_params=arg_params, aux_params=aux_params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SYM_OPT)
+    mod.forward_backward(mx.io.DataBatch(
+        data=[mx.nd.array(x, ctx=mx.cpu())],
+        label=[mx.nd.array(y, ctx=mx.cpu())]))
+    mod.update()
+    p = mod.get_outputs()[0].asnumpy()
+    loss = float(-np.log(p[np.arange(len(y)), y.astype(int)]).mean())
+    args, aux = mod.get_params()
+    state = {k: torch.from_numpy(v.asnumpy())
+             for k, v in list(args.items()) + list(aux.items())}
+    return p, loss, state
+
+
+def phase_symbolic_train(seed, tmpdir):
+    """ResNet-50 v2 (``sym_get_resnet(50, 1000, (3, 224, 224))``, NCHW,
+    fp32, SoftmaxOutput) trained through ``mx.mod.Module(net,
+    context=mx.gpu(0)).fit`` with the example's settings (SGD lr 0.05,
+    momentum 0.9, wd 1e-4; Xavier gaussian/in/2; Speedometer(128, 5);
+    do_checkpoint) for one epoch of data_train's 12 batches of 128 JPEG
+    records through ImageRecordIter (224x224 random crops and mirrors,
+    mean subtraction, 4 threads), the kernel counts set to 0 just before
+    and read just after (the NCHW graph has no fused node: none
+    launches); then SYM_RESIDENT_STEPS forward_backward + update steps on
+    one resident batch (ms a step, images/s, peak memory) and one under
+    torch.profiler (the idle share).  Gate: one b=2 Module step on the
+    card against the same step on the CPU: loss and outputs within 1e-4
+    of max, moving statistics within STEP_RTOL, parameters within
+    SPREAD_FACTOR of the CPU's own spread: the larger of the same step
+    of the graph after the FuseBatchNormRelu pass and of the same
+    network in NHWC (``sym_resnet_fused(fuse=False)``).  Returns
+    (launches, checkpoint prefix)."""
+    import os
+    import incubator_mxnet_tpu_torch as mx
+    torch.cuda.empty_cache()
+    rec = os.path.join(tmpdir, "train")
+    if not os.path.exists(rec + ".rec"):
+        fail("symbolic_train: data_train wrote no JPEG records (no decoder "
+             "on this machine)")
+    decoder = "cv2" if _decoders()["cv2"] else "python"
+    mx.random.seed(seed)
+    net = sym_get_resnet(mx, SYM_LAYERS, SYM_CLASSES, SYM_IMAGE)
+    train = mx.io.ImageRecordIter(
+        path_imgrec=rec + ".rec", path_imgidx=rec + ".idx",
+        data_shape=SYM_IMAGE, batch_size=TRAIN_BATCH, shuffle=True,
+        rand_crop=True, rand_mirror=True, resize=-1,
+        preprocess_threads=SYM_THREADS, decoder=decoder, seed=seed,
+        **SYM_MEAN)
+    prefix = os.path.join(tmpdir, "resnet50_v2")
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    acc = mx.metric.Accuracy()
+    speed = mx.callback.Speedometer(TRAIN_BATCH, SYM_SPEEDOMETER)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric=acc, optimizer="sgd",
+            optimizer_params=SYM_OPT,
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            batch_end_callback=speed,
+            epoch_end_callback=mx.callback.do_checkpoint(prefix),
+            num_epoch=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _counts()
+    fit_peak = torch.cuda.max_memory_allocated()
+    train.close()
+    _expect(launches, dict.fromkeys(launches, 0),
+            "Module.fit of the NCHW ResNet-50 v2")
+    if not (os.path.exists(prefix + "-symbol.json")
+            and os.path.exists(prefix + "-0001.params")):
+        fail("symbolic_train: do_checkpoint wrote no checkpoint")
+    args, aux = mod.get_params()
+    if not all(np.isfinite(v.asnumpy()).all() for v in args.values()):
+        fail("symbolic_train: non-finite parameters after fit")
+
+    # the resident step: one batch on the card, forward_backward + update
+    rs = np.random.RandomState(seed + 40)
+    xd = mx.nd.array(rs.rand(TRAIN_BATCH, *SYM_IMAGE).astype(np.float32),
+                     ctx=mx.gpu(0))
+    yd = mx.nd.array(rs.randint(0, SYM_CLASSES, TRAIN_BATCH).astype(
+        np.float32), ctx=mx.gpu(0))
+    batch = mx.io.DataBatch(data=[xd], label=[yd])
+    mod.forward_backward(batch)
+    mod.update()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    for _ in range(SYM_RESIDENT_STEPS):
+        mod.forward_backward(batch)
+        mod.update()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / SYM_RESIDENT_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    for _ in range(SYM_RESIDENT_STEPS):
+        mod.forward_backward(batch)
+    torch.cuda.synchronize()
+    fb_ms = (time.perf_counter() - t1) / SYM_RESIDENT_STEPS * 1e3
+    t1 = time.perf_counter()
+    for _ in range(SYM_RESIDENT_STEPS):
+        mod.update()
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t1) / SYM_RESIDENT_STEPS * 1e3
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    profiled = _profile_summary(prof, wall)
+    del mod, batch, xd, yd
+    torch.cuda.empty_cache()
+
+    # the gate: one b=2 step from the fitted weights, card vs CPU
+    init_args = {k: v.asnumpy() for k, v in args.items()}
+    init_aux = {k: v.asnumpy() for k, v in aux.items()}
+    x = rs.rand(SYM_REF_BATCH, *SYM_IMAGE).astype(np.float32) * 100
+    y = rs.randint(0, SYM_CLASSES, SYM_REF_BATCH).astype(np.float32)
+    t1 = time.perf_counter()
+    runs = {}
+    # the CPU's own spread: the graph after the FuseBatchNormRelu pass
+    # (nearly the same arithmetic), and the same math in NHWC (other
+    # conv and reduction orders: the formulation that shows how far fp32
+    # itself reproduces a b=2 step through 50 BatchNorms)
+    fused_net = mx.sym.passes.apply_pass(net, "FuseBatchNormRelu").symbol
+    nhwc_net = mx.sym.SoftmaxOutput(sym_resnet_fused(
+        mx, SYM_UNITS, SYM_FILTERS, SYM_CLASSES, SYM_IMAGE, fuse=False)[0],
+        name="softmax")
+    xh = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    for key, sym, ctx, xx in (("card", net, mx.gpu(0), x),
+                              ("cpu", net, mx.cpu(), x),
+                              ("cpu_fused", fused_net, mx.cpu(), x),
+                              ("cpu_nhwc", nhwc_net, mx.cpu(), xh)):
+        with ctx:
+            runs[key] = _sym_module_step(
+                mx, sym, ctx, {k: mx.nd.array(v) for k, v in
+                               init_args.items()},
+                {k: mx.nd.array(v) for k, v in init_aux.items()}, xx, y)
+    ref_s = time.perf_counter() - t1
+    (p_gpu, loss_gpu, got), (p_cpu, loss_cpu, ref) = runs["card"], \
+        runs["cpu"]
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    out_err = float(np.abs(p_gpu - p_cpu).max())
+    out_scale = float(np.abs(p_cpu).max())
+    stats = [k for k in ref if k.endswith(("moving_mean", "moving_var"))]
+    params = [k for k in ref if k not in stats]
+    stats_worst, stats_key = _worst(got, ref, stats)
+    params_worst, params_key = _worst(got, ref, params)
+    spreads = {k: _worst(runs[k][2], ref, params)
+               for k in ("cpu_fused", "cpu_nhwc")}
+    spread, spread_key = max(spreads.values(), key=lambda v: v[0])
+    emit({"phase": "symbolic_train", "net": "resnet50_v2 (symbol, NCHW)",
+          "batch": TRAIN_BATCH, "reader": "ImageRecordIter",
+          "decoder": decoder, "preprocess_threads": SYM_THREADS,
+          "epoch_batches": speed.last_count + 1,
+          "fit_s": fit_s, "fit_images_per_s":
+          (speed.last_count + 1) * TRAIN_BATCH / fit_s,
+          "speedometer_samples_per_s": speed.speeds,
+          "train_accuracy": float(acc.get()[1]),
+          "fit_peak_mem_gb": fit_peak / 1e9, "launches": launches,
+          "resident_ms_per_step": step_ms,
+          "resident_images_per_s": TRAIN_BATCH / step_ms * 1e3,
+          "forward_backward_ms": fb_ms, "update_ms": update_ms,
+          "peak_mem_gb": peak / 1e9,
+          "profiled_step": {k: profiled[k] for k in (
+              "wall_s", "device_busy_s", "device_idle_share",
+              "device_ms_by_kind", "top_kernels")},
+          "reference": {
+              "batch": SYM_REF_BATCH, "loss_card": loss_gpu,
+              "loss_cpu": loss_cpu, "loss_rel_err": loss_rel,
+              "outputs_max_abs_err": out_err, "outputs_abs_max": out_scale,
+              "stats_worst_over_bound": stats_worst, "stats_worst": stats_key,
+              "params_worst_over_bound": params_worst,
+              "params_worst": params_key,
+              "cpu_spread_worst_over_bound": spread,
+              "cpu_spread_worst": spread_key,
+              "cpu_spread_by_formulation": spreads,
+              "spread_factor": SPREAD_FACTOR, "rtol": STEP_RTOL,
+              "tensors": len(ref), "seconds": ref_s}})
+    if not math.isfinite(loss_gpu) or loss_rel > STEP_LOSS_RTOL:
+        fail(f"symbolic_train: card vs CPU loss {loss_gpu} vs {loss_cpu}")
+    if out_err > STEP_LOSS_RTOL * out_scale:
+        fail(f"symbolic_train: card vs CPU outputs differ by {out_err} > "
+             f"{STEP_LOSS_RTOL} x {out_scale}")
+    if stats_worst > 1.0:
+        fail(f"symbolic_train: card vs CPU moving statistics: {stats_key} "
+             f"is {stats_worst} x its bound off")
+    if params_worst > max(1.0, SPREAD_FACTOR * spread):
+        fail(f"symbolic_train: card vs CPU parameters after one step: "
+             f"{params_key} is {params_worst} x its bound off, the CPU's "
+             f"own spread {spread}")
+    torch.cuda.empty_cache()
+    return launches, prefix
+
+
+def phase_symbolic_serving(seed, prefix):
+    """The checkpoint of symbolic_train served: ``load_checkpoint_predictor
+    (prefix, 1, {"data": (32, 3, 224, 224)})`` under ``ModelServer(
+    predictor, max_batch=32)`` (one ``Predictor.reshape`` per bucket),
+    warmed up, then V1 serving's burst with the kernel counts set to 0
+    just before and read just after (none launches).  Gates: served
+    outputs equal a direct ``Predictor.forward`` of the same images at
+    b=32 within SYM_SERVE_RTOL of max; the Predictor's outputs equal the
+    Module's (``Module.load``, ``is_train=False``) on 32 images within
+    SYM_SERVE_RTOL of max.  Also the PlanMemory pass's bytes at b=32 on
+    the card."""
+    import incubator_mxnet_tpu_torch as mx
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred = mx.predict.load_checkpoint_predictor(
+        prefix, 1, {"data": (MAX_BATCH,) + SYM_IMAGE})
+    server = mx.serving.ModelServer(pred, max_batch=MAX_BATCH)
+    server.warmup()
+    setup_s = time.perf_counter() - t0
+    n_images = CLIENTS * PER_CLIENT + BATCH_REQS * BATCH_SIZE
+    images = np.random.RandomState(seed + 50).rand(
+        n_images, *SYM_IMAGE).astype(np.float32) * 100
+    before = server.stats()
+    _zero_counts()
+    got, lat, wall = _burst(server, images)
+    launches = _counts()
+    stats = server.stats()
+    buckets = sorted(server._runner.by_bucket)
+    server.close()
+    _expect(launches, dict.fromkeys(launches, 0),
+            "serving the NCHW ResNet-50 v2 checkpoint")
+    if got.shape != (n_images, SYM_CLASSES) or not np.isfinite(got).all():
+        fail(f"symbolic_serving: bad served outputs {got.shape}")
+    direct = np.concatenate([
+        pred.forward(data=images[i:i + MAX_BATCH])[0].asnumpy()
+        for i in range(0, n_images, MAX_BATCH)])
+    err = float(np.abs(got - direct).max())
+    scale = float(np.abs(direct).max())
+    # the PlanMemory pass on the card: the bytes of the arguments and
+    # outputs, and what one b=32 eval forward allocates beyond them
+    graph = mx.sym.passes.apply_pass(pred._symbol, "InferShape",
+                                     data=(MAX_BATCH,) + SYM_IMAGE)
+    memory = mx.sym.passes.apply_pass(graph, "PlanMemory",
+                                      ctx=mx.gpu(0)).attrs["memory"]
+    mod = mx.mod.Module.load(prefix, 1, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (MAX_BATCH,) + SYM_IMAGE)],
+             for_training=False)
+    mod.forward(mx.io.DataBatch(data=[mx.nd.array(images[:MAX_BATCH],
+                                                  ctx=mx.cpu())]),
+                is_train=False)
+    mod_err = float(np.abs(mod.get_outputs()[0].asnumpy()
+                           - direct[:MAX_BATCH]).max())
+    peak = torch.cuda.max_memory_allocated()
+    lat.sort()
+    emit({"phase": "symbolic_serving", "images": n_images,
+          "requests": len(lat), "wall_s": wall,
+          "images_per_s": n_images / wall,
+          "batches": stats["batches"] - before["batches"],
+          "mean_fill": (stats["examples"] - before["examples"])
+          / (stats["padded"] - before["padded"]),
+          "e2e_p50_ms": lat[len(lat) // 2],
+          "e2e_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+          "executors_by_bucket": {str(b): 1 for b in buckets},
+          "executors": len(buckets), "launches": launches,
+          "served_vs_direct_max_abs_err": err, "outputs_abs_max": scale,
+          "predictor_vs_module_max_abs_err": mod_err,
+          "plan_memory_b32": memory,
+          "rtol": SYM_SERVE_RTOL, "setup_s": setup_s,
+          "peak_mem_gb": peak / 1e9})
+    if err > SYM_SERVE_RTOL * scale:
+        fail(f"symbolic_serving: served outputs differ from direct "
+             f"forwards by {err} > {SYM_SERVE_RTOL} x {scale}")
+    if mod_err > SYM_SERVE_RTOL * scale:
+        fail(f"symbolic_serving: Predictor vs Module outputs differ by "
+             f"{mod_err} > {SYM_SERVE_RTOL} x {scale}")
+    del pred, server, mod
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_symbolic_fused(seed, prefix):
+    """The checkpoint's weights in the NHWC graph of ``sym_resnet_fused``
+    (B1 in conv1 and conv3 of every unit and stage 1's shortcut, B2 in
+    conv2 of the 13 stride-1 units), through a Predictor at b=32 on the
+    card, beside the NCHW unfused logits (``fc1_output``).  One forward
+    with the kernel counts set to 0 just before and read just after:
+    sbr_matmul and sbr_conv3x3 as many times as the graph has fused
+    nodes, nothing else.  Gates: those counts; the logits within
+    RESNET_RTOL of max of the unfused Predictor's; at each distinct
+    shape the path gave a kernel (its inputs recorded in one more
+    forward), the kernel against its plain version (CONV_RTOL of max);
+    infer_shape and binding launch nothing.  Times one forward of each,
+    and profiles one of each (device time by kind, the idle share)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+    torch.cuda.empty_cache()
+    sym, args, aux = mx.model.load_checkpoint(prefix, 1)
+    fused, n1, n3 = sym_resnet_fused(mx, SYM_UNITS, SYM_FILTERS, SYM_CLASSES,
+                                     SYM_IMAGE)
+    fargs, faux, moved = sym_fused_params(fused, args, aux)
+    _zero_counts()
+    shape = (MAX_BATCH,) + SYM_IMAGE[1:] + SYM_IMAGE[:1]
+    fpred = mx.predict.Predictor(
+        fused, dict({f"arg:{k}": v for k, v in fargs.items()},
+                    **{f"aux:{k}": v for k, v in faux.items()}),
+        {"data": shape})
+    bind_launches = _counts()
+    _expect(bind_launches, dict.fromkeys(bind_launches, 0),
+            "infer_shape and binding of the fused graph")
+    upred = mx.predict.Predictor(
+        sym.get_internals()["fc1_output"],
+        dict({f"arg:{k}": v for k, v in args.items()},
+             **{f"aux:{k}": v for k, v in aux.items()}),
+        {"data": (MAX_BATCH,) + SYM_IMAGE})
+    x = np.random.RandomState(seed + 60).rand(
+        MAX_BATCH, *SYM_IMAGE).astype(np.float32) * 100
+    xh = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    ref = upred.forward(data=x)[0].asnumpy()
+    _zero_counts()
+    got = fpred.forward(data=xh)[0].asnumpy()
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(sbr_matmul=n1, sbr_conv3x3=n3)
+    _expect(launches, want, f"one forward of the fused NHWC graph "
+                            f"({n1} 1x1 and {n3} 3x3 fused nodes)")
+    err = float(np.abs(got - ref).max())
+    scale = float(np.abs(ref).max())
+    # the kernels at the path's own shapes and inputs
+    seen = {}
+    wrappers = {"sbr_matmul": (fc.sbr_matmul, fc._sbr_matmul_plain),
+                "sbr_conv3x3": (fc.sbr_conv3x3, fc._sbr_conv3x3_plain)}
+
+    def recorder(name):
+        kern = wrappers[name][0]
+
+        def call(xt, a, b, w, bias):
+            seen.setdefault((name, tuple(xt.shape), w.shape[0]),
+                            (xt, a, b, w, bias))
+            return kern(xt, a, b, w, bias)
+        # the wrapper counts its launch on the module's name, which is
+        # this recorder while it stands in: the recording's launches
+        # land here, outside the counts
+        call.launches = call.launches_bf16 = 0
+        return call
+    for name in wrappers:
+        setattr(fc, name, recorder(name))
+    try:
+        fpred.forward(data=xh)
+    finally:
+        for name, (kern, _) in wrappers.items():
+            setattr(fc, name, kern)
+    rows = []
+    for (name, xs, cout), ins in sorted(seen.items()):
+        kern, plain = wrappers[name]
+        out, pl = kern(*ins), plain(*ins)
+        e = (out - pl).abs().max().item()
+        s = pl.abs().max().item()
+        rows.append({"kernel": name, "x": list(xs), "cout": cout,
+                     "max_abs_err": e, "ref_abs_max": s})
+        if e > CONV_RTOL * s:
+            fail(f"symbolic_fused: {name} vs its plain version at {xs} -> "
+                 f"{cout}: {e} > {CONV_RTOL} x {s}")
+    # one forward each on the inputs already on the card
+    fpred.set_input("data", xh)
+    upred.set_input("data", x)
+    fused_ms = time_ms(fpred.forward, iters=5, warmup=1)
+    unfused_ms = time_ms(upred.forward, iters=5, warmup=1)
+    from torch.profiler import ProfilerActivity, profile
+    profiled = {}
+    for key, pred in (("fused", fpred), ("unfused", upred)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            pred.forward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        summary = _profile_summary(prof, wall)
+        summary["top_kernels"] = summary["top_kernels"][:8]
+        profiled[key] = summary
+    emit({"phase": "symbolic_fused", "batch": MAX_BATCH,
+          "fused_nodes": {"1x1": n1, "3x3": n3}, "launches": launches,
+          "moved_aux_to_arg": len(moved),
+          "logits_max_abs_err": err, "logits_abs_max": scale,
+          "rtol": RESNET_RTOL, "path_shapes": rows,
+          "fused_forward_ms": fused_ms, "unfused_forward_ms": unfused_ms,
+          "profiled_forward": profiled})
+    if err > RESNET_RTOL * scale:
+        fail(f"symbolic_fused: fused logits differ from the unfused by "
+             f"{err} > {RESNET_RTOL} x {scale}")
+    del fpred, upred
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3409,12 +4049,19 @@ def main():
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmpdir:
         data_paths = {"data_train": phase_data_train(args.seed, tmpdir)}
-    data_paths["resnet_v2_serving"] = phase_resnet_v2_serving(args.seed)
+        data_paths["resnet_v2_serving"] = phase_resnet_v2_serving(args.seed)
+        sym_launches, prefix = phase_symbolic_train(args.seed, tmpdir)
+        symbolic_paths = {"symbolic_train": sym_launches}
+        symbolic_paths["symbolic_serving"] = phase_symbolic_serving(
+            args.seed, prefix)
+        symbolic_paths["symbolic_fused"] = phase_symbolic_fused(args.seed,
+                                                                prefix)
+    paths = {"launches_gluon": gluon_paths, "launches_data": data_paths,
+             "launches_symbolic": symbolic_paths}
     for row in kernels:
-        row["launches_gluon"] = {path: counts.get(row["name"], 0)
-                                 for path, counts in gluon_paths.items()}
-        row["launches_data"] = {path: counts.get(row["name"], 0)
-                                for path, counts in data_paths.items()}
+        for key, runs in paths.items():
+            row[key] = {path: counts.get(row["name"], 0)
+                        for path, counts in runs.items()}
     print(smi or "nvidia-smi: not available", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

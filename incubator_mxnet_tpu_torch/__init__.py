@@ -27,9 +27,13 @@ NDArrays and offers ``collect_params``), the data pipeline
 (``recordio``, ``io`` with ``ImageRecordIter``, ``image``,
 ``gluon.data`` with its vision datasets and transforms,
 ``gluon.contrib.data``, and ``pipeline_io.DevicePrefetchIter`` /
-``MetricDrain``), ResNet V2, and the serving remainder
+``MetricDrain``), ResNet V2, the serving remainder
 (``ServingConfig``'s ``full_policy``/``watchdog_s``, bf16
-``BlockPredictor``).  So
+``BlockPredictor``), and the symbolic API (``symbol`` as ``sym`` with
+its graph passes, ``executor.Executor``, ``operator.CustomOp``,
+``module`` as ``mod``, ``model`` with ``FeedForward``, ``callback``,
+``monitor``, ``attribute.AttrScope``, the symbol ``predict.Predictor``
+and its ``ModelServer`` backend, ``gluon.SymbolBlock``).  So
 ``import incubator_mxnet_tpu_torch as mx; mx.nd.ones((2,))`` reads as
 it does against the JAX package, except that the default context is
 ``mx.gpu(0)``.
@@ -41,14 +45,23 @@ from . import ndarray
 from . import ndarray as nd
 from . import autograd, initializer, lr_scheduler, metric, name, random, rtc
 from . import initializer as init
+from . import attribute, callback, executor, model, monitor, operator
+from . import symbol
+from . import symbol as sym
+from . import module
+from . import module as mod
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus, tpu
+from .executor import Executor
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "Context", "autograd", "base", "context",
-           "contrib", "convert", "cpu", "current_context", "gluon", "gpu",
-           "image", "init", "initializer", "io", "lr_scheduler", "metric",
-           "name", "nd", "ndarray", "num_gpus", "numerics", "ops",
-           "optimizer", "parallel", "pipeline_io", "predict", "random",
-           "recordio", "rtc", "serving", "tpu"]
+__all__ = ["AttrScope", "Context", "Executor", "MXNetError", "attribute",
+           "autograd", "base", "callback", "context", "contrib", "convert",
+           "cpu", "current_context", "executor", "gluon", "gpu", "image",
+           "init", "initializer", "io", "lr_scheduler", "metric", "mod",
+           "model", "module", "monitor", "name", "nd", "ndarray", "num_gpus",
+           "numerics", "operator", "ops", "optimizer", "parallel",
+           "pipeline_io", "predict", "random", "recordio", "rtc", "serving",
+           "sym", "symbol", "tpu"]

@@ -19,8 +19,9 @@ is still unknown makes the layer run ``infer_shape`` on its inputs,
 then allocate.  ``hybridize(active)`` is accepted and recorded
 (``_active``), but the forward stays eager, with the same outputs either
 way: the CUDA-graph form of ``hybridize`` is ROADMAP A4.
-``SymbolBlock`` and ``HybridBlock.export`` need the symbolic API and
-raise ``MXNetError`` until A7.
+``HybridBlock.export`` writes the parameters in the checkpoint format
+(``arg:``/``aux:`` keys, no symbol), as the JAX package does, and
+``SymbolBlock`` runs a Symbol's graph as a block.
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ import numpy as np
 import torch
 
 from .. import ndarray as nd_mod
-from ..base import MXNetError
 from ..context import cpu
 from ..name import NameManager, Prefix
 from ..ndarray import utils as nd_utils
@@ -407,14 +407,70 @@ class HybridBlock(Block):
         raise NotImplementedError
 
     def export(self, path, epoch=0):
-        raise MXNetError("HybridBlock.export writes a symbol graph, which "
-                         "needs the symbolic API (ROADMAP A7)")
+        """Save the parameters for deployment as ``path-%04d.params``
+        (the JAX package's export: the checkpoint format, no symbol
+        JSON, since the graph is this Python module).  The op-declared
+        auxiliary states (BatchNorm's moving statistics) take the
+        ``aux:`` prefix, every other parameter ``arg:``, frozen or not."""
+        arg_dict = {}
+        for name, param in self.collect_params().items():
+            prefix = "aux:" if param._is_aux else "arg:"
+            arg_dict[prefix + name] = param.data()
+        nd_utils.save(f"{path}-{epoch:04d}.params", arg_dict)
 
 
 class SymbolBlock(HybridBlock):
-    """A Block over a Symbol (reference gluon/block.py:SymbolBlock):
-    needs the symbolic API, ROADMAP A7."""
+    """A Block over a Symbol (reference gluon/block.py:598): the
+    symbol's arguments other than ``inputs`` become Parameters under
+    their own names (an empty prefix, as the reference keys them;
+    deferred, ``grad_req="write"``), its auxiliary states Parameters
+    with ``grad_req="null"``.  A call infers the deferred shapes from
+    the inputs' (``Symbol.infer_shape``), then runs the graph in eval
+    mode on the Parameters' arrays (the auxiliary states bound as such)
+    and the inputs; it is not
+    recorded by ``autograd``, as the JAX block's jitted ``eval`` is not.
+    The JAX SymbolBlock names its Parameters with the block's prefix,
+    which the graph does not know, and never infers their shapes, so
+    its first call raises; the port's follows the reference there."""
 
     def __init__(self, outputs, inputs, params=None):
-        raise MXNetError("SymbolBlock needs the symbolic API, which is not "
-                         "ported yet (ROADMAP A7)")
+        super().__init__(prefix=None, params=params)
+        self._prefix = ""
+        self._params = ParameterDict("", params)
+        from ..symbol.symbol import Symbol
+        if isinstance(outputs, (list, tuple)) and len(outputs) == 1:
+            outputs = outputs[0]
+        if not isinstance(outputs, Symbol):
+            raise TypeError("outputs must be a Symbol")
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._output_sym = outputs
+        self._input_names = [i.name for i in inputs]
+        for name in outputs.list_arguments():
+            if name not in self._input_names:
+                self.params.get(name, allow_deferred_init=True,
+                                grad_req="write")
+        for name in outputs.list_auxiliary_states():
+            self.params.get(name, allow_deferred_init=True, grad_req="null")
+
+    def forward(self, *args):
+        deferred = [p for p in self.params.values() if p._deferred_init]
+        if deferred:
+            sym = self._output_sym
+            arg_shapes, _, aux_shapes = sym.infer_shape(**{
+                n: a.shape for n, a in zip(self._input_names, args)})
+            shapes = dict(zip(sym.list_arguments(), arg_shapes))
+            shapes.update(zip(sym.list_auxiliary_states(), aux_shapes))
+            for p in deferred:
+                p.shape = shapes[p.name]
+                p._finish_deferred_init()
+        sym = self._output_sym
+        values = {p.name: p.data() for p in self.params.values()}
+        values.update(zip(self._input_names, args))
+        aux = {n: values.pop(n) for n in sym.list_auxiliary_states()}
+        out = sym.bind(args[0].context, values, aux_states=aux,
+                       grad_req="null").forward(is_train=False)
+        return out[0] if len(out) == 1 else out
+
+    def hybrid_forward(self, F, *args, **kwargs):
+        raise NotImplementedError

@@ -20,7 +20,7 @@ the owner module's business and raises here.
 
 Where it differs from the JAX package: a list of several contexts
 raises (``initialize``, ``reset_ctx``) until A6; ``row_sparse`` /
-``csr`` storage raises until A8; ``var()`` needs the symbolic API (A7).
+``csr`` storage raises until A8.
 """
 from __future__ import annotations
 
@@ -130,6 +130,7 @@ class Parameter:
         self._stype = stype
         self._grad_stype = grad_stype
         self._is_aux = False
+        self._var = None
 
     @classmethod
     def view(cls, name, tensor, grad_req="write", **kwargs):
@@ -345,8 +346,15 @@ class Parameter:
                 self._grad._data.zero_()
 
     def var(self):
-        raise MXNetError("Parameter.var() needs the symbolic API, which is "
-                         "not ported yet (ROADMAP A7)")
+        """Symbol representation for the symbolic frontend (reference
+        parameter.py:var): a variable named after the parameter, with
+        its shape and multipliers as attributes; made once."""
+        if self._var is None:
+            from ..symbol import symbol as _sym
+            self._var = _sym.var(self.name, shape=self.shape,
+                                 dtype=self.dtype, lr_mult=self.lr_mult,
+                                 wd_mult=self.wd_mult, init=self.init)
+        return self._var
 
     @property
     def _fresh_grad(self):

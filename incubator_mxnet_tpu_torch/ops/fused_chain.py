@@ -338,7 +338,8 @@ def _fused_bottleneck_chain_op(c1, gamma1, beta1, moving_mean1, moving_var1,
     args = (x, gamma1, beta1, moving_mean1, moving_var1,
             weight2.to(c1.dtype), gamma2, beta2, moving_mean2, moving_var2,
             weight3.to(c1.dtype), bias3)
-    if fused and impl != "xla":
+    # meta tensors (shape inference) take the plain composition
+    if fused and impl != "xla" and c1.device.type != "meta":
         outs = fused_bottleneck_chain(*args, eps=eps, fix_gamma=fix_gamma,
                                       train_stats=train_stats)
     else:

@@ -445,7 +445,9 @@ def _fused_bn_relu_conv_op(data, gamma, beta, moving_mean, moving_var,
             f"a stride-1 1x1 pad=0 / 3x3 pad=1 ungrouped kernel; got "
             f"kernel={kernel} stride={stride} pad={pad} groups={num_group} "
             f"layout={layout}")
-    if fused and impl != "xla":
+    # meta tensors (shape inference) take the plain composition: the
+    # kernel wrappers run on cuda or cpu only
+    if fused and impl != "xla" and data.device.type != "meta":
         x = data.contiguous().permute(0, 3, 1, 2)
         out, mean, var = fused_bn_relu_conv(
             x, gamma, beta, moving_mean, moving_var, weight.to(data.dtype),

@@ -9,8 +9,12 @@ Registered here: ``FullyConnected`` (``nn.py:38``), ``Convolution``
 ``gluon.nn.BNReLU`` also calls), ``InstanceNorm`` (``:550``),
 ``LayerNorm`` (``:559``), ``L2Normalization`` (``:570``), ``LRN``
 (``:586``), ``Dropout`` (``:596``), ``Pad`` (``:609``), ``UpSampling``
-(``:621``) and ``softmax_cross_entropy`` (``:733``).  The output layers
-(``SoftmaxOutput`` and the regression outputs), the sequence ops and the
+(``:621``), ``softmax_cross_entropy`` (``:733``) and the output layers
+(``:283-400``: ``SoftmaxOutput`` with its aliases ``Softmax`` and
+``softmax_output``, ``LinearRegressionOutput``,
+``LogisticRegressionOutput``, ``MAERegressionOutput``, ``SVMOutput``),
+each a ``torch.autograd.Function`` whose backward is the JAX op's custom
+gradient, which ignores the head gradient.  The sequence ops and the
 legacy ops are ROADMAP A8.
 
 Each op is plain PyTorch (``F.conv*d``, ``F.*pool*d``, elementwise
@@ -495,3 +499,155 @@ def _upsampling(*args, scale, sample_type="nearest", num_args=1,
     if multi_input_mode == "sum":
         return sum(outs)
     return torch.cat(outs, 1)
+
+
+# ------------------------------------------------------------- output layers
+def _class_onehot(label, depth, axis, dtype):
+    """one_hot(label) with the classes on ``axis`` of the result; a label
+    outside ``[0, depth)`` gives a row of zeros (``jax.nn.one_hot``)."""
+    lbl = label.to(torch.int64).unsqueeze(axis)
+    shape = [1] * lbl.dim()
+    shape[axis] = depth
+    classes = torch.arange(depth, device=label.device).view(shape)
+    return (lbl == classes).to(dtype)
+
+
+def _softmax_output_fwd(data, multi_output, preserve_shape):
+    if multi_output:
+        return torch.softmax(data, dim=1)
+    if preserve_shape:
+        return torch.softmax(data, dim=-1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """softmax forward; backward ``p - onehot(label)``, ignoring the head
+    gradient (the JAX op's ``custom_vjp``, reference
+    softmax_output-inl.h:Backward), scaled by ``grad_scale`` and the
+    ``normalization``; the label gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, multi_output,
+                use_ignore, preserve_shape, normalization):
+        out = _softmax_output_fwd(data, multi_output, preserve_shape)
+        ctx.cfg = (grad_scale, ignore_label, multi_output, use_ignore,
+                   normalization)
+        ctx.save_for_backward(out, label)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, multi_output, use_ignore, \
+            normalization = ctx.cfg
+        axis = 1 if multi_output else out.dim() - 1
+        grad = out - _class_onehot(label, out.shape[axis], axis, out.dtype)
+        keep = None
+        if use_ignore:
+            keep = (label.to(torch.int64) != int(ignore_label)).to(
+                out.dtype)
+            grad = grad * keep.unsqueeze(axis)
+        grad = grad * grad_scale
+        if normalization == "batch":
+            grad = grad / label.shape[0]
+        elif normalization == "valid" and keep is not None:
+            grad = grad / torch.clamp(keep.sum(), min=1.0)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad, dlabel, None, None, None, None, None, None
+
+
+@register_op("SoftmaxOutput", aliases=("Softmax", "softmax_output"))
+def _softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0):
+    """softmax of ``data`` (over the flattened features, axis 1 with
+    ``multi_output``, the last axis with ``preserve_shape``) whose
+    gradient is ``p - onehot(label)`` (``_SoftmaxOutput``)."""
+    return _SoftmaxOutput.apply(data, label, float(grad_scale),
+                                float(ignore_label), bool(multi_output),
+                                bool(use_ignore), bool(preserve_shape),
+                                normalization)
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """``fwd(pred)``; backward ``gradfn(fwd(pred), label) * grad_scale /
+    pred.shape[1]`` (``shape[0]`` for 1-D), ignoring the head gradient,
+    as the JAX op divides (``ops/nn.py`` ``_make_regression_output``)."""
+
+    @staticmethod
+    def forward(ctx, pred, label, fwd, gradfn, grad_scale):
+        ctx.cfg = (fwd, gradfn, grad_scale)
+        ctx.save_for_backward(pred, label)
+        return fwd(pred)
+
+    @staticmethod
+    def backward(ctx, g):
+        pred, label = ctx.saved_tensors
+        fwd, gradfn, grad_scale = ctx.cfg
+        n = pred.shape[1 if pred.dim() > 1 else 0]
+        grad = gradfn(fwd(pred), label.reshape(pred.shape)) * grad_scale / n
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad, dlabel, None, None, None
+
+
+def _make_regression_output(name, fwd, gradfn):
+    def op(data, label, *, grad_scale=1.0):
+        return _RegressionOutput.apply(data, label, fwd, gradfn,
+                                       float(grad_scale))
+    op.__name__ = name
+    op.__doc__ = (f"{name}: the identity (sigmoid for the logistic "
+                  "output) with the regression gradient "
+                  "(``_RegressionOutput``).")
+    register_op(name, op)
+
+
+# reference src/operator/regression_output.cc: grad = out - label
+# (linear), sigmoid(out) - label (logistic), sign(out - label) (MAE)
+_make_regression_output("LinearRegressionOutput", lambda x: x,
+                        lambda o, lbl: o - lbl)
+_make_regression_output("LogisticRegressionOutput", torch.sigmoid,
+                        lambda o, lbl: o - lbl)
+_make_regression_output("MAERegressionOutput", lambda x: x,
+                        lambda o, lbl: torch.sign(o - lbl))
+
+
+class _SVMOutput(torch.autograd.Function):
+    """The identity whose gradient is the (squared, or linear with
+    ``use_linear``) hinge loss's, ignoring the head gradient (the JAX
+    op's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.cfg = (margin, reg, use_linear)
+        ctx.save_for_backward(data, label)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        d, label = ctx.saved_tensors
+        margin, reg, use_linear = ctx.cfg
+        lbl = label.to(torch.int64)
+        onehot = _class_onehot(label, d.shape[1], 1, d.dtype)
+        score_true = torch.gather(d, 1, lbl[:, None])
+        slack = margin - (score_true - d)
+        if use_linear:
+            grad = (slack > 0).to(d.dtype) * reg
+        else:
+            grad = 2 * torch.clamp(slack, min=0) * reg
+        grad = grad * (1 - onehot)
+        grad = grad + onehot * -grad.sum(1, keepdim=True)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad.to(d.dtype), dlabel, None, None, None
+
+
+@register_op("SVMOutput")
+def _svm_output(data, label, *, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False):
+    return _SVMOutput.apply(data, label, float(margin),
+                            float(regularization_coefficient),
+                            bool(use_linear))

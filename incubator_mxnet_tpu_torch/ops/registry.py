@@ -48,6 +48,9 @@ class Operator:
                           inspect.Parameter.POSITIONAL_OR_KEYWORD))
         if needs_rng:
             self.arg_names = self.arg_names[1:]
+        # takes any number of tensor inputs (``*args``): Concat, Custom
+        self.variadic = any(p.kind == inspect.Parameter.VAR_POSITIONAL
+                            for p in sig.parameters.values())
 
     def __repr__(self):
         return f"<Operator {self.name}>"

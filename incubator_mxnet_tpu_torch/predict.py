@@ -1,13 +1,18 @@
-"""Inference front end of the port (``incubator_mxnet_tpu/predict.py``
-``BlockPredictor``): batch forwards of a module in eval mode.
+"""Inference front end of the port (``incubator_mxnet_tpu/predict.py``):
+``Predictor`` over a symbol checkpoint and ``BlockPredictor`` over a
+module.
 
-The JAX predictor compiles one ``EvalStep`` program per input shape;
+``Predictor`` (the reference's MXPredCreate/SetInput/Forward/GetOutput,
+``predict.py:30-148``) binds a forward-only executor from the two
+checkpoint artifacts; its default context is the card (``gpu(0)``, the
+port's convention; the JAX default is ``cpu()``).  ``BlockPredictor``:
+the JAX predictor compiles one ``EvalStep`` program per input shape;
 PyTorch runs eagerly, so here a forward is the module's own call under
 ``torch.inference_mode()``, or with ``bf16_compute`` the port's
 ``EvalStep(bf16_compute=True)`` (bf16 copies of the fp32 parameters and
-inputs; on the card the bf16 forms of the fused kernels).  The symbol
-``Predictor`` and the exported ``CompiledPredictor`` wait for ROADMAP
-A7, the ``mesh=`` sharding for A6.
+inputs; on the card the bf16 forms of the fused kernels).  The exported
+``CompiledPredictor`` (a serialized program) waits for a later slice of
+ROADMAP A7, the ``mesh=`` sharding for A6.
 """
 from __future__ import annotations
 
@@ -18,10 +23,112 @@ import numpy as np
 import torch
 
 from .base import MXNetError
-from .context import resolve_device
+from .context import cpu, gpu, resolve_device
 from .parallel.step import EvalStep
 
-__all__ = ["BlockPredictor"]
+__all__ = ["Predictor", "load_checkpoint_predictor", "BlockPredictor"]
+
+
+class Predictor:
+    """MXPredCreate equivalent.
+
+    Parameters
+    ----------
+    symbol : Symbol | str
+        A Symbol, a path to '-symbol.json', or a JSON string.
+    params : dict | str
+        {'arg:name'/'aux:name' -> NDArray} dict or a '.params' path.
+    input_shapes : dict name -> shape
+    ctx : Context (default ``gpu(0)``; ``mx.cpu()`` for the CPU).
+
+    Thread safety (the serving.ModelServer contract): ``forward`` takes
+    an internal lock around the set-inputs + run sequence (the bound
+    executor's arg arrays are shared mutable state), and the outputs it
+    returns are also stashed per thread, so ``get_output()`` never
+    observes another thread's results.
+    """
+
+    def __init__(self, symbol, params, input_shapes, ctx=None):
+        from . import symbol as sym_mod
+        from .ndarray.utils import load as nd_load
+        ctx = ctx or gpu()
+        if isinstance(symbol, str):
+            if symbol.lstrip().startswith("{"):
+                symbol = sym_mod.load_json(symbol)
+            else:
+                symbol = sym_mod.load(symbol)
+        self._symbol = symbol
+        if isinstance(params, str):
+            with cpu():       # staged on the host, copied to ctx below
+                params = nd_load(params)
+        arg_params, aux_params = {}, {}
+        for k, v in params.items():
+            if k.startswith("arg:"):
+                arg_params[k[4:]] = v
+            elif k.startswith("aux:"):
+                aux_params[k[4:]] = v
+            else:
+                arg_params[k] = v
+        self._input_names = list(input_shapes)
+        self._executor = symbol.simple_bind(
+            ctx, grad_req="null", **{k: tuple(v)
+                                     for k, v in input_shapes.items()})
+        self._executor.copy_params_from(
+            {k: v for k, v in arg_params.items()
+             if k in self._executor.arg_dict},
+            {k: v for k, v in aux_params.items()
+             if k in self._executor.aux_dict})
+        self._lock = threading.RLock()
+        self._tls = threading.local()     # per-thread get_output stash
+
+    @property
+    def device(self):
+        return self._executor._device
+
+    def set_input(self, name, value):
+        """MXPredSetInput."""
+        if name not in self._executor.arg_dict:
+            raise MXNetError(f"unknown input {name!r}")
+        self._executor.copy_params_from({name: value})
+
+    def forward(self, **inputs):
+        """MXPredForward; optional inputs by keyword.  Returns the
+        outputs directly (and stashes them per thread for
+        ``get_output``); safe to call from concurrent threads."""
+        with self._lock:
+            for k, v in inputs.items():
+                self.set_input(k, v)
+            outputs = self._executor.forward(is_train=False)
+        self._tls.outputs = outputs
+        return outputs
+
+    def get_output(self, index=0):
+        """MXPredGetOutput (this thread's most recent forward)."""
+        outputs = getattr(self._tls, "outputs", None)
+        if outputs is None:
+            raise MXNetError("forward() has not been run in this thread")
+        return outputs[index]
+
+    @property
+    def output_names(self):
+        return self._symbol.list_outputs()
+
+    def reshape(self, input_shapes):
+        """MXPredReshape: a predictor for new input geometry over the
+        same parameters."""
+        params = {f"arg:{k}": v for k, v in self._executor.arg_dict.items()
+                  if k not in self._input_names}
+        params.update({f"aux:{k}": v
+                       for k, v in self._executor.aux_dict.items()})
+        return Predictor(self._symbol, params, input_shapes,
+                         ctx=self._executor._ctx)
+
+
+def load_checkpoint_predictor(prefix, epoch, input_shapes, ctx=None):
+    """A Predictor from a model.save_checkpoint pair
+    (prefix-symbol.json + prefix-####.params)."""
+    return Predictor(f"{prefix}-symbol.json",
+                     f"{prefix}-{epoch:04d}.params", input_shapes, ctx=ctx)
 
 
 class BlockPredictor:

@@ -16,9 +16,13 @@ worker makes no progress for ``s`` seconds while requests are queued.
 A worker that dies outside its per-batch handler fails every queued
 future with WorkerCrashedError and refuses new submits.
 
-What differs from the JAX server: only the Block backend (``_BlockRunner``)
-is ported — the symbol ``Predictor`` and ``CompiledPredictor`` backends
-wait for ROADMAP A7; the autotune consult, fleet shedding, the telemetry,
+Two backends: a ``BlockPredictor`` or any callable (``_BlockRunner``),
+and a symbol ``predict.Predictor`` (``_SymbolRunner``: one
+``Predictor.reshape`` per batch bucket, made at the bucket's first
+batch, its input specs read from the bound executor).
+
+What differs from the JAX server: the ``CompiledPredictor`` backend
+waits for a later slice of ROADMAP A7; the autotune consult, fleet shedding, the telemetry,
 tracing, request-journal and fault-injection hooks, and the watchdog's
 flight-recorder dump (``diagnostics.dump_state``) wait for A9.
 ``stats()`` returns the server's own counters instead.  Outputs in bf16
@@ -83,6 +87,33 @@ class _BlockRunner:
         return [_to_numpy(out)]
 
 
+class _SymbolRunner:
+    """Drives a symbol-level Predictor: one re-bound predictor per
+    bucket (``Predictor.reshape``, one executor built per bucket, the
+    MXPredReshape cost model)."""
+
+    def __init__(self, pred):
+        self._base = pred
+        self._names = list(pred._input_names)
+        ex = pred._executor
+        self.specs = [(tuple(ex.arg_dict[n].shape[1:]),
+                       np.dtype(ex.arg_dict[n].dtype))
+                      for n in self._names]
+        base_batch = int(ex.arg_dict[self._names[0]].shape[0])
+        self.by_bucket = {base_batch: pred}
+
+    def run(self, arrays):
+        bucket = arrays[0].shape[0]
+        p = self.by_bucket.get(bucket)
+        if p is None:
+            p = self._base.reshape(
+                {n: (bucket,) + shape
+                 for n, (shape, _) in zip(self._names, self.specs)})
+            self.by_bucket[bucket] = p
+        outs = p.forward(**dict(zip(self._names, arrays)))
+        return [_to_numpy(o._data) for o in outs]
+
+
 class ModelServer:
     """Thread-safe dynamic-batching server over one predictor.
 
@@ -90,6 +121,8 @@ class ModelServer:
 
         server = ModelServer(BlockPredictor(net), max_batch=32,
                              input_shapes=[(224, 224, 3)])
+        # or ModelServer(predict.load_checkpoint_predictor(prefix, 1,
+        #                {"data": (32, 3, 224, 224)}), max_batch=32)
         server.warmup()                    # every bucket once
         fut = server.submit(x)             # one example, no batch dim
         y = fut.result()                   # numpy output for x
@@ -97,8 +130,8 @@ class ModelServer:
 
     ``input_shapes`` are the per-example shapes (no batch dim) of the
     model's inputs and ``input_dtypes`` their dtypes (default float32),
-    for validation and ``warmup``; without shapes the first request
-    defines the contract.  ``device`` (``None``:
+    for validation and ``warmup``; a symbol ``Predictor`` declares its
+    own, and otherwise the first request defines the contract.  ``device`` (``None``:
     ``cuda:0``, raising without a GPU) is where the predictor runs; a
     predictor that names its own ``device`` must agree.
     Futures resolve to numpy arrays (a list when the model has several
@@ -113,19 +146,23 @@ class ModelServer:
         elif knobs:
             raise MXNetError(f"pass either config= or knob kwargs, not both "
                              f"(got {sorted(knobs)})")
-        if not callable(predictor):
+        from ..predict import Predictor
+        if isinstance(predictor, Predictor):
+            self._runner = _SymbolRunner(predictor)
+        elif callable(predictor):
+            self._runner = _BlockRunner(predictor)
+        else:
             raise MXNetError(
                 f"unsupported predictor type {type(predictor).__name__}: "
-                "expected a BlockPredictor or a callable (the symbol and "
-                "compiled predictor backends are not ported yet)")
+                "expected a Predictor, a BlockPredictor or a callable (the "
+                "compiled predictor backend is not ported yet)")
         self.device = resolve_device(device)
         own = getattr(predictor, "device", None)
         if own is not None and torch.device(own) != self.device:
             raise MXNetError(f"ModelServer on {self.device}, but its "
                              f"predictor runs on {own}")
-        self._runner = _BlockRunner(predictor)
         self._cfg = config
-        self._specs = None
+        self._specs = getattr(self._runner, "specs", None)
         if input_shapes is not None:
             shapes = list(input_shapes.values()) \
                 if isinstance(input_shapes, dict) else list(input_shapes)

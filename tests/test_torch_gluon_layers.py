@@ -302,22 +302,41 @@ def test_save_params_load_params_bit_for_bit(direction, tmp_path):
         nets[dst].load_params(full, ctx=mx.cpu())
 
 
-def test_deferred_shapes_and_errors():
+def test_deferred_shapes_and_errors(tmp_path):
     with tmx.cpu():
         dense = tmx.gluon.nn.Dense(3, prefix="d_")
         dense.initialize()
         with pytest.raises(tmx.gluon.DeferredInitializationError):
             dense.weight.data()
-        dense(tmx.nd.ones((2, 5, 2)))
+        x = tmx.nd.ones((2, 5, 2))
+        want = dense(x).asnumpy()
         assert dense.weight.shape == (3, 10)
         assert dense.weight.data().shape == (3, 10)
         with pytest.raises(MXNetError, match="A6"):
             tmx.gluon.nn.Dense(2, in_units=2).initialize(
                 ctx=[tmx.cpu(0), tmx.cpu(1)])
-        with pytest.raises(MXNetError, match="A7"):
+        # export writes the params in the checkpoint format, which the
+        # JAX package loads with its arg: keys
+        dense.export(str(tmp_path / "d"))
+        saved = jmx.nd.load(str(tmp_path / "d-0000.params"))
+        assert sorted(saved) == ["arg:d_bias", "arg:d_weight"]
+        np.testing.assert_array_equal(saved["arg:d_weight"].asnumpy(),
+                                      dense.weight.data().asnumpy())
+        # a SymbolBlock over the same graph gives the layer's outputs,
+        # and the JAX graph's on the same weights
+        def graph(mx):
+            return mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=3,
+                                         name="d")
+        block = tmx.gluon.SymbolBlock(graph(tmx), tmx.sym.var("data"))
+        block.collect_params().initialize(ctx=tmx.cpu())
+        for name, p in block.collect_params().items():
+            p.set_data(saved["arg:" + name].asnumpy())
+        _close(block(x).asnumpy(), want, "SymbolBlock")
+        ref = graph(jmx).eval(ctx=jmx.cpu(), data=jmx.nd.ones((2, 5, 2)),
+                              **{k[4:]: v for k, v in saved.items()})
+        _close(block(x).asnumpy(), ref[0].asnumpy(), "SymbolBlock vs JAX")
+        with pytest.raises(TypeError):
             tmx.gluon.SymbolBlock(None, None)
-        with pytest.raises(MXNetError, match="A7"):
-            dense.export("x")
         with pytest.raises(MXNetError, match="A8"):
             tmx.gluon.nn.Embedding(4, 2, sparse_grad=True)
 
