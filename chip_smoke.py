@@ -3953,6 +3953,699 @@ def phase_symbolic_fused(seed, prefix):
     return launches
 
 
+# ------------------------------------------------------------- recurrent
+# phase rnn_op: (mode, T, N, input, hidden, layers, bidirectional); the
+# first is the word LM's LSTM
+RNN_OP_CASES = (("lstm", 35, 32, 650, 650, 2, False),
+                ("gru", 20, 16, 200, 200, 2, False),
+                ("rnn_tanh", 20, 16, 200, 200, 2, False),
+                ("lstm", 20, 16, 200, 200, 2, True))
+# cuDNN vs the plain composition on the card, both fp32 with TF32 off:
+# outputs, final states and gradients within RNN_OP_RTOL of each
+# tensor's max |value| (other summation orders through up to 70 steps)
+RNN_OP_RTOL = 1e-4
+RNN_OP_ITERS = 20
+# phase rnn_lm_train: examples/word_language_model.py's tied LSTM LM at
+# the width of MXNet's example/gluon/word_language_model README medium
+# run (--emsize 650 --nhid 650 --nlayers 2 --dropout 0.5 --tied, bptt
+# 35, batch 32), WikiText-2's vocabulary (33,278 with <unk> and <eos>)
+# over a synthetic token file; Adam and clip_global_norm with the
+# example's defaults (lr 0.003, clip 0.25 per token)
+LM_VOCAB = 33278
+LM_WIDTH = 650
+LM_LAYERS = 2
+LM_DROPOUT = 0.5
+LM_BPTT = 35
+LM_BATCH = 32
+LM_LR = 0.003
+LM_CLIP = 0.25
+LM_TOKENS = 90000
+LM_WARMUP = 2
+LM_WINDOWS = 3
+LM_WINDOW_STEPS = 5
+LM_EVAL_BATCHES = 4
+LM_REF_BATCH = 8
+# phase rnn_bucketing: MXNet's example/rnn/bucketing/lstm_bucketing.py
+# (num-hidden 200, num-embed 200, num-layers 2, batch 32, buckets
+# 10..60, lr 0.01, wd 1e-5; the repository's example trains with Adam)
+# over 10,000 words, and its cudnn_lstm_bucketing.py (FusedRNNCell)
+BUCKET_VOCAB = 10000
+BUCKET_WIDTH = 200
+BUCKET_LAYERS = 2
+BUCKET_BATCH = 32
+BUCKETS = (10, 20, 30, 40, 50, 60)
+BUCKET_BATCHES = 3          # batches per bucket in the fit epoch
+BUCKET_TIMED = 3            # resident batches timed per bucket
+BUCKET_OPT = {"learning_rate": 0.01, "wd": 1e-5}
+BUCKET_REF_KEY = 30
+
+
+def word_lm(mx, vocab, width, layers, dropout, prefix="rnnmodel_",
+            cells=False):
+    """examples/word_language_model.py's RNNModel with tied weights
+    (embedding -> dropout -> fused LSTM -> dropout -> a Dense decoder
+    sharing the embedding's weight), built from ``mx`` (the JAX package
+    or the port; only the package differs).  ``cells=True`` runs the
+    LSTM as unrolled ``gluon.rnn.LSTMCell``s under the fused layer's
+    parameter names (another fp32 formulation of the same function; no
+    dropout between its layers)."""
+    nn = mx.gluon.nn
+
+    class RNNModel(mx.gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(vocab, width)
+                if cells:
+                    self.rnn = mx.gluon.rnn.SequentialRNNCell(prefix="lstm0_")
+                    with self.rnn.name_scope():
+                        for i in range(layers):
+                            self.rnn.add(mx.gluon.rnn.LSTMCell(
+                                width, input_size=width, prefix=f"l{i}_"))
+                else:
+                    self.rnn = mx.gluon.rnn.LSTM(width, layers,
+                                                 dropout=dropout,
+                                                 input_size=width)
+                self.decoder = nn.Dense(vocab, in_units=width,
+                                        params=self.encoder.params)
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            if cells:
+                states = [s[i] for i in range(layers) for s in hidden]
+                output, states = self.rnn.unroll(
+                    inputs.shape[0], emb, begin_state=states, layout="TNC",
+                    merge_outputs=True)
+                hidden = [mx.nd.stack(*states[k::2], axis=0)
+                          for k in (0, 1)]
+            else:
+                output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            decoded = self.decoder(output.reshape((-1, width)))
+            return decoded, hidden
+
+        def begin_state(self, *args, **kwargs):
+            if not cells:
+                return self.rnn.begin_state(*args, **kwargs)
+            # the fused layer's (layers, batch, width) h and c
+            batch = kwargs["batch_size"] if "batch_size" in kwargs \
+                else args[0]
+            return [mx.nd.zeros((layers, batch, width), ctx=kwargs.get("ctx"))
+                    for _ in range(2)]
+
+    return RNNModel(prefix=prefix)
+
+
+def write_wikitext(path, words, tokens, seed):
+    """A token file in WikiText-2's format (one paragraph a line, tokens
+    split by spaces, blank lines between paragraphs) holding each of
+    ``words`` distinct words at least once among ``tokens`` tokens, the
+    rest drawn Zipf-like, all shuffled, from ``seed``."""
+    rs = np.random.RandomState(seed)
+    ids = rs.permutation(np.concatenate([
+        np.arange(words), np.minimum(rs.zipf(1.2, tokens - words) - 1,
+                                     words - 1)]))
+    lines, i = [], 0
+    while i < len(ids):
+        n = int(rs.randint(10, 90))
+        lines.append(" " + " ".join(f"w{k}" for k in ids[i:i + n]) + " ")
+        lines.append("")
+        i += n
+    with open(path, "w", encoding="utf8") as f:
+        f.write("\n".join(lines))
+
+
+def word_lm_steps(mx, model, trainer, batches, ctx, hidden, batch,
+                  bptt=LM_BPTT, clip=LM_CLIP):
+    """examples/word_language_model.py's training loop over ``batches``
+    of (data, label), each (batch, bptt) from the DataLoader: the hidden
+    state carried and detached, the summed cross-entropy's gradients
+    clipped to ``clip * bptt * batch`` by ``clip_global_norm``, then
+    ``trainer.step``.  Returns (each step's loss NDArray, hidden)."""
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = [p for p in model.collect_params().values()
+              if p.grad_req != "null"]
+    losses = []
+    for data, label in batches:
+        data = mx.nd.transpose(data.as_in_context(ctx), axes=(1, 0))
+        label = mx.nd.transpose(label.as_in_context(ctx),
+                                axes=(1, 0)).reshape((-1,))
+        hidden = [h.detach() for h in hidden]
+        with mx.autograd.record():
+            out, hidden = model(data, hidden)
+            loss = loss_fn(out, label)
+        loss.backward()
+        mx.gluon.utils.clip_global_norm([p.grad() for p in params],
+                                        clip * bptt * batch)
+        trainer.step(batch * bptt)
+        losses.append(loss)
+    return losses, hidden
+
+
+def bucket_stack(mx, hidden, layers, fused):
+    """The bucketing examples' cell stack: ``layers`` legacy LSTMCells
+    (``lstm_l{i}_``, lstm_bucketing.py) or one FusedRNNCell of as many
+    layers (``lstm_``, cudnn_lstm_bucketing.py), whose ``unfuse()`` gives
+    cells of the same names."""
+    if fused:
+        return mx.rnn.FusedRNNCell(hidden, num_layers=layers, mode="lstm",
+                                   prefix="lstm_")
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(layers):
+        stack.add(mx.rnn.LSTMCell(num_hidden=hidden, prefix=f"lstm_l{i}_"))
+    return stack
+
+
+def bucket_sym_gen(mx, stack, vocab, embed, hidden, invalid_label=-1):
+    """examples/rnn_bucketing.py's ``sym_gen``: embedding, the stack
+    unrolled over the bucket's length, a classifier over the vocabulary
+    and SoftmaxOutput ignoring the padding label."""
+    sym = mx.sym
+
+    def sym_gen(seq_len):
+        data = sym.var("data")
+        label = sym.var("softmax_label")
+        emb = sym.Embedding(data, input_dim=vocab, output_dim=embed,
+                            name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=emb, merge_outputs=True)
+        pred = sym.Reshape(outputs, shape=(-1, hidden))
+        pred = sym.FullyConnected(pred, num_hidden=vocab, name="pred")
+        label = sym.Reshape(label, shape=(-1,))
+        pred = sym.SoftmaxOutput(pred, label=label, name="softmax",
+                                 use_ignore=True, ignore_label=invalid_label)
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def bucket_sentences(seed, vocab, buckets, per_bucket):
+    """``per_bucket`` sentences of ids below ``vocab`` for each bucket,
+    their lengths uniform above the bucket below it."""
+    rs = np.random.RandomState(seed)
+    sentences, low = [], 0
+    for b in buckets:
+        for _ in range(per_bucket):
+            sentences.append(rs.randint(0, vocab, rs.randint(low + 1, b + 1))
+                             .tolist())
+        low = b
+    return sentences
+
+
+def _rnn_op_inputs(gen, mode, t, n, isz, h, layers, bi):
+    from incubator_mxnet_tpu_torch.ops.rnn import rnn_param_size
+    d = 2 if bi else 1
+    k = 1.0 / math.sqrt(h)
+
+    def u(*shape):
+        return (torch.rand(*shape, generator=gen, device="cuda") * 2 - 1) * k
+    x = torch.randn(t, n, isz, generator=gen, device="cuda")
+    params = u(rnn_param_size(layers, isz, h, bi, mode))
+    h0 = u(layers * d, n, h)
+    c0 = u(layers * d, n, h) if mode == "lstm" else None
+    return [x, params, h0, c0]
+
+
+def _rnn_route(route, inputs, mode, h, layers, bi, heads=None):
+    """One forward (and with ``heads`` a backward of sum(out * head))
+    of the RNN op's cuDNN route or its plain composition, on the card:
+    (outputs, gradients of the inputs)."""
+    from incubator_mxnet_tpu_torch.ops import get_op
+    from incubator_mxnet_tpu_torch.ops.rnn import _plain, slice_rnn_weights
+    x, params, h0, c0 = [None if a is None else
+                         a.detach().requires_grad_(heads is not None)
+                         for a in inputs]
+    with torch.set_grad_enabled(heads is not None):
+        if route == "cudnn":
+            outs = get_op("RNN").fn(None, x, params, h0, c0, state_size=h,
+                                    num_layers=layers, mode=mode,
+                                    bidirectional=bi, state_outputs=True)
+        else:
+            w = slice_rnn_weights(params, layers, x.shape[2], h, bi, mode)
+            outs = _plain(None, x, w, h0, c0, mode, layers, 2 if bi else 1,
+                          0.0)
+            outs = outs if mode == "lstm" else outs[:2]
+    if heads is None:
+        return list(outs), []
+    leaves = [a for a in (x, params, h0, c0) if a is not None]
+    grads = torch.autograd.grad(list(outs), leaves, heads)
+    return [o.detach() for o in outs], list(grads)
+
+
+def rnn_bound_ms(mode, t, n, isz, h, layers, bi):
+    """Least time for the op's forward: 2 flops per multiply-add of the
+    gate products (the input and the recurrent ones, every layer and
+    direction, fp32-accurate), x, the parameters and the states read
+    and the output and final states written once (fp32)."""
+    from incubator_mxnet_tpu_torch.ops.rnn import _NUM_GATES, rnn_param_size
+    g, d = _NUM_GATES[mode], 2 if bi else 1
+    flops = sum(2.0 * t * n * g * h * ((isz if i == 0 else d * h) + h) * d
+                for i in range(layers))
+    states = (2 if mode == "lstm" else 1) * layers * d * n * h
+    nbytes = 4.0 * (t * n * isz + rnn_param_size(layers, isz, h, bi, mode)
+                    + 2 * states + t * n * d * h)
+    return _bound(flops, nbytes, torch.float32)
+
+
+def phase_rnn_op(seed):
+    """The RNN op's cuDNN route (``torch._VF``, the views cut from the
+    flat vector) against its plain composition, both on the card in fp32
+    with TF32 off, for RNN_OP_CASES: outputs, final states and the
+    gradients of every input under random head gradients within
+    RNN_OP_RTOL of each tensor's max.  Times (CUDA events) of each
+    route's forward and forward + backward over RNN_OP_ITERS calls, and
+    on the LM case of ``torch.nn.LSTM`` with its weights flattened into
+    cuDNN's packed buffer (the library call), in turns with the cuDNN
+    route's forward (route, library, library, route): the difference is
+    the cost of copying the views into that buffer each call.
+    ``ops.rnn.cudnn_calls`` is read around the phase."""
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_mod
+    from incubator_mxnet_tpu_torch.ops.rnn import slice_rnn_weights
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 60)
+    calls0, made = rnn_mod.cudnn_calls, [0]
+    cases, worst = [], 0.0
+    for mode, t, n, isz, h, layers, bi in RNN_OP_CASES:
+        inputs = _rnn_op_inputs(gen, mode, t, n, isz, h, layers, bi)
+
+        def run(route, heads=None):
+            made[0] += route == "cudnn"
+            return _rnn_route(route, inputs, mode, h, layers, bi, heads)
+        ref, _ = run("plain")
+        heads = [torch.randn(o.shape, generator=gen, device="cuda")
+                 for o in ref]
+        got = {r: run(r, heads) for r in ("cudnn", "plain")}
+        errs = {}
+        for kind, idx in (("outputs", 0), ("gradients", 1)):
+            for i, (a, b) in enumerate(zip(got["cudnn"][idx],
+                                           got["plain"][idx])):
+                errs[f"{kind}[{i}]"] = (a - b).abs().max().item() / max(
+                    b.abs().max().item(), 1e-30)
+        case_worst = max(errs.values())
+        worst = max(worst, case_worst)
+        ms = {}
+        for r in ("cudnn", "plain"):
+            ms[r] = time_ms(lambda r=r: run(r), iters=RNN_OP_ITERS)
+            ms[r + "_fwd_bwd"] = time_ms(lambda r=r: run(r, heads),
+                                         iters=RNN_OP_ITERS)
+        library = None
+        if mode == "lstm" and not bi and isz == LM_WIDTH:
+            lstm = torch.nn.LSTM(isz, h, layers).cuda()
+            with torch.no_grad():
+                views = slice_rnn_weights(inputs[1], layers, isz, h, bi,
+                                          mode)
+                for i in range(layers):
+                    for name, v in zip(("weight_ih", "weight_hh", "bias_ih",
+                                        "bias_hh"), views[i][0]):
+                        getattr(lstm, f"{name}_l{i}").copy_(v)
+            lstm.flatten_parameters()
+            x, _, h0, c0 = inputs
+            with torch.no_grad():
+                lib_out = lstm(x, (h0, c0))[0]
+            lib_err = (lib_out - ref[0]).abs().max().item() / \
+                ref[0].abs().max().item()
+            with torch.no_grad():
+                turns = [time_ms(lambda: run("cudnn"), iters=RNN_OP_ITERS)
+                         if k == "cudnn" else
+                         time_ms(lambda: lstm(x, (h0, c0)),
+                                 iters=RNN_OP_ITERS)
+                         for k in ("cudnn", "lib", "lib", "cudnn")]
+            ms["cudnn_turns"] = (turns[0] + turns[3]) / 2
+            library = (turns[1] + turns[2]) / 2
+            if lib_err > RNN_OP_RTOL:
+                fail(f"rnn_op: torch.nn.LSTM vs the plain route {lib_err}")
+        bound, bound_by = rnn_bound_ms(mode, t, n, isz, h, layers, bi)
+        cases.append({"mode": mode, "T": t, "N": n, "input": isz,
+                      "hidden": h, "layers": layers, "bidirectional": bi,
+                      "rel_err": errs, "cudnn_ms": ms["cudnn"],
+                      "plain_ms": ms["plain"],
+                      "cudnn_fwd_bwd_ms": ms["cudnn_fwd_bwd"],
+                      "plain_fwd_bwd_ms": ms["plain_fwd_bwd"],
+                      "library_ms": library,
+                      "view_copy_ms": None if library is None
+                      else ms["cudnn_turns"] - library,
+                      "bound_ms": bound, "bound_by": bound_by})
+        if case_worst > RNN_OP_RTOL:
+            fail(f"rnn_op: cuDNN vs plain {mode} {(t, n, isz, h)} "
+                 f"bidirectional={bi}: {errs}")
+    calls = rnn_mod.cudnn_calls - calls0
+    emit({"phase": "rnn_op", "cases": cases, "rtol": RNN_OP_RTOL,
+          "worst_rel_err": worst, "cudnn_calls": calls,
+          "library": "torch.nn.LSTM, flattened weights"})
+    if calls != made[0]:
+        fail(f"rnn_op: {calls} cuDNN calls, expected {made[0]}")
+
+
+def _lm_batches(loader):
+    while True:
+        for batch in loader:
+            yield batch
+
+
+def _lm_state(model):
+    return {n: torch.from_numpy(p.data().asnumpy().astype(np.float64))
+            for n, p in model.collect_params().items()}
+
+
+def phase_rnn_lm_train(seed, tmpdir):
+    """examples/word_language_model.py's tied 2-layer LSTM LM at LM_WIDTH
+    over LM_VOCAB words on the card, fed by ``gluon.contrib.data.text.
+    WikiText2`` and ``gluon.data.DataLoader`` from a synthetic token file
+    in WikiText-2's format, trained by ``gluon.Trainer("adam")`` with
+    ``clip_global_norm``: LM_WARMUP steps, then LM_WINDOWS windows of
+    LM_WINDOW_STEPS (ms a step, tokens/s, peak memory), the kernel counts
+    and ``ops.rnn.cudnn_calls`` set to 0 just before the windows and
+    read just after (one cuDNN call a step); one step under
+    torch.profiler (the idle share); an eval-mode perplexity over
+    LM_EVAL_BATCHES (cuDNN's inference forward), the first batch's
+    logits within RNN_OP_RTOL of their max of the same forward on the
+    CPU.  Gate: one step with dropout 0 at LM_REF_BATCH on
+    the card against the same step on the CPU in fp32 (the plain route),
+    the loss within STEP_LOSS_RTOL and every parameter within
+    SPREAD_FACTOR of the CPU's own fp32 spread: the same step on the CPU
+    with the LSTM as unrolled LSTMCells (``word_lm(cells=True)``), against
+    the fused layer's plain route."""
+    import os
+    import incubator_mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.gluon.contrib.data import text
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_mod
+    gpu = mx.gpu(0)
+    root = os.path.join(tmpdir, "wikitext-2")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    write_wikitext(os.path.join(root, "wiki.train.tokens"), LM_VOCAB - 2,
+                   LM_TOKENS, seed + 61)
+    data = text.WikiText2(root=root, segment="train", seq_len=LM_BPTT)
+    vocab = len(data.vocabulary)
+    loader = mx.gluon.data.DataLoader(data, batch_size=LM_BATCH,
+                                      shuffle=False, last_batch="discard")
+    data_s = time.perf_counter() - t0
+    if vocab != LM_VOCAB:
+        fail(f"rnn_lm_train: vocabulary of {vocab} words, not {LM_VOCAB}")
+    mx.random.seed(seed + 62)
+    model = word_lm(mx, vocab, LM_WIDTH, LM_LAYERS, LM_DROPOUT)
+    model.initialize(init=mx.init.Xavier(), ctx=gpu)
+    init = {n: p.data().asnumpy() for n, p in
+            model.collect_params().items()}
+    trainer = mx.gluon.Trainer(model.collect_params(), "adam",
+                               {"learning_rate": LM_LR})
+    batches = _lm_batches(loader)
+    hidden = model.begin_state(batch_size=LM_BATCH, ctx=gpu)
+    take = lambda k: [next(batches) for _ in range(k)]  # noqa: E731
+    losses, hidden = word_lm_steps(mx, model, trainer, take(LM_WARMUP), gpu,
+                                   hidden, LM_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    window_ms = []
+    _zero_counts()
+    rnn_mod.cudnn_calls = 0
+    for _ in range(LM_WINDOWS):
+        window = take(LM_WINDOW_STEPS)
+        t1 = time.perf_counter()
+        more, hidden = word_lm_steps(mx, model, trainer, window, gpu, hidden,
+                                     LM_BATCH)
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t1) / LM_WINDOW_STEPS * 1e3)
+        losses += more
+    launches, calls = _counts(), rnn_mod.cudnn_calls
+    peak = torch.cuda.max_memory_allocated()
+    _expect(calls, LM_WINDOWS * LM_WINDOW_STEPS, "rnn_lm_train: cuDNN RNN")
+    losses = [float(loss.mean().asscalar()) for loss in losses]
+    _finite(losses, "rnn_lm_train")
+    window = take(1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _, hidden = word_lm_steps(mx, model, trainer, window, gpu, hidden,
+                                  LM_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    profiled = _profile_summary(prof, wall)
+
+    # eval mode: no recording, no dropout; cuDNN's inference forward,
+    # its first batch held against the same forward on the CPU
+    ppl = mx.metric.Perplexity(None)
+    hidden = model.begin_state(batch_size=LM_BATCH, ctx=gpu)
+    calls0 = rnn_mod.cudnn_calls
+    eval_batches = take(LM_EVAL_BATCHES)
+    for i, (data_b, label_b) in enumerate(eval_batches):
+        out, hidden = model(mx.nd.transpose(data_b.as_in_context(gpu),
+                                            axes=(1, 0)), hidden)
+        if i == 0:
+            first = out.asnumpy()
+        ppl.update([mx.nd.transpose(label_b, axes=(1, 0)).reshape((-1,))],
+                   [mx.nd.softmax(out)])
+    eval_calls = rnn_mod.cudnn_calls - calls0
+    eval_ppl = ppl.get()[1]
+    trained = {n: p.data().asnumpy() for n, p in
+               model.collect_params().items()}
+    del model, trainer, hidden, prof, out
+    torch.cuda.empty_cache()
+    with mx.cpu():
+        cpu_model = word_lm(mx, vocab, LM_WIDTH, LM_LAYERS, LM_DROPOUT)
+        cpu_model.initialize(ctx=mx.cpu())
+        for n, p in cpu_model.collect_params().items():
+            p.set_data(mx.nd.array(trained[n]))
+        ref_out, _ = cpu_model(
+            mx.nd.transpose(eval_batches[0][0], axes=(1, 0)),
+            cpu_model.begin_state(batch_size=LM_BATCH, ctx=mx.cpu()))
+        ref_out = ref_out.asnumpy()
+    eval_err = float(np.abs(first - ref_out).max() / np.abs(ref_out).max())
+    del cpu_model, trained
+    if not math.isfinite(eval_ppl):
+        fail(f"rnn_lm_train: eval perplexity {eval_ppl}")
+    _expect(eval_calls, LM_EVAL_BATCHES, "rnn_lm_train: eval cuDNN RNN")
+    if eval_err > RNN_OP_RTOL:
+        fail(f"rnn_lm_train: eval logits, card vs CPU: {eval_err} of max")
+
+    # the gate: one step at dropout 0 from the same weights
+    ref_batch = [(d[:LM_REF_BATCH], lb[:LM_REF_BATCH])
+                 for d, lb in take(1)]
+    runs = {}
+    t1 = time.perf_counter()
+    for key, ctx, cells in (("card", gpu, False), ("cpu", mx.cpu(), False),
+                            ("cpu_cells", mx.cpu(), True)):
+        net = word_lm(mx, vocab, LM_WIDTH, LM_LAYERS, 0.0, cells=cells)
+        net.initialize(ctx=ctx)
+        for n, p in net.collect_params().items():
+            p.set_data(mx.nd.array(init[n], ctx=ctx))
+        tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": LM_LR})
+        h0 = net.begin_state(batch_size=LM_REF_BATCH, ctx=ctx)
+        with ctx:
+            loss, _ = word_lm_steps(mx, net, tr, ref_batch, ctx, h0,
+                                    LM_REF_BATCH)
+        runs[key] = (float(loss[0].mean().asscalar()), _lm_state(net))
+        del net, tr
+    ref_s = time.perf_counter() - t1
+    (loss_gpu, got), (loss_cpu, ref) = runs["card"], runs["cpu"]
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    keys = sorted(ref)
+    params_worst, params_key = _worst(got, ref, keys)
+    spread, spread_key = _worst(runs["cpu_cells"][1], ref, keys)
+    tokens_per_s = LM_BATCH * LM_BPTT / (np.median(window_ms) / 1e3)
+    emit({"phase": "rnn_lm_train", "model": "word_language_model RNNModel",
+          "vocab": vocab, "embed": LM_WIDTH, "hidden": LM_WIDTH,
+          "layers": LM_LAYERS, "tied": True, "dropout": LM_DROPOUT,
+          "bptt": LM_BPTT, "batch": LM_BATCH, "optimizer": "adam",
+          "lr": LM_LR, "clip": LM_CLIP, "data_s": data_s,
+          "window_ms_per_step": window_ms,
+          "ms_per_step": float(np.median(window_ms)),
+          "tokens_per_s": tokens_per_s, "peak_mem_gb": peak / 1e9,
+          "losses": losses, "cudnn_calls": calls, "launches": launches,
+          "profiled_step": {k: profiled[k] for k in (
+              "wall_s", "device_busy_s", "device_idle_share",
+              "device_ms_by_kind", "top_kernels")},
+          "eval": {"batches": LM_EVAL_BATCHES, "perplexity": eval_ppl,
+                   "cudnn_calls": eval_calls,
+                   "logits_rel_err_vs_cpu": eval_err,
+                   "rtol": RNN_OP_RTOL},
+          "reference": {
+              "batch": LM_REF_BATCH, "loss_card": loss_gpu,
+              "loss_cpu": loss_cpu, "loss_rel_err": loss_rel,
+              "params_worst_over_bound": params_worst,
+              "params_worst": params_key,
+              "cpu_spread_worst_over_bound": spread,
+              "cpu_spread_worst": spread_key,
+              "spread_factor": SPREAD_FACTOR, "rtol": STEP_RTOL,
+              "atol": STEP_ATOL, "tensors": len(keys), "seconds": ref_s}})
+    if not math.isfinite(loss_gpu) or loss_rel > STEP_LOSS_RTOL:
+        fail(f"rnn_lm_train: card vs CPU loss {loss_gpu} vs {loss_cpu}")
+    if params_worst > max(1.0, SPREAD_FACTOR * spread):
+        fail(f"rnn_lm_train: card vs CPU parameters after one step: "
+             f"{params_key} is {params_worst} x its bound off, the CPU's "
+             f"own spread {spread}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _bucket_module(mx, fused, ctx, arg_params=None):
+    """A BucketingModule over the bucketing examples' sym_gen on ``ctx``,
+    bound at the default bucket, its parameters from ``arg_params`` or
+    Xavier (the fused stack takes only given ones)."""
+    stack = bucket_stack(mx, BUCKET_WIDTH, BUCKET_LAYERS, fused)
+    mod = mx.mod.BucketingModule(
+        bucket_sym_gen(mx, stack, BUCKET_VOCAB, BUCKET_WIDTH, BUCKET_WIDTH),
+        default_bucket_key=max(BUCKETS), context=ctx)
+    shape = (BUCKET_BATCH, max(BUCKETS))
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", shape)])
+    mod.init_params(initializer=mx.init.Xavier(), arg_params=arg_params,
+                    allow_missing=arg_params is None)
+    return mod
+
+
+def _bucket_batch(mx, seed, key, ctx=None):
+    rs = np.random.RandomState(seed)
+    data = rs.randint(0, BUCKET_VOCAB, (BUCKET_BATCH, key)).astype(
+        np.float32)
+    label = np.full(data.shape, -1.0, np.float32)
+    label[:, :-1] = data[:, 1:]
+    return mx.io.DataBatch(
+        [mx.nd.array(data, ctx=ctx or mx.cpu())],
+        [mx.nd.array(label, ctx=ctx or mx.cpu())], bucket_key=key,
+        provide_data=[mx.io.DataDesc("data", data.shape)],
+        provide_label=[mx.io.DataDesc("softmax_label", label.shape)])
+
+
+def _bucket_step(mx, fused, ctx, arg_params, batch):
+    """One forward_backward + update of a fresh module: (outputs,
+    {name: fp64 tensor} of the parameters after it)."""
+    mod = _bucket_module(mx, fused, ctx, arg_params)
+    mod.init_optimizer(optimizer="adam", optimizer_params=BUCKET_OPT)
+    mod.forward_backward(batch)
+    mod.update()
+    out = mod.get_outputs()[0].asnumpy()
+    args, _ = mod.get_params()
+    return out, {k: torch.from_numpy(v.asnumpy().astype(np.float64))
+                 for k, v in args.items()}
+
+
+def phase_rnn_bucketing(seed):
+    """examples/rnn_bucketing.py at MXNet's lstm_bucketing.py width:
+    ``BucketingModule.fit`` (Adam, Perplexity, one epoch of
+    BUCKET_BATCHES batches in each of BUCKETS from BucketSentenceIter)
+    over 2 stacked legacy LSTMCells, then over one FusedRNNCell
+    (cudnn_lstm_bucketing.py) from the same weights (packed by
+    ``pack_weights``), the kernel counts and ``ops.rnn.cudnn_calls``
+    read around each fit (one cuDNN call a fused batch, none unfused);
+    then ms a batch by bucket on resident batches.  Gate: one batch of
+    bucket BUCKET_REF_KEY on the card against the CPU for each stack:
+    outputs within STEP_LOSS_RTOL of their max, parameters after the
+    update within SPREAD_FACTOR of the CPU's own spread between the two
+    stacks (the same weights, the unfused cells against the fused op's
+    plain route)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_mod
+    gpu = mx.gpu(0)
+    sentences = bucket_sentences(seed + 70, BUCKET_VOCAB, BUCKETS,
+                                 BUCKET_BATCHES * BUCKET_BATCH)
+    mx.random.seed(seed + 71)
+    stacks, launches, init = {}, {}, None
+    for name, fused in (("lstm_cells", False), ("fused", True)):
+        train = mx.rnn.BucketSentenceIter(sentences, BUCKET_BATCH,
+                                          buckets=list(BUCKETS),
+                                          invalid_label=-1)
+        if fused:
+            packer = bucket_stack(mx, BUCKET_WIDTH, BUCKET_LAYERS, True)
+            arg_params = packer.pack_weights(init)
+        else:
+            arg_params = None
+        mod = _bucket_module(mx, fused, gpu, arg_params)
+        if init is None:
+            init = mod.get_params()[0]
+        metric = mx.metric.Perplexity(-1)
+        seen = []
+        torch.cuda.synchronize()
+        _zero_counts()
+        calls0 = rnn_mod.cudnn_calls
+        t0 = time.perf_counter()
+        mod.fit(train, eval_metric=metric, optimizer="adam",
+                optimizer_params=BUCKET_OPT, num_epoch=1,
+                batch_end_callback=lambda p: seen.append(p.nbatch))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches[name] = _counts()
+        calls = rnn_mod.cudnn_calls - calls0
+        n_batches = len(seen)
+        if n_batches != BUCKET_BATCHES * len(BUCKETS):
+            fail(f"rnn_bucketing {name}: fit ran {n_batches} batches")
+        _expect(calls, n_batches if fused else 0,
+                f"rnn_bucketing {name}: cuDNN RNN")
+        ms_by_bucket = {}
+        for key in BUCKETS:
+            batch = _bucket_batch(mx, seed + key, key, gpu)
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(BUCKET_TIMED):
+                mod.forward_backward(batch)
+                mod.update()
+            torch.cuda.synchronize()
+            ms_by_bucket[key] = (time.perf_counter() - t1) / \
+                BUCKET_TIMED * 1e3
+        ppl = metric.get()[1]
+        if not math.isfinite(ppl):
+            fail(f"rnn_bucketing {name}: perplexity {ppl}")
+        stacks[name] = {"fit_s": fit_s, "batches": n_batches,
+                        "train_perplexity": ppl, "cudnn_calls": calls,
+                        "launches": launches[name],
+                        "ms_per_batch_by_bucket": ms_by_bucket}
+        del mod
+        torch.cuda.empty_cache()
+
+    # the gate: one batch of bucket BUCKET_REF_KEY, card vs CPU
+    batch = _bucket_batch(mx, seed + 72, BUCKET_REF_KEY)
+    packed = bucket_stack(mx, BUCKET_WIDTH, BUCKET_LAYERS, True) \
+        .pack_weights(init)
+    t1 = time.perf_counter()
+    runs = {}
+    for name, fused, params in (("lstm_cells", False, init),
+                                ("fused", True, packed)):
+        for where, ctx in (("card", gpu), ("cpu", mx.cpu())):
+            with ctx:
+                runs[name, where] = _bucket_step(
+                    mx, fused, ctx, {k: v.copyto(ctx) for k, v in
+                                     params.items()}, batch)
+    unpacker = bucket_stack(mx, BUCKET_WIDTH, BUCKET_LAYERS, True)
+    fused_cpu = {k: torch.from_numpy(v.asnumpy().astype(np.float64))
+                 for k, v in unpacker.unpack_weights(
+                     {k: mx.nd.array(t.numpy(), ctx=mx.cpu()) for k, t in
+                      runs["fused", "cpu"][1].items()}).items()}
+    cells_cpu = runs["lstm_cells", "cpu"][1]
+    spread, spread_key = _worst(fused_cpu, cells_cpu, sorted(cells_cpu))
+    reference = {"bucket": BUCKET_REF_KEY, "cpu_spread_worst_over_bound":
+                 spread, "cpu_spread_worst": spread_key,
+                 "spread_factor": SPREAD_FACTOR, "rtol": STEP_RTOL}
+    for name in ("lstm_cells", "fused"):
+        (p_gpu, got), (p_cpu, ref) = runs[name, "card"], runs[name, "cpu"]
+        out_err = float(np.abs(p_gpu - p_cpu).max())
+        out_scale = float(np.abs(p_cpu).max())
+        params_worst, params_key = _worst(got, ref, sorted(ref))
+        reference[name] = {"outputs_max_abs_err": out_err,
+                           "outputs_abs_max": out_scale,
+                           "params_worst_over_bound": params_worst,
+                           "params_worst": params_key}
+        if out_err > STEP_LOSS_RTOL * out_scale:
+            fail(f"rnn_bucketing {name}: card vs CPU outputs differ by "
+                 f"{out_err} > {STEP_LOSS_RTOL} x {out_scale}")
+        if params_worst > max(1.0, SPREAD_FACTOR * spread):
+            fail(f"rnn_bucketing {name}: card vs CPU parameters after one "
+                 f"batch: {params_key} is {params_worst} x its bound off, "
+                 f"the CPU's own spread {spread}")
+    reference["seconds"] = time.perf_counter() - t1
+    emit({"phase": "rnn_bucketing", "vocab": BUCKET_VOCAB,
+          "embed": BUCKET_WIDTH, "hidden": BUCKET_WIDTH,
+          "layers": BUCKET_LAYERS, "batch": BUCKET_BATCH,
+          "buckets": list(BUCKETS), "optimizer": "adam",
+          "optimizer_params": BUCKET_OPT, "stacks": stacks,
+          "reference": reference})
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4056,8 +4749,17 @@ def main():
             args.seed, prefix)
         symbolic_paths["symbolic_fused"] = phase_symbolic_fused(args.seed,
                                                                 prefix)
+        torch.cuda.empty_cache()
+        _zero_counts()
+        phase_rnn_op(args.seed)
+        recurrent_paths = {"rnn_op": _counts()}
+        recurrent_paths["rnn_lm_train"] = phase_rnn_lm_train(args.seed,
+                                                             tmpdir)
+        for name, counts in phase_rnn_bucketing(args.seed).items():
+            recurrent_paths[f"rnn_bucketing_{name}"] = counts
     paths = {"launches_gluon": gluon_paths, "launches_data": data_paths,
-             "launches_symbolic": symbolic_paths}
+             "launches_symbolic": symbolic_paths,
+             "launches_recurrent": recurrent_paths}
     for row in kernels:
         for key, runs in paths.items():
             row[key] = {path: counts.get(row["name"], 0)

@@ -33,7 +33,10 @@ NDArrays and offers ``collect_params``), the data pipeline
 its graph passes, ``executor.Executor``, ``operator.CustomOp``,
 ``module`` as ``mod``, ``model`` with ``FeedForward``, ``callback``,
 ``monitor``, ``attribute.AttrScope``, the symbol ``predict.Predictor``
-and its ``ModelServer`` backend, ``gluon.SymbolBlock``).  So
+and its ``ModelServer`` backend, ``gluon.SymbolBlock``), and the
+recurrent family (the fused ``RNN`` op, cuDNN's on the card,
+``gluon.rnn``, ``gluon.contrib.rnn``, the legacy ``rnn`` cells with
+``BucketSentenceIter``) with every optimizer of the JAX package.  So
 ``import incubator_mxnet_tpu_torch as mx; mx.nd.ones((2,))`` reads as
 it does against the JAX package, except that the default context is
 ``mx.gpu(0)``.
@@ -50,6 +53,7 @@ from . import symbol
 from . import symbol as sym
 from . import module
 from . import module as mod
+from . import rnn
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus, tpu
@@ -63,5 +67,5 @@ __all__ = ["AttrScope", "Context", "Executor", "MXNetError", "attribute",
            "init", "initializer", "io", "lr_scheduler", "metric", "mod",
            "model", "module", "monitor", "name", "nd", "ndarray", "num_gpus",
            "numerics", "operator", "ops", "optimizer", "parallel",
-           "pipeline_io", "predict", "random", "recordio", "rtc", "serving",
-           "sym", "symbol", "tpu"]
+           "pipeline_io", "predict", "random", "recordio", "rnn", "rtc",
+           "serving", "sym", "symbol", "tpu"]

@@ -1,6 +1,8 @@
 """Gluon contrib of the port: the data helpers (``IntervalSampler``,
-``text.WikiText2`` / ``WikiText103``).  The contrib layers and cells of
-the JAX package are not ported (ROADMAP A8)."""
-from . import data
+``text.WikiText2`` / ``WikiText103``) and the recurrent cells
+(``rnn.VariationalDropoutCell``, the convolutional RNN / LSTM / GRU
+cells).  The contrib layers (``contrib.nn``) of the JAX package are not
+ported (ROADMAP A8)."""
+from . import data, rnn
 
-__all__ = ["data"]
+__all__ = ["data", "rnn"]

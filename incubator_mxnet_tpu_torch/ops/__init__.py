@@ -8,6 +8,7 @@ from . import nn             # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import random         # noqa: F401
 from . import reduce         # noqa: F401
+from . import rnn            # noqa: F401
 from .fused_chain import (chain_emit, chain_stats, chain_supported,
                           fused_bottleneck_chain)
 from .fused_conv import (bn_affine, bn_stats, fused_bn_relu_conv,

@@ -4,18 +4,20 @@
 Registered here: ``FullyConnected`` (``nn.py:38``), ``Convolution``
 (``:79``), ``Deconvolution`` (``:116``), ``Pooling`` (``:151``),
 ``Activation`` (``:209``), ``LeakyReLU`` (``:226``), ``softmax``
-(``:248``), ``log_softmax`` (``:254``), ``BatchNorm`` (``:408``),
+(``:248``), ``log_softmax`` (``:254``), ``softmin`` (``:260``),
+``SoftmaxActivation`` (``:266``), ``BatchNorm`` (``:408``),
 ``_FusedBatchNormRelu`` (``:535``, over ``fused_batch_norm_relu``, which
 ``gluon.nn.BNReLU`` also calls), ``InstanceNorm`` (``:550``),
 ``LayerNorm`` (``:559``), ``L2Normalization`` (``:570``), ``LRN``
 (``:586``), ``Dropout`` (``:596``), ``Pad`` (``:609``), ``UpSampling``
-(``:621``), ``softmax_cross_entropy`` (``:733``) and the output layers
+(``:621``), ``SequenceMask`` / ``SequenceLast`` / ``SequenceReverse``
+(``:645-690``), ``softmax_cross_entropy`` (``:733``) and the output layers
 (``:283-400``: ``SoftmaxOutput`` with its aliases ``Softmax`` and
 ``softmax_output``, ``LinearRegressionOutput``,
 ``LogisticRegressionOutput``, ``MAERegressionOutput``, ``SVMOutput``),
 each a ``torch.autograd.Function`` whose backward is the JAX op's custom
-gradient, which ignores the head gradient.  The sequence ops and the
-legacy ops are ROADMAP A8.
+gradient, which ignores the head gradient.  The legacy ops are ROADMAP
+A8.
 
 Each op is plain PyTorch (``F.conv*d``, ``F.*pool*d``, elementwise
 arithmetic), as the JAX package leaves them to XLA, and its gradient is
@@ -84,6 +86,22 @@ def _softmax(data, *, axis=-1, temperature=None):
 def _log_softmax(data, *, axis=-1, temperature=None):
     x = data / temperature if temperature else _float(data)
     return torch.log_softmax(x, dim=axis)
+
+
+@register_op("softmin")
+def _softmin(data, *, axis=-1, temperature=None):
+    x = data / temperature if temperature else _float(data)
+    return torch.softmax(-x, dim=axis)
+
+
+@register_op("SoftmaxActivation")
+def _softmax_activation(data, *, mode="instance"):
+    """Softmax over the channels (axis 1, ``mode="channel"``) or over all
+    of an instance's values."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
 
 
 @register_op("softmax_cross_entropy")
@@ -499,6 +517,51 @@ def _upsampling(*args, scale, sample_type="nearest", num_args=1,
     if multi_input_mode == "sum":
         return sum(outs)
     return torch.cat(outs, 1)
+
+
+# ------------------------------------------------------------- sequences
+# data is (T, N, ...) on axis=0 or (N, T, ...) on axis=1; the lengths are
+# (N,), float or integer
+@register_op("SequenceMask")
+def _sequence_mask(data, sequence_length=None, *, use_sequence_length=False,
+                   value=0.0, axis=0):
+    """``value`` at the steps at or past each sequence's length."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    pos = torch.arange(data.shape[axis], device=data.device)
+    mask = pos[:, None] < sequence_length.long()[None, :]      # (T, N)
+    if axis == 1:
+        mask = mask.t()
+    mask = mask.reshape(mask.shape + (1,) * (data.ndim - 2))
+    return torch.where(mask, data, torch.tensor(value, dtype=data.dtype,
+                                                device=data.device))
+
+
+@register_op("SequenceLast")
+def _sequence_last(data, sequence_length=None, *, use_sequence_length=False,
+                   axis=0):
+    """Each sequence's last valid step (the last step without lengths)."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, data.shape[axis] - 1)
+    idx = sequence_length.long() - 1
+    if axis == 0:
+        return data[idx, torch.arange(data.shape[1], device=data.device)]
+    return data[torch.arange(data.shape[0], device=data.device), idx]
+
+
+@register_op("SequenceReverse")
+def _sequence_reverse(data, sequence_length=None, *, use_sequence_length=False,
+                      axis=0):
+    """The steps reversed, each sequence within its own length (the steps
+    past it stay in place); with lengths the time axis is 0, as in the
+    JAX op."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(axis,))
+    pos = torch.arange(data.shape[0], device=data.device)[:, None]
+    sl = sequence_length.long()[None, :]
+    src = torch.where(pos < sl, sl - 1 - pos, pos)               # (T, N)
+    src = src.reshape(src.shape + (1,) * (data.ndim - 2))
+    return torch.take_along_dim(data, src.expand(data.shape), dim=0)
 
 
 # ------------------------------------------------------------- output layers

@@ -2,40 +2,55 @@
 and the update ops of ``ops/optimizer_ops.py``): the ``Optimizer`` base
 (``register``, ``create``, the per-index update counts that drive an
 ``lr_scheduler``, ``lr_mult`` / ``wd_mult`` through ``param_dict`` or
-by name, ``Updater`` / ``get_updater`` with pickled states) and ``SGD``
-with momentum, with fp32 master weights for bf16 / fp16 ones
-(``multi_precision``).  The other optimizers of the JAX file are
-ROADMAP A8.
+by name, ``Updater`` / ``get_updater`` with pickled states) and the
+JAX file's 15 optimizers, registered by their lowercased names (and
+``ccsgd`` for ``SGD``): ``SGD`` with momentum and fp32 master weights
+for bf16 / fp16 ones (``multi_precision``, which the base class offers
+every optimizer), ``Signum``, ``NAG``, ``SGLD``, ``DCASGD``, ``Adam``,
+``AdaGrad``, ``RMSProp``, ``Ftrl``, ``Adamax``, ``Nadam``, ``LBSGD``,
+``Test``, ``AdaDelta`` and ``FTML``.
 
 ``update(index, weight, grad, state)`` takes the weight, gradient and
-state as NDArrays (``gluon.Trainer`` through its ``Updater``) or as
-torch tensors (``parallel.TrainStep``) and updates them in place; an
-NDArray that a live recorded graph has saved is rebound instead
-(``NDArray._write``), as the JAX package rebinds every update.
+state as NDArrays (``gluon.Trainer`` and ``Module`` through their
+``Updater``) or as torch tensors (``parallel.TrainStep``) and updates
+them in place; an NDArray that a live recorded graph has saved is
+rebound instead (``NDArray._write``), as the JAX package rebinds every
+update.  Gradients are dense: a ``row_sparse`` one raises ``MXNetError``
+(the sparse NDArray is ROADMAP A8).
 
-The update order is the reference's ``sgd_mom_update`` exactly::
+The arithmetic of each update op is written once, here, as an in-place
+function of the op's name (``sgd_mom_update``, ``adam_update`` ...) in
+the JAX op's order of operations; ``ops/optimizer_ops`` registers the
+ops over copies of the inputs.  ``sgd_mom_update`` for instance is::
 
     g = clip(rescale_grad * grad)          (clip only when clip_gradient > 0)
     mom = momentum * mom - lr * (g + wd * w)
     w = w + mom
 
-and without momentum ``w = w - lr * (g + wd * w)`` (``sgd_update``).  The
-multi-precision forms (``mp_sgd_mom_update``, ``mp_sgd_update``) run the
-same steps on the fp32 master ``w32`` with the fp32 gradient, then round
-the weight from it.  The port updates the weight, the momentum and the
-master in place.
+The multi-precision forms (``mp_sgd_mom_update``, ``mp_sgd_update``) run
+the same steps on the fp32 master ``w32`` with the fp32 gradient, then
+round the weight from it.  ``NAG``, ``SGLD``, ``DCASGD``, ``Adamax``,
+``Nadam`` and ``Test`` have no op in the JAX package either: their
+arithmetic is the JAX class's NDArray arithmetic on tensors.  SGLD's
+noise comes from the port's generator of the weight's device, so its
+bits differ from the JAX package's.
 """
 from __future__ import annotations
 
+import math
 import pickle
 
 import torch
 
-from .base import registry
+from .base import MXNetError, registry
 
-__all__ = ["Optimizer", "SGD", "Updater", "create", "get_updater",
-           "mp_sgd_mom_update", "mp_sgd_update", "register",
-           "sgd_mom_update", "sgd_update"]
+__all__ = ["AdaDelta", "AdaGrad", "Adam", "Adamax", "DCASGD", "FTML", "Ftrl",
+           "LBSGD", "NAG", "Nadam", "Optimizer", "RMSProp", "SGD", "SGLD",
+           "Signum", "Test", "Updater", "adadelta_update", "adagrad_update",
+           "adam_update", "create", "ftml_update", "ftrl_update",
+           "get_updater", "mp_sgd_mom_update", "mp_sgd_update", "register",
+           "rmsprop_update", "rmspropalex_update", "sgd_mom_update",
+           "sgd_update", "signsgd_update", "signum_update"]
 
 _REG = registry("optimizer")
 
@@ -86,6 +101,124 @@ def mp_sgd_update(weight, grad, weight32, lr, wd=0.0, rescale_grad=1.0,
     g = _rescale(grad, rescale_grad, clip_gradient)
     weight32.copy_(weight32 - lr * (g + wd * weight32))
     weight.copy_(weight32)
+
+
+def _grad(grad, weight, rescale_grad, clip_gradient):
+    """The rescaled, clipped gradient in the weight's dtype."""
+    return _rescale(grad, rescale_grad, clip_gradient).to(weight.dtype)
+
+
+@torch.no_grad()
+def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=None):
+    """One Adam step of ``weight``, ``mean`` and ``var`` (the caller
+    folds the bias correction into ``lr``)."""
+    g = _grad(grad, weight, rescale_grad, clip_gradient) + wd * weight
+    mean.copy_(beta1 * mean + (1 - beta1) * g)
+    var.copy_(beta2 * var + (1 - beta2) * g.square())
+    weight.copy_(weight - lr * mean / (var.sqrt() + epsilon))
+
+
+def _clip_weights(weight, clip_weights):
+    if clip_weights is not None and clip_weights > 0:
+        weight.clamp_(-clip_weights, clip_weights)
+
+
+@torch.no_grad()
+def rmsprop_update(weight, grad, n, lr, gamma1=0.95, epsilon=1e-8, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=None, clip_weights=None):
+    """One RMSProp step (Tieleman & Hinton) of ``weight`` and ``n``."""
+    g = _grad(grad, weight, rescale_grad, clip_gradient) + wd * weight
+    n.copy_(gamma1 * n + (1 - gamma1) * g.square())
+    weight.copy_(weight - lr * g / (n + epsilon).sqrt())
+    _clip_weights(weight, clip_weights)
+
+
+@torch.no_grad()
+def rmspropalex_update(weight, grad, n, g_state, delta, lr, gamma1=0.95,
+                       gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=None, clip_weights=None):
+    """One centred RMSProp step (Graves) of ``weight``, ``n``, ``g_state``
+    and ``delta``."""
+    g = _grad(grad, weight, rescale_grad, clip_gradient) + wd * weight
+    n.copy_(gamma1 * n + (1 - gamma1) * g.square())
+    g_state.copy_(gamma1 * g_state + (1 - gamma1) * g)
+    delta.copy_(gamma2 * delta - lr * g / (n - g_state.square()
+                                           + epsilon).sqrt())
+    weight.add_(delta)
+    _clip_weights(weight, clip_weights)
+
+
+@torch.no_grad()
+def ftrl_update(weight, grad, z, n, lr, lamda1=0.01, beta=1.0, wd=0.0,
+                rescale_grad=1.0, clip_gradient=None):
+    """One FTRL-proximal step of ``weight``, ``z`` and ``n``."""
+    g = _grad(grad, weight, rescale_grad, clip_gradient)
+    new_n = n + g.square()
+    sigma = (new_n.sqrt() - n.sqrt()) / lr
+    z.copy_(z + g - sigma * weight)
+    n.copy_(new_n)
+    w = -(z - z.sign() * lamda1) / ((beta + new_n.sqrt()) / lr + wd)
+    weight.copy_(torch.where(z.abs() > lamda1, w, torch.zeros_like(w)))
+
+
+@torch.no_grad()
+def signsgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=None):
+    """One signSGD step of ``weight``."""
+    g = _grad(grad, weight, rescale_grad, clip_gradient)
+    weight.copy_(weight - lr * (g.sign() + wd * weight))
+
+
+@torch.no_grad()
+def signum_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
+                  rescale_grad=1.0, clip_gradient=None, wd_lh=0.0):
+    """One Signum step of ``weight`` and ``mom``."""
+    g = _grad(grad, weight, rescale_grad, clip_gradient)
+    mom.copy_(momentum * mom - (1 - momentum) * (g + wd * weight))
+    weight.copy_((1 - lr * wd_lh) * weight + lr * mom.sign())
+
+
+@torch.no_grad()
+def adagrad_update(weight, grad, history, lr, epsilon=1e-7, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=None):
+    """One AdaGrad step of ``weight`` and ``history``."""
+    g = _grad(grad, weight, rescale_grad, clip_gradient)
+    history.copy_(history + g.square())
+    weight.copy_(weight - lr * (g / (history + epsilon).sqrt()
+                                + wd * weight))
+
+
+@torch.no_grad()
+def adadelta_update(weight, grad, acc_g, acc_delta, rho=0.9, epsilon=1e-5,
+                    wd=0.0, rescale_grad=1.0, clip_gradient=None):
+    """One AdaDelta step of ``weight``, ``acc_g`` and ``acc_delta``."""
+    g = _grad(grad, weight, rescale_grad, clip_gradient)
+    acc_g.copy_(rho * acc_g + (1 - rho) * g.square())
+    delta = (acc_delta + epsilon).sqrt() / (acc_g + epsilon).sqrt() * g
+    acc_delta.copy_(rho * acc_delta + (1 - rho) * delta.square())
+    weight.copy_(weight - delta - wd * weight)
+
+
+@torch.no_grad()
+def ftml_update(weight, grad, d, v, z, lr, t, beta1=0.6, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_grad=None):
+    """One FTML step (Follow the Moving Leader) of ``weight``, ``d``,
+    ``v`` and ``z`` at update count ``t``.  As in the reference, ``wd``
+    goes inside the clipped gradient and the clip is named
+    ``clip_grad`` (clipping at any value >= 0)."""
+    g = grad.float() * rescale_grad + wd * weight
+    if clip_grad is not None and clip_grad >= 0:
+        g = g.clamp(-clip_grad, clip_grad)
+    g = g.to(weight.dtype)
+    tf = torch.tensor(float(t), dtype=torch.float32, device=weight.device)
+    v.copy_(beta2 * v + (1.0 - beta2) * g * g)
+    d_t = (1.0 - beta1 ** tf) / lr * ((v / (1.0 - beta2 ** tf)).sqrt()
+                                      + epsilon)
+    sigma = d_t - beta1 * d
+    z.copy_(beta1 * z + (1.0 - beta1) * g - sigma * weight)
+    d.copy_(d_t)
+    weight.copy_(-z / d_t)
 
 
 def register(klass):
@@ -269,6 +402,28 @@ def _as_fp32(x):
     return x.detach().float()
 
 
+def _zeros(weight):
+    """Zeros like ``weight`` (an NDArray or a tensor), of its kind."""
+    if isinstance(weight, _nd_class()):
+        from .ndarray.ndarray import zeros
+        return zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
+    return torch.zeros_like(weight, requires_grad=False)
+
+
+def _copy(weight):
+    if isinstance(weight, _nd_class()):
+        return weight.copy()
+    return weight.detach().clone()
+
+
+def _dense(grad):
+    """Raise on a sparse gradient: the port's updates are dense only."""
+    stype = getattr(grad, "stype", "default")
+    if stype != "default":
+        raise MXNetError(f"optimizer: a {stype} gradient is not supported "
+                         "by the port (ROADMAP A8, ndarray.sparse)")
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum (reference optimizer.py:434), over
@@ -286,11 +441,7 @@ class SGD(Optimizer):
         """The momentum buffer (zeros like the weight), or None."""
         if self.momentum == 0.0:
             return None
-        if isinstance(weight, _nd_class()):
-            from .ndarray.ndarray import zeros
-            return zeros(weight.shape, ctx=weight.context,
-                         dtype=weight.dtype)
-        return torch.zeros_like(weight, requires_grad=False)
+        return _zeros(weight)
 
     def create_state_multi_precision(self, index, weight):
         if self._mixed(weight):
@@ -299,6 +450,7 @@ class SGD(Optimizer):
         return self.create_state(index, weight)
 
     def update(self, index, weight, grad, state):
+        _dense(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         if state is None:
@@ -311,6 +463,7 @@ class SGD(Optimizer):
     def update_multi_precision(self, index, weight, grad, state):
         if not self._mixed(weight):
             return self.update(index, weight, grad, state)
+        _dense(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         mom, w32 = state
@@ -320,6 +473,443 @@ class SGD(Optimizer):
         else:
             _update_in_place(mp_sgd_mom_update, [weight, grad, mom, w32],
                              lr, self.momentum, wd, **self._common())
+
+
+@register
+class Signum(Optimizer):
+    """Sign-momentum SGD (reference optimizer.py:Signum), over
+    ``signum_update``, or ``signsgd_update`` without momentum."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros(weight)
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if state is None:
+            _update_in_place(signsgd_update, [weight, grad], lr, wd,
+                             **self._common())
+        else:
+            _update_in_place(signum_update, [weight, grad, state], lr,
+                             self.momentum, wd, wd_lh=self.wd_lh,
+                             **self._common())
+
+
+def _scaled(grad, rescale_grad, clip_gradient):
+    """``grad * rescale_grad``, clipped when ``clip_gradient`` is set (at
+    any value, as the JAX classes without an update op clip)."""
+    g = grad * rescale_grad
+    if clip_gradient is not None:
+        g = g.clamp(-clip_gradient, clip_gradient)
+    return g
+
+
+@torch.no_grad()
+def _nag_update(weight, grad, mom, lr, momentum, wd, rescale_grad,
+                clip_gradient):
+    g = _scaled(grad, rescale_grad, clip_gradient)
+    if mom is None:
+        weight.add_(-lr * (g + wd * weight))
+        return
+    mom.mul_(momentum)
+    g = g + wd * weight
+    mom.add_(g)
+    g = g + momentum * mom
+    weight.add_(-lr * g)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD (reference optimizer.py:NAG)."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros(weight)
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        _update_in_place(_nag_update, [weight, grad, state], lr,
+                         self.momentum, wd, self.rescale_grad,
+                         self.clip_gradient)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (reference
+    optimizer.py:SGLD): half an SGD step plus N(0, lr) noise drawn from
+    the port's generator of the weight's device."""
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        rescale, clip = self.rescale_grad, self.clip_gradient
+
+        @torch.no_grad()
+        def step(w, g):
+            from . import random as _random
+            g = _scaled(g, rescale, clip)
+            noise = torch.normal(0.0, math.sqrt(lr), w.shape,
+                                 generator=_random.generator(w.device),
+                                 device=w.device, dtype=w.dtype)
+            w.add_(-lr / 2 * (g + wd * w) + noise)
+        _update_in_place(step, [weight, grad])
+
+
+@torch.no_grad()
+def _dcasgd_update(weight, grad, mom, previous, lr, momentum, lamda, wd,
+                   rescale_grad, clip_gradient):
+    g = _scaled(grad, rescale_grad, clip_gradient)
+    delta = -lr * (g + wd * weight + lamda * g * g * (weight - previous))
+    if mom is not None:
+        mom.mul_(momentum)
+        mom.add_(delta)
+        delta = mom
+    previous.copy_(weight)
+    weight.add_(delta)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (reference
+    optimizer.py:DCASGD); its state is (momentum or None, the previous
+    weight)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else _zeros(weight)
+        return (mom, _copy(weight))
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        mom, previous = state
+        _update_in_place(_dcasgd_update, [weight, grad, mom, previous], lr,
+                         self.momentum, self.lamda, wd, self.rescale_grad,
+                         self.clip_gradient)
+
+
+@register
+class Adam(Optimizer):
+    """Adam (reference optimizer.py:984), over ``adam_update`` with the
+    bias correction folded into the learning rate."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        mean, var = state
+        _update_in_place(adam_update, [weight, grad, mean, var], lr,
+                         self.beta1, self.beta2, self.epsilon, wd,
+                         **self._common())
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference optimizer.py:AdaGrad), over ``adagrad_update``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        _update_in_place(adagrad_update, [weight, grad, state], lr,
+                         self.float_stable_eps, wd, **self._common())
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain (Tieleman & Hinton, ``rmsprop_update``) or centred
+    (Graves, ``rmspropalex_update``) (reference optimizer.py:RMSProp)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros(weight), _zeros(weight), _zeros(weight))
+        return (_zeros(weight),)
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        kw = dict(self._common(), clip_weights=self.clip_weights)
+        if not self.centered:
+            _update_in_place(rmsprop_update, [weight, grad, *state], lr,
+                             self.gamma1, self.epsilon, wd, **kw)
+        else:
+            _update_in_place(rmspropalex_update, [weight, grad, *state], lr,
+                             self.gamma1, self.gamma2, self.epsilon, wd,
+                             **kw)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (reference optimizer.py:Ftrl), over ``ftrl_update``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        z, n = state
+        _update_in_place(ftrl_update, [weight, grad, z, n], lr, self.lamda1,
+                         self.beta, wd, **self._common())
+
+
+@torch.no_grad()
+def _adamax_update(weight, grad, m, u, lr, beta1, beta2, wd, rescale_grad,
+                   clip_gradient):
+    g = grad * rescale_grad + wd * weight
+    if clip_gradient is not None:
+        g = g.clamp(-clip_gradient, clip_gradient)
+    m.copy_(beta1 * m + (1.0 - beta1) * g)
+    u.copy_(torch.maximum(beta2 * u, g.abs()))
+    weight.add_(-lr * m / (u + 1e-8))
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax, Adam under the infinity norm (reference
+    optimizer.py:Adamax)."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr /= (1.0 - self.beta1 ** t)
+        m, u = state
+        _update_in_place(_adamax_update, [weight, grad, m, u], lr,
+                         self.beta1, self.beta2, wd, self.rescale_grad,
+                         self.clip_gradient)
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam (reference optimizer.py:Nadam); its momentum
+    schedule's product ``m_schedule`` is one for all weights, as in the
+    reference."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        beta1, beta2 = self.beta1, self.beta2
+        momentum_t = beta1 * (1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        momentum_t_1 = beta1 * (1.0 - 0.5 * 0.96 ** ((t + 1)
+                                                     * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule, m_schedule_next = self.m_schedule,             self.m_schedule * momentum_t_1
+        rescale, clip, eps = self.rescale_grad, self.clip_gradient,             self.epsilon
+
+        @torch.no_grad()
+        def step(w, grad, m, v):
+            g = grad * rescale + wd * w
+            if clip is not None:
+                g = g.clamp(-clip, clip)
+            m.copy_(beta1 * m + (1.0 - beta1) * g)
+            v.copy_(beta2 * v + (1.0 - beta2) * g * g)
+            g_prime = g / (1.0 - m_schedule)
+            m_prime = m / (1.0 - m_schedule_next)
+            v_prime = v / (1.0 - beta2 ** t)
+            m_bar = (1.0 - momentum_t) * g_prime + momentum_t_1 * m_prime
+            w.add_(-lr * m_bar / (v_prime ** 0.5 + eps))
+        _update_in_place(step, [weight, grad, *state])
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD with a warm-up multiplier of the learning rate
+    (reference optimizer.py:650), over ``sgd_update`` /
+    ``sgd_mom_update``."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(multi_precision=multi_precision, **kwargs)
+        self.momentum = momentum
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+        self.num_epochs = num_epochs
+        self.lbmult = 1.0
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros(weight)
+
+    def _get_lbmult(self, nup):
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        maxmult = float(self.batch_scale)
+        if nup >= nwup:
+            return maxmult
+        if nwup <= 1:
+            return 1.0
+        if self.warmup_strategy == "linear":
+            return 1.0 + (maxmult - 1) * nup / nwup
+        if self.warmup_strategy == "power2":
+            return 1.0 + (maxmult - 1) * (nup * nup) / (nwup * nwup)
+        if self.warmup_strategy == "sqrt":
+            return 1.0 + (maxmult - 1) * math.sqrt(float(nup) / nwup)
+        return 1.0
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self.lbmult = self._get_lbmult(self.num_update + self.init_updates)
+        lr = lr * self.lbmult
+        if state is None:
+            _update_in_place(sgd_update, [weight, grad], lr, wd,
+                             **self._common())
+        else:
+            _update_in_place(sgd_mom_update, [weight, grad, state], lr,
+                             self.momentum, wd, **self._common())
+
+
+@register
+class Test(Optimizer):
+    """``weight += rescale_grad * grad``, the state a copy of the new
+    weight (reference optimizer.py:Test); counts no update."""
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        rescale = self.rescale_grad
+
+        @torch.no_grad()
+        def step(w, g, s):
+            w.add_(g * rescale)
+            s.copy_(w)
+        _update_in_place(step, [weight, grad, state])
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference optimizer.py:AdaDelta), over
+    ``adadelta_update``; it takes no learning rate."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        wd = self._get_wd(index)
+        acc_g, acc_delta = state
+        _update_in_place(adadelta_update, [weight, grad, acc_g, acc_delta],
+                         self.rho, self.epsilon, wd, **self._common())
+
+
+@register
+class FTML(Optimizer):
+    """FTML, Follow the Moving Leader (reference optimizer.py:602), over
+    ``ftml_update``; its state is (d, v, z)."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        _dense(grad)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        _update_in_place(ftml_update, [weight, grad, *state], lr, t,
+                         self.beta1, self.beta2, self.epsilon, wd,
+                         self.rescale_grad, self.clip_gradient)
+
+
+# ccSGD: the reference's deprecated alias of SGD
+_REG.register("ccsgd", SGD)
 
 
 class Updater:

@@ -115,6 +115,20 @@ def _embed_shapes(shapes, attrs):
     return {"weight": (attrs["input_dim"], attrs["output_dim"])}
 
 
+def _rnn_shapes(shapes, attrs):
+    from ..ops.rnn import rnn_param_size
+    _, n, input_size = shapes["data"]
+    bidirectional = attrs.get("bidirectional", False)
+    size = rnn_param_size(attrs["num_layers"], input_size,
+                          attrs["state_size"], bidirectional, attrs["mode"])
+    st = (attrs["num_layers"] * (2 if bidirectional else 1), n,
+          attrs["state_size"])
+    out = {"parameters": (size,), "state": st}
+    if attrs["mode"] == "lstm":
+        out["state_cell"] = st
+    return out
+
+
 def _softmax_out_shapes(shapes, attrs):
     """Label shape from data shape (reference SoftmaxOutputShape,
     src/operator/softmax_output-inl.h)."""
@@ -145,6 +159,7 @@ _ARG_SHAPE_RULES = {
     "InstanceNorm": _norm_shapes,
     "LayerNorm": _norm_shapes,
     "Embedding": _embed_shapes,
+    "RNN": _rnn_shapes,
     "SoftmaxOutput": _softmax_out_shapes,
     "LinearRegressionOutput": _regression_out_shapes,
     "LogisticRegressionOutput": _regression_out_shapes,
@@ -779,6 +794,8 @@ def _create(op_name, inputs, kwargs, name=None, _explicit_inputs=False):
     # special-case: reference-visible output counts
     if op.name == "SliceChannel":
         num_outputs = attrs.get("num_outputs", 1)
+    if op.name == "RNN" and attrs.get("state_outputs", False):
+        num_outputs = 3 if attrs.get("mode", "lstm") == "lstm" else 2
     if op.name in _FOLDS_STATS:
         num_outputs = 1  # the executor treats moving stats functionally
 
