@@ -105,7 +105,25 @@ launch counts set to 0 just before it and read just after:
   13 times a b=32 forward, the logits against the unfused graph's, each
   kernel at the path's shapes against its plain version).  The kernel
   line gives each kernel's launches on these three paths
-  (``launches_symbolic``).
+  (``launches_symbolic``);
+* the recurrent family: the ``RNN`` op (cuDNN against its plain
+  composition), examples/word_language_model.py's tied 650-wide LSTM
+  LM through ``gluon.Trainer("adam")``, and lstm_bucketing.py's
+  bucketed LSTMs through ``BucketingModule`` (``launches_recurrent``);
+* the rest of the model zoo and the detection stack
+  (``launches_detection``): the 21 zoo models beyond ResNet by
+  ``get_model`` at full width, a b=8 forward each, the first of each
+  family against the CPU, Inception V3 behind ``ModelServer``
+  (``zoo_models``); SSD-300 on VGG16-reduced (8732 anchors, 21
+  classes, 300x300, b=32) trained with examples/train_ssd.py's recipe
+  on seeded scenes, one b=2 step against the CPU, ``MultiBoxDetection``
+  on the card against the CPU and its fast NMS against the plain scan,
+  then the example's compact SSD with its own asserts (``ssd_train``);
+  and the contrib and linalg ops at their users' geometry (CTC behind
+  ctc_ocr.py's OCRNet, Faster R-CNN's Proposal, R-FCN's PSROIPooling, a
+  512-channel deformable conv, fft, quantize, linalg) against the CPU,
+  forward and gradient (``contrib_ops``).  No kernel lies on these
+  paths: their counts are 0.
 
 The rtc user kernels (``axpy``, a per-row sum that stages its row in
 more than 48 KB of dynamic shared memory, and a ``scale_add`` template
@@ -4646,6 +4664,850 @@ def phase_rnn_bucketing(seed):
     return launches
 
 
+# ------------------------------------------------------------- detection
+# SSD-300 (Liu et al. 2016) in MXNet's example/ssd configuration
+# ``vgg16_reduced`` at 300 (symbol/symbol_factory.py): the VGG-16 body
+# through relu5_3 (pool3 in ceil mode, so 75 -> 38), pool5 3x3 s1 p1,
+# fc6 as a 3x3 conv of dilation 6 (1024), fc7 1x1 (1024), relu4_3
+# L2-normalised per channel with a learnt scale of 20, and four extra
+# layers; six maps 38, 19, 10, 5, 3, 1 give 8732 anchors; VOC's 20
+# classes plus background.
+SSD_EDGE = 300
+SSD_CLASSES = 20
+SSD_BATCH = 32
+SSD_WARM, SSD_TIMED = 2, 10
+SSD_MAX_BOXES = 4
+SSD_SIZES = ((0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+             (0.71, 0.79), (0.88, 0.961))
+_RATIOS3, _RATIOS5 = (1.0, 2.0, 0.5), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)
+SSD_RATIOS = (_RATIOS3, _RATIOS5, _RATIOS5, _RATIOS5, _RATIOS3, _RATIOS3)
+SSD_STEPS = tuple(s / 300 for s in (8, 16, 32, 64, 100, 300))
+# (1x1 halving conv, 3x3 conv, its stride, its pad) of each extra layer
+SSD_EXTRAS = ((256, 512, 2, 1), (128, 256, 2, 1), (128, 256, 1, 0),
+              (128, 256, 1, 0))
+SSD_ANCHORS = 8732
+# examples/train_ssd.py's recipe (its loss, SGD with momentum 0.9 and wd
+# 1e-4) at MXNet's example/ssd/train.py learning rate, 0.002: at the
+# compact example's 0.1 the randomly initialised VGG16-reduced body
+# diverges (the loss reached NaN at the fourth step of b=4 on the CPU)
+SSD_OPT = {"learning_rate": 0.002, "momentum": 0.9, "wd": 1e-4}
+SSD_OVERLAP = 0.5
+SSD_NMS = 0.45
+SSD_DET_BATCH = 8
+SSD_REF_BATCH = 2
+SSD_DET_RTOL = 1e-4      # detections card vs CPU, of max |value|
+# examples/train_ssd.py's own compact SSD at its defaults
+COMPACT_SSD = dict(classes=3, edge=64, batch=32, steps=60, lr=0.1,
+                   seed=11)
+
+
+def make_scene(rs, edge, num_classes, max_boxes=1):
+    """examples/train_ssd.py's synthetic scene: a dim noisy image with
+    bright rectangles, the class encoded in channel brightness; label
+    rows [cls, x1, y1, x2, y2] in [0, 1].  ``max_boxes=1`` draws exactly
+    as the example does (one box); more draws 1 to ``max_boxes`` boxes
+    and pads the label with -1 rows."""
+    img = rs.rand(3, edge, edge).astype("float32") * 0.2
+    n = 1 if max_boxes == 1 else rs.randint(1, max_boxes + 1)
+    label = np.full((max_boxes, 5), -1.0, np.float32)
+    for i in range(n):
+        cls = rs.randint(num_classes)
+        w = rs.uniform(0.35, 0.6)
+        h = rs.uniform(0.35, 0.6)
+        x1 = rs.uniform(0, 1 - w)
+        y1 = rs.uniform(0, 1 - h)
+        xs, ys = int(x1 * edge), int(y1 * edge)
+        xe, ye = int((x1 + w) * edge), int((y1 + h) * edge)
+        img[cls % 3, ys:ye, xs:xe] += 0.8
+        img[(cls + 1) % 3, ys:ye, xs:xe] += 0.3 * (cls // 3)
+        label[i] = [cls, x1, y1, x1 + w, y1 + h]
+    return img, label
+
+
+def scenes(rs, n, edge, num_classes, max_boxes=1):
+    """A batch of ``make_scene``: images (n, 3, edge, edge) and labels
+    (n, max_boxes, 5)."""
+    imgs, labels = zip(*(make_scene(rs, edge, num_classes, max_boxes)
+                         for _ in range(n)))
+    return np.stack(imgs), np.stack(labels)
+
+
+def ssd_compact(mx, num_classes, scales=((0.45, 0.6), (0.75, 0.9)),
+                ratios=(1.0, 2.0, 0.5), prefix="ssd_"):
+    """examples/train_ssd.py's SSD, built from ``mx`` (the JAX package or
+    the port; only the package differs): a conv body, two stages, each
+    with a class head, a box head and its MultiBoxPrior anchors."""
+    nn = mx.gluon.nn
+
+    class SSD(mx.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.num_classes = num_classes
+            apr = len(scales[0]) + len(ratios) - 1
+            with self.name_scope():
+                self.body = nn.HybridSequential(prefix="body_")
+                with self.body.name_scope():
+                    for f in (16, 32):
+                        self.body.add(nn.Conv2D(f, 3, 1, 1), nn.BatchNorm(),
+                                      nn.Activation("relu"),
+                                      nn.MaxPool2D(2, 2))
+                self.stages, self.cls_heads, self.box_heads = [], [], []
+                for i in range(len(scales)):
+                    stage = nn.HybridSequential(prefix=f"stage{i}_")
+                    with stage.name_scope():
+                        stage.add(nn.Conv2D(32, 3, 1, 1), nn.BatchNorm(),
+                                  nn.Activation("relu"), nn.MaxPool2D(2, 2))
+                    ch = nn.Conv2D(apr * (num_classes + 1), 3, 1, 1,
+                                   prefix=f"cls{i}_")
+                    bh = nn.Conv2D(apr * 4, 3, 1, 1, prefix=f"box{i}_")
+                    for block in (stage, ch, bh):
+                        self.register_child(block)
+                    self.stages.append(stage)
+                    self.cls_heads.append(ch)
+                    self.box_heads.append(bh)
+
+        def hybrid_forward(self, F, x):
+            feat = self.body(x)
+            cls_preds, box_preds, anchors = [], [], []
+            for stage, ch, bh, sizes in zip(self.stages, self.cls_heads,
+                                            self.box_heads, scales):
+                feat = stage(feat)
+                anchors.append(F.contrib.MultiBoxPrior(
+                    feat, sizes=sizes, ratios=ratios, clip=True))
+                cls_preds.append(F.reshape(F.transpose(
+                    ch(feat), axes=(0, 2, 3, 1)),
+                    shape=(0, -1, self.num_classes + 1)))
+                box_preds.append(F.reshape(F.transpose(
+                    bh(feat), axes=(0, 2, 3, 1)), shape=(0, -1)))
+            return (F.Concat(*cls_preds, dim=1), F.Concat(*box_preds, dim=1),
+                    F.Concat(*anchors, dim=1))
+
+    return SSD(prefix=prefix)
+
+
+def ssd300(mx, num_classes=SSD_CLASSES, prefix="ssd300_"):
+    """SSD-300 on VGG16-reduced (module constants), built from ``mx``'s
+    public API: the conv layers of ``vision.vgg16().features`` through
+    relu5_3 (its pools replaced: pool3 in ceil mode, pool5 3x3 s1 p1),
+    fc6 / fc7 as convolutions, ``L2Normalization(mode="channel")`` on
+    relu4_3 times a learnt per-channel scale (20 at start), the extra
+    layers, and a 3x3 class and box head on each of the six maps.
+    Returns (cls_pred (B, A, classes+1), box_pred (B, A*4), anchors
+    (1, A, 4))."""
+    nn = mx.gluon.nn
+    vgg = mx.gluon.model_zoo.vision.vgg16(prefix=prefix + "vgg16_")
+
+    class SSD300(mx.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.stage4 = nn.HybridSequential(prefix="stage4_")
+                self.stage5 = nn.HybridSequential(prefix="stage5_")
+                target, pools = self.stage4, 0
+                for layer in vgg.features:
+                    if isinstance(layer, nn.MaxPool2D):
+                        pools += 1
+                        if pools == 5:
+                            break
+                        if pools == 4:
+                            target = self.stage5
+                        layer = nn.MaxPool2D(2, 2, ceil_mode=pools == 3)
+                    target.add(layer)
+                with self.stage5.name_scope():
+                    self.stage5.add(
+                        nn.MaxPool2D(3, 1, 1),
+                        nn.Conv2D(1024, 3, padding=6, dilation=6),
+                        nn.Activation("relu"), nn.Conv2D(1024, 1),
+                        nn.Activation("relu"))
+                self.norm_scale = self.params.get(
+                    "norm4_scale", shape=(1, 512, 1, 1),
+                    init=mx.init.Constant(20.0))
+                self.extras = []
+                for i, (mid, out, stride, pad) in enumerate(SSD_EXTRAS):
+                    seq = nn.HybridSequential(prefix=f"extra{i}_")
+                    with seq.name_scope():
+                        seq.add(nn.Conv2D(mid, 1), nn.Activation("relu"),
+                                nn.Conv2D(out, 3, stride, pad),
+                                nn.Activation("relu"))
+                    self.register_child(seq)
+                    self.extras.append(seq)
+                self.cls_heads, self.box_heads = [], []
+                for i, (sizes, ratios) in enumerate(zip(SSD_SIZES,
+                                                        SSD_RATIOS)):
+                    apr = len(sizes) + len(ratios) - 1
+                    ch = nn.Conv2D(apr * (num_classes + 1), 3, 1, 1,
+                                   prefix=f"cls{i}_")
+                    bh = nn.Conv2D(apr * 4, 3, 1, 1, prefix=f"box{i}_")
+                    self.register_child(ch)
+                    self.register_child(bh)
+                    self.cls_heads.append(ch)
+                    self.box_heads.append(bh)
+
+        def hybrid_forward(self, F, x, norm_scale):
+            f4 = self.stage4(x)
+            feat = self.stage5(f4)
+            maps = [F.broadcast_mul(F.L2Normalization(f4, mode="channel"),
+                                    norm_scale), feat]
+            for extra in self.extras:
+                feat = extra(feat)
+                maps.append(feat)
+            cls_preds, box_preds, anchors = [], [], []
+            for m, ch, bh, sizes, ratios, step in zip(
+                    maps, self.cls_heads, self.box_heads, SSD_SIZES,
+                    SSD_RATIOS, SSD_STEPS):
+                anchors.append(F.contrib.MultiBoxPrior(
+                    m, sizes=sizes, ratios=ratios, steps=(step, step)))
+                cls_preds.append(F.reshape(F.transpose(
+                    ch(m), axes=(0, 2, 3, 1)), shape=(0, -1, num_classes + 1)))
+                box_preds.append(F.reshape(F.transpose(
+                    bh(m), axes=(0, 2, 3, 1)), shape=(0, -1)))
+            return (F.Concat(*cls_preds, dim=1), F.Concat(*box_preds, dim=1),
+                    F.Concat(*anchors, dim=1))
+
+    return SSD300(prefix=prefix)
+
+
+def ssd_step(mx, net, trainer, x, y):
+    """One step of examples/train_ssd.py's loop: MultiBoxTarget, softmax
+    cross-entropy on the classes plus Huber on the masked offsets,
+    backward, ``trainer.step``.  Returns (the loss NDArray, the targets
+    (loc_target, loc_mask, cls_target))."""
+    cls_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    box_loss = mx.gluon.loss.HuberLoss()
+    with mx.autograd.record():
+        cls_pred, box_pred, anchor = net(x)
+        targets = mx.nd.contrib.MultiBoxTarget(
+            anchor, y, mx.nd.transpose(cls_pred, axes=(0, 2, 1)),
+            overlap_threshold=SSD_OVERLAP)
+        loc_t, loc_m, cls_t = targets
+        loss = cls_loss(cls_pred, cls_t) + box_loss(box_pred * loc_m,
+                                                    loc_t * loc_m)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss, targets
+
+
+def ssd_detect(mx, net, x, nms_threshold=SSD_NMS):
+    """examples/train_ssd.py's inference: softmax over the classes, then
+    ``MultiBoxDetection`` (decode and NMS).  Returns (B, A, 6)."""
+    with mx.autograd.predict_mode():
+        cls_pred, box_pred, anchor = net(x)
+        probs = mx.nd.transpose(mx.nd.softmax(cls_pred, axis=-1),
+                                axes=(0, 2, 1))
+        return mx.nd.contrib.MultiBoxDetection(probs, box_pred, anchor,
+                                               nms_threshold=nms_threshold)
+
+
+def held_out_iou(dets, labels):
+    """examples/train_ssd.py's check: per image, the IoU of the
+    best-scoring kept detection with the (one) true box; mean over the
+    images."""
+    ious = []
+    for i in range(dets.shape[0]):
+        valid = dets[i][dets[i, :, 0] >= 0]
+        if not len(valid):
+            ious.append(0.0)
+            continue
+        bx1, by1, bx2, by2 = valid[np.argmax(valid[:, 1])][2:6]
+        gx1, gy1, gx2, gy2 = labels[i, 1:5]
+        ix = max(0.0, min(bx2, gx2) - max(bx1, gx1))
+        iy = max(0.0, min(by2, gy2) - max(by1, gy1))
+        inter = ix * iy
+        union = (bx2 - bx1) * (by2 - by1) + (gx2 - gx1) * (gy2 - gy1) - inter
+        ious.append(inter / union if union > 0 else 0.0)
+    return float(np.mean(ious))
+
+
+# zoo_models: the 21 zoo names beyond ResNet at full width (1000
+# classes, 224x224; Inception V3 at 299x299), a b=ZOO_BATCH forward of
+# each on the card; the first of each family against the CPU at b=2
+# with the same weights; Inception V3 served through ModelServer
+ZOO_NEW = ("vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn",
+           "vgg16_bn", "vgg19_bn", "alexnet", "densenet121", "densenet161",
+           "densenet169", "densenet201", "squeezenet1.0", "squeezenet1.1",
+           "inceptionv3", "inceptionbn", "mobilenet1.0", "mobilenet0.75",
+           "mobilenet0.5", "mobilenet0.25")
+ZOO_FAMILY_FIRST = ("vgg11", "alexnet", "densenet121", "squeezenet1.0",
+                    "inceptionv3", "inceptionbn", "mobilenet1.0")
+ZOO_BATCH = 8
+ZOO_REF_BATCH = 2
+ZOO_RTOL = 1e-4          # card vs CPU logits, of max |logit|
+
+
+def _zoo_edge(name):
+    return 299 if name == "inceptionv3" else 224
+
+
+def _zoo_net(mx, name, ctx, prefix=None):
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    kw = {} if prefix is None else {"prefix": prefix}
+    net = vision.get_model(name, **kw)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def phase_zoo_models(seed):
+    """Every zoo model beyond ResNet built by ``get_model`` on the card
+    at full width; one b=ZOO_BATCH forward each (finite, (8, 1000)) with
+    its ms (CUDA events over 3 forwards); for the first model of each
+    family the same weights on the CPU, whose b=2 logits the card's
+    match within ZOO_RTOL of max; then Inception V3 behind
+    ``ModelServer(max_batch=32)`` under resnet_serving's burst (served
+    vs direct within ZOO_RTOL), and one b=32 batch under
+    torch.profiler."""
+    import incubator_mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch import convert
+    from incubator_mxnet_tpu_torch.predict import BlockPredictor
+    from incubator_mxnet_tpu_torch.serving import ModelServer
+    gpu = mx.gpu(0)
+    rs = np.random.RandomState(seed + 60)
+    rows = {}
+    for name in ZOO_NEW:
+        edge = _zoo_edge(name)
+        x = rs.rand(ZOO_BATCH, 3, edge, edge).astype(np.float32)
+        t0 = time.perf_counter()
+        net = _zoo_net(mx, name, gpu)
+        xd = mx.nd.array(x, ctx=gpu)
+        with mx.autograd.predict_mode():
+            out = net(xd).asnumpy()
+            build_s = time.perf_counter() - t0
+            ms = time_ms(lambda: net(xd), iters=3, warmup=1)
+        row = {"edge": edge, "params": int(sum(
+            p.data().size for p in net.collect_params().values())),
+            "forward_ms": ms, "setup_s": build_s}
+        if out.shape != (ZOO_BATCH, 1000) or not np.isfinite(out).all():
+            fail(f"zoo {name}: output {out.shape}, finite "
+                 f"{np.isfinite(out).all()}")
+        if name in ZOO_FAMILY_FIRST:
+            with mx.cpu():
+                cpu = mx.gluon.model_zoo.vision.get_model(name,
+                                                          prefix=net.prefix)
+                convert.gluon_params_from_numpy(
+                    cpu, convert.gluon_params_to_numpy(net), ctx=mx.cpu())
+                ref = cpu(mx.nd.array(x[:ZOO_REF_BATCH])).asnumpy()
+            with mx.autograd.predict_mode():
+                got = net(mx.nd.array(x[:ZOO_REF_BATCH], ctx=gpu)).asnumpy()
+            err = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+            row["vs_cpu_of_max"] = err
+            if err > ZOO_RTOL:
+                fail(f"zoo {name}: card vs CPU logits {err} of max > "
+                     f"{ZOO_RTOL}")
+            del cpu
+        rows[name] = row
+        del net, xd
+        torch.cuda.empty_cache()
+    # Inception V3 served
+    net = _zoo_net(mx, "inceptionv3", gpu)
+    pred = BlockPredictor(net, bf16_compute=False)
+    server = ModelServer(pred, max_batch=MAX_BATCH,
+                         input_shapes=[(3, 299, 299)])
+    try:
+        server.warmup()
+        n_images = CLIENTS * PER_CLIENT + BATCH_REQS * BATCH_SIZE
+        images = rs.rand(n_images, 3, 299, 299).astype(np.float32)
+        before = server.stats()
+        got, lat, wall = _burst(server, images)
+        stats = server.stats()
+    finally:
+        server.close()
+    if got.shape != (n_images, 1000) or not np.isfinite(got).all():
+        fail(f"served inceptionv3 logits: shape {got.shape}")
+    direct = pred.predict(images, batch_size=MAX_BATCH).cpu().numpy()
+    err = float(np.abs(got - direct).max()) / float(np.abs(direct).max())
+    if err > ZOO_RTOL:
+        fail(f"served inceptionv3 vs direct {err} of max > {ZOO_RTOL}")
+    batch = torch.from_numpy(images[:MAX_BATCH]).cuda()
+    pred(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred(batch)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+    profiled = _profile_summary(prof, wall_b)
+    lat.sort()
+    emit({"phase": "zoo_models", "batch": ZOO_BATCH, "models": rows,
+          "rtol": ZOO_RTOL, "inceptionv3_serving": {
+              "images": n_images, "images_per_s": n_images / wall,
+              "e2e_p50_ms": lat[len(lat) // 2],
+              "e2e_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+              "batches": stats["batches"] - before["batches"],
+              "served_vs_direct_of_max": err,
+              "profiled_batch": {k: profiled[k] for k in (
+                  "wall_s", "device_busy_s", "device_idle_share",
+                  "device_ms_by_kind")}}})
+    del net, pred, server
+    torch.cuda.empty_cache()
+
+
+def _ssd_reference(mx, init, x, y):
+    """One SSD-300 step at b=SSD_REF_BATCH from the weights ``init`` on
+    the card and on the CPU, and on the CPU once more with oneDNN off
+    (another fp32 formulation of the same convolutions: the spread).
+    Returns (card, cpu, alt): each (loss, {name: tensor})."""
+    from incubator_mxnet_tpu_torch import convert
+
+    def run(ctx, build_ctx):
+        with build_ctx:
+            net = ssd300(mx)
+            convert.gluon_params_from_numpy(net, init, ctx=ctx)
+            trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                       dict(SSD_OPT))
+            loss, _ = ssd_step(mx, net, trainer, mx.nd.array(x, ctx=ctx),
+                               mx.nd.array(y, ctx=ctx))
+            out = (loss.asnumpy(), {k: torch.from_numpy(v) for k, v in
+                                    convert.gluon_params_to_numpy(
+                                        net).items()})
+        del net, trainer
+        return out
+
+    card = run(mx.gpu(0), mx.gpu(0))
+    cpu = run(mx.cpu(), mx.cpu())
+    with torch.backends.mkldnn.flags(enabled=False):
+        alt = run(mx.cpu(), mx.cpu())
+    return card, cpu, alt
+
+
+def phase_ssd_train(seed):
+    """SSD-300 (module constants) built by ``ssd300`` from the port's
+    API, Xavier (gaussian, magnitude 2) on gpu(0), trained with
+    examples/train_ssd.py's recipe on seeded 300x300 scenes of 1 to 4
+    boxes at b=SSD_BATCH: SSD_WARM steps, then SSD_TIMED timed (host
+    clock ending in a synchronise) and one under torch.profiler; one
+    b=2 step from the initial weights on the card held against the CPU
+    (the loss within STEP_LOSS_RTOL, every parameter within STEP_RTOL of
+    its max + STEP_ATOL, or SPREAD_FACTOR x the CPU's own spread with
+    oneDNN off, where that is larger); then ``MultiBoxDetection`` (NMS
+    0.45) on a b=SSD_DET_BATCH batch: its ms and the NMS's share, the
+    card's kept rows identical to the CPU's on the same inputs and
+    their values within SSD_DET_RTOL of max, and the card's fast NMS
+    equal to its plain scan on two images.  Then examples/train_ssd.py's
+    own compact SSD at its settings, with its asserts."""
+    import incubator_mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch import convert
+    from incubator_mxnet_tpu_torch.ops import contrib as tcontrib
+    gpu = mx.gpu(0)
+    rs = np.random.RandomState(seed + 70)
+    steps = SSD_WARM + SSD_TIMED + 1
+    batches = [scenes(rs, SSD_BATCH, SSD_EDGE, SSD_CLASSES, SSD_MAX_BOXES)
+               for _ in range(steps)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = ssd300(mx)
+    net.initialize(init=mx.init.Xavier(rnd_type="gaussian", magnitude=2),
+                   ctx=gpu)
+    with mx.autograd.pause():
+        net(mx.nd.array(batches[0][0][:2], ctx=gpu))
+    init = convert.gluon_params_to_numpy(net)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SSD_OPT))
+    resident = [(mx.nd.array(x, ctx=gpu), mx.nd.array(y, ctx=gpu))
+                for x, y in batches]
+    setup_s = time.perf_counter() - t0
+    _, (_, _, cls_t) = ssd_step(mx, net, trainer, *resident[0])
+    anchors = net(resident[0][0][:1])[2].shape[1]
+    if anchors != SSD_ANCHORS:
+        fail(f"SSD-300 has {anchors} anchors, not {SSD_ANCHORS}")
+    matched = float((cls_t.asnumpy() > 0).sum(1).mean())
+    losses = []
+    for x, y in resident[1:SSD_WARM]:
+        losses.append(ssd_step(mx, net, trainer, x, y)[0].mean())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in resident[SSD_WARM:SSD_WARM + SSD_TIMED]:
+        losses.append(ssd_step(mx, net, trainer, x, y)[0].mean())
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / SSD_TIMED * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses.append(ssd_step(mx, net, trainer, *resident[-1])[0].mean())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profiled = _profile_summary(prof, wall)
+    losses = [float(v.asscalar()) for v in losses]
+    _finite(losses, "ssd_train")
+    del resident
+    torch.cuda.empty_cache()
+    # one b=2 step on the card against the CPU, from the initial weights
+    ref_x, ref_y = scenes(rs, SSD_REF_BATCH, SSD_EDGE, SSD_CLASSES,
+                          SSD_MAX_BOXES)
+    t0 = time.perf_counter()
+    (card_loss, card), (cpu_loss, cpu), (_, alt) = _ssd_reference(
+        mx, init, ref_x, ref_y)
+    ref_s = time.perf_counter() - t0
+    loss_err = float(np.abs(card_loss - cpu_loss).max()
+                     / np.abs(cpu_loss).max())
+    params_worst, params_key = _worst(card, cpu, list(cpu))
+    spread, spread_key = _worst(alt, cpu, list(cpu))
+    bound = max(1.0, SPREAD_FACTOR * spread)
+    # detection on the trained net, card and CPU on the same inputs
+    det_x, _ = scenes(rs, SSD_DET_BATCH, SSD_EDGE, SSD_CLASSES,
+                      SSD_MAX_BOXES)
+    xd = mx.nd.array(det_x, ctx=gpu)
+    with mx.autograd.predict_mode():
+        cls_pred, box_pred, anchor = net(xd)
+        probs = mx.nd.transpose(mx.nd.softmax(cls_pred, axis=-1),
+                                axes=(0, 2, 1))
+
+    def detect():
+        return mx.nd.contrib.MultiBoxDetection(probs, box_pred, anchor,
+                                               nms_threshold=SSD_NMS)
+    rows = mx.nd.NDArray(tcontrib.detections(probs._data, box_pred._data,
+                                             anchor._data), gpu)
+
+    def nms():
+        return mx.nd.contrib.box_nms(rows, overlap_thresh=SSD_NMS,
+                                     valid_thresh=0.0, coord_start=2,
+                                     score_index=1, id_index=0)
+    det_ms = _host_ms(lambda: detect().wait_to_read(), iters=3)
+    nms_ms = _host_ms(lambda: nms().wait_to_read(), iters=3)
+    dets = detect().asnumpy()
+    with mx.cpu():
+        cpu_dets = mx.nd.contrib.MultiBoxDetection(
+            *(mx.nd.array(a.asnumpy()) for a in (probs, box_pred, anchor)),
+            nms_threshold=SSD_NMS).asnumpy()
+    kept_equal = bool(np.array_equal(dets[..., 0] >= 0,
+                                     cpu_dets[..., 0] >= 0))
+    det_err = float(np.abs(dets - cpu_dets).max()) / float(
+        np.abs(cpu_dets).max())
+    kept = int((dets[..., 0] >= 0).sum())
+    valid = int((rows._data[..., 1] > 0).sum())
+    plain_equal, plain_s = [], 0.0
+    for b in range(2):
+        r = rows._data[b]
+        boxes = r[:, 2:6] + r[:, :1] * 1e3
+        scores = torch.where(r[:, 1] > 0, r[:, 1],
+                             torch.full_like(r[:, 1], float("-inf")))
+        fast = tcontrib.nms_mark(boxes, scores, SSD_NMS, -1)
+        t0 = time.perf_counter()
+        plain = tcontrib.nms_mark_plain(boxes, scores, SSD_NMS, -1)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        plain_equal.append(bool(torch.equal(fast, plain)))
+    del net, trainer, xd, probs, box_pred, cls_pred, rows
+    torch.cuda.empty_cache()
+    compact = _compact_ssd(mx, gpu)
+    emit({"phase": "ssd_train", "edge": SSD_EDGE, "batch": SSD_BATCH,
+          "classes": SSD_CLASSES + 1, "anchors": anchors,
+          "matched_anchors_per_image": matched, "losses": losses,
+          "ms_per_step": ms_step,
+          "images_per_s": SSD_BATCH / ms_step * 1e3, "peak_mem_gb": peak_gb,
+          "setup_s": setup_s, "profiled_step": {k: profiled[k] for k in (
+              "wall_s", "device_busy_s", "device_idle_share",
+              "device_ms_by_kind")},
+          "reference": {"batch": SSD_REF_BATCH, "loss_rel": loss_err,
+                        "params_worst_over_bound": params_worst,
+                        "params_worst": params_key,
+                        "cpu_spread_worst_over_bound": spread,
+                        "cpu_spread_worst": spread_key,
+                        "bound_used": bound, "rtol": STEP_RTOL,
+                        "seconds": ref_s},
+          "detection": {"batch": SSD_DET_BATCH, "ms_per_batch": det_ms,
+                        "nms_ms": nms_ms, "nms_share": nms_ms / det_ms,
+                        "valid_rows": valid, "kept_rows": kept,
+                        "kept_equal_cpu": kept_equal,
+                        "vs_cpu_of_max": det_err,
+                        "fast_equals_plain_scan": plain_equal,
+                        "plain_scan_s_two_images": plain_s},
+          "compact": compact})
+    if loss_err > STEP_LOSS_RTOL:
+        fail(f"ssd_train: card vs CPU loss {loss_err} > {STEP_LOSS_RTOL}")
+    if params_worst > bound:
+        fail(f"ssd_train: card vs CPU after one step: {params_key} "
+             f"{params_worst} x the bound (CPU spread {spread})")
+    if not kept_equal or det_err > SSD_DET_RTOL:
+        fail(f"ssd_train: detections card vs CPU: kept rows equal "
+             f"{kept_equal}, values {det_err} of max")
+    if not all(plain_equal):
+        fail(f"ssd_train: fast NMS vs the plain scan {plain_equal}")
+    if not compact["loss_halved"] or compact["mean_iou"] <= 0.5:
+        fail(f"compact SSD: {compact}")
+
+
+def _compact_ssd(mx, gpu):
+    """examples/train_ssd.py at its defaults on the card: its SSD, Xavier
+    (gaussian, 2), SGD 0.1 / 0.9 / 1e-4, COMPACT_SSD["steps"] steps of
+    32 fresh 64x64 scenes; then 16 held-out scenes decoded with NMS 0.45.
+    Its asserts: the last loss under half the first, the mean IoU of
+    each image's best detection with its box over 0.5."""
+    c = COMPACT_SSD
+    rs = np.random.RandomState(c["seed"])
+    net = ssd_compact(mx, c["classes"])
+    net.initialize(init=mx.init.Xavier(rnd_type="gaussian", magnitude=2),
+                   ctx=gpu)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": c["lr"], "momentum": 0.9,
+                                "wd": 1e-4})
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        x, y = scenes(rs, c["batch"], c["edge"], c["classes"])
+        loss, _ = ssd_step(mx, net, trainer, mx.nd.array(x, ctx=gpu),
+                           mx.nd.array(y, ctx=gpu))
+        losses.append(float(loss.mean().asscalar()))
+    ms = (time.perf_counter() - t0) / c["steps"] * 1e3
+    x, y = scenes(rs, 16, c["edge"], c["classes"])
+    dets = ssd_detect(mx, net, mx.nd.array(x, ctx=gpu)).asnumpy()
+    iou = held_out_iou(dets, y[:, 0])
+    _finite(losses, "compact SSD")
+    return {"steps": c["steps"], "first_loss": losses[0],
+            "last_loss": losses[-1],
+            "loss_halved": losses[-1] < 0.5 * losses[0],
+            "mean_iou": iou, "ms_per_step": ms}
+
+
+# contrib_ops: each new op on the card against the CPU, forward and
+# gradient, at its users' geometry
+CONTRIB_RTOL = 1e-4      # card vs CPU, of max |value|
+OCR = dict(batch=128, steps=80, digits=4, classes=10, hidden=64, feat=32,
+           height=7)
+RPN = dict(height=38, width=50, stride=16, image=(600, 800),
+           rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300, threshold=0.7)
+RFCN = dict(classes=21, group=7, rois=300, height=38, width=50)
+DEFORM = dict(channels=512, height=38, width=50, batch=1)
+LINALG_BATCH, LINALG_N = 16, 256
+# two float32 eigensolvers agree on an eigenvector to ~n eps |A| / gap
+# (8e-3 of max at n = 256, eigenvalues 1 .. n; 6.4e-4 measured on the
+# H100), on the eigenvalues to ~n eps |A| (1e-4 measured)
+SYEVD_RTOL = 2e-3
+
+
+def ocr_net(mx, num_classes=10, hidden=64, feat=32, height=7):
+    """examples/ctc_ocr.py's OCRNet, built from ``mx``: a full-height
+    3-wide conv over the image's columns, a (1, 2) pool that halves
+    them, a bidirectional LSTM, and a per-step classifier; (B, H, W)
+    images in, (W/2, B, classes+1) pre-softmax scores out."""
+    nn = mx.gluon.nn
+
+    class OCRNet(mx.gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.conv = nn.Conv2D(feat, kernel_size=(height, 3),
+                                      padding=(0, 1), in_channels=1,
+                                      activation="relu")
+                self.pool = nn.MaxPool2D((1, 2), (1, 2))
+                self.rnn = mx.gluon.rnn.LSTM(hidden, num_layers=1,
+                                             bidirectional=True,
+                                             input_size=feat)
+                self.fc = nn.Dense(num_classes + 1, flatten=False,
+                                   in_units=2 * hidden)
+
+        def forward(self, x):
+            f = self.pool(self.conv(x.expand_dims(1)))
+            f = f.reshape((x.shape[0], feat, -1))
+            seq = mx.nd.transpose(f, axes=(2, 0, 1))
+            out, _ = self.rnn(seq, self.rnn.begin_state(
+                batch_size=x.shape[0], ctx=x.context))
+            return self.fc(out)
+
+    return OCRNet(prefix="ocrnet_")
+
+
+def _nd_run(mx, fn, arrays, ctx, grad_idx, out_idx, square):
+    """``fn(mx, *arrays)`` on ``ctx``; with ``grad_idx``, recorded and
+    ``sum(out[out_idx] (squared) * head)`` differentiated, the head
+    drawn from a fixed seed at the output's shape.  Returns (outputs,
+    grads) as numpy."""
+    xs = [mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in arrays]
+    for i in grad_idx:
+        xs[i].attach_grad()
+    with mx.autograd.record():
+        out = fn(mx, *xs)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        if grad_idx:
+            o = outs[out_idx]
+            o = o * o if square else o
+            head = np.random.RandomState(7).randn(*o.shape).astype(
+                np.float32)
+            loss = (o * mx.nd.array(head, ctx=ctx)).sum()
+    if grad_idx:
+        loss.backward()
+    return ([o.asnumpy() for o in outs],
+            [xs[i].grad.asnumpy() for i in grad_idx])
+
+
+def _card_vs_cpu(mx, name, fn, arrays, grad_idx=(), out_idx=0,
+                 square=False, compare=None, iters=3, rtol=CONTRIB_RTOL):
+    """One op's row: the card's outputs and gradients against the CPU's
+    (``compare(card, cpu)`` where the raw values may differ by a sign),
+    of max |value| within ``rtol``, and the card's ms for the forward
+    (+ backward)."""
+    card = _nd_run(mx, fn, arrays, mx.gpu(0), grad_idx, out_idx, square)
+    cpu = _nd_run(mx, fn, arrays, mx.cpu(), grad_idx, out_idx, square)
+    pairs = compare(card[0], cpu[0]) if compare else \
+        list(zip(card[0], cpu[0]))
+    errs = {}
+    for i, (g, w) in enumerate(pairs):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        errs[f"out{i}"] = float(np.abs(g - w).max()) / max(
+            float(np.abs(w).max()), 1e-30)
+    for i, (g, w) in zip(grad_idx, zip(card[1], cpu[1])):
+        errs[f"grad{i}"] = float(np.abs(g - w).max()) / max(
+            float(np.abs(w).max()), 1e-30)
+    xs = [mx.nd.array(a, ctx=mx.gpu(0), dtype=a.dtype) for a in arrays]
+    ms = _host_ms(lambda: [o.wait_to_read() for o in (
+        lambda r: r if isinstance(r, (list, tuple)) else [r])(
+            fn(mx, *xs))], iters=iters)
+    worst = max(errs.values())
+    if worst > rtol:
+        fail(f"contrib_ops {name}: card vs CPU {errs} > {rtol}")
+    return {"shapes": [list(a.shape) for a in arrays], "of_max": errs,
+            "rtol": rtol, "forward_ms": ms}
+
+
+def _abs_pairs(card, cpu):
+    return [(np.abs(g), np.abs(w)) for g, w in zip(card, cpu)]
+
+
+def phase_contrib_ops(seed):
+    """The contrib and linalg ops on the card against the CPU, forward
+    and gradient, within CONTRIB_RTOL of max: CTC behind examples/
+    ctc_ocr.py's OCRNet at b=128, T=80, 4-digit labels (the library
+    route on the card, counted; the plain recursion on the CPU, and
+    timed on the card too); Proposal at Faster R-CNN's VGG-16 geometry;
+    PSROIPooling at R-FCN's; a 512-channel 3x3 DeformableConvolution at
+    38x50 beside cuDNN's plain 3x3 conv; fft / ifft; quantize /
+    dequantize; every linalg op on (16, 256, 256) batches (gelqf's Q and
+    L compared up to the sign a row of Q and a column of L share, its
+    gradient through L squared; syevd on matrices with eigenvalues 1 ..
+    256, its eigenvectors up to sign within SYEVD_RTOL, its gradient
+    through the eigenvalues)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops import contrib as tcontrib
+    rs = np.random.RandomState(seed + 80)
+    gpu = mx.gpu(0)
+    rows = {}
+    # --- CTC behind OCRNet
+    o = OCR
+    net = ocr_net(mx, o["classes"], o["hidden"], o["feat"], o["height"])
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    images = rs.rand(o["batch"], o["height"], 2 * o["steps"]).astype(
+        np.float32)
+    labels = rs.randint(0, o["classes"], (o["batch"], o["digits"])).astype(
+        np.float32)
+    with mx.autograd.predict_mode():
+        logits = net(mx.nd.array(images, ctx=gpu)).asnumpy()
+    if logits.shape != (o["steps"], o["batch"], o["classes"] + 1):
+        fail(f"OCRNet scores {logits.shape}")
+
+    def ctc(mx, pred, label):
+        return mx.gluon.loss.CTCLoss(layout="TNC", label_layout="NT")(
+            pred, label)
+    calls = tcontrib.library_ctc_calls[0]
+    rows["ctc_ocrnet"] = _card_vs_cpu(mx, "ctc", ctc, [logits, labels],
+                                      grad_idx=(0,))
+    if tcontrib.library_ctc_calls[0] == calls:
+        fail("CTC on the card did not take the library route")
+    lp = torch.log_softmax(torch.from_numpy(logits).cuda().requires_grad_(),
+                           -1)
+    lab = torch.from_numpy(labels).cuda().long()
+    t_lens = torch.full((o["batch"],), o["steps"], device=lp.device)
+    l_lens = torch.full((o["batch"],), o["digits"], device=lp.device)
+    rows["ctc_ocrnet"]["plain_on_card_ms"] = _host_ms(
+        lambda: torch.autograd.grad(tcontrib.ctc_loss_plain(
+            lp, lab, t_lens, l_lens, o["classes"]).sum(), lp), iters=3)
+    rows["ctc_ocrnet"]["library_fwd_bwd_ms"] = _host_ms(
+        lambda: torch.autograd.grad(tcontrib._ctc_library(
+            lp, lab, t_lens, l_lens, o["classes"]).sum(), lp), iters=3)
+    del net
+    # --- Proposal at Faster R-CNN's VGG-16 geometry
+    r = RPN
+    K = 12
+    score = rs.rand(1, 2 * K, r["height"], r["width"]).astype(np.float32)
+    deltas = (rs.randn(1, 4 * K, r["height"], r["width"]) * 0.1).astype(
+        np.float32)
+    info = np.array([[*r["image"], 1.0]], np.float32)
+    attrs = {k: r[k] for k in ("rpn_pre_nms_top_n", "rpn_post_nms_top_n",
+                               "threshold")}
+    rows["proposal"] = _card_vs_cpu(
+        mx, "Proposal", lambda mx, a, b, c: mx.nd.contrib.Proposal(
+            a, b, c, feature_stride=r["stride"], output_score=True,
+            **attrs), [score, deltas, info])
+    rows["proposal"]["anchors"] = r["height"] * r["width"] * K
+    # --- PSROIPooling at R-FCN's geometry
+    f = RFCN
+    data = rs.randn(1, f["classes"] * f["group"] ** 2, f["height"],
+                    f["width"]).astype(np.float32)
+    xy = rs.uniform(0, 500, (f["rois"], 2))
+    wh = rs.uniform(32, 300, (f["rois"], 2))
+    rois = np.concatenate([np.zeros((f["rois"], 1)), xy, xy + wh],
+                          1).astype(np.float32)
+    rows["psroi_pooling"] = _card_vs_cpu(
+        mx, "PSROIPooling", lambda mx, d, q: mx.nd.contrib.PSROIPooling(
+            d, q, spatial_scale=1 / 16, output_dim=f["classes"],
+            pooled_size=f["group"]), [data, rois], grad_idx=(0,))
+    # --- DeformableConvolution, 512 channels at 38x50
+    d = DEFORM
+    c, h, w = d["channels"], d["height"], d["width"]
+    x = rs.randn(d["batch"], c, h, w).astype(np.float32)
+    off = (rs.randn(d["batch"], 18, h, w) * 2).astype(np.float32)
+    wt = (rs.randn(c, c, 3, 3) * 0.02).astype(np.float32)
+    bias = rs.randn(c).astype(np.float32)
+    rows["deformable_conv"] = _card_vs_cpu(
+        mx, "DeformableConvolution",
+        lambda mx, a, b, k, e: mx.nd.contrib.DeformableConvolution(
+            a, b, k, e, kernel=(3, 3), pad=(1, 1), num_filter=c),
+        [x, off, wt, bias], grad_idx=(0, 1, 2, 3))
+    xd, wd = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+    rows["deformable_conv"]["cudnn_conv3x3_ms"] = time_ms(
+        lambda: torch.nn.functional.conv2d(xd, wd, padding=1), iters=10)
+    del xd, wd
+    # --- fft, quantize
+    sig = rs.randn(64, 1024).astype(np.float32)
+    rows["fft"] = _card_vs_cpu(mx, "fft", lambda mx, a: mx.nd.contrib.fft(a),
+                               [sig], grad_idx=(0,))
+    spec = rs.randn(64, 2048).astype(np.float32)
+    rows["ifft"] = _card_vs_cpu(mx, "ifft",
+                                lambda mx, a: mx.nd.contrib.ifft(a), [spec],
+                                grad_idx=(0,))
+    big = rs.uniform(-3, 5, (1024, 1024)).astype(np.float32)
+    lo, hi = np.array([-3.0], np.float32), np.array([5.0], np.float32)
+    rows["quantize"] = _card_vs_cpu(
+        mx, "quantize", lambda mx, a, b, e: mx.nd.contrib.quantize(a, b, e),
+        [big, lo, hi])
+    q = np.round((big + 3) * 255 / 8).clip(0, 255).astype(np.uint8)
+    rows["dequantize"] = _card_vs_cpu(
+        mx, "dequantize",
+        lambda mx, a, b, e: mx.nd.contrib.dequantize(a, b, e), [q, lo, hi])
+    # --- linalg
+    n, b = LINALG_N, LINALG_BATCH
+    A = rs.randn(b, n, n).astype(np.float32)
+    B = rs.randn(b, n, n).astype(np.float32)
+    spd = (A @ A.transpose(0, 2, 1) / n + np.eye(n)).astype(np.float32)
+    chol = np.linalg.cholesky(spd.astype(np.float64)).astype(np.float32)
+    tri = (np.tril(A) / np.sqrt(n) + 2 * np.eye(n)).astype(np.float32)
+    wide = rs.randn(b, n // 2, n).astype(np.float32)
+    la = lambda name, **kw: (lambda mx, *a: getattr(mx.nd.linalg, name)(
+        *a, **kw))
+    for name, arrays, kw in (
+            ("gemm", [A, B, B], dict(alpha=0.5, beta=2.0)),
+            ("gemm2", [A, B], dict(transpose_b=True)),
+            ("potrf", [spd], {}), ("potri", [chol], {}),
+            ("trmm", [tri, B], {}), ("trsm", [tri, B], {}),
+            ("sumlogdiag", [chol], {}), ("syrk", [A], dict(alpha=0.5))):
+        rows[f"linalg_{name}"] = _card_vs_cpu(
+            mx, name, la(name, **kw), arrays,
+            grad_idx=tuple(range(len(arrays))))
+    rows["linalg_gelqf"] = _card_vs_cpu(
+        mx, "gelqf", la("gelqf"), [wide], grad_idx=(0,), out_idx=1,
+        square=True, compare=_abs_pairs)
+    # eigenvalues 1 .. n: gaps of 1 keep each eigenvector (and the
+    # eigenvalues' gradient v v^T) well conditioned
+    qs = np.linalg.qr(rs.randn(b, n, n))[0]
+    sym = (qs * np.arange(1, n + 1)[None, None, :]) @ qs.transpose(0, 2, 1)
+    sym = ((sym + sym.transpose(0, 2, 1)) / 2).astype(np.float32)
+    rows["linalg_syevd"] = _card_vs_cpu(
+        mx, "syevd", la("syevd"), [sym], grad_idx=(0,), out_idx=1,
+        compare=_abs_pairs, rtol=SYEVD_RTOL)
+    emit({"phase": "contrib_ops", "rtol": CONTRIB_RTOL, "ops": rows})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4757,9 +5619,19 @@ def main():
                                                              tmpdir)
         for name, counts in phase_rnn_bucketing(args.seed).items():
             recurrent_paths[f"rnn_bucketing_{name}"] = counts
+    torch.cuda.empty_cache()
+    detection_paths = {}
+    for name, phase in (("zoo_models", phase_zoo_models),
+                        ("ssd_train", phase_ssd_train),
+                        ("contrib_ops", phase_contrib_ops)):
+        _zero_counts()
+        phase(args.seed)
+        detection_paths[name] = _counts()
+        torch.cuda.empty_cache()
     paths = {"launches_gluon": gluon_paths, "launches_data": data_paths,
              "launches_symbolic": symbolic_paths,
-             "launches_recurrent": recurrent_paths}
+             "launches_recurrent": recurrent_paths,
+             "launches_detection": detection_paths}
     for row in kernels:
         for key, runs in paths.items():
             row[key] = {path: counts.get(row["name"], 0)

@@ -36,7 +36,13 @@ its graph passes, ``executor.Executor``, ``operator.CustomOp``,
 and its ``ModelServer`` backend, ``gluon.SymbolBlock``), and the
 recurrent family (the fused ``RNN`` op, cuDNN's on the card,
 ``gluon.rnn``, ``gluon.contrib.rnn``, the legacy ``rnn`` cells with
-``BucketSentenceIter``) with every optimizer of the JAX package.  So
+``BucketSentenceIter``) with every optimizer of the JAX package, and
+the detection stack: the whole vision zoo (VGG, AlexNet, DenseNet,
+SqueezeNet, Inception V3 and BN, MobileNet) with ``get_model`` and
+``gluon.contrib.nn``, the contrib ops (the MultiBox family and box NMS,
+CTC with ``gluon.loss.CTCLoss``, Proposal, PSROIPooling, deformable
+convolution, fft, quantize) as ``nd.contrib`` / ``sym.contrib``, and
+the linalg ops as ``nd.linalg`` / ``sym.linalg``.  So
 ``import incubator_mxnet_tpu_torch as mx; mx.nd.ones((2,))`` reads as
 it does against the JAX package, except that the default context is
 ``mx.gpu(0)``.

@@ -16,6 +16,13 @@ sees a JAX object.  The JAX names are structural
 ``<prefix>layernorm0_*``, ``<prefix>dense0_*``), so the mapping is by
 position within that structure, whatever the model's prefix.
 
+``gluon_params_from_numpy(net, named_arrays)`` loads the arrays into a
+Gluon block of the port (the zoo's VGG, AlexNet, DenseNet, SqueezeNet,
+Inception and MobileNet, a user's ``HybridBlock`` such as an SSD): a
+Gluon block's Parameters carry the JAX package's full names
+(``densenet0_conv0_weight`` ...), so the mapping is the identity, and
+``gluon_params_to_numpy(net)`` gives the same dictionary back.
+
 Arrays of the imperative path (``mx.nd``) cross between the packages
 as files instead: ``ndarray.save`` / ``ndarray.load`` write MXNet's
 binary ``.params`` format and read it and the JAX package's ``.npz``
@@ -30,7 +37,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["params_from_numpy", "resnet_param_names",
+__all__ = ["gluon_params_from_numpy", "gluon_params_to_numpy",
+           "params_from_numpy", "resnet_param_names",
            "resnet_params_from_numpy", "resnet_params_to_numpy"]
 
 # child blocks of a JAX DecoderLayer in creation order -> port names
@@ -73,6 +81,30 @@ def params_from_numpy(named_arrays):
             raise MXNetError(f"cannot place JAX parameter {name!r}")
         out[key] = torch.from_numpy(np.array(arr, copy=True))
     return out
+
+
+def gluon_params_from_numpy(net, named_arrays, ctx=None):
+    """Set every Parameter of the Gluon block ``net`` from
+    ``{jax_param_name: np.ndarray}`` (deferred shapes included), on
+    ``ctx`` or where each Parameter was to be initialised.  Raises
+    MXNetError on a name the block lacks or a Parameter left without a
+    value."""
+    params = net.collect_params()
+    missing = set(params.keys()) - set(named_arrays)
+    extra = set(named_arrays) - set(params.keys())
+    if missing or extra:
+        raise MXNetError(f"names differ: the block lacks {sorted(extra)}, "
+                         f"the arrays lack {sorted(missing)}")
+    for name, arr in named_arrays.items():
+        params[name]._load_init(np.asarray(arr), ctx)
+    return net
+
+
+def gluon_params_to_numpy(net):
+    """``{full_name: np.ndarray}`` of the Gluon block ``net``'s
+    Parameters, the names the JAX package's twin has."""
+    return {name: p.data().asnumpy()
+            for name, p in net.collect_params().items()}
 
 
 _RESNET_RE = re.compile(r"(?:stage(\d+)_)?(conv2d|batchnorm|dense)(\d+)_"

@@ -4,7 +4,8 @@ reference python/mxnet/gluon/): ``Block`` / ``HybridBlock`` over
 ``nn`` layers, the losses, ``utils``, the model zoo and the decoder of
 the generation server, ``data`` (datasets, samplers, the DataLoader,
 vision datasets and transforms) with ``contrib.data``, and ``rnn`` (the
-fused recurrent layers and the cells) with ``contrib.rnn``."""
+fused recurrent layers and the cells) with ``contrib.rnn``, and the
+contrib layers ``contrib.nn``."""
 from . import contrib, data, loss, model_zoo, nn, rnn, utils
 from .block import Block, HybridBlock, SymbolBlock
 from .decoder import DecoderLayer, TransformerDecoder

@@ -1,8 +1,8 @@
 """Gluon contrib of the port: the data helpers (``IntervalSampler``,
-``text.WikiText2`` / ``WikiText103``) and the recurrent cells
+``text.WikiText2`` / ``WikiText103``), the layers (``nn.Concurrent``,
+``nn.HybridConcurrent``, ``nn.Identity``) and the recurrent cells
 (``rnn.VariationalDropoutCell``, the convolutional RNN / LSTM / GRU
-cells).  The contrib layers (``contrib.nn``) of the JAX package are not
-ported (ROADMAP A8)."""
-from . import data, rnn
+cells)."""
+from . import data, nn, rnn
 
-__all__ = ["data", "rnn"]
+__all__ = ["data", "nn", "rnn"]

@@ -2,8 +2,8 @@
 ``incubator_mxnet_tpu/gluon/loss.py``; reference
 python/mxnet/gluon/loss.py): every loss is a HybridBlock over the ``nd``
 ops returning one value per sample (the batch axis kept), with
-``sample_weight`` broadcast and a scalar ``weight``.  ``CTCLoss`` waits
-for the contrib CTC op (ROADMAP A8).  The tensor-level
+``sample_weight`` broadcast and a scalar ``weight``.  ``CTCLoss`` runs
+the contrib CTC op with the blank last.  The tensor-level
 ``SoftmaxCrossEntropyLoss`` that ``parallel.TrainStep`` takes is
 ``gluon.nn._modules.SoftmaxCrossEntropyLoss``.
 """
@@ -13,7 +13,7 @@ from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
-           "KLDivLoss", "HuberLoss", "HingeLoss",
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss",
            "SquaredHingeLoss", "LogisticLoss", "TripletLoss"]
 
 
@@ -138,6 +138,35 @@ class KLDivLoss(Loss):
         loss = label * (F.log(label + 1e-12) - pred)
         loss = _apply_weighting(F, loss, self._weight, sample_weight)
         return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification (reference loss.py:CTCLoss;
+    the op ``CTCLoss``, src/operator/contrib/ctc_loss.cc): labels
+    0-based, padded with -1, the blank the last class."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError(f"layout must be NTC or TNC, got {layout}")
+        if label_layout not in ("NT", "TN"):
+            raise ValueError(f"label_layout must be NT or TN, got "
+                             f"{label_layout}")
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

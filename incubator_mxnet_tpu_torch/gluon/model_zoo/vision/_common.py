@@ -4,9 +4,10 @@ from __future__ import annotations
 
 from torch import nn
 
+from ... import nn as gluon_nn
 from ...nn._modules import Activation, BatchNorm, BNReLU
 
-__all__ = ["add_bn_relu"]
+__all__ = ["add_bn_relu", "gluon_bn_relu"]
 
 
 def add_bn_relu(layers, fuse, channels, **bn_kwargs):
@@ -24,3 +25,15 @@ def add_bn_relu(layers, fuse, channels, **bn_kwargs):
     else:
         layers += [BatchNorm(channels, **bn_kwargs), Activation("relu")]
     return layers
+
+
+def gluon_bn_relu(seq, fuse, **bn_kwargs):
+    """The same switch for the Gluon zoo models (VGG, DenseNet,
+    Inception, MobileNet): append to the ``HybridSequential`` ``seq``
+    one ``gluon.nn.BNReLU`` when ``fuse``, else ``BatchNorm`` then
+    ``Activation("relu")``, as the JAX package's ``add_bn_relu`` does."""
+    if fuse:
+        seq.add(gluon_nn.BNReLU(**bn_kwargs))
+    else:
+        seq.add(gluon_nn.BatchNorm(**bn_kwargs))
+        seq.add(gluon_nn.Activation("relu"))

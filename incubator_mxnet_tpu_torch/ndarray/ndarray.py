@@ -462,9 +462,13 @@ class NDArray:
 
 # ------------------------------------------------------------------ invoke
 def _as_input(value, device):
-    """A non-NDArray op input (a number, list or numpy array) as a
-    tensor on ``device``: float64 becomes float32 and untyped integers
-    int32, as JAX's ``asarray`` gives them."""
+    """A non-NDArray op input (a number, list, numpy array or tensor)
+    as a tensor on ``device``: a tensor keeps its dtype (a Gluon block
+    called on a tensor, as ``BlockPredictor`` calls it); otherwise
+    float64 becomes float32 and untyped integers int32, as JAX's
+    ``asarray`` gives them."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(device, copy=True)
     arr = np.asarray(value)
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)

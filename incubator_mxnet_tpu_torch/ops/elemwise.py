@@ -96,7 +96,8 @@ _UNARY = {
     "abs": abs_,
     "sign": _sign,
     "round": torch.round,
-    "rint": torch.round,
+    "rint": lambda x: torch.round(x if x.is_floating_point()
+                                  else x.to(torch.float32)),
     "ceil": torch.ceil,
     "floor": torch.floor,
     "trunc": torch.trunc,
@@ -185,6 +186,17 @@ def _clip(x, *, a_min, a_max):
     return x
 
 
+def _mod(a, b):
+    """``torch.remainder`` with an integer modulo by zero giving 0, as
+    MXNet's ``mshadow_op::mod`` and the JAX op do (torch raises on the
+    CPU and leaves the value undefined on the card)."""
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.remainder(a, b)
+    zero = b == 0
+    r = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+    return torch.where(zero, torch.zeros_like(r), r)
+
+
 # ---------------------------------------------------------------- binary
 # elemwise_* (same shape) and broadcast_* names map to the same
 # broadcasting torch call, as in the JAX package.
@@ -193,7 +205,7 @@ _BINARY = {
     "broadcast_sub": torch.sub,
     "broadcast_mul": torch.mul,
     "broadcast_div": torch.div,
-    "broadcast_mod": torch.remainder,
+    "broadcast_mod": _mod,
     "broadcast_power": torch.pow,
     "broadcast_maximum": torch.maximum,
     "broadcast_minimum": torch.minimum,
@@ -246,9 +258,11 @@ _SCALAR = {
     "_mul_scalar": torch.mul,
     "_div_scalar": torch.div,
     "_rdiv_scalar": lambda x, s: torch.div(s, x),
-    "_mod_scalar": torch.remainder,
-    "_rmod_scalar": lambda x, s: torch.remainder(_full(x, s), x),
-    "_power_scalar": torch.pow,
+    "_mod_scalar": lambda x, s: _mod(x, _full(x, s)),
+    "_rmod_scalar": lambda x, s: _mod(_full(x, s), x),
+    # a 0-d exponent, not the Python scalar: torch.pow's scalar 0.5
+    # takes sqrt, which gives NaN at -inf where C's pow gives +inf
+    "_power_scalar": lambda x, s: torch.pow(x, _full(x, s)),
     "_rpower_scalar": lambda x, s: torch.pow(s, x),
     "_maximum_scalar": lambda x, s: torch.maximum(x, _full(x, s)),
     "_minimum_scalar": lambda x, s: torch.minimum(x, _full(x, s)),

@@ -10,6 +10,7 @@ never aliases another, as no JAX array does.  ``dot`` and
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .registry import register_op
@@ -27,13 +28,31 @@ def _negative_steps(key):
     return keys, neg
 
 
+def _numpy_ints(key, device):
+    """The key with numpy's rule for integers beside index arrays: an
+    integer then counts as an advanced index (torch applies it first, as
+    a basic one), so ``a[1, :, idx]`` puts idx's dimension first, as
+    numpy and the JAX package do.  Each such integer becomes a
+    one-element index tensor, which broadcasts with the arrays as the
+    integer does."""
+    if not isinstance(key, tuple) or not any(
+            isinstance(k, int) and not isinstance(k, bool) for k in key):
+        return key
+    if not any(isinstance(k, torch.Tensor) and k.ndim > 0 or
+               isinstance(k, (list, np.ndarray)) for k in key):
+        return key
+    return tuple(torch.tensor([k], device=device)
+                 if isinstance(k, int) and not isinstance(k, bool) else k
+                 for k in key)
+
+
 def read_key(x, key):
     """``(x', key')`` with ``x'[key'] == x[key]`` and only positive
     steps (torch slicing takes no negative ones): a negative-step slice
     flips its dim and slices it forwards."""
     keys, neg = _negative_steps(key)
     if not neg:
-        return x, key
+        return x, _numpy_ints(key, x.device)
     out = list(keys)
     for d in neg:
         n = x.shape[d]
@@ -50,7 +69,7 @@ def write_key(x, key):
     of the positions it names."""
     keys, neg = _negative_steps(key)
     if not neg:
-        return key
+        return _numpy_ints(key, x.device)
     if len(neg) > 1:
         raise ValueError("a write takes at most one negative-step slice")
     d = neg[0]

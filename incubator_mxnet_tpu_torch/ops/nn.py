@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .fused_conv import bn_stats
+from .reduce import _int_result
 from .registry import register_op
 
 __all__ = ["channels_last", "convolution", "fused_batch_norm_relu"]
@@ -56,7 +57,7 @@ _ACTIVATIONS = {
     "relu": torch.relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
-    "softrelu": F.softplus,
+    "softrelu": lambda x: F.softplus(_float(x)),
     "softsign": lambda x: x / (torch.abs(x) + 1),
     # extension beyond the reference; jax.nn.gelu's default is the tanh
     # approximation
@@ -71,9 +72,9 @@ def _activation(data, *, act_type):
     return _ACTIVATIONS[act_type](data)
 
 
-def _float(x):
-    """An integer array as float32, as JAX promotes it."""
-    return x if x.is_floating_point() else x.to(torch.float32)
+def _float(x, dtype=torch.float32):
+    """An integer array as float32 (or ``dtype``), as JAX promotes it."""
+    return x if x.is_floating_point() else x.to(dtype)
 
 
 @register_op("softmax")
@@ -98,6 +99,7 @@ def _softmin(data, *, axis=-1, temperature=None):
 def _softmax_activation(data, *, mode="instance"):
     """Softmax over the channels (axis 1, ``mode="channel"``) or over all
     of an instance's values."""
+    data = _float(data)
     if mode == "channel":
         return torch.softmax(data, dim=1)
     return torch.softmax(data.reshape(data.shape[0], -1),
@@ -311,9 +313,9 @@ def _pooling(data, *, kernel=(), pool_type="max", global_pool=False,
         if pool_type == "max":
             out = torch.amax(x, dim=spatial, keepdim=True)
         elif pool_type == "sum":
-            out = x.sum(spatial, keepdim=True)
+            out = x.sum(spatial, keepdim=True).to(_int_result(x))
         else:
-            out = x.mean(spatial, keepdim=True)
+            out = _float(x).mean(spatial, keepdim=True)
         return _back(out, layout)
     kernel, stride = _tup(kernel, n), _tup(stride, n)
     pad = _tup(pad, n) if pad is not None else (0,) * n
@@ -329,14 +331,17 @@ def _pooling(data, *, kernel=(), pool_type="max", global_pool=False,
             else torch.iinfo(x.dtype).min
         out = _MAXPOOL[n](F.pad(x, widths, value=fill), kernel, stride)
         return _back(out, layout)
-    summed = _sum_pool(F.pad(x, widths), kernel, stride)
+    # torch pools no integers: their window sums run in float64 (exact
+    # below 2**53) and come back to x's dtype, as the JAX op's int sums
+    summed = _sum_pool(F.pad(_float(x, torch.float64), widths), kernel,
+                       stride).to(x.dtype)
     if pool_type == "sum":
         out = summed
     elif count_include_pad:
-        out = summed / float(np.prod(kernel))
+        out = _float(summed) / float(np.prod(kernel))
     else:
-        out = summed / _sum_pool(F.pad(torch.ones_like(x), widths), kernel,
-                                 stride)
+        out = _float(summed) / _float(_sum_pool(
+            F.pad(torch.ones_like(_float(x)), widths), kernel, stride))
     return _back(out, layout)
 
 
@@ -431,8 +436,10 @@ def _l2_normalization(data, *, eps=1e-10, mode="instance"):
     if mode == "channel":
         return data / torch.sqrt(data.square().sum(1, keepdim=True) + eps)
     if mode == "spatial":
+        # a 2-D input has no spatial axis: each element is its own group
         red = tuple(range(2, data.ndim))
-        return data / torch.sqrt(data.square().sum(red, keepdim=True) + eps)
+        sq = data.square().sum(red, keepdim=True) if red else data.square()
+        return data / torch.sqrt(sq + eps)
     raise ValueError(mode)
 
 

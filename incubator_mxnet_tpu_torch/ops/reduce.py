@@ -61,7 +61,9 @@ def _prod(x, ax, keepdims):
 
 
 def _nansum(x, ax, keepdims):
-    return torch.nansum(x, dim=ax, keepdim=keepdims)
+    if x.is_floating_point():
+        return torch.nansum(x, dim=ax, keepdim=keepdims)
+    return _sum(x, ax, keepdims)
 
 
 def _nanprod(x, ax, keepdims):
@@ -99,8 +101,10 @@ register_op("min", _reduce(_min), aliases=("min_axis",))
 def _norm(x, *, ord=2, axis=None, keepdims=False):
     ax = tuple(range(x.ndim)) if axis is None else \
         (axis if isinstance(axis, tuple) else (axis,))
+    if not ax:      # torch reads dim=() as every axis; JAX sums none
+        return abs_(x) if ord == 1 else torch.sqrt(torch.square(x))
     if ord == 1:
-        return torch.sum(abs_(x), dim=ax, keepdim=keepdims)
+        return _sum(abs_(x), ax, keepdims)
     return torch.sqrt(torch.sum(torch.square(x), dim=ax, keepdim=keepdims))
 
 

@@ -24,6 +24,7 @@ import torch
 
 from .base import MXNetError
 from .context import cpu, gpu, resolve_device
+from .ndarray import NDArray
 from .parallel.step import EvalStep
 
 __all__ = ["Predictor", "load_checkpoint_predictor", "BlockPredictor"]
@@ -181,9 +182,11 @@ class BlockPredictor:
 
     def __call__(self, *batch):
         """Forward one batch (each input with its batch dim); returns
-        the module's output, on the device."""
+        the module's output, on the device (a Gluon block's ``NDArray``
+        output as its tensor)."""
         with self._lock, torch.inference_mode(), self._scope():
-            return self._forward(*(self._to_device(x) for x in batch))
+            out = self._forward(*(self._to_device(x) for x in batch))
+        return out._data if isinstance(out, NDArray) else out
 
     def predict(self, data, batch_size=None):
         """Minibatched forward over a large array.  Every minibatch,

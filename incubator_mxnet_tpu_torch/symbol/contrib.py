@@ -1,7 +1,6 @@
 """``mx.sym.contrib`` (counterpart of
 ``incubator_mxnet_tpu/symbol/contrib.py``): the registry's
-``_contrib_<name>`` ops by ``<name>``.  The contrib ops themselves are
-ROADMAP A8."""
+``_contrib_<name>`` ops by ``<name>`` (``ops/contrib.py``)."""
 from __future__ import annotations
 
 import sys

@@ -20,10 +20,24 @@ input; every case failed before its repair.
   ``ServingConfig(8, 100, 16, None, "block")`` set ``timeout_ms="block"``
   without an error, and refused ``full_policy``/``watchdog_s``.
 
+* C9 ``SoftmaxActivation``, ``Activation("softrelu")`` and average
+  pooling of an integer array compute in float32 (torch raised).
+* C10 ``nansum`` and ``norm(ord=1)`` of integers keep JAX's widened
+  integer dtype; ``rint`` of an integer array gives float32.
+* C11 an integer modulo by zero gives 0 (torch raised).
+* C12 ``x ** 0.5`` at -inf is +inf (and ``x ** -0.5`` there is 0), as
+  C's ``pow`` gives.
+* C13 ``axis=()`` reduces nothing: ``L2Normalization(mode="spatial")``
+  of a 2-D input and ``norm(x, axis=())``.
+* C14 an integer beside index arrays, split from them by a slice, joins
+  them as numpy's rule says (read and write).
+
 Tolerances: exact (value and dtype) for C1-C3 and C5-C7 (the same IEEE
 operations on both sides), except softmax (relative 1e-6, other
 exponentials); C4's parameters and statistics after a step 1e-6 of each
-tensor's max, and the fixed ones exactly.
+tensor's max, and the fixed ones exactly; C9's softmax and softplus
+relative 1e-6 (torch's ``softplus`` is ``log1p(exp(x))``, JAX's
+``logaddexp(x, 0)``), its pools and C10-C14 exact.
 """
 import numpy as np
 import pytest
@@ -278,3 +292,134 @@ def test_c8_serving_watchdog_from_the_environment(monkeypatch):
     monkeypatch.setenv("MXNET_SERVING_WATCHDOG_S", "0.25")
     assert ServingConfig().watchdog_s == JaxServingConfig().watchdog_s \
         == 0.25
+
+
+# ------------------------------------------------------------------ C9
+INTS = np.array([[1, 2, 3, 4], [-3, 0, 5, 2]], np.int32)
+POOL_INTS = np.arange(-8, 17, dtype=np.int32).reshape(1, 1, 5, 5)
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: m.nd.SoftmaxActivation(m.nd.array(INTS, dtype="int32")),
+    lambda m: m.nd.SoftmaxActivation(m.nd.array(INTS, dtype="int32"),
+                                     mode="channel"),
+    lambda m: m.nd.Activation(m.nd.array(INTS, dtype="int32"),
+                              act_type="softrelu")],
+    ids=["softmax_instance", "softmax_channel", "softrelu"])
+def test_c9_float_only_ops_of_integers(call):
+    got, want = _both(call)
+    assert got[0].dtype == want[0].dtype == np.float32
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(kernel=(2, 2), stride=(2, 2), pool_type="avg"),
+    dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+         count_include_pad=False),
+    dict(kernel=(3, 3), stride=(2, 2), pool_type="avg",
+         pooling_convention="full"),
+    dict(kernel=(2, 2), stride=(1, 1), pool_type="sum"),
+    dict(kernel=(1, 1), global_pool=True, pool_type="avg"),
+    dict(kernel=(1, 1), global_pool=True, pool_type="sum")],
+    ids=["avg", "avg_nopad", "avg_full", "sum", "global_avg", "global_sum"])
+def test_c9_average_pooling_of_integers(kwargs):
+    got, want = _both(lambda m: m.nd.Pooling(
+        m.nd.array(POOL_INTS, dtype="int32"), **kwargs))
+    _exact(got, want, f"Pooling {kwargs}")
+
+
+# ------------------------------------------------------------------ C10
+@pytest.mark.parametrize("dtype", ["int32", "int8", "uint8"])
+@pytest.mark.parametrize("axis", [None, 1])
+def test_c10_nansum_of_integers(dtype, axis):
+    got, want = _both(lambda m: m.nd.nansum(
+        m.nd.array(np.abs(INTS), dtype=dtype), axis=axis))
+    _exact(got, want, f"nansum {dtype} axis={axis}")
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: m.nd.norm(m.nd.array(INTS, dtype="int32"), ord=1, axis=1),
+    lambda m: m.nd.norm(m.nd.array(INTS, dtype="int32"), ord=1),
+    lambda m: m.nd.rint(m.nd.array(INTS, dtype="int32"))],
+    ids=["norm1_axis", "norm1_all", "rint"])
+def test_c10_integer_norm_and_rint_dtypes(call):
+    got, want = _both(call)
+    _exact(got, want, "integer norm / rint")
+
+
+# ------------------------------------------------------------------ C11
+MOD_A = np.array([5, -5, 7, 0, -7], np.int32)
+MOD_B = np.array([0, 0, 3, 0, 2], np.int32)
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: m.nd.broadcast_mod(m.nd.array(MOD_A, dtype="int32"),
+                                 m.nd.array(MOD_B, dtype="int32")),
+    lambda m: m.nd.array(MOD_A, dtype="int32") %
+    m.nd.array(MOD_B, dtype="int32"),
+    lambda m: m.nd.broadcast_mod(m.nd.array(MOD_A[:, None], dtype="int32"),
+                                 m.nd.array(MOD_B[None], dtype="int32")),
+    lambda m: m.nd._mod_scalar(m.nd.array(MOD_A, dtype="int32"), scalar=0),
+    lambda m: m.nd._rmod_scalar(m.nd.array(MOD_B, dtype="int32"),
+                                scalar=7)],
+    ids=["broadcast_mod", "operator", "broadcast", "mod_scalar",
+         "rmod_scalar"])
+def test_c11_integer_modulo_by_zero_is_zero(call):
+    got, want = _both(call)
+    _exact(got, want, "integer mod")
+
+
+# ------------------------------------------------------------------ C12
+POW_X = np.array([-np.inf, 4.0, 0.0, np.inf, 2.25], np.float32)
+
+
+@pytest.mark.parametrize("exponent", [0.5, -0.5, 2.0, 3.0])
+def test_c12_power_scalar_at_infinity(exponent):
+    got, want = _both(lambda m: m.nd.array(POW_X) ** exponent)
+    _exact(got, want, f"x ** {exponent}")
+
+
+# ------------------------------------------------------------------ C13
+@pytest.mark.parametrize("call", [
+    lambda m: m.nd.L2Normalization(
+        m.nd.array(np.array([[3, -4], [0.5, 2]], np.float32)),
+        mode="spatial"),
+    lambda m: m.nd.norm(m.nd.array(np.array([[3, -4]], np.float32)),
+                        axis=()),
+    lambda m: m.nd.norm(m.nd.array(np.array([[3, -4]], np.float32)),
+                        ord=1, axis=())],
+    ids=["l2norm_spatial_2d", "norm2", "norm1"])
+def test_c13_empty_axes_reduce_nothing(call):
+    got, want = _both(call)
+    _exact(got, want, "axis=()")
+
+
+# ------------------------------------------------------------------ C14
+CUBE = np.arange(60, dtype=np.float32).reshape(3, 4, 5)
+
+
+@pytest.mark.parametrize("key", [
+    (1, slice(None), np.array([4, 0])),
+    (slice(None), 2, np.array([1, 3, 1])),
+    (np.array([2, 0]), slice(1, 3), 4),
+    (np.array([2, 0]), 1, np.array([4, 3]))],
+    ids=["int_slice_idx", "slice_int_idx", "idx_slice_int", "adjacent"])
+def test_c14_mixed_advanced_indexing_reads_like_numpy(key):
+    got, want = _both(lambda m: m.nd.array(CUBE)[key])
+    _exact(got, want, f"read {key}")
+    assert got[0].shape == CUBE[key].shape
+
+
+def test_c14_mixed_advanced_indexing_writes_like_numpy():
+    key = (1, slice(None), np.array([4, 0]))
+    value = np.arange(8, dtype=np.float32).reshape(2, 4)
+
+    def write(m):
+        x = m.nd.array(CUBE)
+        x[key] = m.nd.array(value)
+        return x
+    got, want = _both(write)
+    _exact(got, want, "write")
+    ref = CUBE.copy()
+    ref[key] = value
+    np.testing.assert_array_equal(got[0], ref)
