@@ -23,6 +23,14 @@ Gluon block's Parameters carry the JAX package's full names
 (``densenet0_conv0_weight`` ...), so the mapping is the identity, and
 ``gluon_params_to_numpy(net)`` gives the same dictionary back.
 
+Sparse arrays cross as their numpy components: the JAX package keeps a
+``CSRNDArray`` as host ``_data`` / ``_indices`` / ``_indptr`` and a
+``RowSparseNDArray`` as ``_data`` / ``_indices``;
+``sparse_from_numpy({"stype": ..., "shape": ..., "data": ...,
+"indices": ..., ["indptr": ...]}, ctx)`` builds the port's array of the
+same storage on ``ctx`` (its components torch tensors there), and
+``sparse_to_numpy(arr)`` gives the dictionary back.
+
 Arrays of the imperative path (``mx.nd``) cross between the packages
 as files instead: ``ndarray.save`` / ``ndarray.load`` write MXNet's
 binary ``.params`` format and read it and the JAX package's ``.npz``
@@ -39,7 +47,8 @@ from .base import MXNetError
 
 __all__ = ["gluon_params_from_numpy", "gluon_params_to_numpy",
            "params_from_numpy", "resnet_param_names",
-           "resnet_params_from_numpy", "resnet_params_to_numpy"]
+           "resnet_params_from_numpy", "resnet_params_to_numpy",
+           "sparse_from_numpy", "sparse_to_numpy"]
 
 # child blocks of a JAX DecoderLayer in creation order -> port names
 _LAYER_CHILDREN = {"layernorm0": "ln1", "dense0": "qkv", "dense1": "proj",
@@ -105,6 +114,35 @@ def gluon_params_to_numpy(net):
     Parameters, the names the JAX package's twin has."""
     return {name: p.data().asnumpy()
             for name, p in net.collect_params().items()}
+
+
+def sparse_from_numpy(parts, ctx=None):
+    """The port's ``CSRNDArray`` or ``RowSparseNDArray`` from numpy
+    components: ``parts`` holds ``stype`` (``"csr"`` or
+    ``"row_sparse"``), ``shape``, ``data``, ``indices`` and, for csr,
+    ``indptr``."""
+    from .ndarray import sparse
+    stype = parts["stype"]
+    data = np.asarray(parts["data"])
+    if stype == "csr":
+        return sparse.CSRNDArray(data, parts["indices"], parts["indptr"],
+                                 parts["shape"], dtype=data.dtype, ctx=ctx)
+    if stype == "row_sparse":
+        return sparse.RowSparseNDArray(data, parts["indices"],
+                                       parts["shape"], dtype=data.dtype,
+                                       ctx=ctx)
+    raise MXNetError(f"unknown stype {stype!r}")
+
+
+def sparse_to_numpy(arr):
+    """The numpy components of a port sparse array (the dictionary
+    ``sparse_from_numpy`` takes)."""
+    parts = {"stype": arr.stype, "shape": arr.shape,
+             "data": arr._data.cpu().numpy(),
+             "indices": arr._indices.cpu().numpy()}
+    if arr.stype == "csr":
+        parts["indptr"] = arr._indptr.cpu().numpy()
+    return parts
 
 
 _RESNET_RE = re.compile(r"(?:stage(\d+)_)?(conv2d|batchnorm|dense)(\d+)_"

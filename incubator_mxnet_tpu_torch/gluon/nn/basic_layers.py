@@ -289,7 +289,8 @@ class LayerNorm(HybridBlock):
 class Embedding(HybridBlock):
     """Index -> dense vector lookup (reference basic_layers.py:Embedding;
     op src/operator/tensor/indexing_op.cc Embedding), a gather;
-    ``sparse_grad=True`` (a row_sparse gradient) raises until A8."""
+    ``sparse_grad=True`` marks the weight's gradient ``row_sparse``:
+    ``gluon.Trainer`` updates only its rows with a nonzero gradient."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None,

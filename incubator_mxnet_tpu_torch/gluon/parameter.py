@@ -18,9 +18,14 @@ update writes the module's tensor in place.  Initialising, loading or
 ``set_data`` then copies into the tensor; moving or casting a view is
 the owner module's business and raises here.
 
+``stype`` / ``grad_stype`` take ``default``, ``row_sparse`` or
+``csr``, as in the JAX package: the data and the gradient buffer stay
+dense, and ``Trainer.step`` hands a ``row_sparse`` gradient to the
+optimizer as a ``RowSparseNDArray`` of its nonzero rows (the lazy
+update).
+
 Where it differs from the JAX package: a list of several contexts
-raises (``initialize``, ``reset_ctx``) until A6; ``row_sparse`` /
-``csr`` storage raises until A8.
+raises (``initialize``, ``reset_ctx``) until A6.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import autograd, initializer
+from .. import random as _random
 from ..base import MXNetError, numpy_dtype, torch_dtype
 from ..context import context_of, cpu, current_context
 from ..ndarray import utils as nd_utils
@@ -124,9 +130,8 @@ class Parameter:
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         for kind, value in (("stype", stype), ("grad_stype", grad_stype)):
-            if value != "default":
-                raise MXNetError(f"{kind}={value!r}: sparse storage is not "
-                                 "ported yet (ROADMAP A8)")
+            if value not in ("default", "row_sparse", "csr"):
+                raise ValueError(f"invalid {kind} {value}")
         self._stype = stype
         self._grad_stype = grad_stype
         self._is_aux = False
@@ -234,7 +239,8 @@ class Parameter:
 
     def _allocate(self, init, ctx, default_init):
         values = np.zeros(self.shape, dtype=_host_dtype(self.dtype))
-        _run_init(init, default_init, self.name, values)
+        with _random.sampling_on((ctx or current_context()).torch_device()):
+            _run_init(init, default_init, self.name, values)
         data = _to_device(values, ctx, self.dtype)
         if self._data is not None:
             self._assign(data)

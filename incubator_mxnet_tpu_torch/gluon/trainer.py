@@ -5,7 +5,12 @@ python/mxnet/gluon/trainer.py).
 Applies an ``Optimizer`` to a list of Parameters after ``backward``:
 ``step(batch_size)`` sets ``rescale_grad = 1 / batch_size`` and updates
 each trainable Parameter whose gradient is fresh, one at a time, through
-the optimizer's ``Updater`` (eagerly, on the Parameter's device).  On
+the optimizer's ``Updater`` (eagerly, on the Parameter's device).  A
+Parameter with ``grad_stype="row_sparse"`` (``Embedding(sparse_grad=
+True)``) hands the optimizer its gradient as a ``RowSparseNDArray`` of
+the rows with a nonzero element, the lazy update's row set, as the JAX
+``Trainer`` casts it: a row the batch touched whose gradient is exactly
+0 is not updated.  On
 one device a kvstore has no role: ``"device"``, ``"local"`` or None
 mean no store, as the JAX ``Trainer`` drops single-replica stores.
 Stores across devices or processes (``"nccl"``, ``"tpu"``, ``"dist_*"``,
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 from .. import optimizer as opt
 from ..base import MXNetError
+from ..ndarray import cast_storage
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -94,7 +100,13 @@ class Trainer:
                         "warning and skip updating of Parameters with "
                         "stale gradient")
                 continue
-            self._updaters(i, param.grad(), param.data())
+            grad = param.grad()
+            if param._grad_stype == "row_sparse":
+                # the lazy update over the rows whose gradient has a
+                # nonzero (JAX trainer.py:113-120: the dense gradient cast
+                # to row_sparse; one nonzero, a sync on the card)
+                grad = cast_storage(grad, "row_sparse")
+            self._updaters(i, grad, param.data())
             param._fresh_grad = False
 
     def allreduce_grads(self):

@@ -14,8 +14,9 @@ import json
 import math
 
 import numpy as np
+import torch
 
-from .base import MXNetError, registry
+from .base import MXNetError, registry, torch_dtype
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
@@ -90,6 +91,15 @@ class Initializer:
 
     # -- fills ----------------------------------------------------------
     def _fill(self, arr, values):
+        from .ndarray.ndarray import NDArray
+        if isinstance(values, torch.Tensor):
+            # a draw of named_sample, made where the array lives
+            values = values.to(torch_dtype(arr.dtype)).expand(arr.shape)
+            if isinstance(arr, NDArray):
+                arr[:] = NDArray(values)
+            else:
+                arr[:] = values.cpu().numpy()
+            return
         values = np.asarray(values, dtype=np.dtype(arr.dtype))
         if values.shape != tuple(arr.shape):
             values = np.broadcast_to(values, arr.shape)
@@ -119,11 +129,13 @@ class Initializer:
             " only covers *weight/*bias/*gamma/*beta/running stats; pass"
             " init= explicitly for custom parameter names.")
 
-    def _rand(self, name, kind, **kw):
+    def _rand(self, name, kind, arr=None, **kw):
         """Per-parameter reproducible sampling: fold the parameter name into
         the global init seed (TPU-native replacement for the sequential
-        legacy RNG)."""
-        return _random.named_sample(str(name), kind, **kw)
+        legacy RNG); drawn on ``arr``'s device when it is an NDArray."""
+        from .ndarray.ndarray import NDArray
+        device = arr._data.device if isinstance(arr, NDArray) else None
+        return _random.named_sample(str(name), kind, device=device, **kw)
 
 
 @register("zeros", aliases=("zero",))
@@ -157,7 +169,7 @@ class Uniform(Initializer):
         self.scale = scale
 
     def _init_weight(self, name, arr):
-        self._fill(arr, self._rand(name, "uniform", low=-self.scale,
+        self._fill(arr, self._rand(name, "uniform", arr, low=-self.scale,
                                    high=self.scale, shape=arr.shape))
 
 
@@ -170,7 +182,7 @@ class Normal(Initializer):
         self.sigma = sigma
 
     def _init_weight(self, name, arr):
-        self._fill(arr, self._rand(name, "normal", scale=self.sigma,
+        self._fill(arr, self._rand(name, "normal", arr, scale=self.sigma,
                                    shape=arr.shape))
 
 
@@ -222,10 +234,11 @@ class Xavier(Initializer):
             raise MXNetError("Incorrect factor type")
         scale = math.sqrt(self.magnitude / factor)
         if self.rnd_type == "uniform":
-            self._fill(arr, self._rand(name, "uniform", low=-scale, high=scale,
-                                       shape=shape))
+            self._fill(arr, self._rand(name, "uniform", arr, low=-scale,
+                                       high=scale, shape=shape))
         elif self.rnd_type in ("gaussian", "normal"):
-            self._fill(arr, self._rand(name, "normal", scale=scale, shape=shape))
+            self._fill(arr, self._rand(name, "normal", arr, scale=scale,
+                                       shape=shape))
         else:
             raise MXNetError("Unknown random type")
 

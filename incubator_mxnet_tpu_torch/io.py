@@ -4,7 +4,8 @@ reference python/mxnet/io.py and src/io/).
 * ``DataDesc`` / ``DataBatch`` / ``DataIter`` (``device_prefetch()``
   wraps an iterator in ``pipeline_io.DevicePrefetchIter``);
 * ``NDArrayIter`` with shuffle and pad / discard / roll_over;
-* ``CSVIter``, ``MNISTIter`` (raw idx files);
+* ``CSVIter``, ``MNISTIter`` (raw idx files), ``LibSVMIter`` (libsvm
+  text into ``CSRNDArray`` batches);
 * ``ImageRecordIter``, the RecordIO image reader of the ResNet path:
   a producer thread decodes each batch on a pool of
   ``preprocess_threads`` threads (OpenCV, or PIL with
@@ -16,8 +17,8 @@ reference python/mxnet/io.py and src/io/).
 Every iterator emits **host** NDArrays (``ctx=mx.cpu()``): the port's
 default context is ``gpu(0)``, and the copy to the card belongs to the
 consumer or to ``DevicePrefetchIter``, which stages it on a side CUDA
-stream from pinned memory.  ``LibSVMIter`` emits sparse batches and
-raises ``MXNetError`` until sparse NDArrays are ported (ROADMAP A8).
+stream from pinned memory (a ``LibSVMIter`` batch by
+``CSRNDArray.as_in_context``).
 The telemetry and tracing hooks of the JAX iterators are not ported
 (ROADMAP A9).
 """
@@ -333,14 +334,79 @@ class CSVIter(DataIter):
 
 
 class LibSVMIter(DataIter):
-    """libsvm sparse-format reader (reference src/io/iter_libsvm.cc).  It
-    emits CSR batches, and sparse NDArrays are not ported: constructing
-    one raises ``MXNetError`` (ROADMAP A8)."""
+    """libsvm reader emitting ``CSRNDArray`` batches (reference
+    src/io/iter_libsvm.cc + iter_sparse_batchloader.h; JAX
+    ``io.py:326``): each line ``label idx:value ...``; ``label_libsvm``
+    names a file whose lines' first fields are the labels instead.  With
+    ``round_batch`` the last batch wraps around to the first rows and
+    reports them in ``pad``; without it a short last batch is dropped."""
 
     def __init__(self, data_libsvm, data_shape, label_libsvm=None,
                  batch_size=1, round_batch=True, dtype="float32", **kwargs):
-        raise MXNetError("LibSVMIter emits sparse (CSR) batches, which the "
-                         "port does not have yet (ROADMAP A8)")
+        super().__init__(batch_size)
+        self._data_shape = tuple(data_shape)
+        indptr, indices, values, labels = [0], [], [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                for tok in parts[1:]:
+                    i, v = tok.split(":")
+                    indices.append(int(i))
+                    values.append(float(v))
+                indptr.append(len(indices))
+        self._indptr = np.asarray(indptr, np.int64)
+        self._indices = np.asarray(indices, np.int64)
+        self._values = np.asarray(values, dtype)
+        if label_libsvm is not None:
+            with open(label_libsvm) as f:
+                labels = [float(ln.split()[0]) for ln in f if ln.strip()]
+        self._labels = np.asarray(labels, dtype)
+        self._num = len(self._labels)
+        self._dim = int(np.prod(self._data_shape))
+        self._round = round_batch
+        self._cursor = 0
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._dim))]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("label", (self.batch_size,))]
+
+    def reset(self):
+        self._cursor = 0
+
+    def _csr_rows(self, rows):
+        from .ndarray.sparse import CSRNDArray
+        starts = self._indptr[rows]
+        counts = self._indptr[rows + 1] - starts
+        indptr = np.concatenate([[0], counts.cumsum()])
+        # the stored values of the rows, in order: each row's run of
+        # positions in the file's arrays
+        take = np.repeat(starts - indptr[:-1], counts) + \
+            np.arange(indptr[-1])
+        return CSRNDArray(self._values[take], self._indices[take],
+                          indptr.astype(np.int64), (len(rows), self._dim),
+                          ctx=cpu())
+
+    def next(self):
+        if self._cursor >= self._num:
+            raise StopIteration
+        end = self._cursor + self.batch_size
+        rows = np.arange(self._cursor, min(end, self._num))
+        pad = 0
+        if len(rows) < self.batch_size:
+            if not self._round:
+                raise StopIteration
+            pad = self.batch_size - len(rows)
+            rows = np.concatenate([rows, np.arange(pad)])
+        self._cursor = end
+        return DataBatch(data=[self._csr_rows(rows)],
+                         label=[_host(self._labels[rows])], pad=pad)
 
 
 def _read_idx_file(path):

@@ -5,11 +5,11 @@ The reference serializes NDArray lists with its dmlc-stream format
 (src/ndarray/ndarray.cc:1466-1692): file magic 0x112, a vector of
 per-array records (V2 magic 0xF993fac9 with storage type, V1 magic
 0xF993fac8, or legacy records whose first word is the ndim), then the
-name vector.  The reader takes dense records of every version; the
-writer emits dense V2 records, which every reference version since
-0.12 loads and which the JAX package's ``nd.load`` reads.  Sparse
-records raise ``MXNetError``: sparse storage is not ported yet
-(ROADMAP A8).
+name vector.  The reader takes dense records of every version and the
+V2 row_sparse and csr records (JAX ``mxnet_format.py:79-150``), which
+load as the port's ``RowSparseNDArray`` / ``CSRNDArray``; the writer
+emits dense V2 records, which every reference version since 0.12 loads
+and which the JAX package's ``nd.load`` reads.
 """
 from __future__ import annotations
 
@@ -30,7 +30,10 @@ _TYPE_FLAGS = {0: np.float32, 1: np.float64, 2: np.float16,
                3: np.uint8, 4: np.int32, 5: np.int8, 6: np.int64}
 _FLAG_FOR = {np.dtype(v).name: k for k, v in _TYPE_FLAGS.items()}
 
-_STYPE_DEFAULT = 0
+# storage types (include/mxnet/ndarray.h NDArrayStorageType) and their
+# count of auxiliary arrays
+_STYPE_DEFAULT, _STYPE_ROW_SPARSE, _STYPE_CSR = 0, 1, 2
+_NUM_AUX = {_STYPE_DEFAULT: 0, _STYPE_ROW_SPARSE: 1, _STYPE_CSR: 2}
 
 
 class _Reader:
@@ -73,16 +76,32 @@ class _Reader:
 
 
 def _read_one(r):
-    """One NDArray record -> numpy array, or None for a none
-    placeholder."""
+    """One NDArray record -> a numpy array, None for a none
+    placeholder, or ``(stype, shape, values, aux)`` for a sparse one
+    (aux: row_sparse ``[indices]``, csr ``[indptr, indices]``)."""
     magic = r.u32()
     if magic == _V2_MAGIC:
         stype = r.i32()
-        if stype != _STYPE_DEFAULT:
-            raise MXNetError(f"storage type {stype} in .params: sparse "
-                             "arrays are not ported yet")
+        nad = _NUM_AUX.get(stype)
+        if nad is None:
+            raise MXNetError(f"unknown storage type {stype} in .params")
+        if nad:
+            sshape = r.shape()   # storage shape of the values
         shape = r.shape()
-    elif magic == _V1_MAGIC:
+        if not shape:
+            return None
+        r.i32()                  # dev_type
+        r.i32()                  # dev_id
+        type_flag = r.i32()
+        if not nad:
+            return r.raw_array(shape, type_flag)
+        aux_types = [r.i32() for _ in range(nad)]
+        aux_shapes = [r.shape() for _ in range(nad)]
+        values = r.raw_array(sshape, type_flag)
+        aux = [r.raw_array(s, t) for t, s in zip(aux_types, aux_shapes)]
+        return ("row_sparse" if stype == _STYPE_ROW_SPARSE else "csr",
+                shape, values, aux)
+    if magic == _V1_MAGIC:
         shape = r.shape()
     else:
         shape = r.legacy_shape(magic)
@@ -93,6 +112,21 @@ def _read_one(r):
     return r.raw_array(shape, r.i32())
 
 
+def _to_ndarray(item):
+    from . import sparse
+    from .ndarray import array
+    if item is None:
+        return None
+    if isinstance(item, tuple):
+        kind, shape, values, aux = item
+        if kind == "row_sparse":
+            return sparse.row_sparse_array((values, aux[0]), shape=shape,
+                                           dtype=values.dtype)
+        return sparse.csr_matrix((values, aux[1], aux[0]), shape=shape,
+                                 dtype=values.dtype)
+    return array(item, dtype=item.dtype)
+
+
 def is_reference_blob(head):
     """True if ``head`` (the first >= 8 bytes) starts a .params file."""
     return len(head) >= 8 and \
@@ -100,8 +134,9 @@ def is_reference_blob(head):
 
 
 def load_bytes(data):
-    """Parse a .params blob -> (list of numpy arrays, list of names);
-    names is [] when the file stored an unnamed list."""
+    """Parse a .params blob -> (list of records, list of names): numpy
+    arrays, or ``(stype, shape, values, aux)`` for sparse ones; names is
+    [] when the file stored an unnamed list."""
     r = _Reader(data)
     if r.u64() != _LIST_MAGIC:
         raise MXNetError("not a reference .params file (bad magic)")
@@ -115,15 +150,15 @@ def load_bytes(data):
 
 def load(fname_or_bytes):
     """.params -> list[NDArray] or {name: NDArray}, on the current
-    context, each in the dtype the file stored."""
-    from .ndarray import array
+    context, each in the dtype the file stored (sparse records as
+    sparse arrays)."""
     if isinstance(fname_or_bytes, (bytes, bytearray)):
         data = bytes(fname_or_bytes)
     else:
         with open(fname_or_bytes, "rb") as f:
             data = f.read()
     arrays, names = load_bytes(data)
-    nds = [None if a is None else array(a, dtype=a.dtype) for a in arrays]
+    nds = [_to_ndarray(a) for a in arrays]
     if not names:
         return nds
     if len(names) != len(nds):

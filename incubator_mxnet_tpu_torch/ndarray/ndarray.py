@@ -120,16 +120,17 @@ class NDArray:
 
     @property
     def stype(self):
-        """Storage type: ``"default"`` (dense), the only one ported."""
+        """Storage type: ``"default"`` (dense)."""
         return "default"
 
     def tostype(self, stype):
-        """This array in storage ``stype``: itself for ``"default"``;
-        ``row_sparse`` and ``csr`` storage are ROADMAP A8."""
+        """This array in storage ``stype``: itself for ``"default"``,
+        else a ``sparse.RowSparseNDArray`` or ``sparse.CSRNDArray`` of
+        its nonzeros."""
         if stype == "default":
             return self
-        raise MXNetError(f"storage type {stype!r} is not ported yet "
-                         "(sparse NDArrays are ROADMAP A8)")
+        from . import sparse
+        return sparse._from_dense(self, stype)
 
     @property
     def T(self):

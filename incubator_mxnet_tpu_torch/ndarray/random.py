@@ -12,7 +12,9 @@ from .op import _make_wrapper
 
 _module = sys.modules[__name__]
 
-__all__ = ["uniform", "normal", "randint"]
+__all__ = ["uniform", "normal", "gamma", "exponential", "poisson",
+           "negative_binomial", "generalized_negative_binomial",
+           "multinomial", "randint", "shuffle"]
 
 
 def __getattr__(name):

@@ -2,6 +2,7 @@
 (``ndarray``) dispatches through, and the operators that hold
 hand-written kernels.  Importing this package registers every op."""
 from . import elemwise       # noqa: F401
+from . import image_ops      # noqa: F401
 from . import indexing       # noqa: F401
 from . import linalg         # noqa: F401
 from . import matrix         # noqa: F401
@@ -10,6 +11,7 @@ from . import optimizer_ops  # noqa: F401
 from . import random         # noqa: F401
 from . import reduce         # noqa: F401
 from . import rnn            # noqa: F401
+from . import spatial        # noqa: F401
 from . import contrib        # noqa: F401 (aliases matrix's khatri_rao)
 from .fused_chain import (chain_emit, chain_stats, chain_supported,
                           fused_bottleneck_chain)

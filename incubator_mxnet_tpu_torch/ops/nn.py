@@ -16,8 +16,10 @@ Registered here: ``FullyConnected`` (``nn.py:38``), ``Convolution``
 ``softmax_output``, ``LinearRegressionOutput``,
 ``LogisticRegressionOutput``, ``MAERegressionOutput``, ``SVMOutput``),
 each a ``torch.autograd.Function`` whose backward is the JAX op's custom
-gradient, which ignores the head gradient.  The legacy ops are ROADMAP
-A8.
+gradient, which ignores the head gradient; and the legacy ops
+``IdentityAttachKLSparseReg`` (``:691-721``, the identity with JAX's
+KL-sparsity gradient) and ``_CrossDeviceCopy`` / ``CrossDeviceCopy``
+(``:724``, the identity).
 
 Each op is plain PyTorch (``F.conv*d``, ``F.*pool*d``, elementwise
 arithmetic), as the JAX package leaves them to XLA, and its gradient is
@@ -721,3 +723,42 @@ def _svm_output(data, label, *, margin=1.0, regularization_coefficient=1.0,
     return _SVMOutput.apply(data, label, float(margin),
                             float(regularization_coefficient),
                             bool(use_linear))
+
+
+class _KLSparseReg(torch.autograd.Function):
+    """The identity whose backward adds ``penalty * dKL(rho ||
+    rho_hat) / d act / n`` to the head gradient, ``rho_hat`` the current
+    batch's mean activation clipped to ``[1e-6, 1 - 1e-6]`` (the JAX
+    op's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, data, rho, penalty):
+        ctx.cfg = (rho, penalty)
+        ctx.save_for_backward(data)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (data,) = ctx.saved_tensors
+        rho, penalty = ctx.cfg
+        rho_hat = torch.clamp(data.mean(0), 1e-6, 1 - 1e-6)
+        kl = penalty * (-rho / rho_hat + (1 - rho) / (1 - rho_hat))
+        return g + kl.unsqueeze(0) / data.shape[0], None, None
+
+
+@register_op("IdentityAttachKLSparseReg")
+def _identity_attach_kl_sparse_reg(data, *, sparseness_target=0.1,
+                                   penalty=0.001, momentum=0.9):
+    """Identity forward with a KL-sparsity gradient (reference
+    identity_attach_KL_sparse_reg.cc).  As in the JAX op, ``rho_hat`` is
+    the current batch's mean, not a moving average: ``momentum`` is
+    accepted and ignored."""
+    return _KLSparseReg.apply(data, float(sparseness_target),
+                              float(penalty))
+
+
+@register_op("_CrossDeviceCopy", aliases=("CrossDeviceCopy",))
+def _cross_device_copy(data):
+    """The identity (reference cross_device_copy.cc; the JAX op keeps
+    old graph JSON loadable the same way)."""
+    return data

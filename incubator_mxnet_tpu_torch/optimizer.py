@@ -15,8 +15,16 @@ state as NDArrays (``gluon.Trainer`` and ``Module`` through their
 ``Updater``) or as torch tensors (``parallel.TrainStep``) and updates
 them in place; an NDArray that a live recorded graph has saved is
 rebound instead (``NDArray._write``), as the JAX package rebinds every
-update.  Gradients are dense: a ``row_sparse`` one raises ``MXNetError``
-(the sparse NDArray is ROADMAP A8).
+update.  A ``row_sparse`` gradient (``ndarray.sparse.RowSparseNDArray``)
+takes the lazy update of ``SGD`` (with or without momentum), ``Adam``
+and ``AdaGrad`` (JAX ``optimizer.py:31-47``, ``:239-252``, ``:406-418``,
+``:439-447``; reference SGDUpdateRspImpl and friends): only the
+gradient's stored rows touch the weight and its states, so the other
+rows, their momentum and their Adam moments stay exactly as they were
+(no weight decay, no decay of the moments); Adam's bias correction
+still uses the index's update count.  Any other sparse gradient, or a
+row_sparse one for another optimizer or a multi-precision weight,
+raises ``MXNetError``.
 
 The arithmetic of each update op is written once, here, as an in-place
 function of the op's name (``sgd_mom_update``, ``adam_update`` ...) in
@@ -417,11 +425,67 @@ def _copy(weight):
 
 
 def _dense(grad):
-    """Raise on a sparse gradient: the port's updates are dense only."""
+    """Raise on a sparse gradient where no lazy update exists."""
     stype = getattr(grad, "stype", "default")
     if stype != "default":
-        raise MXNetError(f"optimizer: a {stype} gradient is not supported "
-                         "by the port (ROADMAP A8, ndarray.sparse)")
+        raise MXNetError(f"optimizer: a {stype} gradient has a lazy update "
+                         "only in SGD, Adam and AdaGrad (on a weight that "
+                         "is not multi-precision)")
+
+
+def _lazy_update(grad):
+    """True for a row_sparse gradient, which takes the lazy update; False
+    for a dense one; another sparse kind raises."""
+    if getattr(grad, "stype", "default") == "row_sparse":
+        return True
+    _dense(grad)
+    return False
+
+
+def _lazy(fn, weight, grad, states, *args, rescale_grad=1.0,
+          clip_gradient=None):
+    """Run the lazy row update ``fn(weight, *states, idx, g, rows,
+    *args)`` over the stored rows of the row_sparse ``grad``: ``idx``
+    its row ids, ``g`` its rescaled, clipped rows in the weight's dtype
+    and ``rows`` the weight's rows there (JAX ``_sparse_rows``)."""
+    wt = getattr(weight, "_data", weight)
+    idx = grad._indices.to(wt.device)
+    g = _rescale(grad._data.to(wt.device), rescale_grad,
+                 clip_gradient).to(wt.dtype)
+
+    @torch.no_grad()
+    def run(w, *st):
+        fn(w, *st, idx, g, w[idx], *args)
+
+    _update_in_place(run, [weight, *states])
+
+
+def _lazy_sgd(weight, idx, g, rows, lr, wd):
+    weight.index_put_((idx,), -lr * (g + wd * rows), accumulate=True)
+
+
+def _lazy_sgd_mom(weight, mom, idx, g, rows, lr, momentum, wd):
+    new_m = momentum * mom[idx] - lr * (g + wd * rows)
+    weight.index_put_((idx,), new_m, accumulate=True)
+    mom[idx] = new_m
+
+
+def _lazy_adam(weight, mean, var, idx, g, rows, lr, beta1, beta2,
+               epsilon, wd):
+    g = g + wd * rows
+    m_r = beta1 * mean[idx] + (1 - beta1) * g
+    v_r = beta2 * var[idx] + (1 - beta2) * g.square()
+    weight[idx] = rows - lr * m_r / (v_r.sqrt() + epsilon)
+    mean[idx] = m_r
+    var[idx] = v_r
+
+
+def _lazy_adagrad(weight, history, idx, g, rows, lr, epsilon, wd):
+    g = g + wd * rows
+    h_r = history[idx] + g.square()
+    weight.index_put_((idx,), -lr * g / (h_r.sqrt() + epsilon),
+                      accumulate=True)
+    history[idx] = h_r
 
 
 @register
@@ -450,9 +514,17 @@ class SGD(Optimizer):
         return self.create_state(index, weight)
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        sparse = _lazy_update(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        if sparse:
+            if state is None:
+                _lazy(_lazy_sgd, weight, grad, [], lr, wd,
+                      **self._common())
+            else:
+                _lazy(_lazy_sgd_mom, weight, grad, [state], lr,
+                      self.momentum, wd, **self._common())
+            return
         if state is None:
             _update_in_place(sgd_update, [weight, grad], lr, wd,
                              **self._common())
@@ -624,12 +696,16 @@ class Adam(Optimizer):
         return (_zeros(weight), _zeros(weight))
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        sparse = _lazy_update(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         t = self._index_update_count[index]
         lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
         mean, var = state
+        if sparse:
+            _lazy(_lazy_adam, weight, grad, [mean, var], lr, self.beta1,
+                  self.beta2, self.epsilon, wd, **self._common())
+            return
         _update_in_place(adam_update, [weight, grad, mean, var], lr,
                          self.beta1, self.beta2, self.epsilon, wd,
                          **self._common())
@@ -647,9 +723,13 @@ class AdaGrad(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        sparse = _lazy_update(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        if sparse:
+            _lazy(_lazy_adagrad, weight, grad, [state], lr,
+                  self.float_stable_eps, wd, **self._common())
+            return
         _update_in_place(adagrad_update, [weight, grad, state], lr,
                          self.float_stable_eps, wd, **self._common())
 

@@ -42,6 +42,16 @@ What one step does is the JAX step body's:
   The scale state is a device float32 ``[scale, streak]``;
   ``loss_scale()`` reads it.
 
+A batch is ``(x..., y)``: any number of data inputs, then the label.
+``block`` is a torch module over tensors (the zoo's ResNet, with a
+tensor loss such as ``gluon.nn._modules.SoftmaxCrossEntropyLoss``) or a
+Gluon ``Block`` written over ``mx.nd`` (the JAX examples' nets, with a
+``gluon.loss`` block or any function of NDArrays): a Gluon block gets
+its data inputs as NDArrays and runs under ``autograd.record()``, its
+loss takes NDArrays, and the step returns NDArray losses, as the JAX
+step does.  Its parameters take the dense update whatever their
+``grad_stype``, as the JAX step's do.
+
 Inputs are numpy arrays, tensors or NDArrays.  A batch that
 ``pipeline_io.DevicePrefetchIter`` staged (every input stamped) is taken
 as it is, with no copy and no placement check; ``resident_fastpath``
@@ -179,6 +189,11 @@ class TrainStep:
                              f"{grad_accum!r}")
         self.device = resolve_device(device)
         self._bf16 = bool(bf16_compute)
+        from ..gluon.block import Block
+        self._gluon = isinstance(block, Block)
+        if self._gluon and self._bf16:
+            raise MXNetError("TrainStep(bf16_compute=True) of a Gluon block "
+                             "over mx.nd is not ported yet")
         _check_placement("TrainStep", block, self.device)
         self._block = block
         self._loss_fn = loss_fn
@@ -199,10 +214,17 @@ class TrainStep:
         self._scaler_state = None if loss_scaler is None else \
             loss_scaler.state_init(self.device)
 
-    def _forward_loss(self, x, y):
+    def _forward_loss(self, xs, y):
+        if self._gluon:
+            from .. import autograd
+            with autograd.record(train_mode=True):
+                out = self._block(*[NDArray(x) for x in xs])
+                loss = self._loss_fn(out, NDArray(y))
+            lv = loss._data if isinstance(loss, NDArray) else loss
+            return lv.mean().float()
         if not self._bf16:
-            return self._loss_fn(self._block(x), y).mean()
-        out = _bf16_forward(self._block, (x,), keep_buffers=True)
+            return self._loss_fn(self._block(*xs), y).mean()
+        out = _bf16_forward(self._block, tuple(xs), keep_buffers=True)
         return self._loss_fn(out, y).mean().float()
 
     def _carry(self):
@@ -216,7 +238,7 @@ class TrainStep:
         buffers = [b for b in self._block.buffers() if b.is_floating_point()]
         return self._params + states + buffers
 
-    def _step(self, x, y):
+    def _step(self, xs, y):
         self._block.train()
         scaler = self._scaler
         if scaler is not None:
@@ -225,9 +247,10 @@ class TrainStep:
             scale = self._scaler_state[0]
         accum = self._grad_accum
         loss = grads = None
-        for xi, yi in zip(x.chunk(accum), y.chunk(accum)):
+        parts = zip(*[x.chunk(accum) for x in xs]) if accum > 1 else [xs]
+        for xi, yi in zip(parts, y.chunk(accum)):
             with torch.enable_grad():
-                lv = self._forward_loss(xi, yi)
+                lv = self._forward_loss(list(xi), yi)
                 # a block with nothing to train (every BatchNorm gamma
                 # and beta fixed) still steps its moving statistics
                 g = torch.autograd.grad(lv if scaler is None else lv * scale,
@@ -265,31 +288,35 @@ class TrainStep:
         """Nothing to do: the step updates the block's own parameters in
         place (the JAX step keeps them in its own carry)."""
 
-    def __call__(self, x, y):
-        """One step on the batch ``(x, y)``; returns its loss (fp32, a
-        0-d tensor on the device)."""
-        return self.run_steps(x, y, num_steps=1)[0]
+    def __call__(self, *batch):
+        """One step on the batch ``(x..., y)``; returns its loss (fp32,
+        a 0-d tensor on the device; an NDArray for a Gluon block)."""
+        return self.run_steps(*batch, num_steps=1)[0]
 
-    def run_steps(self, x, y, num_steps=None, stacked=False, drain=None):
-        """``num_steps`` steps on the one batch ``(x, y)`` (the
+    def run_steps(self, *batch, num_steps=None, stacked=False, drain=None):
+        """``num_steps`` steps on the one batch ``(x..., y)`` (the
         benchmark's resident batch); returns the ``(num_steps,)`` fp32
-        losses on the device.  With ``drain`` (a ``pipeline_io.
-        MetricDrain``) the losses are pushed through it and the list of
-        matured host losses of earlier windows is returned instead
-        (empty until the drain fills)."""
+        losses on the device (an NDArray for a Gluon block).  With
+        ``drain`` (a ``pipeline_io.MetricDrain``) the losses are pushed
+        through it and the list of matured host losses of earlier
+        windows is returned instead (empty until the drain fills)."""
         _refuse("run_steps", (("stacked=True", stacked),))
         if num_steps is None or num_steps < 1:
             raise MXNetError(f"run_steps needs num_steps >= 1, got "
                              f"{num_steps}")
-        x, y = _inputs(self, (x, y))
+        *xs, y = _inputs(self, batch)
         if self._input_prep is not None:
-            x = self._input_prep(x)
-        if x.shape[0] % self._grad_accum or y.shape[0] != x.shape[0]:
+            xs = [self._input_prep(x) for x in xs]
+        if self._grad_accum > 1 and any(
+                a.shape[0] % self._grad_accum or a.shape[0] != y.shape[0]
+                for a in xs):
             raise MXNetError(
                 f"grad_accum={self._grad_accum} splits the batch along axis "
-                f"0 into equal microbatches: got {x.shape[0]} samples and "
-                f"{y.shape[0]} labels")
-        losses = torch.stack([self._step(x, y) for _ in range(num_steps)])
+                f"0 into equal microbatches: got {xs[0].shape[0]} samples "
+                f"and {y.shape[0]} labels")
+        losses = torch.stack([self._step(xs, y) for _ in range(num_steps)])
+        if self._gluon:
+            losses = NDArray(losses)
         return losses if drain is None else drain.push(losses)
 
 
@@ -316,6 +343,11 @@ class EvalStep:
                              ("autotune", bool(autotune))))
         self.device = resolve_device(device)
         self._bf16 = bool(bf16_compute)
+        from ..gluon.block import Block
+        self._gluon = isinstance(block, Block)
+        if self._gluon and self._bf16:
+            raise MXNetError("TrainStep(bf16_compute=True) of a Gluon block "
+                             "over mx.nd is not ported yet")
         _check_placement("EvalStep", block, self.device)
         self._block = block
         self._input_prep = input_prep

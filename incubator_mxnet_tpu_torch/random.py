@@ -8,15 +8,16 @@ of ``ctx``.  Sampling ops get their device's generator from
 ``ndarray.invoke``.  The bits differ from the JAX package's keys;
 within the port the same seed gives the same numbers.
 
-``named_sample`` (the initializers' draws) uses a CPU generator of its
-own per parameter name, seeded from the current seed and the name's
-CRC-32: a parameter's initial values do not depend on the order in
-which parameters are created, as the JAX package folds the name into
-its key.
+``named_sample`` (the initializers' draws) makes the JAX package's
+draw for the current seed and the parameter's name, Threefry-2x32 in
+numpy (the JAX package folds the name's CRC-32 into its key): a
+parameter's initial values do not depend on the order in which
+parameters are created, and they equal the JAX package's.
 """
 from __future__ import annotations
 
 import binascii
+import contextlib
 import threading
 
 import torch
@@ -66,21 +67,90 @@ def seed(seed_state, ctx="all"):
     generator(Context(ctx).torch_device()).manual_seed(s)
 
 
-def named_sample(name, kind, shape=(), **kw):
-    """A float32 numpy sample of ``shape`` for parameter ``name``:
-    ``kind="uniform"`` on ``[low, high)``, ``"normal"`` with ``loc`` and
-    ``scale``, from a generator seeded by the current seed and the
-    name's CRC-32."""
-    gen = torch.Generator().manual_seed(
-        (_seed[0] << 32) ^ (binascii.crc32(str(name).encode()) & 0x7FFFFFFF))
-    out = torch.empty(tuple(shape), dtype=torch.float32)
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds) of the counters
+    ``(x0, x1)`` under the key ``(k0, k1)``: the bits behind the JAX
+    package's ``jax.random`` (its default ``threefry2x32``).  The words
+    are held in int64 tensors (torch has no uint32 arithmetic), masked
+    to 32 bits after each sum."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _M32
+    return x0, x1
+
+
+def _jax_key(seed_state, data):
+    """``fold_in(PRNGKey(seed_state), data)`` of the JAX package, as two
+    32-bit words."""
+    s = int(seed_state) & 0xFFFFFFFFFFFFFFFF
+    y0, y1 = _threefry2x32(s >> 32, s & _M32, torch.zeros(1, dtype=torch.int64),
+                           torch.tensor([data], dtype=torch.int64))
+    return int(y0), int(y1)
+
+
+_sample_device = threading.local()
+
+
+@contextlib.contextmanager
+def sampling_on(device):
+    """Make ``named_sample``'s bits on ``device`` when its caller gives
+    none (``gluon.Parameter`` draws a host array for a card: the bits of
+    a large table are made where it will live)."""
+    old = getattr(_sample_device, "device", None)
+    _sample_device.device = device
+    try:
+        yield
+    finally:
+        _sample_device.device = old
+
+
+def named_sample(name, kind, shape=(), device=None, **kw):
+    """A float32 tensor of ``shape`` on ``device`` (the CPU by default)
+    for parameter ``name``: ``kind="uniform"`` on ``[low, high)``,
+    ``"normal"`` with ``loc`` and ``scale``.  The draw is the JAX
+    package's for the same seed and name: its key folds the name's
+    CRC-32 into ``PRNGKey(seed)``, and the bits are Threefry's (counters:
+    the flat index), so the port's initial weights equal the JAX
+    package's (uniform ones to an ulp, normal ones through ``erfinv``
+    to a few).  The bits are made on ``device``: a large table is drawn
+    on the card where it lives."""
+    key = _jax_key(_seed[0], binascii.crc32(str(name).encode()) & 0x7FFFFFFF)
+    shape = tuple(int(d) for d in shape)
+    if device is None:
+        device = getattr(_sample_device, "device", None)
+    n = 1
+    for d in shape:
+        n *= d
+    counts = torch.arange(n, dtype=torch.int64, device=device)
+    y0, y1 = _threefry2x32(key[0], key[1], torch.zeros_like(counts), counts)
+    bits = ((y0 ^ y1) >> 9) | 0x3F800000
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    del counts, y0, y1, bits
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=u.device)
+
     if kind == "uniform":
-        out.uniform_(kw.get("low", 0.0), kw.get("high", 1.0), generator=gen)
+        lo, hi = f32(kw.get("low", 0.0)), f32(kw.get("high", 1.0))
+        out = torch.maximum(lo, u * (hi - lo) + lo)
     elif kind == "normal":
-        out.normal_(kw.get("loc", 0.0), kw.get("scale", 1.0), generator=gen)
+        lo = torch.nextafter(f32(-1.0), f32(1.0))
+        v = torch.maximum(lo, u * (f32(1.0) - lo) + lo)
+        z = torch.special.erfinv(v) * f32(2.0).sqrt()
+        out = f32(kw.get("scale", 1.0)) * z + f32(kw.get("loc", 0.0))
     else:
         raise ValueError(f"unknown sample kind {kind}")
-    return out.numpy()
+    return out.reshape(shape)
 
 
 def _sample(opname, ctx, **kwargs):

@@ -31,6 +31,10 @@ input; every case failed before its repair.
   of a 2-D input and ``norm(x, axis=())``.
 * C14 an integer beside index arrays, split from them by a slice, joins
   them as numpy's rule says (read and write).
+* C15 ``mx.random.seed`` reaches the initializers: a Gluon net's initial
+  weights differ between two seeds, and equal the JAX package's for the
+  same seed and names (uniform draws to an ulp, normal ones through
+  ``erfinv``: 1e-6 of max).
 
 Tolerances: exact (value and dtype) for C1-C3 and C5-C7 (the same IEEE
 operations on both sides), except softmax (relative 1e-6, other
@@ -423,3 +427,28 @@ def test_c14_mixed_advanced_indexing_writes_like_numpy():
     ref = CUBE.copy()
     ref[key] = value
     np.testing.assert_array_equal(got[0], ref)
+
+
+@pytest.mark.parametrize("init", ["uniform", "xavier_gaussian"])
+def test_c15_seed_reaches_the_initializers(init):
+    def build(mx, seed):
+        mx.random.seed(seed)
+        net = mx.gluon.nn.HybridSequential(prefix="c15_")
+        with net.name_scope():
+            net.add(mx.gluon.nn.Dense(7, in_units=5),
+                    mx.gluon.nn.Embedding(11, 3))
+        net.initialize(mx.init.Uniform(0.3) if init == "uniform" else
+                       mx.init.Xavier(rnd_type="gaussian"))
+        return {n: p.data().asnumpy() for n, p in
+                net.collect_params().items()}
+    want = build(jmx, 3)
+    with tmx.cpu():
+        got, other = build(tmx, 3), build(tmx, 4)
+    assert set(got) == set(want)
+    for name in want:
+        w = want[name]
+        if not w.any():
+            continue              # the biases start at 0
+        scale = np.abs(w).max()
+        assert np.abs(got[name] - w).max() <= 1e-6 * scale, name
+        assert not np.array_equal(other[name], got[name]), name

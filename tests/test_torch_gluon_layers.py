@@ -337,8 +337,19 @@ def test_deferred_shapes_and_errors(tmp_path):
         _close(block(x).asnumpy(), ref[0].asnumpy(), "SymbolBlock vs JAX")
         with pytest.raises(TypeError):
             tmx.gluon.SymbolBlock(None, None)
-        with pytest.raises(MXNetError, match="A8"):
-            tmx.gluon.nn.Embedding(4, 2, sparse_grad=True)
+        # Embedding(sparse_grad=True): the same lookup as the JAX layer,
+        # its weight's gradient marked row_sparse
+        ids = np.array([[3, 0], [1, 3]], np.float32)
+        w = np.arange(8, dtype=np.float32).reshape(4, 2)
+        outs = []
+        for mx in (jmx, tmx):
+            emb = mx.gluon.nn.Embedding(4, 2, sparse_grad=True,
+                                        prefix="e_")
+            emb.initialize(ctx=mx.cpu())
+            emb.weight.set_data(mx.nd.array(w, ctx=mx.cpu()))
+            assert emb.weight._grad_stype == "row_sparse"
+            outs.append(emb(mx.nd.array(ids, ctx=mx.cpu())).asnumpy())
+        np.testing.assert_array_equal(outs[1], outs[0])
 
 
 def test_block_is_a_torch_module():

@@ -476,8 +476,15 @@ def test_ndarray_pickles(dtype):
     np.testing.assert_array_equal(b.astype("float32").asnumpy(),
                                   a.astype("float32").asnumpy())
     assert b.stype == "default" and b.tostype("default") is b
-    with pytest.raises(MXNetError, match="A8"):
-        b.tostype("row_sparse")
+    # the unpickled array casts to row_sparse as the JAX package's does
+    rsp = b.tostype("row_sparse")
+    want = jmx.nd.cast_storage(jmx.nd.array(x).astype(dtype), "row_sparse")
+    assert rsp.stype == "row_sparse" and rsp.shape == want.shape
+    np.testing.assert_array_equal(rsp.indices.asnumpy(),
+                                  want.indices.asnumpy())
+    np.testing.assert_array_equal(
+        rsp.todense().astype("float32").asnumpy(),
+        want.asnumpy().astype(np.float32))
 
 
 # ------------------------------------------------------------- Gluon code

@@ -105,9 +105,50 @@ def test_bad_files_raise(tmp_path):
         mxnet_format.load(blob[:-9])
     with pytest.raises(MXNetError, match="bad magic"):
         mxnet_format.load_bytes(b"\0" * 32)
-    sparse = bytearray(blob)
-    struct.pack_into("<i", sparse, 28, 1)       # storage type row_sparse
-    with pytest.raises(MXNetError, match="sparse"):
-        mxnet_format.load(bytes(sparse))
+    unknown = bytearray(blob)
+    struct.pack_into("<i", unknown, 28, 7)      # no such storage type
+    with pytest.raises(MXNetError, match="unknown storage type 7"):
+        mxnet_format.load(bytes(unknown))
     with pytest.raises(MXNetError, match="save expects"):
         tmx.nd.save(str(tmp_path / "x"), 3)
+
+
+def test_sparse_records_read_like_jax(tmp_path):
+    """A row_sparse and a csr record (storage types 1 and 2, the layout
+    of MXNet's ndarray.cc) read by both packages into sparse arrays of
+    the same components; the writer stays dense."""
+    a = np.zeros((4, 3), np.float32)
+    a[1] = [1.5, 0, -2]
+    a[3] = [0, 4, 0]
+    rows = np.array([1, 3], np.int64)
+    indptr = np.array([0, 0, 2, 2, 3], np.int64)
+    cols = np.array([0, 2, 1], np.int64)
+
+    def shape(s):
+        return struct.pack("<I", len(s)) + struct.pack(f"<{len(s)}q", *s)
+
+    def record(stype, values, aux):
+        out = struct.pack("<Ii", 0xF993FAC9, stype) + shape(values.shape)
+        out += shape(a.shape) + struct.pack("<iii", 1, 0, 0)
+        out += b"".join(struct.pack("<i", 6) for _ in aux)
+        out += b"".join(shape(x.shape) for x in aux)
+        return out + values.tobytes() + b"".join(x.tobytes() for x in aux)
+
+    blob = struct.pack("<QQQ", 0x112, 0, 2) + record(1, a[rows], [rows]) + \
+        record(2, a[a != 0], [indptr, cols]) + struct.pack("<Q", 0)
+    path = str(tmp_path / "s.params")
+    with open(path, "wb") as f:
+        f.write(blob)
+    want = jmx.nd.load(path)
+    with tmx.cpu():
+        got = tmx.nd.load(path)
+        assert [g.stype for g in got] == ["row_sparse", "csr"]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.asnumpy(), w.asnumpy())
+            np.testing.assert_array_equal(g.indices.asnumpy(),
+                                          w.indices.asnumpy())
+        np.testing.assert_array_equal(got[1].indptr.asnumpy(), indptr)
+        np.testing.assert_array_equal(got[0].asnumpy(), a)
+        tmx.nd.save(str(tmp_path / "d.params"), [got[0].todense()])
+    back = jmx.nd.load(str(tmp_path / "d.params"))
+    np.testing.assert_array_equal(back[0].asnumpy(), a)

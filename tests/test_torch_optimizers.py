@@ -209,13 +209,28 @@ def test_sgld_moments():
 
 
 def test_sparse_gradient_raises():
-    class RowSparse:
-        stype = "row_sparse"
+    """A row_sparse gradient takes Adam's lazy update, as in the JAX
+    package (the stored rows only, the same values); a gradient of
+    another sparse kind still raises."""
+    w0, g = _weight(8), _weight(9)
+    rows = [0, 2]
+    res = []
+    for mx in (jmx, tmx):
+        with mx.cpu():
+            opt = mx.optimizer.create("adam", learning_rate=0.01)
+            w = mx.nd.array(w0)
+            st = opt.create_state(0, w)
+            grad = mx.nd.sparse.row_sparse_array((g[rows], rows),
+                                                 shape=w0.shape)
+            opt.update(0, w, grad, st)
+            res.append(w.asnumpy())
+    np.testing.assert_allclose(res[1], res[0], rtol=REL, atol=REL)
+    np.testing.assert_array_equal(res[1][1], w0[1])
     opt = tmx.optimizer.create("adam")
     with tmx.cpu():
-        w = tmx.nd.array(_weight(8))
-        with pytest.raises(MXNetError, match="row_sparse"):
-            opt.update(0, w, RowSparse(), opt.create_state(0, w))
+        w = tmx.nd.array(w0)
+        with pytest.raises(MXNetError, match="csr"):
+            opt.update(0, w, w.tostype("csr"), opt.create_state(0, w))
 
 
 def test_module_fit_by_name_with_adam():

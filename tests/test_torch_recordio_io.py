@@ -229,9 +229,19 @@ def test_resize_and_prefetching_iters_match():
 
 
 def test_libsvm_iter_names_its_roadmap_item(tmp_path):
-    (tmp_path / "d.libsvm").write_text("1 0:1.5 3:2\n0 1:1\n")
-    with pytest.raises(tmx.MXNetError, match="A8"):
-        tio.LibSVMIter(str(tmp_path / "d.libsvm"), (4,), batch_size=2)
+    """LibSVMIter (sparse storage's item of the roadmap, now ported)
+    gives the JAX package's CSR batches, a wrapped last batch included."""
+    (tmp_path / "d.libsvm").write_text("1 0:1.5 3:2\n0 1:1\n1 2:-1\n")
+    got, want = [], []
+    for mod, out in ((tio, got), (jio, want)):
+        it = mod.LibSVMIter(str(tmp_path / "d.libsvm"), (4,), batch_size=2)
+        for b in it:
+            out.append((b.data[0].asnumpy(), b.data[0].indptr.asnumpy(),
+                        b.label[0].asnumpy(), b.pad))
+    assert len(got) == len(want) == 2 and got[1][3] == 1
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            np.testing.assert_array_equal(x, y)
 
 
 # ---------------------------------------------------------- ImageRecordIter
