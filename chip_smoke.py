@@ -141,7 +141,25 @@ launch counts set to 0 just before it and read just after:
   (``spatial_ops``); a b=32 uint8 batch through the ``nd.image``
   augmentations into one ResNet-50 v1 forward, B1 and B2 16 times each
   (``image_ops``); and gather/scatter_nd and the samplers
-  (``indexing_random_ops``).  B1/B2 launch only in ``image_ops``.
+  (``indexing_random_ops``).  B1/B2 launch only in ``image_ops``;
+* data parallelism (``launches_dist``): an NCCL world of one rank in
+  this process (phase ``dist_world1``): ``kv.create("dist_sync")`` push
+  and pull over ResNet-50's parameter-sized gradients, and one bf16
+  ``TrainStep(mesh=make_mesh(dp=1))`` step equal bit for bit to the same
+  step with no mesh; then two ranks on the one card over ``gloo``
+  (``tools/launch.py -n 2`` running ``tools/port_dist_worker.py``):
+  ResNet-50 v1 in bench.py's protocol split over the ranks (b=64 a rank,
+  global 128, bf16, ``fuse_bn_relu=True`` with ``fuse_block=True``, then
+  ``fuse_block="chain"``) through ``TrainStep(mesh=make_mesh(dp=2))``
+  for 5 steps, the ranks bit-equal after every step, the result held
+  against one process on the global batch within the bf16 gate of
+  ``phase_bf16_reference``, each rank's B1-B4 launches equal to one
+  process's (``dist_two_ranks``); ``gluon.Trainer(kvstore="dist_sync")``
+  with 2-bit compression (its wire bytes 1/16 of the fp32 bytes plus
+  the padding), ``Module.fit(kvstore="dist_sync")`` and a
+  ``TrainCheckpoint`` resume equal bit for bit to an uninterrupted run
+  (``dist_trainer``).  Two ranks time-share one card: their times are
+  not scaling numbers.
 
 The rtc user kernels (``axpy``, a per-row sum that stages its row in
 more than 48 KB of dynamic shared memory, and a ``scale_add`` template
@@ -6492,6 +6510,335 @@ def phase_indexing_random_ops(seed):
                           "get_prob_max_abs_err": lp_err, "ms": ms}})
 
 
+# data parallelism: the two-rank phases run tools/port_dist_worker.py
+# under tools/launch.py (both ranks on the one card over gloo); the
+# single process on the global batch and the bf16 spread of each config
+# are run here after them
+DIST_WORKER_TIMEOUT_S = 600
+DIST_WORLD1_BATCH = 32
+DIST_KV_SEED = 23
+# dist_two_ranks: bench.py:main's global batch over two ranks, its two
+# kernel configurations (B1/B2; B3/B4) and their bf16 launches a step
+DIST_GLOBAL_BATCH, DIST_STEPS = 128, 5
+DIST_CONFIGS = {"fused": dict(BENCH_NET, fuse_block=True),
+                "chain": BENCH_CHAIN_NET}
+DIST_PER_STEP = {"fused": dict(sbr_matmul_bf16=16, sbr_conv3x3_bf16=16),
+                 "chain": dict(chain_stats_bf16=16, chain_emit_bf16=16)}
+# the one-process reference's other bf16 formulation (the spread)
+DIST_ALT = {"fused": dict(fuse_bn_relu=False), "chain": dict(fuse_block=False)}
+# the two-rank run's parameters after DIST_STEPS steps against the one
+# process's: each leaf's change error (as at BF16_STEP_FACTOR) within
+# DIST_STEP_FACTOR of the median over the leaves of the two bf16
+# formulations' spread.  On an NVIDIA H100 80GB HBM3 at 700 W over
+# seeds 0-3 (tools/port_dist_margin.py) the worst leaf lay at 1.28-1.65x
+# that median, the stem BatchNorm's gamma or beta in 7 of 8 readings
+# (a sum over 128 x 112 x 112 bf16 terms that nearly cancel), and a
+# rank's half batch alone, the planted fault, at 3.29-3.56x; so the
+# factor is 2.0, and the phase checks that the planted fault fails it
+DIST_STEP_FACTOR = 2.0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block (its default
+    backward algorithms may add in another order each run)."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def phase_dist_world1(seed):
+    """An NCCL world of one rank in this process, on a TCPStore at a
+    free port: ``kv.create("dist_sync")`` push and pull of a gradient the
+    size of each of ResNet-50's parameters (the mean over one rank: the
+    gradient itself), and one bf16 ``TrainStep(mesh=make_mesh(dp=1))``
+    step (its gradients through one NCCL ``all_reduce``) against the
+    same step with no mesh, bit for bit, with the same kernel
+    launches."""
+    import torch.distributed as tdist
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    from incubator_mxnet_tpu_torch.parallel import make_mesh
+    store = tdist.TCPStore("127.0.0.1", _free_port(), 1, True)
+    torch.cuda.set_device(0)
+    tdist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        kv = mx.kv.create("dist_sync")
+        net = get_resnet(1, 50, device="cuda:0", seed=seed, **RESNET50)
+        gen = torch.Generator(device="cuda").manual_seed(DIST_KV_SEED)
+        gpu = mx.gpu(0)
+        grads = [torch.randn(p.shape, generator=gen, device="cuda")
+                 for p in net.parameters()]
+        outs = [mx.nd.zeros(g.shape, ctx=gpu) for g in grads]
+        kv.init(list(range(len(grads))),
+                [mx.nd.NDArray(p.detach().clone(), gpu)
+                 for p in net.parameters()])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, g in enumerate(grads):
+            kv.push(i, mx.nd.NDArray(g, gpu))
+            kv.pull(i, out=outs[i])
+        torch.cuda.synchronize()
+        kv_ms = (time.perf_counter() - t0) * 1e3
+        kv_equal = all(torch.equal(o._data, g) for o, g in zip(outs, grads))
+        del net, grads, outs
+        mesh = make_mesh(dp=1)
+        backend = tdist.get_backend(mesh.group("dp"))
+        cfg = dict(BENCH_NET, fuse_block=True)
+        x, y = _resident(seed + 9, DIST_WORLD1_BATCH)
+        runs = {}
+        # two runs compared bit for bit: cuDNN's deterministic algorithms
+        with _cudnn_deterministic():
+            for key, kw in (("mesh", dict(mesh=mesh)), ("plain", {})):
+                net = get_resnet(1, 50, device="cuda:0", seed=seed, **cfg)
+                step = _train_step(net, bf16_compute=True, **kw)
+                _zero_counts()
+                loss = step(x, y).item()
+                torch.cuda.synchronize()
+                runs[key] = (loss, _counts(), net.state_dict())
+        equal = runs["mesh"][0] == runs["plain"][0] and all(
+            torch.equal(v, runs["plain"][2][k])
+            for k, v in runs["mesh"][2].items())
+        launches = runs["mesh"][1]
+    finally:
+        tdist.destroy_process_group()
+    want = dict.fromkeys(launches, 0)
+    want.update(sbr_matmul_bf16=16, sbr_conv3x3_bf16=16)
+    emit({"phase": "dist_world1", "backend": backend,
+          "kv_keys": len(kv._data), "kv_push_pull_ms": kv_ms,
+          "kv_pull_equals_push": kv_equal, "batch": DIST_WORLD1_BATCH,
+          "loss_mesh": runs["mesh"][0], "loss_plain": runs["plain"][0],
+          "mesh_step_bit_equal": equal, "launches": launches,
+          "launches_plain": runs["plain"][1]})
+    if backend != "nccl":
+        fail(f"dist_world1: the mesh's dp group runs {backend}, not nccl")
+    if not kv_equal:
+        fail("dist_world1: a dist_sync pull over one rank is not the push")
+    if not equal:
+        fail("dist_world1: the dp=1 mesh step differs from the plain step")
+    _expect(launches, want, "dist_world1's mesh step")
+    _expect(runs["plain"][1], launches, "dist_world1's plain step")
+    return launches
+
+
+def _dist_reference(seed, cfg, alt_kw):
+    """One process on the global batch, under cuDNN's deterministic
+    algorithms: (init, the final state and losses after the worker's
+    steps in bf16, the same in the alternative bf16 formulation and in
+    fp32, the launches of the steps at the local batch and the state
+    they end in: one rank's half alone, the planted fault)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    xd, yd = _resident(seed, DIST_GLOBAL_BATCH)
+    half = DIST_GLOBAL_BATCH // 2
+    out = {}
+    with _cudnn_deterministic():
+        for key, kw, bf16, n in (("ref", cfg, True, DIST_GLOBAL_BATCH),
+                                 ("alt", dict(cfg, **alt_kw), True,
+                                  DIST_GLOBAL_BATCH),
+                                 ("fp32", cfg, False, DIST_GLOBAL_BATCH),
+                                 ("half", cfg, True, half)):
+            net = get_resnet(1, 50, device="cuda:0", seed=seed, **kw)
+            if key == "ref":
+                out["init"] = {k: v.detach().cpu().clone()
+                               for k, v in net.state_dict().items()}
+            step = _train_step(net, bf16_compute=bf16)
+            _zero_counts()
+            out[key + "_losses"] = [step(xd[:n], yd[:n]).item()
+                                    for _ in range(DIST_STEPS)]
+            torch.cuda.synchronize()
+            if key == "half":
+                out["launches"] = _counts()
+            out[key] = {k: v.detach().cpu()
+                        for k, v in net.state_dict().items()}
+            del net, step
+            torch.cuda.empty_cache()
+    return out
+
+
+def _dist_noise_leaves(ref, ref32, init, params):
+    """The leaves whose gradient is 0 to within rounding, by
+    phase_bf16_reference's rule over DIST_STEPS momentum steps: the
+    gradient part of the change of the fp32 run at most BF16_NOISE_GRAD
+    of the bf16 run's.  With the weights all but constant over the
+    steps, weight decay moves a leaf by -lr * wd * w * C, where C sums
+    the momentum's geometric series over the steps."""
+    m = SGD_KW["momentum"]
+    c = sum(sum(m ** s for s in range(t)) for t in
+            range(1, DIST_STEPS + 1))
+    lr_wd = c * SGD_KW["learning_rate"] * SGD_KW["wd"]
+    return sorted(k for k in params if
+                  (ref32[k] - init[k] + lr_wd * init[k]).norm() <=
+                  BF16_NOISE_GRAD *
+                  (ref[k] - init[k] + lr_wd * init[k]).norm())
+
+
+def _dist_run_ranks(seed, mesh_only=False):
+    """tools/port_dist_worker.py under tools/launch.py -n 2 (both ranks
+    on the one card over gloo): each rank's JSON and rank 0's final
+    state of each config.  A rank that exits non-zero fails the phase."""
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the ranks need the card's memory: give back this process's cache
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
+             "2", "--", sys.executable,
+             os.path.join(root, "tools", "port_dist_worker.py"), "--out",
+             out, "--seed", str(seed)] + (["--mesh-only"] if mesh_only
+                                          else []),
+            cwd=root, capture_output=True, text=True,
+            timeout=DIST_WORKER_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"dist_two_ranks: a rank failed (rc {proc.returncode}):\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        finals = {name: torch.load(os.path.join(out, f"{name}.pt"))
+                  for name in DIST_CONFIGS}
+    return ranks, finals, ranks_s
+
+
+def _dist_rows(seed, ranks, finals):
+    """Each config's two-rank run against the single process on the
+    global batch: (rows, launches, failures).  The parameters are held
+    by the per-leaf change gate of phase_bf16_reference at
+    DIST_STEP_FACTOR (the leaves of zero gradient left out by its rule,
+    here over DIST_STEPS steps), and the half batch alone, a rank that
+    never hears of the other, must fail it."""
+    rows, launches, failures = {}, {}, []
+    for i, name in enumerate(DIST_CONFIGS):
+        ref = _dist_reference(seed, DIST_CONFIGS[name], DIST_ALT[name])
+        got = finals[name]
+        stats = [k for k in got if k.endswith(("running_mean",
+                                               "running_var"))]
+        params = [k for k in got if k not in stats]
+        noise = _dist_noise_leaves(ref["ref"], ref["fp32"], ref["init"],
+                                   params)
+        kept = [k for k in params if k not in noise]
+        spread = _change_errs(ref["alt"], ref["ref"], ref["init"], kept)
+        bound = DIST_STEP_FACTOR * float(np.median(list(spread.values())))
+        errs = _change_errs(got, ref["ref"], ref["init"], kept)
+        worst_key = max(errs, key=errs.get)
+        half_err = float(np.median(list(_change_errs(
+            ref["half"], ref["ref"], ref["init"], kept).values())))
+        stats_worst = _worst(got, ref["ref"], stats, rtol=1.0)
+        stats_spread = _worst(ref["alt"], ref["ref"], stats, rtol=1.0)
+        per_rank = [rk["dist_two_ranks"][i] for rk in ranks]
+        # each step's loss within BF16_LOSS_RTOL, or within
+        # BF16_SPREAD_FACTOR of the two formulations' difference where
+        # that is larger (a loss near 0 after a few steps)
+        loss_rel = max(abs(a - b) / max(BF16_LOSS_RTOL * abs(b),
+                                        BF16_SPREAD_FACTOR * abs(c - b))
+                       for a, b, c in zip(per_rank[0]["losses"],
+                                          ref["ref_losses"],
+                                          ref["alt_losses"]))
+        launches[name] = per_rank[0]["launches"]
+        rows[name] = {
+            "per_rank": [{k: pr[k] for k in (
+                "ms_per_step", "step_ms", "collective_ms_per_step",
+                "collective_bytes_per_step", "collective_calls_per_step",
+                "peak_mem_gb", "launches")} for pr in per_rank],
+            "losses": per_rank[0]["losses"],
+            "losses_single_process": ref["ref_losses"],
+            "losses_alt_formulation": ref["alt_losses"],
+            "loss_err_of_bound": loss_rel,
+            "ranks_bit_equal_each_step":
+                per_rank[0]["ranks_bit_equal_each_step"],
+            "leaves": len(params), "zero_gradient_leaves": len(noise),
+            "change_err_worst": [errs[worst_key], worst_key],
+            "change_err_worst_of_bound": errs[worst_key] / bound,
+            "change_err_median": float(np.median(list(errs.values()))),
+            "spread_median": float(np.median(list(spread.values()))),
+            "spread_max": max(spread.values()),
+            "step_bound": bound, "planted_half_batch": half_err,
+            "stats_worst_of_max": stats_worst,
+            "stats_spread_of_max": stats_spread,
+            "launches_single_process": ref["launches"]}
+        if not all(per_rank[0]["ranks_bit_equal_each_step"]):
+            failures.append(f"{name}: the ranks' parameters differ after a "
+                            "step")
+        if any(not k.endswith(("body.0.bias", "body.2.conv.bias"))
+               for k in noise):
+            failures.append(f"{name}: the zero-gradient rule left out other "
+                            f"leaves than the biases that feed a BatchNorm: "
+                            f"{noise}")
+        if errs[worst_key] > bound:
+            failures.append(f"{name}: {worst_key} moved {errs[worst_key]} "
+                            f"of its change off the single process, the "
+                            f"bound {bound}")
+        if half_err <= bound:
+            failures.append(f"{name}: the gate passes one rank's half batch "
+                            f"alone ({half_err} <= {bound})")
+        if stats_worst[0] > BF16_SPREAD_FACTOR * stats_spread[0]:
+            failures.append(f"{name}: moving statistics {stats_worst} of "
+                            f"max off, the spread {stats_spread}")
+        if loss_rel > 1.0:
+            failures.append(f"{name}: losses {loss_rel} of their bound "
+                            "off the single process")
+        for pr in per_rank:
+            if pr["launches"] != ref["launches"] or not pr["launches_ok"]:
+                failures.append(f"{name}: a rank launched {pr['launches']}, "
+                                f"one process {ref['launches']}")
+    return rows, launches, failures
+
+
+def phase_dist_two_ranks(seed):
+    """Two ranks on the one card over gloo (_dist_run_ranks), then here
+    the single process on the global batch: phases ``dist_two_ranks``
+    and ``dist_trainer``."""
+    ranks, finals, ranks_s = _dist_run_ranks(seed)
+    rows, launches, failures = _dist_rows(seed, ranks, finals)
+    per_rank = ranks[0]["dist_two_ranks"][0]
+    emit({"phase": "dist_two_ranks", "backend": ranks[0]["backend"],
+          "device": ranks[0]["device"], "ranks_s": ranks_s,
+          "rank_setup_s": [rk["setup_s"] for rk in ranks],
+          "rank_total_s": [rk["total_s"] for rk in ranks],
+          "local_batch": per_rank["local_batch"],
+          "global_batch": per_rank["global_batch"],
+          "steps": per_rank["steps"], "dtype": "bfloat16",
+          "step_factor": DIST_STEP_FACTOR,
+          "spread_factor": BF16_SPREAD_FACTOR,
+          "loss_rtol": BF16_LOSS_RTOL, "configs": rows})
+    trainer = [rk["dist_trainer"] for rk in ranks]
+    emit({"phase": "dist_trainer", "trainer": [t["trainer"] for t in trainer],
+          "module": [t["module"] for t in trainer],
+          "checkpoint": [t["checkpoint"] for t in trainer]})
+    for t in trainer:
+        tr, mod, ck = t["trainer"], t["module"], t["checkpoint"]
+        if not tr["wire_ok"] or not tr["ranks_bit_equal"]:
+            failures.append(f"dist_trainer: 2-bit Trainer wire "
+                            f"{tr['wire_bytes_pushed']} vs fp32 "
+                            f"{tr['fp32_bytes']} / 16 + "
+                            f"{tr['padding_bytes']}, ranks equal "
+                            f"{tr['ranks_bit_equal']}")
+        if not all(math.isfinite(v) for v in tr["losses"]):
+            failures.append(f"dist_trainer: losses {tr['losses']}")
+        if mod["store"] != "KVStoreDist" or not mod["finite"] or \
+                not mod["ranks_bit_equal"]:
+            failures.append(f"dist_trainer: Module.fit {mod}")
+        if not ck["bit_equal"]:
+            failures.append(f"dist_trainer: checkpoint resume {ck}")
+    if failures:
+        fail("; ".join(failures))
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6626,11 +6973,16 @@ def main():
             phase(args.seed)
             sparse_paths[name] = _counts()
             torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    dist_paths = {"dist_world1": phase_dist_world1(args.seed)}
+    for name, counts in phase_dist_two_ranks(args.seed).items():
+        dist_paths[f"dist_two_ranks_{name}"] = counts
     paths = {"launches_gluon": gluon_paths, "launches_data": data_paths,
              "launches_symbolic": symbolic_paths,
              "launches_recurrent": recurrent_paths,
              "launches_detection": detection_paths,
-             "launches_sparse_image": sparse_paths}
+             "launches_sparse_image": sparse_paths,
+             "launches_dist": dist_paths}
     for row in kernels:
         for key, runs in paths.items():
             row[key] = {path: counts.get(row["name"], 0)

@@ -42,7 +42,13 @@ SqueezeNet, Inception V3 and BN, MobileNet) with ``get_model`` and
 ``gluon.contrib.nn``, the contrib ops (the MultiBox family and box NMS,
 CTC with ``gluon.loss.CTCLoss``, Proposal, PSROIPooling, deformable
 convolution, fft, quantize) as ``nd.contrib`` / ``sym.contrib``, and
-the linalg ops as ``nd.linalg`` / ``sym.linalg``.  So
+the linalg ops as ``nd.linalg`` / ``sym.linalg``, and data
+parallelism: ``kvstore`` as ``kv`` (the local, mesh ``"tpu"`` and
+``"dist_*"`` stores over ``torch.distributed``, with gradient
+compression), ``parallel.DeviceMesh`` / ``make_mesh``, ``TrainStep`` /
+``EvalStep(mesh=...)`` with the BatchNorm statistics summed over the
+``dp`` group, ``parallel.TrainCheckpoint``, and the Gluon ``Trainer``,
+``Module`` and ``DevicePrefetchIter`` over them.  So
 ``import incubator_mxnet_tpu_torch as mx; mx.nd.ones((2,))`` reads as
 it does against the JAX package, except that the default context is
 ``mx.gpu(0)``.
@@ -55,6 +61,8 @@ from . import ndarray as nd
 from . import autograd, initializer, lr_scheduler, metric, name, random, rtc
 from . import initializer as init
 from . import attribute, callback, executor, model, monitor, operator
+from . import kvstore
+from . import kvstore as kv
 from . import symbol
 from . import symbol as sym
 from . import module
@@ -70,7 +78,8 @@ __version__ = "0.1.0"
 __all__ = ["AttrScope", "Context", "Executor", "MXNetError", "attribute",
            "autograd", "base", "callback", "context", "contrib", "convert",
            "cpu", "current_context", "executor", "gluon", "gpu", "image",
-           "init", "initializer", "io", "lr_scheduler", "metric", "mod",
+           "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
+           "metric", "mod",
            "model", "module", "monitor", "name", "nd", "ndarray", "num_gpus",
            "numerics", "operator", "ops", "optimizer", "parallel",
            "pipeline_io", "predict", "random", "recordio", "rnn", "rtc",

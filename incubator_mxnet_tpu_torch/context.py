@@ -1,8 +1,9 @@
 """Device contexts and device resolution of the port.
 
 Everything the port builds runs on the card unless the caller asks for
-the CPU.  ``resolve_device(None)`` is ``cuda:0`` and raises when no
-CUDA device is present, so nothing silently falls back to the CPU;
+the CPU.  ``resolve_device(None)`` is ``cuda:0`` (once a process group
+is up, the rank's own card) and raises when no CUDA device is present,
+so nothing silently falls back to the CPU;
 ``"cpu"`` (or a CPU ``torch.device``) is honoured only when passed
 explicitly — the CPU tests do that, and on the CPU every kernel wrapper
 takes its plain PyTorch version.
@@ -21,6 +22,7 @@ host devices.  ``Context.torch_device()`` takes the place of
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import torch
@@ -28,13 +30,26 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "num_gpus",
-           "resolve_device"]
+           "rank_card", "resolve_device"]
+
+
+def rank_card():
+    """The card index of this process: 0, or once a ``torch.
+    distributed`` process group is up, ``(LOCAL_RANK or DMLC_WORKER_ID)
+    % device_count()``, so the ranks of one host take its cards in turn
+    (two ranks on a one-card host share ``cuda:0``)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0
+    rank = os.environ.get("LOCAL_RANK", os.environ.get("DMLC_WORKER_ID", 0))
+    return int(rank) % max(torch.cuda.device_count(), 1)
 
 
 def resolve_device(device=None):
-    """``None`` -> ``cuda:0``; a string or ``torch.device`` as given.
-    Raises MXNetError for a CUDA device this process cannot see."""
-    dev = torch.device("cuda", 0) if device is None \
+    """``None`` -> ``cuda:0`` (in a process group, this rank's card:
+    ``rank_card``); a string or ``torch.device`` as given.  Raises
+    MXNetError for a CUDA device this process cannot see."""
+    dev = torch.device("cuda", rank_card()) if device is None \
         else torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -549,7 +549,10 @@ class ImageRecordIter(DataIter):
             self._offsets = offsets
             keys = list(range(len(offsets)))
         self._keys_all = keys
-        # dist-training shard (reference part_index/num_parts)
+        # dist-training shard (reference part_index/num_parts); a
+        # DevicePrefetchIter(sharding=) reads them to take each batch as
+        # the rank's slice as it is
+        self.num_parts, self.part_index = int(num_parts), int(part_index)
         part = len(keys) // num_parts
         self._keys = keys[part_index * part:
                           (part_index + 1) * part] if num_parts > 1 else keys

@@ -278,15 +278,26 @@ class Module(BaseModule):
         idx2name = {i: n for i, n in enumerate(self._param_names)}
         optimizer.idx2name = idx2name
         self._updater = opt_mod.get_updater(optimizer)
-        # one executor: the 'local'/'device' reduction of the reference
-        # is a no-op; a distributed or user kvstore needs several devices
+        # one executor: the reduction of a single-process store type is
+        # a no-op; a "dist_*" type or a store object takes the update
+        # (push the gradient, pull the weight), with the module's
+        # optimizer on the store, as the reference's update_on_kvstore
+        # (the JAX Module sets no optimizer there, so its pull would
+        # write the mean gradient into the weight)
         self._kvstore = None
         self._update_on_kvstore = False
-        if kvstore is not None and (not isinstance(kvstore, str) or
-                                    kvstore not in ("local", "device")):
-            raise MXNetError(
-                f"kvstore {kvstore!r} needs multi-device support, which is "
-                "not ported yet (ROADMAP A6); use 'local' or 'device'")
+        if kvstore is not None and not isinstance(kvstore, str):
+            self._kvstore = kvstore
+        elif isinstance(kvstore, str) and kvstore.startswith("dist"):
+            from .. import kvstore as kvs
+            self._kvstore = kvs.create(kvstore)
+        if self._kvstore is not None:
+            self._update_on_kvstore = True
+            self._kvstore.set_optimizer(optimizer)
+            for i, name in enumerate(self._param_names):
+                # every rank starts from the store's (rank 0's) value
+                self._kvstore.init(i, self._exec.arg_dict[name])
+                self._kvstore.pull(i, out=self._exec.arg_dict[name])
         self.optimizer_initialized = True
 
     def borrow_optimizer(self, shared_module):
@@ -352,7 +363,11 @@ class Module(BaseModule):
             g = self._exec.grad_dict.get(name)
             if g is None:
                 continue
-            self._updater(i, g, w)
+            if self._kvstore is not None:
+                self._kvstore.push(i, g)
+                self._kvstore.pull(i, out=w)
+            else:
+                self._updater(i, g, w)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -394,11 +409,19 @@ class Module(BaseModule):
         return mod
 
     def save_optimizer_states(self, fname):
+        """The optimizer states, from the store when it updates
+        (reference module.py:save_optimizer_states)."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with open(fname, "wb") as f:
             f.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..base import MXNetError
+from .collective import dp_all_reduce_sum, dp_group, dp_sync
 from .fused_conv import (_INDEX_LIMIT, _activate, _dispatch, bn_affine,
                          bn_coefficients, check_dtypes, count_launch, launch,
                          recompute_vjp)
@@ -228,7 +229,11 @@ def _chain_plain(c1, g1, bt1, mm1, mv1, w2, g2, bt2, mm2, mv2, w3, b3, eps,
 
 class _Chain(torch.autograd.Function):
     """Forward: BN1's statistics, pass 1 (train form only), the glue,
-    pass 2.  Backward: ``recompute_vjp`` of ``_chain_plain``.  The
+    pass 2.  Inside a data-parallel mesh step BN1's statistics and pass
+    1's sums are summed over the ``dp`` group (``ops.collective``)
+    between the two launches.  Backward: ``recompute_vjp`` of
+    ``_chain_plain``, under the group the forward saw, so its
+    statistics and their cotangents are the global batch's too.  The
     moving statistics get no gradient and are saved only in eval form,
     where the forward reads them (in train form the caller updates them
     in place after the forward)."""
@@ -247,6 +252,13 @@ class _Chain(torch.autograd.Function):
             shift = mm2.float().contiguous()
             sums, sqs = chain_stats(c1, a1, b1, w2, shift)
             count = c1.shape[0] * c1.shape[2] * c1.shape[3]
+            group = dp_group()
+            if group is not None:
+                # the shift is the same on every rank, so the shifted
+                # sums of the ranks add up to the global batch's
+                sums, sqs, count = dp_all_reduce_sum(
+                    (sums, sqs, torch.full((1,), count, dtype=torch.float32,
+                                           device=sums.device)), group)
             mean_d = sums / count
             var2 = torch.clamp(sqs / count - mean_d.square(), min=0.0)
             mean2 = mean_d + shift
@@ -255,6 +267,7 @@ class _Chain(torch.autograd.Function):
         a2, b2 = bn_affine(g2, bt2, mean2, var2, eps, fix_gamma)
         out = chain_emit(c1, a1, b1, w2, a2, b2, w3, b3)
         ctx.cfg = (eps, fix_gamma, train_stats)
+        ctx.group = dp_group()
         stats = () if train_stats else (mm1, mv1, mm2, mv2)
         ctx.save_for_backward(c1, g1, bt1, w2, g2, bt2, w3, b3, *stats)
         return out, mean1, var1, mean2, var2
@@ -271,9 +284,10 @@ class _Chain(torch.autograd.Function):
                                 mm2, mv2, w3_, b3_, eps, fix_gamma,
                                 train_stats)
 
-        gc1, gg1, gbt1, gw2, gg2, gbt2, gw3, gb3 = recompute_vjp(
-            plain, (c1, g1, bt1, w2, g2, bt2, w3, b3),
-            tuple(need[i] for i in (0, 1, 2, 5, 6, 7, 10, 11)), cts)
+        with dp_sync(ctx.group):
+            gc1, gg1, gbt1, gw2, gg2, gbt2, gw3, gb3 = recompute_vjp(
+                plain, (c1, g1, bt1, w2, g2, bt2, w3, b3),
+                tuple(need[i] for i in (0, 1, 2, 5, 6, 7, 10, 11)), cts)
         return (gc1, gg1, gbt1, None, None, gw2, gg2, gbt2, None, None, gw3,
                 gb3, None, None, None)
 

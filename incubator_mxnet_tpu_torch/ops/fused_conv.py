@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..base import MXNetError
+from .collective import dp_all_reduce_sum, dp_group, dp_sync
 from .registry import register_op
 
 __all__ = ["bn_affine", "bn_stats", "fused_bn_relu_conv", "sbr_conv3x3",
@@ -128,14 +129,25 @@ def bn_stats(x):
     """Batch statistics over every axis but the channel axis (dim 1):
     fp32 ``(mean, var)`` by the single pass E[x^2] - mean^2, clamped at
     0 (the JAX package's ``_bn_stats``).  Raises on an empty batch, whose
-    statistics do not exist."""
+    statistics do not exist.  Inside a data-parallel mesh step
+    (``ops.collective.dp_sync``) they are the global batch's: ``(Σx,
+    Σx², count)`` summed over the ``dp`` group, differentiably."""
     if x.numel() == 0:
         raise MXNetError(f"batch statistics (train mode) need a batch, got "
                          f"an empty one {tuple(x.shape)}")
     red = tuple(i for i in range(x.dim()) if i != 1)
     x32 = x.float()
-    mean = x32.mean(red)
-    var = torch.clamp(x32.square().mean(red) - mean.square(), min=0.0)
+    group = dp_group()
+    if group is None:
+        mean = x32.mean(red)
+        var = torch.clamp(x32.square().mean(red) - mean.square(), min=0.0)
+        return mean, var
+    count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float32,
+                       device=x.device)
+    s1, s2, count = dp_all_reduce_sum(
+        (x32.sum(red), x32.square().sum(red), count), group)
+    mean = s1 / count
+    var = torch.clamp(s2 / count - mean.square(), min=0.0)
     return mean, var
 
 
@@ -329,7 +341,8 @@ def _fused_plain(x, gamma, beta, running_mean, running_var, weight, bias,
 class _FusedBNReluConv(torch.autograd.Function):
     """Forward: the statistics, their affine, then one kernel launch
     (the plain version on a CPU tensor).  Backward: ``recompute_vjp``
-    of ``_fused_plain``.  The running statistics get no gradient and
+    of ``_fused_plain``, under the ``dp_sync`` group its forward saw.
+    The running statistics get no gradient and
     are saved only in eval form, where the forward reads them (in train
     form the caller updates them in place after the forward)."""
 
@@ -344,6 +357,7 @@ class _FusedBNReluConv(torch.autograd.Function):
         fn = sbr_matmul if kernel == (1, 1) else sbr_conv3x3
         out = fn(x, a, b, weight, bias)
         ctx.cfg = (kernel, eps, fix_gamma, train_stats)
+        ctx.group = dp_group()
         stats = () if train_stats else (running_mean, running_var)
         ctx.save_for_backward(x, gamma, beta, weight, bias, *stats)
         return out, mean, var
@@ -354,13 +368,14 @@ class _FusedBNReluConv(torch.autograd.Function):
         x, gamma, beta, weight, bias, *stats = ctx.saved_tensors
         rm, rv = stats if stats else (None, None)
         need = ctx.needs_input_grad
-        grads = recompute_vjp(
-            lambda x_, g_, b_, w_, c_: _fused_plain(
-                x_, g_, b_, rm, rv, w_, c_, kernel, eps, fix_gamma,
-                train_stats),
-            (x, gamma, beta, weight, bias),
-            (need[0], need[1], need[2], need[5], need[6]),
-            (d_out, d_mean, d_var))
+        with dp_sync(ctx.group):
+            grads = recompute_vjp(
+                lambda x_, g_, b_, w_, c_: _fused_plain(
+                    x_, g_, b_, rm, rv, w_, c_, kernel, eps, fix_gamma,
+                    train_stats),
+                (x, gamma, beta, weight, bias),
+                (need[0], need[1], need[2], need[5], need[6]),
+                (d_out, d_mean, d_var))
         gx, gg, gb, gw, gc = grads
         return gx, gg, gb, None, None, gw, gc, None, None, None, None
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .collective import all_reduce_flat, dp_group
 from .fused_conv import bn_stats
 from .reduce import _int_result
 from .registry import register_op
@@ -129,7 +130,10 @@ class _FusedBatchNormRelu(torch.autograd.Function):
     recomputes the ReLU mask as ``g*xhat + beta > 0`` and writes dx from
     ``xhat`` and dy alone, so it reads one full tensor fewer than
     autograd of BatchNorm then ReLU (which saves x and the ReLU output).
-    The reductions of the backward run in fp32, as the reference's."""
+    The reductions of the backward run in fp32, as the reference's.
+    Inside a data-parallel mesh step (``ops.collective.dp_sync``) the
+    statistics are the global batch's, and the backward sums its two
+    per-channel reductions and their count over the ``dp`` group too."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, mmean, mvar, eps, fix_gamma,
@@ -146,6 +150,7 @@ class _FusedBatchNormRelu(torch.autograd.Function):
         y = (xhat * g.view(shape)).add_(beta.view(shape)).relu_()
         ctx.set_materialize_grads(False)
         ctx.cfg = (eps, fix_gamma, train_stats)
+        ctx.group = dp_group() if train_stats else None
         ctx.save_for_backward(xhat, inv, g, beta)
         return y, mean, var32.to(x.dtype)
 
@@ -169,6 +174,19 @@ class _FusedBatchNormRelu(torch.autograd.Function):
             dx = (dz * g.view(shape) * inv.view(shape)).to(xhat.dtype)
             return dx, dgamma, dbeta, ct_mean, ct_var, None, None, None
         m = xhat.numel() // xhat.shape[1]
+        if ctx.group is not None:
+            # the statistics were the global batch's: so are the sums
+            # that carry the gradient through them, and their count
+            sums = [sum_dz, sum_dzxh] + [
+                c.float() for c in (ct_mean, ct_var) if c is not None]
+            sums.append(torch.full((1,), m, dtype=torch.float32,
+                                   device=sum_dz.device))
+            sums = all_reduce_flat(sums, ctx.group)
+            sum_dz, sum_dzxh, m = sums[0], sums[1], sums[-1]
+            if ct_mean is not None:
+                ct_mean = sums[2]
+            if ct_var is not None:
+                ct_var = sums[-2]
         inv32 = inv.float().view(shape)
         dx32 = torch.addcmul(dz32 - (sum_dz / m).view(shape), xhat32,
                              (sum_dzxh / m).view(shape), value=-1.0)

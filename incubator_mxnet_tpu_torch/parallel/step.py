@@ -61,10 +61,31 @@ each data input on the device before the forward, as the JAX step runs
 it inside its program.  ``run_steps(drain=d)`` pushes the window's
 losses through a ``pipeline_io.MetricDrain`` and returns what matured.
 
-Not ported yet, and raising ``MXNetError`` when asked for: ``mesh``,
-``mirror``, ``autotune=True`` and ``run_steps(stacked=True)``; the
-persistent compile cache and the numerics sentinels have no
-counterpart.
+``mesh`` (a ``parallel.DeviceMesh``; default the current one, ``with
+mesh:``) makes the step data parallel over the mesh's ``dp`` axis,
+one process per rank.  Under GSPMD the JAX step on a ``dp`` mesh
+computes the single-device step on the global batch, and so does this
+one: each rank takes its ``1/dp`` of the batch (a batch that
+``DevicePrefetchIter(sharding=mesh.sharding("dp"))`` staged is that
+slice already); the parameters and buffers start as rank 0's (a
+broadcast when the step is built); every BatchNorm's statistics, and
+their backward, are the global batch's (``ops.collective.dp_sync``
+around the forward and backward when the group has more than one
+rank); the gradients and the loss are averaged by one coalesced
+``all_reduce`` after ``autograd.grad`` and before the optimizer, so the
+loss is the global batch's mean and every rank takes the same update.
+With ``grad_accum`` k, microbatch j is the global batch's j-th k-th
+(rows ``[j*B/k, (j+1)*B/k)``, as the JAX step's ``split_microbatches``
+takes it) split over the ranks: the step's ``sharding`` cuts a rank's
+slice so (``Sharding.microbatched``), and a prefetch for it takes
+``sharding=step.sharding``.  The loss scaler's overflow test reads the
+averaged gradients, so every rank agrees on it.  A mesh
+with a ``tp``, ``pp``, ``sp`` or ``ep`` axis larger than 1 raises: the
+model-parallel half of ROADMAP A6 is not ported yet.
+
+Not ported yet, and raising ``MXNetError`` when asked for: ``mirror``,
+``autotune=True`` and ``run_steps(stacked=True)``; the persistent
+compile cache and the numerics sentinels have no counterpart.
 """
 from __future__ import annotations
 
@@ -77,6 +98,9 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
 from ..numerics import LossScaler, program_overflow
+from ..ops.collective import dp_sync, gather_rows
+from .dist import coalesced
+from .mesh import DeviceMesh, current_mesh
 
 __all__ = ["EvalStep", "TrainStep", "uint8_input_prep"]
 
@@ -87,23 +111,53 @@ def _refuse(owner, asked):
             raise MXNetError(f"{owner}({what}) is not ported yet")
 
 
-def _to_device(x, device):
+def _tensor(x):
+    """The tensor of a batch element (NDArray, numpy array or tensor)."""
     if isinstance(x, NDArray):
-        return x._data.to(device)
-    t = torch.from_numpy(np.ascontiguousarray(x)) \
+        return x._data
+    return torch.from_numpy(np.ascontiguousarray(x)) \
         if isinstance(x, np.ndarray) else torch.as_tensor(x)
-    return t.to(device)
 
 
 def _inputs(step, batch):
     """The batch's tensors on ``step.device``: a stamped batch (every
-    input staged by ``DevicePrefetchIter``) as it is, counted in
-    ``step.resident_fastpath``; anything else copied there."""
-    if _pipeline_io.enabled and \
-            _pipeline_io.match_stamp(batch)[0] is not None:
-        step.resident_fastpath += 1
-        return [b._data for b in batch]
-    return [_to_device(b, step.device) for b in batch]
+    input staged by ``DevicePrefetchIter`` with the step's sharding) as
+    it is, counted in ``step.resident_fastpath``; anything else cut to
+    this rank's slice (on a mesh) and copied there.  A batch staged as
+    some rank's slice of another sharding raises: it is not the global
+    batch."""
+    if _pipeline_io.enabled:
+        stamp = _pipeline_io.match_stamp(batch)[0]
+        if stamp is not None and stamp.sharding == step._sharding:
+            step.resident_fastpath += 1
+            return [b._data for b in batch]
+        if stamp is not None and stamp.sharding is not None:
+            raise MXNetError(
+                f"a batch staged as the slice of {stamp.sharding} fed to a "
+                f"step that takes {step._sharding}: prefetch with "
+                "DevicePrefetchIter(sharding=step.sharding)")
+    sharding = step._sharding
+    return [(sharding.local(_tensor(b)) if sharding else _tensor(b)).to(
+        step.device) for b in batch]
+
+
+def _data_parallel(owner, mesh):
+    """``(mesh, its dp sharding)`` of a step: ``mesh`` or the current
+    one, which must be a ``DeviceMesh`` with no axis but ``dp`` larger
+    than 1; ``(None, None)`` without one."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return None, None
+    if not isinstance(mesh, DeviceMesh):
+        raise MXNetError(f"{owner}(mesh=...) takes a parallel.DeviceMesh, "
+                         f"got {type(mesh).__name__}")
+    wide = {a: n for a, n in mesh.shape.items() if a != "dp" and n > 1}
+    if wide:
+        raise MXNetError(
+            f"{owner} on a mesh with {wide}: tensor, pipeline, sequence and "
+            "expert parallel meshes are not ported yet (ROADMAP A6, the "
+            "model-parallel half); only the dp axis may be larger than 1")
+    return mesh, mesh.sharding("dp")
 
 
 def uint8_input_prep(mean=0.0, scale=1.0, layout="NCHW"):
@@ -179,15 +233,19 @@ class TrainStep:
                  grad_accum=1, donate=True, bf16_compute=False, mirror=None,
                  input_prep=None, autotune=None, loss_scaler=None,
                  device=None):
-        _refuse("TrainStep", (("mesh", mesh is not None),
-                              ("mirror", bool(mirror)),
+        _refuse("TrainStep", (("mirror", bool(mirror)),
                               ("autotune", bool(autotune))))
         if batch_axis != 0:
             raise MXNetError("TrainStep takes the batch on axis 0")
         if int(grad_accum) != grad_accum or grad_accum < 1:
             raise MXNetError(f"grad_accum must be a positive integer, got "
                              f"{grad_accum!r}")
-        self.device = resolve_device(device)
+        self._mesh, self._sharding = _data_parallel("TrainStep", mesh)
+        if self._sharding is not None and grad_accum > 1:
+            # microbatch j is the global batch's, split over the ranks
+            self._sharding = self._sharding.microbatched(grad_accum)
+        self.device = resolve_device(
+            self._mesh.device if device is None and self._mesh else device)
         self._bf16 = bool(bf16_compute)
         from ..gluon.block import Block
         self._gluon = isinstance(block, Block)
@@ -213,6 +271,14 @@ class TrainStep:
         self._scaler = loss_scaler
         self._scaler_state = None if loss_scaler is None else \
             loss_scaler.state_init(self.device)
+        #: the dp group (None: one process) and its size; the BN
+        #: statistics are summed over it when it has more than one rank
+        self._group = None if self._mesh is None else self._mesh.group("dp")
+        self._dp = 1 if self._mesh is None else self._mesh.axis_size("dp")
+        self._bn_group = self._group if self._dp > 1 else None
+        if self._group is not None:
+            coalesced("broadcast", list(block.parameters()) +
+                      list(block.buffers()), self._group)
 
     def _forward_loss(self, xs, y):
         if self._gluon:
@@ -249,7 +315,7 @@ class TrainStep:
         loss = grads = None
         parts = zip(*[x.chunk(accum) for x in xs]) if accum > 1 else [xs]
         for xi, yi in zip(parts, y.chunk(accum)):
-            with torch.enable_grad():
+            with torch.enable_grad(), dp_sync(self._bn_group):
                 lv = self._forward_loss(list(xi), yi)
                 # a block with nothing to train (every BatchNorm gamma
                 # and beta fixed) still steps its moving statistics
@@ -264,6 +330,12 @@ class TrainStep:
         if accum > 1:
             loss = loss / accum
             grads = [g / accum for g in grads]
+        if self._group is not None:
+            # the global batch's mean gradient and loss on every rank
+            loss = loss.reshape(1)
+            coalesced("all_reduce", grads + [loss], self._group,
+                      divide=self._dp)
+            loss = loss[0]
         opt = self._optimizer
         for i, (p, g, s) in enumerate(zip(self._params, grads,
                                           self._states)):
@@ -287,6 +359,17 @@ class TrainStep:
     def sync_params(self):
         """Nothing to do: the step updates the block's own parameters in
         place (the JAX step keeps them in its own carry)."""
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @property
+    def sharding(self):
+        """How the step cuts a global batch into this rank's slice (None
+        without a mesh): ``DevicePrefetchIter(sharding=step.sharding)``
+        stages batches the step takes as they are."""
+        return self._sharding
 
     def __call__(self, *batch):
         """One step on the batch ``(x..., y)``; returns its loss (fp32,
@@ -334,14 +417,18 @@ class EvalStep:
 
     Inputs are taken as ``TrainStep`` takes them (a prefetched batch as
     it is, counted in ``resident_fastpath``), and ``input_prep`` runs on
-    each of them.  Not ported yet, and raising ``MXNetError``: ``mesh``
-    and ``autotune=True``."""
+    each of them.  On a ``dp`` mesh each rank runs its slice of the
+    batch, and the outputs are gathered over the ``dp`` group
+    (``ops.collective.gather_rows``), so every rank returns the global
+    batch's output, as the JAX step does.  Not ported yet, and raising
+    ``MXNetError``: ``autotune=True``."""
 
     def __init__(self, block, mesh=None, bf16_compute=False,
                  input_prep=None, autotune=None, device=None):
-        _refuse("EvalStep", (("mesh", mesh is not None),
-                             ("autotune", bool(autotune))))
-        self.device = resolve_device(device)
+        _refuse("EvalStep", (("autotune", bool(autotune)),))
+        self._mesh, self._sharding = _data_parallel("EvalStep", mesh)
+        self.device = resolve_device(
+            self._mesh.device if device is None and self._mesh else device)
         self._bf16 = bool(bf16_compute)
         from ..gluon.block import Block
         self._gluon = isinstance(block, Block)
@@ -366,7 +453,29 @@ class EvalStep:
         try:
             with torch.no_grad():
                 if self._bf16:
-                    return _bf16_forward(block, inputs, keep_buffers=False)
-                return block(*inputs)
+                    out = _bf16_forward(block, inputs, keep_buffers=False)
+                else:
+                    out = block(*inputs)
         finally:
             block.train(was_training)
+        group = None if self._mesh is None else self._mesh.group("dp")
+        if group is None or self._mesh.axis_size("dp") == 1:
+            return out
+        return _gathered(out, group, self._mesh.axis_size("dp"),
+                         self._mesh.axis_rank("dp"))
+
+    @property
+    def sharding(self):
+        """How the step cuts a global batch (None without a mesh)."""
+        return self._sharding
+
+
+def _gathered(out, group, size, rank):
+    """The ranks' outputs (a tensor, an NDArray or a tuple or list of
+    them), each concatenated along the batch axis in rank order."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_gathered(o, group, size, rank) for o in out)
+    t = out._data if isinstance(out, NDArray) else out
+    rows = gather_rows(t, group, size, rank)
+    t = rows.reshape((size * t.shape[0],) + tuple(t.shape[1:]))
+    return NDArray(t, out._ctx) if isinstance(out, NDArray) else t

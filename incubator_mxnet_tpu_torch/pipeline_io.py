@@ -28,8 +28,16 @@ ahead of the step, and loss readback deferred behind it.
   an event, and a matured entry waits only on its own event.  Depth 0 is
   eager readback.
 
-Not ported, and raising ``MXNetError`` or absent: the sharded prefetch
-(``sharding=``, ROADMAP A6), the telemetry, tracing, goodput and
+* ``DevicePrefetchIter(sharding=mesh.sharding("dp"))`` stages this
+  rank's slice of each global batch on the mesh's card, stamped with
+  the sharding, so a ``TrainStep`` / ``EvalStep`` with that sharding
+  (``step.sharding``) takes it as it is.  A source that reads only the
+  rank's part (``ImageRecordIter(num_parts=dp, part_index=rank,
+  batch_size=B/dp)``, cut before anything is decoded) gives that slice
+  itself; any other source gives the global batch, and the slice is cut
+  on the host (``Sharding.local``) before the copy.
+
+Not ported, and absent: the telemetry, tracing, goodput and
 fault-injection hooks (A9), and the persistent compile cache of the JAX
 module (``CompileCache``, ``compile_cache``, ``set_cache_dir``,
 ``load_executable``, ``store_executable``, ``runtime_versions_suffix``,
@@ -83,12 +91,13 @@ class PrefetchStamp:
     finds every input stamped takes the tensors as they are, already on
     ``device``."""
 
-    __slots__ = ("source", "signature", "device")
+    __slots__ = ("source", "signature", "device", "sharding")
 
-    def __init__(self, source, signature, device):
+    def __init__(self, source, signature, device, sharding=None):
         self.source = source          # id of the emitting iterator
         self.signature = signature    # ((shape, dtype), ...) whole batch
         self.device = device          # torch.device the arrays sit on
+        self.sharding = sharding      # parallel.mesh.Sharding, or None
 
 
 def match_stamp(batch):
@@ -159,14 +168,34 @@ class DevicePrefetchIter(DataIter):
     the consumer's ``next()``.  With depth 0 the wrapper is a
     passthrough: no thread, no staging, no stamps.  ``hits`` and
     ``stalls`` count the ``next()`` calls that found a staged batch
-    waiting and those that had to wait for one.  ``sharding=`` raises
-    until ROADMAP A6.
+    waiting and those that had to wait for one.  ``sharding`` (a
+    ``parallel.mesh.Sharding``, e.g. ``mesh.sharding("dp")``) stages this
+    rank's slice of each batch on the mesh's card (``device`` defaults
+    to it): a source with ``num_parts`` > 1 (the record iterators' own
+    split) must read the sharding's part of dim 0 and gives the slice
+    as it is; any other source's batch is cut.
     """
 
     def __init__(self, data_iter, sharding=None, device=None, depth=None):
-        if sharding is not None:
-            raise MXNetError("DevicePrefetchIter(sharding=...) is not ported "
-                             "yet: one device only (ROADMAP A6)")
+        from .parallel.mesh import Sharding
+        if sharding is not None and not isinstance(sharding, Sharding):
+            raise MXNetError(
+                f"DevicePrefetchIter(sharding=...) takes a parallel.mesh."
+                f"Sharding (mesh.sharding('dp')), got "
+                f"{type(sharding).__name__}")
+        self._sharding = sharding
+        #: the source reads this rank's part already: stage it uncut
+        self._source_cut = False
+        if sharding is not None and getattr(data_iter, "num_parts", 1) > 1:
+            part = (data_iter.num_parts, data_iter.part_index)
+            if part != sharding.parts(0):
+                raise MXNetError(
+                    f"the source reads part {part[1]} of {part[0]}, the "
+                    f"sharding {sharding} takes part {sharding.parts(0)[1]} "
+                    f"of {sharding.parts(0)[0]} of the batch")
+            self._source_cut = True
+        if device is None and sharding is not None:
+            device = sharding.device
         super().__init__(getattr(data_iter, "batch_size", 0))
         self._iter = data_iter
         self._depth = prefetch_depth() if depth is None else max(0, int(depth))
@@ -226,6 +255,9 @@ class DevicePrefetchIter(DataIter):
         """Host batch -> (device-resident, stamped batch, copy event)."""
         data = [_host_tensor(d) for d in (batch.data or [])]
         label = [_host_tensor(lb) for lb in (batch.label or [])]
+        if self._sharding is not None and not self._source_cut:
+            data = [self._sharding.local(t).contiguous() for t in data]
+            label = [self._sharding.local(t).contiguous() for t in label]
         host = data + label
         sig = tuple((tuple(t.shape), numpy_dtype(t.dtype).name)
                     for t in host)
@@ -234,7 +266,8 @@ class DevicePrefetchIter(DataIter):
         if stamp is None or stamp.signature != sig:
             # one stamp per source geometry; a geometry change (the last
             # ragged batch, bucketing) mints a fresh stamp
-            stamp = self._stamp = PrefetchStamp(id(self), sig, self.device)
+            stamp = self._stamp = PrefetchStamp(id(self), sig, self.device,
+                                                self._sharding)
         out = []
         for t, entry in zip(dev, sig):
             nd = NDArray(t, self._ctx)

@@ -35,6 +35,10 @@ input; every case failed before its repair.
   weights differ between two seeds, and equal the JAX package's for the
   same seed and names (uniform draws to an ulp, normal ones through
   ``erfinv``: 1e-6 of max).
+* C16 ``resolve_device(None)`` under a process group is the rank's own
+  card, ``(LOCAL_RANK or DMLC_WORKER_ID) % device_count()`` (every
+  rank of an N-card launch took ``cuda:0``); without a process group it
+  stays ``cuda:0``, and without a GPU it raises.
 
 Tolerances: exact (value and dtype) for C1-C3 and C5-C7 (the same IEEE
 operations on both sides), except softmax (relative 1e-6, other
@@ -452,3 +456,25 @@ def test_c15_seed_reaches_the_initializers(init):
         scale = np.abs(w).max()
         assert np.abs(got[name] - w).max() <= 1e-6 * scale, name
         assert not np.array_equal(other[name], got[name]), name
+
+
+@pytest.mark.parametrize("env,group,want", [
+    ({"LOCAL_RANK": "3", "DMLC_WORKER_ID": "0"}, True, 1),
+    ({"DMLC_WORKER_ID": "2"}, True, 0),
+    ({"DMLC_WORKER_ID": "5"}, True, 1),
+    ({"LOCAL_RANK": "1"}, False, 0)])
+def test_c16_default_device_is_the_rank_card(monkeypatch, env, group, want):
+    import torch.distributed as dist
+    from incubator_mxnet_tpu_torch.context import resolve_device
+    for name in ("LOCAL_RANK", "DMLC_WORKER_ID"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setattr(dist, "is_initialized", lambda: group)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert resolve_device(None) == torch.device("cuda", want)
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(tmx.MXNetError, match="no CUDA device"):
+        resolve_device(None)

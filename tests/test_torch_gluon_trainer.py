@@ -192,15 +192,37 @@ def test_trainer_states_round_trip(tmp_path):
 
 
 def test_trainer_refuses_what_needs_a6():
+    """The stores of ROADMAP A6 are ported: each kvstore the Trainer once
+    refused now steps, with the JAX Trainer's routing (which store is
+    kept, whether it updates); an unknown store type is refused at the
+    first step, where the store is made."""
     with tmx.cpu():
         net = _mlp(tmx)
         net.initialize()
         params = net.collect_params()
-        for kv in ("nccl", "dist_sync", "tpu"):
-            with pytest.raises(MXNetError, match="A6"):
-                tmx.gluon.Trainer(params, "sgd", kvstore=kv)
-        with pytest.raises(MXNetError, match="A6"):
-            tmx.gluon.Trainer(params, "sgd", update_on_kvstore=True)
+        x = tmx.nd.ones((2, 20))
+        routes = {"nccl": (None, False), "dist_sync": ("KVStoreDist", True),
+                  "tpu": ("KVStoreTPU", True)}
+        for kv, (store, on_kv) in routes.items():
+            tr = tmx.gluon.Trainer(params, "sgd", kvstore=kv)
+            with tmx.autograd.record():
+                loss = net(x).sum()
+            loss.backward()
+            tr.step(2)
+            assert (type(tr._kvstore).__name__ if tr._kvstore else None,
+                    tr._update_on_kvstore) == (store, on_kv), kv
+        tr = tmx.gluon.Trainer(params, "sgd", update_on_kvstore=True)
+        with tmx.autograd.record():
+            loss = net(x).sum()
+        loss.backward()
+        tr.step(2)
+        assert tr._kvstore.type == "device" and tr._update_on_kvstore
+        bad = tmx.gluon.Trainer(params, "sgd", kvstore="parameter_server")
+        with tmx.autograd.record():
+            loss = net(x).sum()
+        loss.backward()
+        with pytest.raises(MXNetError, match="unknown kvstore"):
+            bad.step(2)
         for kv in ("device", "local", None):
             tmx.gluon.Trainer(params, "sgd", kvstore=kv)
 

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing ``incubator_mxnet_tpu_torch``
 loads neither JAX nor the JAX package, and no file of the port (nor
-``chip_smoke.py``) imports them.  Module names are matched at the
+``chip_smoke.py``, the ``tools/port_*.py`` scripts or the two-rank test
+worker) imports them.  Module names are matched at the
 boundary — ``incubator_mxnet_tpu_torch`` starts with the old name."""
 import ast
 import os
@@ -19,7 +20,11 @@ def _forbidden(module):
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "torch_dist_worker.py")]
+    out += [os.path.join(REPO, "tools", f)
+            for f in os.listdir(os.path.join(REPO, "tools"))
+            if f.startswith("port_") and f.endswith(".py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -254,9 +254,37 @@ def test_fixed_params():
     assert np.abs(args["fc2_weight"].asnumpy() -
                   params[0]["fc2_weight"]).sum() > 0
     assert "fc1_weight" not in mod._exec.grad_dict
-    with tmx.cpu(), pytest.raises(MXNetError, match="A6"):
-        _module(tmx, _mlp(tmx), x.shape, y.shape, params).init_optimizer(
-            kvstore="dist_sync", force_init=True)
+    # a dist_sync store is ported: in one process it takes the update
+    # (the module's optimizer on the store) and steps as the local
+    # updater does
+    with tmx.cpu():
+        dist = _module(tmx, _mlp(tmx), x.shape, y.shape, params)
+        dist.init_optimizer(kvstore="dist_sync", force_init=True,
+                            optimizer="sgd", optimizer_params={
+                                "learning_rate": 0.1, "momentum": 0.9,
+                                "wd": 1e-4})
+        local = _module(tmx, _mlp(tmx), x.shape, y.shape, params)
+        for m in (dist, local):
+            m.forward_backward(_batch(tmx, x, y))
+            m.update()
+    assert type(dist._kvstore).__name__ == "KVStoreDist"
+    assert dist._update_on_kvstore and local._kvstore is None
+    for name, v in local.get_params()[0].items():
+        np.testing.assert_array_equal(dist.get_params()[0][name].asnumpy(),
+                                      v.asnumpy())
+    # the optimizer states live on the store, and save / load go there
+    import pickle
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = f"{tmp}/dist.states"
+        dist.save_optimizer_states(fname)
+        dist.load_optimizer_states(fname)
+        with open(fname, "rb") as f:
+            saved = pickle.loads(f.read())
+    want = pickle.loads(local._updater.get_states())
+    assert saved.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(saved[k].asnumpy(), want[k].asnumpy())
 
 
 def _bucket_sym(mx):

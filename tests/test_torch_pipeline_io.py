@@ -208,8 +208,21 @@ def test_prefetch_depth_zero_is_passthrough(monkeypatch):
 
 
 def test_prefetch_refuses_sharding_and_needs_a_gpu_by_default():
-    with pytest.raises(tmx.MXNetError, match="A6"):
+    """A mesh sharding is ported (a one-rank mesh stages the whole batch,
+    stamped with it, on the mesh's device); anything else is refused."""
+    with pytest.raises(tmx.MXNetError, match="Sharding"):
         DevicePrefetchIter(_CountingIter(1), sharding=object())
+    sharding = tmx.parallel.make_mesh(dp=1, device="cpu").sharding("dp")
+    src = _CountingIter(1)
+    pf = DevicePrefetchIter(src, sharding=sharding, depth=1)
+    try:
+        b = pf.next()
+        np.testing.assert_array_equal(b.data[0].asnumpy(),
+                                      src._batches[0][0])
+        assert b.data[0]._pipeline_stamp[0].sharding == sharding
+        assert pf.device == torch.device("cpu")
+    finally:
+        pf.close()
     if not torch.cuda.is_available():
         with pytest.raises(tmx.MXNetError):
             DevicePrefetchIter(_CountingIter(1), depth=1)

@@ -436,7 +436,8 @@ def test_chain_state_dict_interchanges_with_fused(jax_runs):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "mesh"),
+    # a mesh is ported (data parallel): anything else is refused
+    pytest.param(dict(mesh=object()), "DeviceMesh", id="kw0-mesh"),
     (dict(mirror=True), "mirror"),
     # input_prep is ported: the step runs it on the data input only
     pytest.param(dict(input_prep=abs), "input_prep", id="kw2-input_prep"),
@@ -453,6 +454,26 @@ def test_train_step_refuses_what_is_not_ported(kw, match):
         return
     with pytest.raises(MXNetError, match=match):
         TrainStep(net, SoftmaxCrossEntropyLoss(), SGD(), device="cpu", **kw)
+
+
+def test_train_step_on_a_one_rank_mesh_equals_the_plain_step(jax_runs):
+    """TrainStep(mesh=make_mesh(dp=1)) in one process (no process group):
+    the whole batch is the rank's, nothing is reduced, and three steps
+    equal the plain step's bit for bit; EvalStep(mesh=) likewise."""
+    from incubator_mxnet_tpu_torch.parallel import make_mesh
+    init = jax_runs[True][0]
+    x, y = _batch()
+    a, b = _port_net(True, init), _port_net(True, init)
+    mesh = make_mesh(dp=1, device="cpu")
+    sa = TrainStep(a, SoftmaxCrossEntropyLoss(), SGD(**SGD_KW), mesh=mesh)
+    sb = TrainStep(b, SoftmaxCrossEntropyLoss(), SGD(**SGD_KW),
+                   device="cpu")
+    assert sa.mesh is mesh and sa.device == torch.device("cpu")
+    assert torch.equal(sa.run_steps(x, y, num_steps=STEPS),
+                       sb.run_steps(x, y, num_steps=STEPS))
+    for key, t in a.state_dict().items():
+        assert torch.equal(t, b.state_dict()[key]), key
+    assert torch.equal(EvalStep(a, mesh=mesh)(x), EvalStep(b, device="cpu")(x))
 
 
 def _wrapper_args(name, dtype=torch.bfloat16, weight_dtype=None):
