@@ -159,7 +159,27 @@ launch counts set to 0 just before it and read just after:
   the padding), ``Module.fit(kvstore="dist_sync")`` and a
   ``TrainCheckpoint`` resume equal bit for bit to an uninterrupted run
   (``dist_trainer``).  Two ranks time-share one card: their times are
-  not scaling numbers.
+  not scaling numbers;
+* model parallelism (``launches_model_parallel``): B5 through
+  ``flash_attention``'s autograd Function (``flash_grad``: the output
+  and dq/dk/dv against the plain route at b=2, 12 heads, T=1024, d=64,
+  causal); the decoder-only LM of examples/transformer_lm.py at GPT-2
+  small width (vocab 50257, d 768, 12 heads, FFN 3072, T=1024; Adam lr
+  0.003, softmax cross-entropy, its Markov batches) in one process with
+  no mesh at depth 12, b=4, 3 steps, and at depth 2 one forward and
+  backward on the card against the CPU (``lm_train``); then worlds of
+  two ranks on the one card over gloo (``tools/port_mp_worker.py``),
+  one per axis, the LM at depth 2, b=4, 3 steps: ``tp=2`` (qkv, fc1
+  and head column parallel, proj and fc2 row parallel, the embedding
+  vocab-split) with ``BlockPredictor(mesh=)`` after, ``sp=2`` with
+  Ulysses through B5 and with ring attention, ``ep=2`` (the MoE form,
+  4 experts, top 2), ``pp=2`` (embedding and head split over pp around
+  a 2-stage ``PipelineStack``, 4 microbatches) (``mp_two_ranks``), and
+  four ranks on ``tp=2 x pp=2`` (``mp_four_ranks``); each held to one
+  process on the card on the same batch and weights, the ranks bit-equal
+  on the replicated parameters, each sharded one holding its block,
+  the flash launches a rank as expected, each collective's route
+  printed.
 
 The rtc user kernels (``axpy``, a per-row sum that stages its row in
 more than 48 KB of dynamic shared memory, and a ``scale_add`` template
@@ -6839,6 +6859,553 @@ def phase_dist_two_ranks(seed):
     return launches
 
 
+# ------------------------------------------------ model parallelism
+# the decoder-only LM of examples/transformer_lm.py at GPT-2-small width
+# (the generation server's), with the parallel layers composed in as
+# __graft_entry__.py composes them; trained with Adam at lr 0.003 on the
+# Markov batches of examples/transformer_lm.py
+MP = dict(vocab=50257, dim=768, heads=12, seq_len=1024)
+MP_EXPERTS, MP_LR = 4, 0.003
+LM_TRAIN_DEPTH, LM_TRAIN_BATCH, LM_TRAIN_STEPS = 12, 4, 3
+LM_CPU_DEPTH, LM_CPU_BATCH = 2, 1
+# card vs CPU at depth 2, one forward and backward: the loss relative
+# (LM_CPU_RTOL), each gradient's L2 error relative to its L2 norm
+# (LM_CPU_GRAD_RTOL).  At initialisation the softmax over 50257 words is
+# near uniform and the gradients cancel: fp32 routes lie up to ~1e-3
+# (L2, the median leaf) off the card's fp64 gradient, seed by seed, and
+# card vs CPU worst leaf read 9.3e-4 and 1.1e-3 for seeds 0 and 1 on an
+# NVIDIA H100 80GB HBM3 at 700 W (tools/port_mp_margin.py's companion
+# run); so the gate sits at 1e-2, where a wrong backward (O(1)) fails.
+# The card's fp64 gradient is printed beside as the truth
+LM_CPU_RTOL = 1e-4
+LM_CPU_GRAD_RTOL = 1e-2
+MP_DEPTH, MP_BATCH, MP_STEPS, MP_MICROBATCHES = 2, 4, 3, 4
+MP_TIMEOUT_S = 600
+FLASH_GRAD = (2, 12, 1024, 64)      # b, heads, T, head_dim; causal
+# the worlds of the model-parallel phases: ranks, mesh axes, and the
+# runs each makes (name, model kind, attention); one world per axis
+MP_WORLDS = {"tp": (2, dict(tp=2), [("tp", "mlp", "flash")]),
+             "sp": (2, dict(sp=2), [("sp_ulysses", "mlp", "ulysses"),
+                                    ("sp_ring", "mlp", "ring")]),
+             "ep": (2, dict(ep=2), [("ep", "moe", "flash")]),
+             "pp": (2, dict(pp=2), [("pp", "pp", "flash")]),
+             "tp_pp": (4, dict(tp=2, pp=2), [("tp_pp", "pp", "flash")])}
+# flash launches a rank a step: one a block for the plain LMs, one a
+# tick (M + S - 1) for the pipelined one; ring attention runs no kernel
+MP_FLASH_PER_STEP = {"flash": MP_DEPTH, "ulysses": MP_DEPTH, "ring": 0,
+                     "pipeline": MP_MICROBATCHES + 2 - 1}
+# the gates of a mesh run against the one process on the card after
+# MP_STEPS Adam steps.  Adam's first steps move each weight by about
+# lr * sign(g), so a gradient element near 0 that another summation
+# order rounds to the other sign moves by 2 lr, and Adam is blind to a
+# gradient's scale.  So two gates: each leaf's change error
+# (_change_errs) at most MP_STEP_BOUND, and each leaf's first moment
+# (Adam's m, a running sum of the gradients, linear in them: a gradient
+# counted twice shows as 1.0) within MP_MOMENT_BOUND in L2, relative;
+# each step's loss within MP_LOSS_RTOL.  Over seeds 0-3
+# (tools/port_mp_margin.py, NVIDIA H100 80GB HBM3 at 700 W) the worst
+# readings of the 24 runs were 1.87e-2 (a pipelined LayerNorm beta),
+# 4.6e-3 (ring attention's qkv) and 1.15e-5; Ulysses read 0 (the same
+# arithmetic as one process), ep at most 1.3e-3
+MP_STEP_BOUND = 0.05
+MP_MOMENT_BOUND = 0.02
+MP_LOSS_RTOL = 5e-5
+
+
+def mp_lm_classes(mx):
+    """The LM's blocks over the port (tests/torch_mp_models.py holds
+    them for both packages)."""
+    from incubator_mxnet_tpu_torch.ndarray.ndarray import NDArray
+    gluon, nn, par = mx.gluon, mx.gluon.nn, mx.parallel
+
+    class CausalSelfAttention(gluon.Block):
+        def __init__(self, dim, heads, attend, **kwargs):
+            super().__init__(**kwargs)
+            self._dim, self._heads, self._attend = dim, heads, attend
+            with self.name_scope():
+                self.qkv = par.ColumnParallelDense(
+                    3 * dim, in_units=dim, flatten=False, use_bias=False)
+                self.proj = par.RowParallelDense(dim, in_units=dim,
+                                                 flatten=False)
+
+        def forward(self, x):
+            b, t, _ = x.shape
+            dim, h = self._dim, self._heads
+            a = self.qkv(x)._data
+
+            def split(z):
+                return z.reshape(b, t, h, dim // h).swapaxes(1, 2) \
+                    .contiguous()
+
+            o = self._attend(split(a[..., :dim]), split(a[..., dim:2 * dim]),
+                             split(a[..., 2 * dim:]))
+            o = o.swapaxes(1, 2).reshape(b, t, dim)
+            return self.proj(NDArray(o, x.context))
+
+    class TransformerBlock(gluon.Block):
+        def __init__(self, dim, heads, attend, experts=0, **kwargs):
+            super().__init__(**kwargs)
+            self._moe = bool(experts)
+            with self.name_scope():
+                self.ln1 = nn.LayerNorm(in_channels=dim)
+                self.attn = CausalSelfAttention(dim, heads, attend)
+                self.ln2 = nn.LayerNorm(in_channels=dim)
+                if experts:
+                    self.mlp = par.MoELayer(dim, 4 * dim,
+                                            num_experts=experts, top_k=2,
+                                            capacity_factor=2.0)
+                else:
+                    self.mlp = nn.HybridSequential()
+                    with self.mlp.name_scope():
+                        self.mlp.add(par.ColumnParallelDense(
+                            4 * dim, in_units=dim, flatten=False,
+                            activation="relu"),
+                            par.RowParallelDense(dim, in_units=4 * dim,
+                                                 flatten=False))
+
+        def forward(self, x):
+            x = x + self.attn(self.ln1(x))
+            h = self.ln2(x)
+            if self._moe:
+                b, t, dim = h.shape
+                return x + self.mlp(h.reshape((-1, dim))).reshape(
+                    (b, t, dim))
+            return x + self.mlp(h)
+
+    class TransformerLM(gluon.Block):
+        """``depth`` blocks, or with ``stages`` a ``PipelineStack`` of one
+        block (its embedding and head split over ``pp``)."""
+
+        def __init__(self, vocab, dim, heads, seq_len, depth, attend,
+                     experts=0, stages=0, **kwargs):
+            super().__init__(**kwargs)
+            axis = "pp" if stages else "tp"
+            with self.name_scope():
+                self.embed = par.ShardedEmbedding(vocab, dim, axis=axis)
+                self.pos = self.params.get(
+                    "pos", shape=(1, seq_len, dim), init=mx.init.Normal(0.02))
+                if stages:
+                    self.blocks = par.PipelineStack(
+                        TransformerBlock(dim, heads, attend,
+                                         prefix="stage_"),
+                        num_stages=stages, num_microbatches=MP_MICROBATCHES)
+                else:
+                    self.blocks = nn.Sequential()
+                    with self.blocks.name_scope():
+                        for _ in range(depth):
+                            self.blocks.add(TransformerBlock(
+                                dim, heads, attend, experts))
+                self.ln_f = nn.LayerNorm(in_channels=dim)
+                self.head = par.ColumnParallelDense(
+                    vocab, in_units=dim, flatten=False, axis=axis)
+
+        def forward(self, tokens):
+            x = self.embed(tokens) + self.pos.data()
+            return self.head(self.ln_f(self.blocks(x)))
+
+    class FlatLoss:
+        def __init__(self, vocab):
+            self._vocab = vocab
+            self._ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def __call__(self, out, y):
+            return self._ce(out.reshape((-1, self._vocab)), y.reshape((-1,)))
+
+    return TransformerLM, FlatLoss
+
+
+def mp_attend(kind, mesh=None):
+    """attend(q, k, v) of an LM: flash (B5) on the full sequence; Ulysses
+    (B5 on heads/sp heads); ring attention over ``sp``."""
+    from incubator_mxnet_tpu_torch import parallel
+    if kind == "flash":
+        return lambda q, k, v: parallel.flash_attention(q, k, v, causal=True)
+    if kind == "ulysses":
+        return lambda q, k, v: parallel.ulysses_attention_sharded(
+            q, k, v, mesh, causal=True, attn_fn=parallel.flash_attention)
+    return lambda q, k, v: parallel.ring_attention_sharded(q, k, v, mesh,
+                                                           causal=True)
+
+
+def mp_build(mx, seed, kind, attend, device="cuda:0", depth=MP_DEPTH,
+             values=None):
+    """The LM of ``kind`` ("mlp", "moe" or "pp"), its weights made from
+    ``seed`` (Xavier by name; the pipeline's stacked stages each moved
+    by their own draw, so no two stages are alike), or ``values`` (by
+    name)."""
+    from incubator_mxnet_tpu_torch.convert import gluon_params_from_numpy
+    lm, _ = mp_lm_classes(mx)
+    ctx = mx.gpu(0) if device != "cpu" else mx.cpu()
+    mx.random.seed(seed)
+    with ctx:
+        net = lm(**MP, depth=depth, attend=attend,
+                 experts=MP_EXPERTS if kind == "moe" else 0,
+                 stages=2 if kind == "pp" else 0, prefix="lm_")
+        if values is not None:
+            return gluon_params_from_numpy(net, values, ctx=ctx)
+        net.initialize(init=mx.init.Xavier(), ctx=ctx)
+    gen = torch.Generator().manual_seed(seed + 77)
+    for name, p in net.collect_params().items():
+        if "pipelinestack" in name:
+            t = p.data()._data
+            p.set_data(mx.nd.NDArray(t + 0.02 * torch.randn(
+                t.shape, generator=gen).to(t.device), ctx))
+    return net
+
+
+def mp_batch(seed, n=MP_BATCH):
+    rs = np.random.RandomState(seed + 101)
+    vocab, t = MP["vocab"], MP["seq_len"]
+    toks = np.zeros((n, t + 1), np.int64)
+    toks[:, 0] = rs.randint(vocab, size=n)
+    for i in range(1, t + 1):
+        nxt = (toks[:, i - 1] * 3 + 1) % vocab
+        toks[:, i] = np.where(rs.rand(n) < 0.9, nxt,
+                              rs.randint(vocab, size=n))
+    return toks[:, :-1].astype("float32"), toks[:, 1:].astype("float32")
+
+
+def _mp_step(mx, net, mesh=None):
+    _, flat = mp_lm_classes(mx)
+    from incubator_mxnet_tpu_torch.parallel import TrainStep
+    return TrainStep(net, flat(MP["vocab"]),
+                     mx.optimizer.Adam(learning_rate=MP_LR), mesh=mesh)
+
+
+def phase_flash_grad(seed):
+    """B5 through ``flash_attention``'s autograd Function (C17): the
+    output and dq/dk/dv on the card against the plain fp32 route's,
+    and the forward's and backward's times."""
+    from incubator_mxnet_tpu_torch.parallel.flash_attention import (
+        _flash_plain, flash_attention)
+    b, h, t, d = FLASH_GRAD
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda")
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    _zero_counts()
+    out = flash_attention(*leaves, causal=True)
+    node = type(out.grad_fn).__name__
+    grads = torch.autograd.grad(out, leaves, do)
+    launches = _counts().get("flash_attention_fwd", 0)
+    plain_leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    ref = _flash_plain(*plain_leaves, True, scale)
+    ref_grads = torch.autograd.grad(ref, plain_leaves, do)
+    errs = {"out": ((out - ref).abs().max() / ref.abs().max()).item()}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        errs[name] = ((g - r).abs().max() / r.abs().max()).item()
+
+    def fwd_bwd(fn):
+        xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        return lambda: torch.autograd.grad(fn(*xs), xs, do)
+
+    fwd_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    total_ms = time_ms(fwd_bwd(lambda *a: flash_attention(*a, causal=True)))
+    plain_fwd_ms = time_ms(lambda: _flash_plain(q, k, v, True, scale))
+    plain_total_ms = time_ms(fwd_bwd(
+        lambda *a: _flash_plain(*a, True, scale)))
+    sdpa_total_ms = time_ms(fwd_bwd(
+        lambda *a: torch.nn.functional.scaled_dot_product_attention(
+            *a, is_causal=True)))
+    emit({"phase": "flash_grad", "shape": FLASH_GRAD, "causal": True,
+          "grad_fn": node, "launches": launches,
+          "max_err_of_max": errs, "tolerance": KERNEL_ATOL,
+          "fwd_ms": fwd_ms, "fwd_bwd_ms": total_ms,
+          "bwd_ms": total_ms - fwd_ms, "plain_fwd_ms": plain_fwd_ms,
+          "plain_fwd_bwd_ms": plain_total_ms,
+          "plain_bwd_ms": plain_total_ms - plain_fwd_ms,
+          "sdpa_fwd_bwd_ms": sdpa_total_ms})
+    if node != "_FlashBackward" or any(g is None for g in grads):
+        fail(f"flash_grad: the kernel's output has no gradient ({node})")
+    if launches != 1:
+        fail(f"flash_grad: {launches} kernel launches for one forward")
+    bad = {k: e for k, e in errs.items() if not e <= KERNEL_ATOL}
+    if bad:
+        fail(f"flash_grad: the Function disagrees with the plain route: "
+             f"{bad}")
+    return {"flash_attention_fwd": launches}
+
+
+def _grads_of(mx, net, x, y):
+    """(loss, {name: grad}) of one forward and backward of the LM."""
+    _, flat = mp_lm_classes(mx)
+    ctx = next(iter(net.collect_params().values())).data().context
+    with mx.autograd.record():
+        loss = flat(MP["vocab"])(net(mx.nd.array(x, ctx=ctx)),
+                                 mx.nd.array(y, ctx=ctx)).mean()
+    loss.backward()
+    return float(loss.asscalar()), {
+        n: p.grad()._data.detach().cpu()
+        for n, p in net.collect_params().items()}
+
+
+def phase_lm_train(seed):
+    """The LM in one process with no mesh at full width and depth 12:
+    LM_TRAIN_STEPS Adam steps at b=4 through ``TrainStep``, the flash
+    kernel launched once a block a forward; then at depth 2 one forward
+    and backward at b=1 on the card against the CPU route (loss and
+    every gradient)."""
+    import incubator_mxnet_tpu_torch as mx
+    x, y = mp_batch(seed, LM_TRAIN_BATCH)
+    net = mp_build(mx, seed, "mlp", mp_attend("flash"),
+                   depth=LM_TRAIN_DEPTH)
+    step = _mp_step(mx, net)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, step_ms = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y).asscalar()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del net, step
+    torch.cuda.empty_cache()
+    from incubator_mxnet_tpu_torch.convert import gluon_params_to_numpy
+    xs, ys = x[:LM_CPU_BATCH], y[:LM_CPU_BATCH]
+    card_net = mp_build(mx, seed, "mlp", mp_attend("flash"),
+                        depth=LM_CPU_DEPTH)
+    values = gluon_params_to_numpy(card_net)
+    card = _grads_of(mx, card_net, xs, ys)
+    cpu = _grads_of(mx, mp_build(mx, seed, "mlp", mp_attend("flash"),
+                                 device="cpu", depth=LM_CPU_DEPTH,
+                                 values=values), xs, ys)
+    del card_net
+    # the truth: the card in fp64 (plain attention: B5 takes fp32)
+    f64 = mp_build(mx, seed, "mlp", lambda q, k, v: mx.parallel.attention(
+        q, k, v, causal=True), depth=LM_CPU_DEPTH, values=values)
+    f64.cast("float64")
+    truth = _grads_of(mx, f64, xs.astype(np.float64), ys.astype(np.float64))
+    del f64
+    torch.cuda.empty_cache()
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+
+    def l2_errs(got, ref):
+        return {n: ((g.double() - ref[n].double()).norm() /
+                    ref[n].double().norm()).item()
+                for n, g in got.items() if ref[n].norm() > 0}
+
+    grad_errs = l2_errs(card[1], cpu[1])
+    worst = max(grad_errs, key=grad_errs.get)
+    of_truth = {k: float(np.median(list(l2_errs(g[1], truth[1]).values())))
+                for k, g in (("card", card), ("cpu", cpu))}
+    want = LM_TRAIN_DEPTH * LM_TRAIN_STEPS
+    emit({"phase": "lm_train", "widths": MP, "depth": LM_TRAIN_DEPTH,
+          "batch": LM_TRAIN_BATCH, "steps": LM_TRAIN_STEPS,
+          "optimizer": f"adam lr {MP_LR}", "losses": losses,
+          "step_ms": step_ms, "ms_per_step": float(np.median(step_ms[1:])),
+          "peak_mem_gb": peak, "launches": launches,
+          "cpu_check": {"depth": LM_CPU_DEPTH, "batch": LM_CPU_BATCH,
+                        "loss_card": card[0], "loss_cpu": cpu[0],
+                        "loss_rel_err": loss_err,
+                        "grad_worst_l2_rel": [grad_errs[worst], worst],
+                        "grad_median_l2_rel": float(np.median(
+                            list(grad_errs.values()))),
+                        "median_l2_rel_of_fp64": of_truth,
+                        "loss_fp64": truth[0],
+                        "loss_tolerance": LM_CPU_RTOL,
+                        "grad_tolerance": LM_CPU_GRAD_RTOL}})
+    _finite(losses, "lm_train")
+    if launches.get("flash_attention_fwd", 0) != want:
+        fail(f"lm_train: flash launched {launches}, want {want}")
+    if not losses[-1] < losses[0]:
+        fail(f"lm_train: the loss did not fall: {losses}")
+    if loss_err > LM_CPU_RTOL or grad_errs[worst] > LM_CPU_GRAD_RTOL:
+        fail(f"lm_train: card vs CPU loss {loss_err}, gradient "
+             f"{grad_errs[worst]} at {worst}")
+    return launches
+
+
+def mp_moments(net, step):
+    """Adam's first moment of each trained parameter, global (gathered
+    over the axes that cut it), by name."""
+    params = {id(p._data._data): p for p in net.collect_params().values()}
+    out = {}
+    for t, state in zip(step._params, step._states):
+        p = params[id(t)]
+        m = state[0] if p._cut is None else p._cut.gather(state[0], p.shape)
+        out[p.name] = m.detach().cpu()
+    return out
+
+
+def _mp_reference(seed, kind):
+    """The one process on the card on the global batch, under cuDNN's
+    deterministic algorithms: (init, final params, losses, Adam's first
+    moments)."""
+    import incubator_mxnet_tpu_torch as mx
+    x, y = mp_batch(seed)
+    with _cudnn_deterministic():
+        net = mp_build(mx, seed, kind, mp_attend("flash"))
+        init = {n: p.data()._data.detach().cpu().clone()
+                for n, p in net.collect_params().items()}
+        step = _mp_step(mx, net)
+        losses = [float(step(x, y).asscalar()) for _ in range(MP_STEPS)]
+        final = {n: p.data()._data.detach().cpu()
+                 for n, p in net.collect_params().items()}
+        moments = mp_moments(net, step)
+    del net, step
+    torch.cuda.empty_cache()
+    return init, final, losses, moments
+
+
+def _mp_predict_reference(final, kind, x):
+    """One process's ``BlockPredictor`` logits of the final weights."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.predict import BlockPredictor
+    net = mp_build(mx, 0, kind, mp_attend("flash"))
+    for n, p in net.collect_params().items():
+        p.set_data(mx.nd.NDArray(final[n].cuda(), mx.gpu(0)))
+    out = BlockPredictor(net, bf16_compute=False)(x).cpu()
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_world(seed, world):
+    """tools/port_mp_worker.py under tools/launch.py (the ranks share the
+    one card over gloo): each rank's JSON and rank 0's final global
+    parameters of each run."""
+    import os
+    import tempfile
+    ranks = MP_WORLDS[world][0]
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
+             str(ranks), "--", sys.executable,
+             os.path.join(root, "tools", "port_mp_worker.py"), "--out", out,
+             "--seed", str(seed), "--world", world],
+            cwd=root, capture_output=True, text=True, timeout=MP_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"mp world {world}: a rank failed (rc {proc.returncode}):"
+                 f"\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        per_rank = []
+        for r in range(ranks):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                per_rank.append(json.load(f))
+        finals = {run: torch.load(os.path.join(out, f"{run}.pt"))
+                  for run, _, _ in MP_WORLDS[world][2]}
+        logits = None
+        if os.path.exists(os.path.join(out, "logits.pt")):
+            logits = torch.load(os.path.join(out, "logits.pt"))
+    return per_rank, finals, logits, secs
+
+
+def _mp_check(run, attend, per_rank, final, ref, failures):
+    """One run of a world against the one process: its row."""
+    init, ref_final, ref_losses, ref_moments = ref
+    final, moments = final["params"], final["moments"]
+    rows = [pr["runs"][run] for pr in per_rank]
+    moved = [k for k in ref_final if (ref_final[k] - init[k]).abs().max() > 0]
+    errs = _change_errs(final, ref_final, init, moved)
+    worst = max(errs, key=errs.get)
+    m_errs = {k: ((moments[k].double() - m.double()).norm() /
+                  m.double().norm()).item()
+              for k, m in ref_moments.items() if m.norm() > 0}
+    m_worst = max(m_errs, key=m_errs.get)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(rows[0]["losses"], ref_losses))
+    per_step = MP_FLASH_PER_STEP[
+        "pipeline" if run in ("pp", "tp_pp") else attend]
+    want = per_step * MP_STEPS
+    replicated = rows[0]["replicated_sha"]
+    equal = all(r["replicated_sha"] == replicated for r in rows)
+    blocks = all(have == want for r in rows
+                 for have, _, want in r["sharded_bytes"].values())
+    row = {"ranks": len(rows), "losses": rows[0]["losses"],
+           "losses_single_process": ref_losses, "loss_rel_err": loss_rel,
+           "loss_err_of_bound": loss_rel / MP_LOSS_RTOL,
+           "change_err_worst": [errs[worst], worst],
+           "change_err_worst_of_bound": errs[worst] / MP_STEP_BOUND,
+           "change_err_median": float(np.median(list(errs.values()))),
+           "moment_err_worst": [m_errs[m_worst], m_worst],
+           "moment_err_worst_of_bound": m_errs[m_worst] / MP_MOMENT_BOUND,
+           "moment_err_median": float(np.median(list(m_errs.values()))),
+           "leaves": len(errs), "replicated_leaves": len(replicated),
+           "sharded_leaves": len(rows[0]["sharded_bytes"]),
+           "ranks_bit_equal_replicated": equal,
+           "sharded_bytes_are_blocks": blocks,
+           "sharded_bytes_rank0": rows[0]["sharded_bytes"],
+           "per_rank": [{k: r[k] for k in (
+               "ms_per_step", "step_ms", "collective_ms_per_step",
+               "collective_bytes_per_step", "collective_calls_per_step",
+               "peak_mem_gb", "launches", "routes")} for r in rows],
+           "flash_launches_expected": want}
+    if errs[worst] > MP_STEP_BOUND:
+        failures.append(f"{run}: {worst} moved {errs[worst]} of its change "
+                        f"off the single process (bound {MP_STEP_BOUND})")
+    if m_errs[m_worst] > MP_MOMENT_BOUND:
+        failures.append(f"{run}: {m_worst}'s Adam moment {m_errs[m_worst]} "
+                        f"off the single process's (bound "
+                        f"{MP_MOMENT_BOUND})")
+    if loss_rel > MP_LOSS_RTOL:
+        failures.append(f"{run}: losses {rows[0]['losses']} vs "
+                        f"{ref_losses}")
+    if not equal:
+        failures.append(f"{run}: the ranks differ on a replicated parameter")
+    if not blocks or (not rows[0]["sharded_bytes"] and
+                      run not in ("sp_ulysses", "sp_ring")):
+        failures.append(f"{run}: sharded bytes {rows[0]['sharded_bytes']}")
+    for r in rows:
+        if r["launches"].get("flash_attention_fwd", 0) != want:
+            failures.append(f"{run}: a rank launched {r['launches']}, "
+                            f"want {want} flash")
+    return row
+
+
+def _mp_rows(seed, worlds):
+    """Each world of ``worlds`` (MP_WORLDS) launched and held to the one
+    process on the card on the same global batch and weights:
+    (rows by world, launches by run, failures)."""
+    refs = {}
+    out, launches, failures = {}, {}, []
+    x, _ = mp_batch(seed)
+    for world in worlds:
+        per_rank, finals, logits, secs = _mp_world(seed, world)
+        rows = {}
+        for run, kind, attend in MP_WORLDS[world][2]:
+            if kind not in refs:
+                refs[kind] = _mp_reference(seed, kind)
+            rows[run] = _mp_check(run, attend, per_rank, finals[run],
+                                  refs[kind], failures)
+            launches[run] = per_rank[0]["runs"][run]["launches"]
+        if logits is not None:
+            want = _mp_predict_reference(finals["tp"]["params"], "mlp",
+                                         x[:1])
+            err = ((logits - want).abs().max() / want.abs().max()).item()
+            rows["tp"]["predictor_logits_err_of_max"] = err
+            if err > LM_CPU_RTOL:
+                failures.append(f"BlockPredictor(mesh=) logits {err} of "
+                                "max off one process's")
+        out[world] = {"ranks": MP_WORLDS[world][0],
+                      "mesh": MP_WORLDS[world][1], "world_s": secs,
+                      "rank_setup_s": [pr["setup_s"] for pr in per_rank],
+                      "runs": rows}
+    del refs
+    torch.cuda.empty_cache()
+    return out, launches, failures
+
+
+def phase_mp(seed, worlds, phase):
+    """The model-parallel worlds ``worlds`` (``_mp_rows``): one JSON
+    line, and a failed gate fails the run."""
+    out, launches, failures = _mp_rows(seed, worlds)
+    emit({"phase": phase, "widths": MP, "depth": MP_DEPTH,
+          "global_batch": MP_BATCH, "steps": MP_STEPS,
+          "microbatches": MP_MICROBATCHES, "optimizer": f"adam lr {MP_LR}",
+          "step_bound": MP_STEP_BOUND, "moment_bound": MP_MOMENT_BOUND,
+          "loss_rtol": MP_LOSS_RTOL,
+          "backend": "gloo", "worlds": out})
+    if failures:
+        fail(f"{phase}: " + "; ".join(failures))
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6977,12 +7544,21 @@ def main():
     dist_paths = {"dist_world1": phase_dist_world1(args.seed)}
     for name, counts in phase_dist_two_ranks(args.seed).items():
         dist_paths[f"dist_two_ranks_{name}"] = counts
+    torch.cuda.empty_cache()
+    mp_paths = {"flash_grad": phase_flash_grad(args.seed),
+                "lm_train": phase_lm_train(args.seed)}
+    torch.cuda.empty_cache()
+    for phase, worlds in (("mp_two_ranks", ["tp", "sp", "ep", "pp"]),
+                          ("mp_four_ranks", ["tp_pp"])):
+        for run, counts in phase_mp(args.seed, worlds, phase).items():
+            mp_paths[f"{phase}_{run}"] = counts
     paths = {"launches_gluon": gluon_paths, "launches_data": data_paths,
              "launches_symbolic": symbolic_paths,
              "launches_recurrent": recurrent_paths,
              "launches_detection": detection_paths,
              "launches_sparse_image": sparse_paths,
-             "launches_dist": dist_paths}
+             "launches_dist": dist_paths,
+             "launches_model_parallel": mp_paths}
     for row in kernels:
         for key, runs in paths.items():
             row[key] = {path: counts.get(row["name"], 0)

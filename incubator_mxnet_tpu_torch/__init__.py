@@ -48,7 +48,11 @@ parallelism: ``kvstore`` as ``kv`` (the local, mesh ``"tpu"`` and
 compression), ``parallel.DeviceMesh`` / ``make_mesh``, ``TrainStep`` /
 ``EvalStep(mesh=...)`` with the BatchNorm statistics summed over the
 ``dp`` group, ``parallel.TrainCheckpoint``, and the Gluon ``Trainer``,
-``Module`` and ``DevicePrefetchIter`` over them.  So
+``Module`` and ``DevicePrefetchIter`` over them; and model parallelism
+on the same steps and ``predict.BlockPredictor(mesh=)``: the
+tensor-parallel layers, ``MoELayer`` and the MoE functions over ``ep``,
+``PipelineStack`` (GPipe over ``pp``) and Ulysses and ring attention
+over ``sp``, their collectives written out in ``ops.collective``.  So
 ``import incubator_mxnet_tpu_torch as mx; mx.nd.ones((2,))`` reads as
 it does against the JAX package, except that the default context is
 ``mx.gpu(0)``.

@@ -16,6 +16,12 @@ sees a JAX object.  The JAX names are structural
 ``<prefix>layernorm0_*``, ``<prefix>dense0_*``), so the mapping is by
 position within that structure, whatever the model's prefix.
 
+A model-parallel block's arrays cross as its global arrays (a
+``PipelineStack``'s stacked ``s{i}_`` parameters among them): on a
+parameter a step has cut, ``gluon_params_from_numpy`` keeps this rank's
+block, and ``gluon_params_to_numpy`` gathers the global array (a
+collective every rank calls).
+
 ``gluon_params_from_numpy(net, named_arrays)`` loads the arrays into a
 Gluon block of the port (the zoo's VGG, AlexNet, DenseNet, SqueezeNet,
 Inception and MobileNet, a user's ``HybridBlock`` such as an SSD): a

@@ -397,10 +397,10 @@ class HybridBlock(Block):
 
     def forward(self, x, *args):
         try:
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = {k: p.local_data() for k, p in self._reg_params.items()}
         except DeferredInitializationError:
             self._deferred_init_params(x, *args)
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = {k: p.local_data() for k, p in self._reg_params.items()}
         return self.hybrid_forward(nd_mod, x, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

@@ -24,6 +24,19 @@ dense, and ``Trainer.step`` hands a ``row_sparse`` gradient to the
 optimizer as a ``RowSparseNDArray`` of its nonzero rows (the lazy
 update).
 
+``sharding`` is the JAX package's: a tuple of mesh axis names or None,
+one per dim, which the model-parallel layers (``parallel.layers``,
+``MoELayer``, ``PipelineStack``) declare.  A step on a mesh with such
+an axis larger than 1 (``parallel.TrainStep`` / ``EvalStep(mesh=)``)
+``cut``s the parameter: it was initialised as the global array (the
+seed's and name's bits at the global shape), and from then on holds
+only this rank's block (``local_data()``, what the layer computes
+with, what ``Block.parameters()`` yields and the optimizer updates).
+``data()``, ``save_parameters`` and ``export`` give the global array,
+gathered over the axis (a collective: every rank of the axis calls
+it), and ``set_data`` of a global array keeps this rank's block.
+``shape`` stays the global shape.
+
 Where it differs from the JAX package: a list of several contexts
 raises (``initialize``, ``reset_ctx``) until A6.
 """
@@ -136,6 +149,12 @@ class Parameter:
         self._grad_stype = grad_stype
         self._is_aux = False
         self._var = None
+        #: a tuple of mesh axis names or None per dim (JAX
+        #: ``Parameter.sharding``); the model-parallel layers set it
+        self.sharding = None
+        #: the ``parallel.Sharding`` this parameter is cut by (its data
+        #: then holds this rank's block), or None
+        self._cut = None
 
     @classmethod
     def view(cls, name, tensor, grad_req="write", **kwargs):
@@ -199,6 +218,9 @@ class Parameter:
         """Give the parameter the values of the NDArray ``value``: in
         place for a view, else by ``NDArray._write``."""
         t = value._data.detach()
+        if self._cut is not None and tuple(t.shape) == tuple(self.shape) \
+                and tuple(t.shape) != tuple(self._data.shape):
+            t = self._cut.cut(t)
         if self._view:
             with torch.no_grad():
                 self._data._data.copy_(t)
@@ -240,12 +262,16 @@ class Parameter:
     def _allocate(self, init, ctx, default_init):
         values = np.zeros(self.shape, dtype=_host_dtype(self.dtype))
         with _random.sampling_on((ctx or current_context()).torch_device()):
-            _run_init(init, default_init, self.name, values)
+            self._fill(init, default_init, values)
         data = _to_device(values, ctx, self.dtype)
         if self._data is not None:
             self._assign(data)
         else:
             self._init_impl(data)
+
+    def _fill(self, init, default_init, values):
+        """Fill the numpy ``values`` by the initializer."""
+        _run_init(init, default_init, self.name, values)
 
     def _init_impl(self, data):
         self._data = data
@@ -322,8 +348,41 @@ class Parameter:
         self._assign(data)
 
     def data(self, ctx=None):
-        """The value as an NDArray."""
+        """The value as an NDArray: the global array, gathered over the
+        mesh axes when the parameter is cut."""
+        local = self._check_and_get(self._data)
+        if self._cut is None:
+            return local
+        return NDArray(self._cut.gather(local._data.detach(), self.shape),
+                       local.context)
+
+    def local_data(self):
+        """The NDArray this rank holds: its block when the parameter is
+        cut, else the whole value."""
         return self._check_and_get(self._data)
+
+    def cut(self, mesh):
+        """Keep only this rank's block of the value, by ``sharding`` on
+        ``mesh`` (nothing when no axis of the spec is larger than 1
+        there, or when it is cut so already)."""
+        if self.sharding is None or self._data is None:
+            return
+        layout = mesh.sharding(*self.sharding)
+        if self._cut is not None:
+            if self._cut != layout:
+                raise MXNetError(f"Parameter {self.name} is already cut "
+                                 f"by {self._cut}, not {layout}")
+            return
+        if not layout.is_split:
+            return
+        if self._view:
+            raise MXNetError(f"Parameter {self.name} views a module's "
+                             "tensor and cannot be cut")
+        local = layout.cut(self._data._data.detach()).contiguous().clone()
+        self._data = NDArray(local, self._data.context)
+        self._cut = layout
+        if self.grad_req != "null":
+            self._init_grad()
 
     def list_data(self):
         return [self.data()]

@@ -16,8 +16,12 @@ re-tiled for the card (its source note says how and why).
   the kernel against it on the card.
 * ``flash_attention.launches`` counts kernel launches, so a run can show
   that its main path went through the kernel.
-* Forward only: serving needs no backward.  Training's
-  ``autograd.Function`` comes with the training slice.
+* ``flash_attention`` is one ``torch.autograd.Function`` on both
+  devices (``_Flash``), as the JAX function is a ``jax.custom_vjp``:
+  its forward is the kernel (or the plain version on the CPU), its
+  backward recomputes the plain fp32 ``attention`` from the saved q, k
+  and v and takes autograd's VJP of it (JAX ``_flash_bwd``).  Nothing
+  else is saved, so the forward keeps no T x T scores.
 """
 from __future__ import annotations
 
@@ -96,6 +100,37 @@ def _flash_cuda(q, k, v, causal, scale):
     return out
 
 
+def _flash_forward(q, k, v, causal, scale):
+    if q.device.type == "cpu":
+        return _flash_plain(q, k, v, causal, scale)
+    if q.device.type != "cuda":
+        raise MXNetError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _flash_cuda(q, k, v, causal, scale)
+
+
+class _Flash(torch.autograd.Function):
+    """The kernel's forward; the plain fp32 ``attention``'s VJP as its
+    backward, recomputed from q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _flash_forward(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().float().requires_grad_(True)
+                      for t in (q, k, v)]
+            out = attention(*inputs, causal=ctx.causal, scale=ctx.scale)
+            grads = torch.autograd.grad(out, inputs, do.float())
+        return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v))) + \
+            (None, None)
+
+
 def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
                     block_k=128):
     """Fused attention forward.  q/k/v: (batch, heads, seq, head_dim);
@@ -111,12 +146,7 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
                          f"({block_q}, {block_k})")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return _flash_plain(q, k, v, bool(causal), float(scale))
-    if q.device.type != "cuda":
-        raise MXNetError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    return _flash_cuda(q, k, v, bool(causal), float(scale))
+    return _Flash.apply(q, k, v, bool(causal), float(scale))
 
 
 flash_attention.launches = 0

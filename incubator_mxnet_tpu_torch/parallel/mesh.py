@@ -21,15 +21,24 @@ size-1 axes.
   ``DevicePrefetchIter(sharding=...)`` read them.
 * ``with mesh:`` makes it the default that ``TrainStep``, ``EvalStep``
   and the ``"tpu"`` kvstore consult (``current_mesh()``).
+* A parameter's ``sharding`` (``gluon.Parameter.sharding``, one axis
+  name or None per dim) is a ``Sharding`` too: ``cut(t)`` is this
+  rank's block of the global array (a dim the axis does not divide is
+  cut into blocks of ``ceil(n / size)``, as GSPMD pads), ``gather(t,
+  shape)`` joins the ranks' blocks back into the global array, and
+  ``group(dim)`` is the process group a layer's collectives over that
+  dim run on.  A spec naming an axis the mesh lacks replicates over it.
 """
 from __future__ import annotations
 
 import threading
 
 import numpy as np
+import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..ops.collective import _gather_dim, block_range
 from .dist import _initialized, world
 
 __all__ = ["DeviceMesh", "Sharding", "current_mesh", "make_mesh",
@@ -203,6 +212,53 @@ class Sharding:
                 rest = tuple(t.shape[1:])
                 t = t.reshape((k, count, step) + rest).select(1, index) \
                     .reshape((k * step,) + rest)
+        return t
+
+    # -- a parameter's layout ------------------------------------------
+    def _axis_of(self, dim):
+        """The one axis dim ``dim`` is split over, or None (a dim split
+        over several axes raises: no layer of the port declares one)."""
+        axes = self.spec[dim] if dim < len(self.spec) else None
+        if isinstance(axes, (tuple, list)):
+            if len(axes) > 1:
+                raise MXNetError(f"a parameter dim split over several axes "
+                                 f"{axes} is not supported")
+            axes = axes[0] if axes else None
+        if axes is None or self.mesh.axis_size(axes) == 1:
+            return None
+        return axes
+
+    @property
+    def is_split(self):
+        """Whether any dim is split over an axis larger than 1."""
+        return any(self._axis_of(d) is not None
+                   for d in range(len(self.spec)))
+
+    def group(self, dim):
+        """The process group dim ``dim`` is split over (None: unsplit)."""
+        axis = self._axis_of(dim)
+        return None if axis is None else self.mesh.group(axis)
+
+    def cut(self, t):
+        """This rank's block of the global parameter ``t`` (blocks of
+        ``ceil(n / size)`` along each split dim)."""
+        for dim in range(min(len(self.spec), t.dim())):
+            axis = self._axis_of(dim)
+            if axis is None:
+                continue
+            start, stop = block_range(t.shape[dim], self.mesh.axis_size(
+                axis), self.mesh.axis_rank(axis))
+            t = t.narrow(dim, start, stop - start)
+        return t
+
+    def gather(self, t, shape):
+        """The global array of ``shape`` from each rank's block ``t``
+        (the inverse of ``cut``; a collective every rank of the split
+        axes must call)."""
+        with torch.no_grad():
+            for dim in range(min(len(self.spec), t.dim())):
+                if self._axis_of(dim) is not None:
+                    t = _gather_dim(t, self.group(dim), dim, shape[dim])
         return t
 
     def __eq__(self, other):

@@ -79,9 +79,22 @@ With ``grad_accum`` k, microbatch j is the global batch's j-th k-th
 takes it) split over the ranks: the step's ``sharding`` cuts a rank's
 slice so (``Sharding.microbatched``), and a prefetch for it takes
 ``sharding=step.sharding``.  The loss scaler's overflow test reads the
-averaged gradients, so every rank agrees on it.  A mesh
-with a ``tp``, ``pp``, ``sp`` or ``ep`` axis larger than 1 raises: the
-model-parallel half of ROADMAP A6 is not ported yet.
+averaged gradients, so every rank agrees on it.
+
+The mesh may have ``tp``, ``pp``, ``sp`` and ``ep`` axes too (its size
+the world's).  Under GSPMD the JAX step on such a mesh still computes
+the single-device step on the global batch, and so does this one: the
+batch is cut over ``dp`` only and replicated over the other axes; the
+parameters start as rank 0's global values (one broadcast over the
+world), then each sharded parameter (``Parameter.sharding``, set by
+the model-parallel layers) keeps this rank's block, and so do its
+optimizer states; the layers write out the collectives GSPMD inserts
+(``ops.collective``), so every replicated parameter gets its whole
+gradient on every rank, and the gradients are averaged over ``dp``
+only.  The ranks of the other axes then agree on every replicated
+parameter, bit for bit.  A parameter whose ``sharding`` splits it on
+the mesh but whose layer writes no collectives (a plain ``Dense`` with
+a hand-set sharding) raises ``MXNetError`` naming it.
 
 Not ported yet, and raising ``MXNetError`` when asked for: ``mirror``,
 ``autotune=True`` and ``run_steps(stacked=True)``; the persistent
@@ -143,21 +156,49 @@ def _inputs(step, batch):
 
 def _data_parallel(owner, mesh):
     """``(mesh, its dp sharding)`` of a step: ``mesh`` or the current
-    one, which must be a ``DeviceMesh`` with no axis but ``dp`` larger
-    than 1; ``(None, None)`` without one."""
+    one, which must be a ``DeviceMesh``; ``(None, None)`` without one.
+    The batch is cut over ``dp`` only, and replicated over the other
+    axes (JAX ``_resolve_shardings``)."""
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:
         return None, None
     if not isinstance(mesh, DeviceMesh):
         raise MXNetError(f"{owner}(mesh=...) takes a parallel.DeviceMesh, "
                          f"got {type(mesh).__name__}")
-    wide = {a: n for a, n in mesh.shape.items() if a != "dp" and n > 1}
-    if wide:
-        raise MXNetError(
-            f"{owner} on a mesh with {wide}: tensor, pipeline, sequence and "
-            "expert parallel meshes are not ported yet (ROADMAP A6, the "
-            "model-parallel half); only the dp axis may be larger than 1")
     return mesh, mesh.sharding("dp")
+
+
+def _gluon_blocks(block):
+    """Every Gluon block under ``block``, a ``PipelineStack``'s stage
+    block included."""
+    yield block
+    stage = getattr(block, "_stage_block", None)
+    if stage is not None:
+        yield from _gluon_blocks(stage)
+    for child in block._children.values():
+        yield from _gluon_blocks(child)
+
+
+def _model_parallel(owner, block, mesh):
+    """Cut the block's sharded parameters on ``mesh`` (each rank keeps
+    its block of them).  A parameter whose ``sharding`` splits it on
+    this mesh but whose layer writes no collectives raises: computing
+    with its block alone would train another model."""
+    for blk in _gluon_blocks(block):
+        for p in blk._reg_params.values():
+            if p.sharding is None or not \
+                    mesh.sharding(*p.sharding).is_split:
+                continue
+            if not getattr(blk, "_writes_collectives", False):
+                raise MXNetError(
+                    f"{owner}: parameter {p.name} has sharding "
+                    f"{p.sharding}, but its layer {type(blk).__name__} "
+                    "writes no collectives for it; use the parallel "
+                    "layers (ColumnParallelDense, RowParallelDense, "
+                    "ShardedEmbedding, MoELayer, PipelineStack) or clear "
+                    "the sharding")
+    for p in block.collect_params().values():
+        p.cut(mesh)
 
 
 def uint8_input_prep(mean=0.0, scale=1.0, layout="NCHW"):
@@ -177,6 +218,18 @@ def uint8_input_prep(mean=0.0, scale=1.0, layout="NCHW"):
             else x
 
     return prep
+
+
+def _uncut(block):
+    """The block's parameters and buffers but the data of its cut Gluon
+    parameters (a rank's own blocks, never broadcast)."""
+    from ..gluon.block import Block
+    cut = set()
+    if isinstance(block, Block):
+        cut = {id(p._data._data) for p in block.collect_params().values()
+               if p._cut is not None}
+    return [t for t in list(block.parameters()) + list(block.buffers())
+            if id(t) not in cut]
 
 
 def _check_placement(owner, block, device):
@@ -252,6 +305,12 @@ class TrainStep:
         if self._gluon and self._bf16:
             raise MXNetError("TrainStep(bf16_compute=True) of a Gluon block "
                              "over mx.nd is not ported yet")
+        if self._mesh is not None and self._mesh.size > 1:
+            # every rank starts from rank 0's global values, then keeps
+            # its block of the sharded parameters
+            coalesced("broadcast", _uncut(block), None)
+            if self._gluon:
+                _model_parallel("TrainStep", block, self._mesh)
         _check_placement("TrainStep", block, self.device)
         self._block = block
         self._loss_fn = loss_fn
@@ -276,9 +335,6 @@ class TrainStep:
         self._group = None if self._mesh is None else self._mesh.group("dp")
         self._dp = 1 if self._mesh is None else self._mesh.axis_size("dp")
         self._bn_group = self._group if self._dp > 1 else None
-        if self._group is not None:
-            coalesced("broadcast", list(block.parameters()) +
-                      list(block.buffers()), self._group)
 
     def _forward_loss(self, xs, y):
         if self._gluon:
@@ -358,7 +414,9 @@ class TrainStep:
 
     def sync_params(self):
         """Nothing to do: the step updates the block's own parameters in
-        place (the JAX step keeps them in its own carry)."""
+        place (the JAX step keeps them in its own carry).  A cut
+        parameter's ``data()`` gathers the global array from the ranks'
+        blocks."""
 
     @property
     def mesh(self):
@@ -420,8 +478,10 @@ class EvalStep:
     each of them.  On a ``dp`` mesh each rank runs its slice of the
     batch, and the outputs are gathered over the ``dp`` group
     (``ops.collective.gather_rows``), so every rank returns the global
-    batch's output, as the JAX step does.  Not ported yet, and raising
-    ``MXNetError``: ``autotune=True``."""
+    batch's output, as the JAX step does.  On a mesh with model axes the
+    sharded parameters are cut as ``TrainStep`` cuts them, and the output
+    is every rank's (replicated over those axes).  Not ported yet, and
+    raising ``MXNetError``: ``autotune=True``."""
 
     def __init__(self, block, mesh=None, bf16_compute=False,
                  input_prep=None, autotune=None, device=None):
@@ -435,6 +495,8 @@ class EvalStep:
         if self._gluon and self._bf16:
             raise MXNetError("TrainStep(bf16_compute=True) of a Gluon block "
                              "over mx.nd is not ported yet")
+        if self._gluon and self._mesh is not None:
+            _model_parallel("EvalStep", block, self._mesh)
         _check_placement("EvalStep", block, self.device)
         self._block = block
         self._input_prep = input_prep
@@ -454,6 +516,8 @@ class EvalStep:
             with torch.no_grad():
                 if self._bf16:
                     out = _bf16_forward(block, inputs, keep_buffers=False)
+                elif self._gluon:
+                    out = block(*[NDArray(x) for x in inputs])
                 else:
                     out = block(*inputs)
         finally:

@@ -25,6 +25,7 @@ import torch
 from .base import MXNetError
 from .context import cpu, gpu, resolve_device
 from .ndarray import NDArray
+from .parallel.mesh import DeviceMesh
 from .parallel.step import EvalStep
 
 __all__ = ["Predictor", "load_checkpoint_predictor", "BlockPredictor"]
@@ -150,12 +151,20 @@ class BlockPredictor:
 
     ``bf16_compute``: ``None`` (the default) means bf16 on a CUDA device
     and fp32 on the CPU, as the JAX predictor's default is bf16 on its
-    accelerator; a bf16 forward returns bf16 outputs."""
+    accelerator; a bf16 forward returns bf16 outputs.
+
+    ``mesh`` (a ``parallel.DeviceMesh``, one process per rank) runs the
+    forward through ``EvalStep(mesh=)``, as the JAX predictor does: the
+    batch split over ``dp``, the sharded parameters cut by their
+    ``sharding`` (the model-parallel layers' collectives), and every rank
+    returns the global batch's output."""
 
     def __init__(self, block, device=None, mesh=None, bf16_compute=None):
-        if mesh is not None:
-            raise MXNetError("BlockPredictor(mesh=...) is not ported yet: "
-                             "one device only (ROADMAP A6)")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise MXNetError(f"BlockPredictor(mesh=...) takes a parallel."
+                             f"DeviceMesh, got {type(mesh).__name__}")
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         where = {p.device for p in block.parameters()}
         if where and where != {self.device}:
@@ -165,9 +174,10 @@ class BlockPredictor:
             bf16_compute = self.device.type == "cuda"
         self.bf16_compute = bool(bf16_compute)
         self._block = block.eval()
-        self._forward = EvalStep(block, bf16_compute=True,
+        self._forward = EvalStep(block, mesh=mesh,
+                                 bf16_compute=self.bf16_compute,
                                  device=self.device) \
-            if self.bf16_compute else block
+            if self.bf16_compute or mesh is not None else block
         self._lock = threading.Lock()
 
     def _scope(self):

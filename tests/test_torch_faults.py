@@ -39,6 +39,12 @@ input; every case failed before its repair.
   card, ``(LOCAL_RANK or DMLC_WORKER_ID) % device_count()`` (every
   rank of an N-card launch took ``cuda:0``); without a process group it
   stays ``cuda:0``, and without a GPU it raises.
+* C17 ``parallel.flash_attention`` has a gradient on both devices: one
+  ``torch.autograd.Function`` whose backward is the VJP of the plain
+  fp32 ``attention`` (JAX ``_flash_bwd``); on the card its forward
+  wrote the kernel's output into a fresh tensor with no ``grad_fn``.
+  dq, dk and dv equal ``jax.grad`` of the JAX ``flash_attention``
+  (``interpret=True``) within 1e-5 of their max.
 
 Tolerances: exact (value and dtype) for C1-C3 and C5-C7 (the same IEEE
 operations on both sides), except softmax (relative 1e-6, other
@@ -478,3 +484,33 @@ def test_c16_default_device_is_the_rank_card(monkeypatch, env, group, want):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(tmx.MXNetError, match="no CUDA device"):
         resolve_device(None)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_c17_flash_attention_has_the_plain_vjp(causal):
+    import jax
+    import jax.numpy as jnp
+    from incubator_mxnet_tpu.parallel.flash_attention import (
+        flash_attention as jax_flash)
+    from incubator_mxnet_tpu_torch.parallel.flash_attention import (
+        _Flash, flash_attention)
+    rs = np.random.RandomState(17 + causal)
+    q, k, v, do = (rs.randn(2, 3, 32, 16).astype(np.float32)
+                   for _ in range(4))
+
+    def jloss(q, k, v):
+        out = jax_flash(q, k, v, causal=causal, block_q=16, block_k=16,
+                        interpret=True)
+        return (out * do).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = flash_attention(*ts, causal=causal, block_q=16, block_k=16)
+    # the Function's node: the CUDA route builds the same graph
+    assert type(out.grad_fn).__name__ == _Flash.__name__ + "Backward"
+    (out * torch.from_numpy(do)).sum().backward()
+    for t, w in zip(ts, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())

@@ -356,7 +356,7 @@ def test_block_predictor_eval_and_device_rules():
     assert isinstance(out, torch.Tensor) and not out.requires_grad
     with pytest.raises(MXNetError, match="parameters are on"):
         BlockPredictor(_dense().to("meta"), device="cpu")
-    with pytest.raises(MXNetError, match="not ported"):
+    with pytest.raises(MXNetError, match="takes a parallel.DeviceMesh"):
         BlockPredictor(_dense(), device="cpu", mesh=object())
     # bf16_compute is ported: bf16 copies of the fp32 weights and input,
     # a bf16 output within bf16's rounding of the fp32 one, the module

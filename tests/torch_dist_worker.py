@@ -115,7 +115,7 @@ def train_jobs(rank, inputs):
     """TrainStep(mesh=make_mesh(dp=2)) for 3 steps in each mode on the
     global batch; the plain mode again with grad_accum=2, and with the
     BN sync taken out; EvalStep(mesh=) after the plain run; the refusal
-    of a tp mesh."""
+    of a tp mesh whose size is not the world's."""
     from incubator_mxnet_tpu_torch.parallel import EvalStep
     out = {}
     mesh = make_mesh(dp=2, device="cpu")
@@ -153,7 +153,7 @@ def train_jobs(rank, inputs):
     try:
         TrainStep(ResNetV1(BottleneckV1, *SPEC, device="cpu", **NET),
                   SoftmaxCrossEntropyLoss(), SGD(),
-                  mesh=make_mesh(tp=2, device="cpu"))
+                  mesh=make_mesh(tp=4, device="cpu"))
         out["tp_refusal"] = None
     except mx.MXNetError as e:
         out["tp_refusal"] = str(e)
