@@ -179,7 +179,17 @@ launch counts set to 0 just before it and read just after:
   process on the card on the same batch and weights, the ranks bit-equal
   on the replicated parameters, each sharded one holding its block,
   the flash launches a rank as expected, each collective's route
-  printed.
+  printed;
+* telemetry (``mx.telemetry``): the registry is reset with the kernel
+  counts, and each path's counts are held against its own bookkeeping
+  (``telemetry`` keys: generation and its stages, the four serving
+  bursts, ``resnet_train_bench``, ``data_train``, ``dist_world1``);
+  ``telemetry_cost`` times the imperative step and the GPT-2-small
+  decode iteration with telemetry on and off in turns and prints each
+  median and their ratio; ``moe_zero_gate`` holds ``moe_ffn``'s tie
+  rule (a zero gate) card vs CPU, and ``group2ctx`` a bind with one
+  group's arrays on the CPU and one on the card against the one-device
+  bind.
 
 The rtc user kernels (``axpy``, a per-row sum that stages its row in
 more than 48 KB of dynamic shared memory, and a ``scale_add`` template
@@ -254,6 +264,7 @@ RESNET50 = dict(classes=1000, layout="NHWC", fuse_block=True)
 IMAGE = (224, 224, 3)
 MAX_BATCH = 32
 CLIENTS, PER_CLIENT, BATCH_REQS, BATCH_SIZE = 8, 24, 4, 8
+BURST_REQUESTS = CLIENTS * PER_CLIENT + BATCH_REQS     # one _burst's
 # ResNet-50 v1's fused boundaries at batch 32: (N, H, W, C, Cout), and
 # how many bottlenecks of one forward run each shape
 CONV1X1_SHAPES = [(32, 56, 56, 64, 256), (32, 28, 28, 128, 512),
@@ -838,13 +849,14 @@ def phase_resnet_serving(seed):
     images = np.random.RandomState(seed).rand(n_images, *IMAGE).astype(
         np.float32)
     flash_before = flash_attention.launches
-    before = server.stats()
+    before = server._counters()
     sbr_matmul.launches = sbr_conv3x3.launches = 0
+    _telemetry().reset()
     got, lat, wall = _burst(server, images)
     launches = {"sbr_matmul": sbr_matmul.launches,
                 "sbr_conv3x3": sbr_conv3x3.launches}
-    stats = server.stats()
-    forwards = stats["batches"] - before["batches"]
+    tel, own = _serving_held("resnet_serving", server, before, BURST_REQUESTS)
+    forwards = tel["serving.batch.count"]
     if forwards < 1 or any(v != 16 * forwards for v in launches.values()):
         fail(f"ResNet path launched {launches} over {forwards} forwards; "
              f"expected 16 x forwards of each kernel")
@@ -871,11 +883,10 @@ def phase_resnet_serving(seed):
     emit({"phase": "resnet_serving", "images": n_images,
           "requests": len(lat), "wall_s": wall,
           "images_per_s": n_images / wall, "batches": forwards,
-          "mean_fill": (stats["examples"] - before["examples"])
-          / (stats["padded"] - before["padded"]),
+          "mean_fill": own["examples"] / own["padded"],
           "e2e_p50_ms": lat[len(lat) // 2],
           "e2e_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
-          "exec_s": stats["exec_s"] - before["exec_s"],
+          "exec_s": own["exec_s"], "telemetry": tel,
           "forward_ms": fwd_ms, "h2d_copy_ms": h2d_ms,
           "launches": launches, "served_vs_direct_max_abs_err": err,
           "logits_abs_max": scale, "setup_s": setup_s,
@@ -1203,10 +1214,45 @@ def _counts():
 
 
 def _zero_counts():
+    """Every kernel launch count, and the port's telemetry registry, to
+    0."""
     for fn in _wrappers().values():
         fn.launches = 0
         if hasattr(fn, "launches_bf16"):
             fn.launches_bf16 = 0
+    _telemetry().reset()
+
+
+def _telemetry():
+    from incubator_mxnet_tpu_torch import telemetry
+    return telemetry
+
+
+def _held(phase, got, want):
+    """Each telemetry reading ``got[name]`` equals the path's own count
+    ``want[name]``; returns the readings."""
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        fail(f"{phase}: telemetry differs from the path's own counts "
+             f"(telemetry, own): {bad}")
+    return {k: got[k] for k in want}
+
+
+def _serving_held(phase, server, before, requests):
+    """A burst's ``serving.*`` telemetry (the registry reset just before
+    it) against the server's own counts since ``before`` (its
+    ``_counters()``): the batches, the ``requests`` sent, one e2e
+    latency each, no error, rejection or expiry.  Returns (the telemetry
+    readings, the server's own counts since ``before``)."""
+    stats, own = server.stats(), server._counters()
+    delta = {k: own[k] - before[k] for k in
+             ("batches", "examples", "padded", "errors", "exec_s")}
+    tel = _held(phase, dict(stats, e2e=stats["serving.e2e.us"]["count"]), {
+        "serving.batch.count": delta["batches"],
+        "serving.request.count": requests, "e2e": requests,
+        "serving.error.count": delta["errors"],
+        "serving.reject.count": 0, "serving.expire.count": 0})
+    return tel, delta
 
 
 def _train_step(net, **kw):
@@ -1546,6 +1592,10 @@ def phase_resnet_train_bench(seed):
     launches = _counts()
     _expect(launches, dict.fromkeys(launches, 0),
             "the bf16 training path (BNReLU and plain)")
+    # the resident batch is on the card: no byte crosses per step
+    tel = _held("resnet_train_bench", _telemetry().report(as_dict=True),
+                {"step.count": 4 * TRAIN_WINDOW_STEPS,
+                 "transfer.h2d.bytes": 0})
     for fused in (True, False):
         _finite([warm[fused]] + losses[fused], "bf16 training")
 
@@ -1560,7 +1610,8 @@ def phase_resnet_train_bench(seed):
     emit(dict({"phase": "resnet_train_bench", "batch": TRAIN_BATCH,
                "dtype": "bfloat16", "window_steps": TRAIN_WINDOW_STEPS,
                "setup_s": setup_s, "launches": launches,
-               "fuse_bn_relu_false": row(False)}, **row(True)))
+               "telemetry": tel, "fuse_bn_relu_false": row(False)},
+              **row(True)))
     return nets[True], steps[True], xd, yd
 
 
@@ -2121,9 +2172,12 @@ def nd_update(p, lr):
 
 
 def _worst_of_max(got, ref):
-    """max |got - ref| / max |ref| over the tensors."""
-    return max(float(np.abs(g.asnumpy() - r.asnumpy()).max()
-                     / max(np.abs(r.asnumpy()).max(), 1e-30))
+    """max |got - ref| / max |ref| over the NDArrays (or tensors)."""
+    def host(a):
+        return a.asnumpy() if hasattr(a, "asnumpy") else \
+            a.detach().cpu().numpy()
+    return max(float(np.abs(host(g) - host(r)).max()
+                     / max(np.abs(host(r)).max(), 1e-30))
                for g, r in zip(got, ref))
 
 
@@ -2213,12 +2267,111 @@ def phase_nd_imperative(seed, axpy):
     return launches["rtc_axpy"]
 
 
+# telemetry on vs off, in turns (on, off, on, off, ...): TEL_TURNS each,
+# the imperative step (TEL_IMPERATIVE_STEPS a turn) and the GPT-2-small
+# engine's decode iteration (TEL_DECODE_PROMPTS short prompts of
+# TEL_DECODE_PROMPT tokens, TEL_DECODE_NEW new tokens each, a turn)
+TEL_TURNS, TEL_IMPERATIVE_STEPS = 5, 20
+TEL_DECODE_PROMPTS, TEL_DECODE_PROMPT, TEL_DECODE_NEW = 8, 16, 48
+
+
+def phase_telemetry_cost(seed, axpy, net):
+    """What the telemetry hooks cost on two host-bound paths, measured
+    in turns with ``MXNET_TELEMETRY``'s switch (``telemetry.enable`` /
+    ``disable``): the imperative step of phase nd_imperative (rtc axpy
+    update; ms a step over a turn, synchronised) and the generation
+    engine's decode iteration at GPT-2-small width (8 slots; the turn's
+    wall and the engine's decode seconds over its decode iterations).
+    Prints each turn's ms and the ratio of the medians, on over off."""
+    import incubator_mxnet_tpu_torch as mx
+    tel = _telemetry()
+    ctx = mx.gpu(0)
+    arrays = imperative_setup(mx, ctx, imperative_data(seed))
+
+    def rtc_update(p, lr):
+        axpy.launch([p.grad, p, -lr, p.size], ctx, _blocks(p.size),
+                    (RTC_BLOCK,))
+
+    def imperative():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imperative_steps(mx, arrays, TEL_IMPERATIVE_STEPS, rtc_update)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TEL_IMPERATIVE_STEPS * 1e3
+
+    rs = np.random.RandomState(seed + 21)
+    prompts = [rs.randint(0, GPT2_SMALL["vocab"], TEL_DECODE_PROMPT).tolist()
+               for _ in range(TEL_DECODE_PROMPTS)]
+    eng = _engine(net)
+
+    def decode():
+        before = eng._counters()
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, max_new_tokens=TEL_DECODE_NEW)
+                for p in prompts]
+        for f in futs:
+            f.result(timeout=600)
+        wall = time.perf_counter() - t0
+        own = eng._counters()
+        n = own["decodes"] - before["decodes"]
+        return {"wall_ms": wall / n * 1e3,
+                "decode_ms": (own["decode_s"] - before["decode_s"]) / n * 1e3}
+
+    imperative()                # warm: allocator, rtc module
+    decode()
+    turns = {"on": [], "off": []}
+    try:
+        for i in range(2 * TEL_TURNS):
+            mode = "on" if i % 2 == 0 else "off"
+            (tel.enable if mode == "on" else tel.disable)()
+            turns[mode].append({"imperative_ms": imperative(),
+                                "decode": decode()})
+    finally:
+        tel.enable()
+        eng.close()
+    med = lambda v: float(np.median(v))   # noqa: E731
+    out = {}
+    for what, get in (("imperative_ms_per_step",
+                       lambda t: t["imperative_ms"]),
+                      ("decode_wall_ms_per_iteration",
+                       lambda t: t["decode"]["wall_ms"]),
+                      ("decode_ms_per_iteration",
+                       lambda t: t["decode"]["decode_ms"])):
+        on = [get(t) for t in turns["on"]]
+        off = [get(t) for t in turns["off"]]
+        out[what] = {"on": on, "off": off, "on_over_off":
+                     med(on) / med(off)}
+        print(f"telemetry cost: {what} on {med(on):.4f} ms, off "
+              f"{med(off):.4f} ms, ratio {med(on) / med(off):.4f}",
+              flush=True)
+    emit(dict({"phase": "telemetry_cost", "turns": TEL_TURNS,
+               "imperative_steps_a_turn": TEL_IMPERATIVE_STEPS,
+               "decode_prompts": TEL_DECODE_PROMPTS,
+               "decode_new_tokens": TEL_DECODE_NEW}, **out))
+
+
 def _engine(net):
     from incubator_mxnet_tpu_torch.serving import GenerationEngine
     eng = GenerationEngine(net, slots=8, max_len=1024, kv_layout="paged",
                            block_size=16, prefix_cache=False)
     eng.warmup()
     return eng
+
+
+def _gen_held(phase, eng, tokens):
+    """The engine's ``gen.*`` telemetry (the registry reset before its
+    traffic) against its own bookkeeping: every counter of its slices
+    equals the engine's count, and ``gen.token.count`` the ``tokens``
+    its futures returned.  Returns (the readings, the engine's own
+    counts)."""
+    from incubator_mxnet_tpu_torch.serving.generation import _COUNTERS
+    stats, own = eng.stats(), eng._counters()
+    if own["tokens"] != tokens:
+        fail(f"{phase}: the engine counted {own['tokens']} tokens, its "
+             f"futures returned {tokens}")
+    want = {name: own[key] for key, (_, name) in _COUNTERS.items()
+            if name in stats}
+    return _held(phase, stats, want), own
 
 
 def _serve(eng, greedy, sampled):
@@ -2245,12 +2398,14 @@ def phase_generation(seed):
     sampled = rs.randint(0, vocab, size=SAMPLED_LEN).tolist()
     try:
         flash_attention.launches = 0
+        _telemetry().reset()
         outs, wall = _serve(eng, greedy, sampled)
         launches = flash_attention.launches
-        stats = eng.stats()
+        tokens = int(sum(o.size for o in outs))
+        stats, own = _gen_held("generation", eng, tokens)
     finally:
         eng.close()
-    prefills = stats["prefills"]
+    prefills = stats["gen.prefill.count"]
     if prefills != len(outs):
         fail(f"{prefills} prefills for {len(outs)} requests")
     if launches != GPT2_SMALL["depth"] * prefills:
@@ -2262,12 +2417,15 @@ def phase_generation(seed):
     if not np.array_equal(outs[-1], outs[-2]):
         fail(f"sampled request (seed 123) differed between submissions: "
              f"{outs[-2].tolist()} vs {outs[-1].tolist()}")
-    tokens = int(sum(o.size for o in outs))
+    if stats["gen.request.count"] != len(outs):
+        fail(f"gen.request.count {stats['gen.request.count']} for "
+             f"{len(outs)} requests")
     emit({"phase": "generation", "requests": len(outs),
           "generated_tokens": tokens, "wall_s": wall,
-          "tokens_per_s": tokens / wall, "prefill_s": stats["prefill_s"],
-          "decode_s": stats["decode_s"], "prefills": prefills,
-          "decodes": stats["decodes"], "setup_s": setup_s,
+          "tokens_per_s": tokens / wall, "prefill_s": own["prefill_s"],
+          "decode_s": own["decode_s"], "prefills": prefills,
+          "decodes": stats["gen.decode.count"], "setup_s": setup_s,
+          "telemetry": stats,
           "flash_launches": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     phase_reference(net, greedy, outs)
@@ -2285,11 +2443,11 @@ def phase_profile(net, greedy, sampled):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall = _serve(eng, greedy, sampled)
-        stats = eng.stats()
+        own = eng._counters()
     finally:
         eng.close()
-    emit(dict({"phase": "profile", "prefill_s": stats["prefill_s"],
-               "decode_s": stats["decode_s"], "decodes": stats["decodes"]},
+    emit(dict({"phase": "profile", "prefill_s": own["prefill_s"],
+               "decode_s": own["decode_s"], "decodes": own["decodes"]},
               **_profile_summary(prof, wall)))
 
 
@@ -2397,7 +2555,9 @@ def phase_generation_stages(net, seed):
         st2, fl2 = eng.stats(), flash_attention.launches
         pair = [eng.submit(sampled, temperature=0.8, seed=123, **new)
                 .result(timeout=600) for _ in range(2)]
-        st, launches = eng.stats(), flash_attention.launches
+        launches = flash_attention.launches
+        st, own = _gen_held("generation_stages prefix+spec", eng, int(sum(
+            o.size for o in cold + warm + pair)))
         live, free, info = eng.live_blocks(), eng.free_blocks(), \
             eng.kv_info()
     finally:
@@ -2407,17 +2567,21 @@ def phase_generation_stages(net, seed):
     for o in cold + pair:
         if o.shape != (STAGES_NEW,) or o.min() < 0 or o.max() >= vocab:
             fail(f"bad generated tokens {o!r}")
-    if st2["prefix_hit"] - st1["prefix_hit"] != len(greedy) or \
-            fl2 != fl1 or st2["prefills"] != st1["prefills"]:
-        fail(f"the {len(greedy)} repeats made "
-             f"{st2['prefix_hit'] - st1['prefix_hit']} prefix hits, "
-             f"{st2['prefills'] - st1['prefills']} prefills and "
+    hit, pre = "gen.prefix.hit", "gen.prefill.count"
+    if st2[hit] - st1[hit] != len(greedy) or fl2 != fl1 or \
+            st2[pre] != st1[pre]:
+        fail(f"the {len(greedy)} repeats made {st2[hit] - st1[hit]} "
+             f"prefix hits, {st2[pre] - st1[pre]} prefills and "
              f"{fl2 - fl1} flash launches")
-    if launches != depth * st["prefills"]:
-        fail(f"flash launched {launches} times for {st['prefills']} "
+    if launches != depth * st[pre]:
+        fail(f"flash launched {launches} times for {st[pre]} "
              f"prefills of {depth} layers")
-    if st["spec_proposed"] <= 0 or st["spec_proposed"] != \
-            st["spec_accepted"] + st["spec_rollback"]:
+    if st["gen.request.count"] != 2 * len(greedy) + 2:
+        fail(f"gen.request.count {st['gen.request.count']} for "
+             f"{2 * len(greedy) + 2} requests")
+    prop, acc, back = (st[f"gen.spec.{k}.count"] for k in
+                       ("proposed", "accepted", "rollback"))
+    if prop <= 0 or prop != acc + back:
         fail(f"spec counters inconsistent: {st}")
     if not np.array_equal(pair[0], pair[1]):
         fail(f"sampled request (seed 123) differed between submissions: "
@@ -2439,9 +2603,14 @@ def phase_generation_stages(net, seed):
     try:
         _zero_counts()
         outs, futs, wall_chunk = _timed(ck, [long] + shorts, **chunk_new)
-        ck_stats, ck_flash = ck.stats(), flash_attention.launches
+        ck_flash = flash_attention.launches
+        ck_stats, ck_own = _gen_held("generation_stages chunk+spec", ck,
+                                     int(sum(o.size for o in outs)))
     finally:
         ck.close()
+    if ck_stats["gen.prefill.chunk.count"] <= 0 or \
+            ck_stats["gen.prefill.count"] != 1 + len(shorts):
+        fail(f"chunked engine: {ck_stats}")
     peak_chunk = torch.cuda.max_memory_allocated() / 1e9
     ttft_chunk = _ttft(futs)
     last_short = max(f.first_token_at for f in futs[1:])
@@ -2479,30 +2648,30 @@ def phase_generation_stages(net, seed):
               "ttft_partial_s_median": med(ttft_cold[1:]),
               "ttft_terminal_s_median": med(ttft_warm),
               "ttft_cold_burst_s": ttft_cold, "ttft_terminal_s": ttft_warm,
-              "prefills": st["prefills"], "flash_launches": launches,
-              "prefix_hit": st["prefix_hit"],
-              "prefix_miss": st["prefix_miss"],
-              "prefix_saved_tokens": st["prefix_saved_tokens"],
-              "kv_cow": st["kv_cow"],
-              "spec_proposed": st["spec_proposed"],
-              "spec_accepted": st["spec_accepted"],
-              "spec_rollback": st["spec_rollback"],
-              "spec_accept_rate": st["spec_accepted"] / st["spec_proposed"],
-              "decodes": st["decodes"], "prefill_s": st["prefill_s"],
-              "decode_s": st["decode_s"], "live_blocks": live,
+              "prefills": st[pre], "flash_launches": launches,
+              "prefix_hit": st[hit],
+              "prefix_miss": st["gen.prefix.miss"],
+              "prefix_saved_tokens": st["gen.prefix.saved_tokens"],
+              "kv_cow": st["gen.kv.cow.count"],
+              "spec_proposed": prop, "spec_accepted": acc,
+              "spec_rollback": back, "spec_accept_rate": acc / prop,
+              "decodes": st["gen.decode.count"],
+              "prefill_s": own["prefill_s"], "decode_s": own["decode_s"],
+              "telemetry": st, "live_blocks": live,
               "cache_holds": info["prefix"], "peak_mem_gb": peak_prefix},
           "chunked_spec": {
               "long_tokens": CHUNK_LONG, "shorts": list(CHUNK_SHORTS),
               "chunk": CHUNK, "new_tokens": CHUNK_NEW,
               "tokens_per_s": tokens(outs) / wall_chunk,
               "ttft_long_s": ttft_chunk[0], "ttft_short_s": ttft_chunk[1:],
-              "prefill_chunks": ck_stats["prefill_chunks"],
-              "prefills": ck_stats["prefills"], "flash_launches": ck_flash,
-              "spec_accept_rate": ck_stats["spec_accepted"]
-              / max(ck_stats["spec_proposed"], 1),
-              "decodes": ck_stats["decodes"],
-              "prefill_s": ck_stats["prefill_s"],
-              "decode_s": ck_stats["decode_s"],
+              "prefill_chunks": ck_stats["gen.prefill.chunk.count"],
+              "prefills": ck_stats["gen.prefill.count"],
+              "flash_launches": ck_flash,
+              "spec_accept_rate": ck_stats["gen.spec.accepted.count"]
+              / max(ck_stats["gen.spec.proposed.count"], 1),
+              "decodes": ck_stats["gen.decode.count"],
+              "prefill_s": ck_own["prefill_s"],
+              "decode_s": ck_own["decode_s"], "telemetry": ck_stats,
               "cpu_equal_requests": [len(shorts[i]) for i in two],
               "peak_mem_gb": peak_chunk}})
 
@@ -3176,9 +3345,19 @@ def phase_data_train(seed, tmpdir):
         drained += out
         kept += drain.kept
     launches = _counts()
+    tel_snap = _telemetry().report(as_dict=True)
     peak = torch.cuda.max_memory_allocated()
     fastpath = step.resident_fastpath
     steps = sum(e["steps"] for e in epochs)
+    # every batch passes two iterators, each counting it (the reader's
+    # __next__ and the prefetcher's, as in the JAX package)
+    tel = _held("data_train", tel_snap, {
+        "io.batch.count": 2 * steps, "step.count": steps,
+        "io.h2d_prefetch.hit": hits, "step.resident_fastpath.count":
+        fastpath})
+    if tel_snap.get("io.h2d_prefetch.stall", 0) != stalls:
+        fail(f"data_train: io.h2d_prefetch.stall "
+             f"{tel_snap.get('io.h2d_prefetch.stall')} vs {stalls}")
     want = dict.fromkeys(launches, 0)
     want.update(chain_stats_bf16=16 * steps, chain_emit_bf16=16 * steps)
     _expect(launches, want, f"the data-fed bf16 chain training path "
@@ -3226,7 +3405,7 @@ def phase_data_train(seed, tmpdir):
           "host_decode_ms_per_batch": decode_ms,
           "prefetch_hits": hits, "prefetch_stalls": stalls,
           "resident_fastpath": fastpath, "launches": launches,
-          "first_step_losses": {"host": first[:2], "prefetched": first[2]},
+          "telemetry": tel, "first_step_losses": {"host": first[:2], "prefetched": first[2]},
           "losses_first_last": [losses[0], losses[-1]],
           "peak_mem_gb": peak / 1e9, "setup_s": setup_s,
           "profiled_fed_window": dict({"steps": DATA_PROFILE_STEPS},
@@ -3291,20 +3470,21 @@ def phase_resnet_v2_serving(seed):
             depths.append(server.queue_depth())
             time.sleep(0.001)
     sampler = threading.Thread(target=sample)
-    before = server.stats()
+    before = server._counters()
     _zero_counts()
     sampler.start()
     got, lat, wall = _burst(server, images)
     done.set()
     sampler.join()
     launches = _counts()
+    tel, own = _serving_held("resnet_v2_serving", server, before, BURST_REQUESTS)
     stats = server.stats()
-    forwards = stats["batches"] - before["batches"]
+    forwards = tel["serving.batch.count"]
     want = dict.fromkeys(launches, 0)
     want.update({k: v * forwards for k, v in per_fwd.items()})
     _expect(launches, want, f"ResNet-50 v2 bf16 serving ({forwards} "
                             f"forwards of {per_fwd})")
-    stalls = stats["watchdog_stalls"]
+    stalls = stats["serving.watchdog.stall"]
     if stalls:
         fail(f"the serving watchdog counted {stalls} stalls in the burst")
     if got.shape != (n_images, 1000) or not np.isfinite(got).all():
@@ -3338,8 +3518,7 @@ def phase_resnet_v2_serving(seed):
     emit({"phase": "resnet_v2_serving", "images": n_images,
           "requests": len(lat), "wall_s": wall,
           "images_per_s": n_images / wall, "batches": forwards,
-          "mean_fill": (stats["examples"] - before["examples"])
-          / (stats["padded"] - before["padded"]),
+          "mean_fill": own["examples"] / own["padded"], "telemetry": tel,
           "e2e_p50_ms": lat[len(lat) // 2],
           "e2e_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
           "queue_depth_max": max(depths) if depths else 0,
@@ -3854,11 +4033,11 @@ def phase_symbolic_serving(seed, prefix):
     n_images = CLIENTS * PER_CLIENT + BATCH_REQS * BATCH_SIZE
     images = np.random.RandomState(seed + 50).rand(
         n_images, *SYM_IMAGE).astype(np.float32) * 100
-    before = server.stats()
+    before = server._counters()
     _zero_counts()
     got, lat, wall = _burst(server, images)
     launches = _counts()
-    stats = server.stats()
+    tel, own = _serving_held("symbolic_serving", server, before, BURST_REQUESTS)
     buckets = sorted(server._runner.by_bucket)
     server.close()
     _expect(launches, dict.fromkeys(launches, 0),
@@ -3889,9 +4068,8 @@ def phase_symbolic_serving(seed, prefix):
     emit({"phase": "symbolic_serving", "images": n_images,
           "requests": len(lat), "wall_s": wall,
           "images_per_s": n_images / wall,
-          "batches": stats["batches"] - before["batches"],
-          "mean_fill": (stats["examples"] - before["examples"])
-          / (stats["padded"] - before["padded"]),
+          "batches": tel["serving.batch.count"],
+          "mean_fill": own["examples"] / own["padded"], "telemetry": tel,
           "e2e_p50_ms": lat[len(lat) // 2],
           "e2e_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
           "executors_by_bucket": {str(b): 1 for b in buckets},
@@ -5103,9 +5281,11 @@ def phase_zoo_models(seed):
         server.warmup()
         n_images = CLIENTS * PER_CLIENT + BATCH_REQS * BATCH_SIZE
         images = rs.rand(n_images, 3, 299, 299).astype(np.float32)
-        before = server.stats()
+        before = server._counters()
+        _telemetry().reset()
         got, lat, wall = _burst(server, images)
-        stats = server.stats()
+        tel, _ = _serving_held("inceptionv3_serving", server, before,
+                               BURST_REQUESTS)
     finally:
         server.close()
     if got.shape != (n_images, 1000) or not np.isfinite(got).all():
@@ -5130,7 +5310,7 @@ def phase_zoo_models(seed):
               "images": n_images, "images_per_s": n_images / wall,
               "e2e_p50_ms": lat[len(lat) // 2],
               "e2e_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
-              "batches": stats["batches"] - before["batches"],
+              "batches": tel["serving.batch.count"],
               "served_vs_direct_of_max": err,
               "profiled_batch": {k: profiled[k] for k in (
                   "wall_s", "device_busy_s", "device_idle_share",
@@ -6577,6 +6757,101 @@ def _cudnn_deterministic():
         torch.backends.cudnn.deterministic = was
 
 
+# C18's card check: moe_ffn with a zero gate (every token's expert
+# probabilities tied) at the ep LM's widths, card vs CPU
+MOE_TIE = dict(tokens=1024, dim=768, experts=4, hidden=3072, top_k=2)
+
+
+def phase_moe_zero_gate(seed):
+    """``moe_ffn`` with ``gate_w = 0`` on the card: each token's experts
+    are the two lowest (the stable sort's tie rule, as ``lax.top_k``
+    picks), and the output, aux loss and gradients equal the CPU's
+    within CARD_VS_CPU_RTOL of each tensor's max."""
+    from incubator_mxnet_tpu_torch.parallel.moe import (_dispatch_tensors,
+                                                        moe_ffn)
+    m = MOE_TIE
+    rs = np.random.RandomState(seed + 18)
+    f = np.float32
+    host = [rs.randn(m["tokens"], m["dim"]).astype(f),
+            np.zeros((m["dim"], m["experts"]), f),
+            (0.02 * rs.randn(m["experts"], m["dim"], m["hidden"])).astype(f),
+            (0.01 * rs.randn(m["experts"], m["hidden"])).astype(f),
+            (0.02 * rs.randn(m["experts"], m["hidden"], m["dim"])).astype(f),
+            (0.01 * rs.randn(m["experts"], m["dim"])).astype(f)]
+    cot = rs.randn(m["tokens"], m["dim"]).astype(f)
+    got = {}
+    for dev in ("cuda:0", "cpu"):
+        ts = [torch.tensor(a, device=dev, requires_grad=True) for a in host]
+        y, aux = moe_ffn(*ts, top_k=m["top_k"], capacity_factor=1.0)
+        ((y * torch.tensor(cot, device=dev)).sum() + aux).backward()
+        got[dev] = [y.detach().cpu(), aux.detach().cpu().reshape(1)] + \
+            [t.grad.cpu() for t in ts]
+    probs = torch.full((m["tokens"], m["experts"]), 1.0 / m["experts"],
+                       device="cuda:0")
+    dispatch, _ = _dispatch_tensors(probs, m["top_k"], m["tokens"], True)
+    chosen = sorted(set(dispatch.sum(-1).nonzero()[:, 1].tolist()))
+    err = _worst_of_max(got["cuda:0"], got["cpu"])
+    emit({"phase": "moe_zero_gate", **m, "experts_chosen": chosen,
+          "card_vs_cpu_err_of_max": err, "rtol": CARD_VS_CPU_RTOL})
+    if chosen != list(range(m["top_k"])):
+        fail(f"moe_zero_gate: tied tokens went to experts {chosen}, not "
+             f"the lowest {m['top_k']}")
+    if not err <= CARD_VS_CPU_RTOL:
+        fail(f"moe_zero_gate: card vs CPU {err} > {CARD_VS_CPU_RTOL} of "
+             f"max")
+
+
+# group2ctx's card check: a two-group MLP (ResNet-50's classifier
+# widths), one group's arrays on the CPU, the other's on the card
+G2C = dict(batch=64, features=2048, hidden=1024, classes=1000)
+
+
+def phase_group2ctx(seed):
+    """``group2ctx={"dev1": cpu(0), "dev2": gpu(0)}`` under a ``gpu(0)``
+    executor: each group's argument and gradient arrays live on its
+    context, and forward and backward equal the one-device bind within
+    1e-6 of each array's max."""
+    import incubator_mxnet_tpu_torch as mx
+    g = G2C
+    rs = np.random.RandomState(seed + 22)
+    vals = {"x": rs.rand(g["batch"], g["features"]),
+            "w1": 0.02 * rs.randn(g["hidden"], g["features"]),
+            "w2": 0.02 * rs.randn(g["classes"], g["hidden"])}
+    vals = {k: v.astype(np.float32) for k, v in vals.items()}
+    cot = rs.randn(g["batch"], g["classes"]).astype(np.float32)
+    with mx.AttrScope(ctx_group="dev1"):
+        x, w1 = mx.sym.var("x"), mx.sym.var("w1")
+        h = mx.sym.FullyConnected(x, weight=w1, no_bias=True,
+                                  num_hidden=g["hidden"])
+    with mx.AttrScope(ctx_group="dev2"):
+        w2 = mx.sym.var("w2")
+        out = mx.sym.FullyConnected(mx.sym.relu(h), weight=w2, no_bias=True,
+                                    num_hidden=g["classes"])
+    gpu, runs = mx.gpu(0), {}
+    for key, g2c in (("placed", {"dev1": mx.cpu(0), "dev2": gpu}),
+                     ("one", None)):
+        ex = out.bind(ctx=gpu, args={k: mx.nd.array(v, ctx=gpu)
+                                     for k, v in vals.items()},
+                      args_grad={k: mx.nd.zeros(v.shape, ctx=gpu)
+                                 for k, v in vals.items()},
+                      group2ctx=g2c)
+        y = ex.forward(is_train=True)[0]
+        ex.backward(mx.nd.array(cot, ctx=gpu))
+        runs[key] = ([y] + [ex.grad_dict[k] for k in vals],
+                     {k: (str(ex.arg_dict[k].context),
+                          str(ex.grad_dict[k].context)) for k in vals})
+    placed, one = runs["placed"], runs["one"]
+    err = _worst_of_max(placed[0], one[0])
+    emit({"phase": "group2ctx", **g, "contexts": placed[1],
+          "vs_one_device_err_of_max": err})
+    if placed[1] != {"x": ("cpu(0)", "cpu(0)"), "w1": ("cpu(0)", "cpu(0)"),
+                     "w2": ("gpu(0)", "gpu(0)")}:
+        fail(f"group2ctx: arrays on {placed[1]}")
+    if not err <= 1e-6:
+        fail(f"group2ctx: the placed bind differs from the one-device "
+             f"bind by {err} of max")
+
+
 def phase_dist_world1(seed):
     """An NCCL world of one rank in this process, on a TCPStore at a
     free port: ``kv.create("dist_sync")`` push and pull of a gradient the
@@ -6604,12 +6879,16 @@ def phase_dist_world1(seed):
                 [mx.nd.NDArray(p.detach().clone(), gpu)
                  for p in net.parameters()])
         torch.cuda.synchronize()
+        _telemetry().reset()
         t0 = time.perf_counter()
         for i, g in enumerate(grads):
             kv.push(i, mx.nd.NDArray(g, gpu))
             kv.pull(i, out=outs[i])
         torch.cuda.synchronize()
         kv_ms = (time.perf_counter() - t0) * 1e3
+        kv_tel = _held("dist_world1", _telemetry().report(as_dict=True),
+                       {"kvstore.push.count": len(grads),
+                        "kvstore.pull.count": len(grads)})
         kv_equal = all(torch.equal(o._data, g) for o, g in zip(outs, grads))
         del net, grads, outs
         mesh = make_mesh(dp=1)
@@ -6636,7 +6915,8 @@ def phase_dist_world1(seed):
     want.update(sbr_matmul_bf16=16, sbr_conv3x3_bf16=16)
     emit({"phase": "dist_world1", "backend": backend,
           "kv_keys": len(kv._data), "kv_push_pull_ms": kv_ms,
-          "kv_pull_equals_push": kv_equal, "batch": DIST_WORLD1_BATCH,
+          "kv_pull_equals_push": kv_equal, "kv_telemetry": kv_tel,
+          "batch": DIST_WORLD1_BATCH,
           "loss_mesh": runs["mesh"][0], "loss_plain": runs["plain"][0],
           "mesh_step_bit_equal": equal, "launches": launches,
           "launches_plain": runs["plain"][1]})
@@ -7430,6 +7710,7 @@ def main():
     kernels[0]["launches"] = launches
     phase_profile(net, greedy, sampled)
     phase_generation_stages(net, args.seed)
+    phase_telemetry_cost(args.seed, axpy, net)
     del net
     torch.cuda.empty_cache()
     conv_launches, rnet, server, images = phase_resnet_serving(args.seed)
@@ -7540,6 +7821,9 @@ def main():
             phase(args.seed)
             sparse_paths[name] = _counts()
             torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    phase_moe_zero_gate(args.seed)
+    phase_group2ctx(args.seed)
     torch.cuda.empty_cache()
     dist_paths = {"dist_world1": phase_dist_world1(args.seed)}
     for name, counts in phase_dist_two_ranks(args.seed).items():

@@ -67,6 +67,7 @@ from . import initializer as init
 from . import attribute, callback, executor, model, monitor, operator
 from . import kvstore
 from . import kvstore as kv
+from . import telemetry
 from . import symbol
 from . import symbol as sym
 from . import module
@@ -74,17 +75,18 @@ from . import module as mod
 from . import rnn
 from .attribute import AttrScope
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, num_gpus, tpu
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_devices, num_gpus, num_tpus, tpu)
 from .executor import Executor
 
 __version__ = "0.1.0"
 
 __all__ = ["AttrScope", "Context", "Executor", "MXNetError", "attribute",
            "autograd", "base", "callback", "context", "contrib", "convert",
-           "cpu", "current_context", "executor", "gluon", "gpu", "image",
-           "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
-           "metric", "mod",
-           "model", "module", "monitor", "name", "nd", "ndarray", "num_gpus",
+           "cpu", "cpu_pinned", "current_context", "executor", "gluon",
+           "gpu", "image", "init", "initializer", "io", "kv", "kvstore",
+           "lr_scheduler", "metric", "mod", "model", "module", "monitor",
+           "name", "nd", "ndarray", "num_devices", "num_gpus", "num_tpus",
            "numerics", "operator", "ops", "optimizer", "parallel",
            "pipeline_io", "predict", "random", "recordio", "rnn", "rtc",
-           "serving", "sym", "symbol", "tpu"]
+           "serving", "sym", "symbol", "telemetry", "tpu"]

@@ -41,7 +41,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "mark_variables", "backward", "grad", "Function"]
+           "is_training", "set_recording", "set_training", "mark_variables",
+           "backward", "grad", "get_symbol", "Function"]
 
 _state = threading.local()
 
@@ -59,6 +60,22 @@ def is_recording():
 
 def is_training():
     return _st().training
+
+
+def set_recording(flag):
+    """Turn recording on or off for this thread; returns the previous
+    state."""
+    prev = _st().recording
+    _st().recording = bool(flag)
+    return prev
+
+
+def set_training(flag):
+    """Turn training mode on or off for this thread; returns the
+    previous state."""
+    prev = _st().training
+    _st().training = bool(flag)
+    return prev
 
 
 class _Scope:
@@ -316,6 +333,15 @@ class _Bridge(torch.autograd.Function):
             igs = [igs]
         return (None, None) + tuple(g._data if g is not None else None
                                     for g in igs)
+
+
+def get_symbol(x):
+    """Not supported, as in the JAX package (the reference returns the
+    recorded graph as a Symbol): the tape is torch autograd's graph, not
+    a Symbol."""
+    raise NotImplementedError(
+        "get_symbol is not supported by the torch tape; use gluon "
+        "hybridize() or the symbol API for graph capture")
 
 
 class Function:

@@ -29,8 +29,9 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "num_gpus",
-           "rank_card", "resolve_device"]
+__all__ = ["Context", "cpu", "cpu_pinned", "gpu", "tpu", "current_context",
+           "num_devices", "num_gpus", "num_tpus", "rank_card",
+           "resolve_device"]
 
 
 def rank_card():
@@ -72,7 +73,7 @@ class Context:
     """A device context: (device_type, device_id).  Validated lazily, at
     the first ``torch_device()``, as in the JAX package."""
 
-    device_types = ("cpu", "gpu", "tpu")
+    device_types = ("cpu", "gpu", "tpu", "cpu_pinned")
     _default = threading.local()
 
     def __init__(self, device_type, device_id=0):
@@ -99,9 +100,9 @@ class Context:
 
     def torch_device(self):
         """The ``torch.device`` of this context: ``cpu`` for cpu(i),
-        ``cuda:i`` for gpu(i) and tpu(i).  Raises MXNetError when that
-        CUDA device does not exist."""
-        if self.device_type == "cpu":
+        ``cuda:i`` for gpu(i) and tpu(i), ``cpu`` for cpu_pinned(i) too.
+        Raises MXNetError when that CUDA device does not exist."""
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -144,6 +145,12 @@ def cpu(device_id=0):
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id=0):
+    """Host memory for transfers (the reference's page-locked context);
+    its arrays live on the CPU, as ``cpu(i)``'s do."""
+    return Context("cpu_pinned", device_id)
+
+
 def gpu(device_id=0):
     return Context("gpu", device_id)
 
@@ -158,3 +165,18 @@ def num_gpus():
     """Count of CUDA devices this process sees; 0 without CUDA
     (reference context.py:num_gpus)."""
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_tpus():
+    """Count of the accelerator chips this process sees: on the port the
+    CUDA cards, as ``num_gpus``."""
+    return num_gpus()
+
+
+def num_devices(platform=None):
+    """Devices of ``platform``: ``"cpu"`` gives 1 (the host); otherwise
+    the CUDA cards, or 1 (the host) when there are none, as the JAX
+    package counts its host devices when it has no accelerator."""
+    if platform == "cpu":
+        return 1
+    return num_gpus() or 1

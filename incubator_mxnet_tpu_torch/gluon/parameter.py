@@ -37,8 +37,9 @@ gathered over the axis (a collective: every rank of the axis calls
 it), and ``set_data`` of a global array keeps this rank's block.
 ``shape`` stays the global shape.
 
-Where it differs from the JAX package: a list of several contexts
-raises (``initialize``, ``reset_ctx``) until A6.
+A list of contexts (``initialize``, ``reset_ctx``, ``load``) places the
+value on the first one, as the JAX package does; ``list_ctx`` gives
+that one context.
 """
 from __future__ import annotations
 
@@ -101,15 +102,12 @@ def _to_device(values, ctx, dtype):
 
 
 def _one_ctx(ctx):
-    """One Context from ``ctx`` (None: the current one; a list of one);
-    several raise until A6."""
+    """The Context a Parameter lives on, from ``ctx``: None is the
+    current one, and a list its first entry (JAX ``Parameter.initialize``
+    takes ``ctx[0]``)."""
     if ctx is None:
         return current_context()
     if isinstance(ctx, (list, tuple)):
-        if len(ctx) > 1:
-            raise MXNetError(f"a Parameter lives on one device in the port; "
-                             f"{len(ctx)} contexts need data parallelism "
-                             "(ROADMAP A6)")
         return ctx[0] if ctx else current_context()
     return ctx
 

@@ -33,6 +33,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from . import telemetry
 from .base import MXNetError
 from .context import cpu
 from .ndarray import ndarray as _nd
@@ -126,7 +127,10 @@ class DataIter:
         raise StopIteration
 
     def __next__(self):
-        return self.next()
+        batch = self.next()
+        if telemetry.enabled:
+            telemetry.counter("io.batch.count").inc()
+        return batch
 
     def iter_next(self):
         return False
@@ -765,6 +769,10 @@ class ImageRecordIter(DataIter):
     def next(self):
         if self._exhausted:
             raise StopIteration
+        # a stall: the consumer found no decoded batch waiting, so the
+        # decode pipeline is behind the device
+        if telemetry.enabled and self._queue.empty():
+            telemetry.counter("io.prefetch_stall.count").inc()
         batch = self._queue.get()
         if batch is None:
             self._exhausted = True
@@ -908,6 +916,8 @@ class PrefetchingIter(DataIter):
     def iter_next(self):
         if not self._started:
             self._start()
+        if telemetry.enabled and any(q.empty() for q in self._queues):
+            telemetry.counter("io.prefetch_stall.count").inc()
         batches = [q.get() for q in self._queues]
         if any(b is None for b in batches):
             return False

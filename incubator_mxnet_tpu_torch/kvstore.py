@@ -16,6 +16,7 @@ reference python/mxnet/kvstore.py): the parameter synchronization API
 from __future__ import annotations
 
 from . import optimizer as opt
+from . import telemetry
 from .base import MXNetError
 from .ndarray.ndarray import NDArray, invoke
 
@@ -77,7 +78,10 @@ class KVStore:
 
     def _apply(self, k, merged, stored):
         """The updater on the merged push, or (without one) the stored
-        value replaced by it (kvstore_local.h PushImpl)."""
+        value replaced by it (kvstore_local.h PushImpl).  Every store's
+        push of a key ends here, so it counts ``kvstore.push.count``."""
+        if telemetry.enabled:
+            telemetry.counter("kvstore.push.count").inc()
         if self._updater is not None:
             self._updater(self._str_or_int(k), merged, stored)
         else:
@@ -90,6 +94,8 @@ class KVStore:
         keys, outs, _ = _group(key, out)
         for k, os_ in zip(keys, outs):
             src = self._stored(str(k))._data
+            if telemetry.enabled:
+                telemetry.counter("kvstore.pull.count").inc()
             for o in os_:
                 o._write(src.to(o._data.device, o._data.dtype))
 

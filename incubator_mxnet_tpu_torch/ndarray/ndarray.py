@@ -31,7 +31,7 @@ import re
 import numpy as np
 import torch
 
-from .. import autograd
+from .. import autograd, telemetry
 from ..base import MXNetError, mx_real_t, numpy_dtype, torch_dtype
 from ..context import Context, context_of, cpu, current_context, gpu, tpu
 from ..ops import get_op, normalize_attrs
@@ -70,13 +70,27 @@ def _key(key):
     return one(key)
 
 
+_live = []      # the ndarray.live.{bytes,count} gauges, once registered
+
+
+def _live_gauges():
+    """The live-array gauges: bytes (and arrays) that NDArray wrappers
+    hold, by their size at creation (a rebinding write keeps it), so a
+    trend shows a leak."""
+    if not _live:
+        _live[:] = [telemetry.gauge("ndarray.live.bytes"),
+                    telemetry.gauge("ndarray.live.count")]
+    return _live
+
+
 class NDArray:
     """An n-dimensional array on a device, with MXNet semantics."""
 
     # _pipeline_stamp: set (only) by pipeline_io.DevicePrefetchIter on
-    # the NDArrays it stages
+    # the NDArrays it stages; _tel_nbytes: the bytes the live gauge
+    # counted for this array (None: not counted)
     __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_fresh_grad",
-                 "_pipeline_stamp", "__weakref__")
+                 "_pipeline_stamp", "_tel_nbytes", "__weakref__")
 
     def __init__(self, data, ctx=None):
         if isinstance(data, NDArray):
@@ -90,6 +104,21 @@ class NDArray:
         self._grad = None
         self._grad_req = "null"
         self._fresh_grad = False
+        self._tel_nbytes = None
+        if telemetry.enabled:
+            nbytes, count = _live or _live_gauges()
+            nb = self._tel_nbytes = data.nbytes
+            nbytes.add_async(nb)
+            count.add_async(1)
+
+    def __del__(self):
+        nb = getattr(self, "_tel_nbytes", None)
+        if nb is not None:
+            # the lock-free form (a garbage-collection pass can run this
+            # inside Gauge.add() while its lock is held), as at creation
+            nbytes, count = _live
+            nbytes.add_async(-nb)
+            count.add_async(-1)
 
     # ------------------------------------------------------------ properties
     @property
@@ -509,6 +538,8 @@ def invoke(op_name, inputs, attrs, out=None, ctx=None):
     context); otherwise the first NDArray input's context is the
     result's."""
     op = get_op(op_name) if isinstance(op_name, str) else op_name
+    if telemetry.enabled:      # one branch when MXNET_TELEMETRY=0
+        telemetry.counter("op.dispatch.count").inc()
     attrs = normalize_attrs(attrs)
     if "is_train" in op.attr_names and "is_train" not in attrs:
         attrs["is_train"] = autograd.is_training()

@@ -33,6 +33,26 @@ def _full(x, scalar):
     return torch.full((), scalar, dtype=x.dtype, device=x.device)
 
 
+def _unbool(x, dtype=torch.int32):
+    """A bool array as ``dtype`` (int32: JAX's integer promotion of
+    bool), for the torch calls that refuse bool; other arrays as they
+    are."""
+    return x.to(dtype) if x.dtype == torch.bool else x
+
+
+def _float(x):
+    """x computing in float32 when it is an integer or bool array, as
+    the JAX ops whose result is a float promote it."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _bool_kept(f):
+    """``f`` with a bool array passed through, as the JAX ops that are
+    the identity on bool (``abs``, ``ceil``, ``floor``, ``trunc``)
+    give it back."""
+    return lambda x: x.clone() if x.dtype == torch.bool else f(x)
+
+
 class _Abs(torch.autograd.Function):
     """``|x|`` with ``jnp.abs``'s derivative: +1 at 0 (``x >= 0``),
     where ``torch.abs`` gives 0."""
@@ -57,7 +77,10 @@ class _Cbrt(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        y = torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+        # |x| after the float cast (int8 -128 has no int8 abs); copysign
+        # keeps -0 (cbrt(-0) = -0, so rcbrt(-0) = -inf)
+        x = _float(x)
+        y = torch.copysign(torch.abs(x).pow(1.0 / 3.0), x)
         ctx.save_for_backward(y)
         return y
 
@@ -79,8 +102,9 @@ def _sign(x):
 def _hypot(a, b):
     """``jnp.hypot``'s composition, so that autograd gives JAX's
     gradient: 0.5 for each input at (0, 0), where ``torch.hypot``'s is
-    NaN."""
-    a, b = abs_(a), abs_(b)
+    NaN.  Integer and bool inputs take ``abs`` after their float32 cast
+    (int8 -128 has no int8 abs)."""
+    a, b = abs_(_float(a)), abs_(_float(b))
     inf = torch.isposinf(a) | torch.isposinf(b)
     hi, lo = torch.maximum(a, b), torch.minimum(a, b)
     zero = hi == 0
@@ -93,15 +117,15 @@ def _hypot(a, b):
 _UNARY = {
     "negative": torch.neg,
     "reciprocal": torch.reciprocal,
-    "abs": abs_,
+    "abs": _bool_kept(abs_),
     "sign": _sign,
     "round": torch.round,
     "rint": lambda x: torch.round(x if x.is_floating_point()
                                   else x.to(torch.float32)),
-    "ceil": torch.ceil,
-    "floor": torch.floor,
-    "trunc": torch.trunc,
-    "fix": torch.trunc,
+    "ceil": _bool_kept(torch.ceil),
+    "floor": _bool_kept(torch.floor),
+    "trunc": _bool_kept(torch.trunc),
+    "fix": _bool_kept(torch.trunc),
     "square": torch.square,
     "sqrt": torch.sqrt,
     "rsqrt": torch.rsqrt,
@@ -132,8 +156,8 @@ _UNARY = {
     "degrees": torch.rad2deg,
     "radians": torch.deg2rad,
     "sigmoid": torch.sigmoid,
-    "softsign": lambda x: x / (torch.abs(x) + 1),
-    "relu": torch.relu,
+    "softsign": lambda x: _unbool(x) / (torch.abs(_unbool(x)) + 1),
+    "relu": lambda x: torch.relu(_unbool(x)),
     "logical_not": lambda x: (x == 0).to(x.dtype),
 }
 
@@ -189,7 +213,9 @@ def _clip(x, *, a_min, a_max):
 def _mod(a, b):
     """``torch.remainder`` with an integer modulo by zero giving 0, as
     MXNet's ``mshadow_op::mod`` and the JAX op do (torch raises on the
-    CPU and leaves the value undefined on the card)."""
+    CPU and leaves the value undefined on the card).  Bool operands
+    compute in int32, as JAX promotes them."""
+    a, b = _unbool(a), _unbool(b)
     if a.is_floating_point() or b.is_floating_point():
         return torch.remainder(a, b)
     zero = b == 0
@@ -206,7 +232,7 @@ _BINARY = {
     "broadcast_mul": torch.mul,
     "broadcast_div": torch.div,
     "broadcast_mod": _mod,
-    "broadcast_power": torch.pow,
+    "broadcast_power": lambda a, b: torch.pow(_unbool(a), _unbool(b)),
     "broadcast_maximum": torch.maximum,
     "broadcast_minimum": torch.minimum,
     "broadcast_hypot": _hypot,
@@ -262,8 +288,12 @@ _SCALAR = {
     "_rmod_scalar": lambda x, s: _mod(_full(x, s), x),
     # a 0-d exponent, not the Python scalar: torch.pow's scalar 0.5
     # takes sqrt, which gives NaN at -inf where C's pow gives +inf
-    "_power_scalar": lambda x, s: torch.pow(x, _full(x, s)),
-    "_rpower_scalar": lambda x, s: torch.pow(s, x),
+    "_power_scalar": lambda x, s: torch.pow(_unbool(x),
+                                            _unbool(_full(x, s))),
+    # on bool the scalar takes x's dtype first, as the JAX op's weak
+    # scalar does (2 becomes True)
+    "_rpower_scalar": lambda x, s: torch.pow(s, x) if x.dtype != torch.bool
+    else torch.pow(_unbool(_full(x, s)), _unbool(x)),
     "_maximum_scalar": lambda x, s: torch.maximum(x, _full(x, s)),
     "_minimum_scalar": lambda x, s: torch.minimum(x, _full(x, s)),
     "_hypot_scalar": lambda x, s: _hypot(x, _full(x, s)),
@@ -298,6 +328,7 @@ for _name, _f in _SCALAR_CMP.items():
 
 @register_op("smooth_l1")
 def _smooth_l1(x, *, scalar=1.0):
+    x = _unbool(x)
     s2 = scalar * scalar
     absx = torch.abs(x)
     return torch.where(absx < 1.0 / s2, 0.5 * s2 * x * x, absx - 0.5 / s2)

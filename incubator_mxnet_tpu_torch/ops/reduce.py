@@ -6,14 +6,16 @@ MXNet axis semantics: ``axis`` may be None (all), an int or a tuple,
 with ``keepdims`` and ``exclude``.  Output dtypes are the JAX
 package's: sum and prod widen bool, int8 and int16 to int32 and uint8
 to uint32 and keep any other integer dtype, mean of an integer array is
-float32, argmax/argmin return float32 indices.
+float32, argmax/argmin return float32 indices, cumsum keeps an integer
+dtype (bool gives int32).  ``axis=()`` reduces nothing but keeps these
+rules (and nansum's NaN rule), as the JAX ops do.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import torch_dtype
-from .elemwise import abs_
+from .elemwise import _unbool, abs_
 from .registry import register_op
 
 __all__ = []
@@ -42,15 +44,14 @@ def _int_result(x):
 
 
 def _sum(x, ax, keepdims):
-    if x.is_floating_point():
-        return torch.sum(x, dim=ax, keepdim=keepdims)
-    return torch.sum(x, dim=ax, keepdim=keepdims).to(_int_result(x))
+    out = torch.sum(x, dim=ax, keepdim=keepdims) if ax else x
+    return out if x.is_floating_point() else out.to(_int_result(x))
 
 
 def _mean(x, ax, keepdims):
     if not x.is_floating_point():
         x = x.to(torch.float32)
-    return torch.mean(x, dim=ax, keepdim=keepdims)
+    return torch.mean(x, dim=ax, keepdim=keepdims) if ax else x
 
 
 def _prod(x, ax, keepdims):
@@ -61,9 +62,11 @@ def _prod(x, ax, keepdims):
 
 
 def _nansum(x, ax, keepdims):
-    if x.is_floating_point():
-        return torch.nansum(x, dim=ax, keepdim=keepdims)
-    return _sum(x, ax, keepdims)
+    if not x.is_floating_point():
+        return _sum(x, ax, keepdims)
+    if not ax:
+        return torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    return torch.nansum(x, dim=ax, keepdim=keepdims)
 
 
 def _nanprod(x, ax, keepdims):
@@ -72,19 +75,19 @@ def _nanprod(x, ax, keepdims):
 
 
 def _max(x, ax, keepdims):
-    return torch.amax(x, dim=ax, keepdim=keepdims)
+    return torch.amax(x, dim=ax, keepdim=keepdims) if ax else x
 
 
 def _min(x, ax, keepdims):
-    return torch.amin(x, dim=ax, keepdim=keepdims)
+    return torch.amin(x, dim=ax, keepdim=keepdims) if ax else x
 
 
 def _reduce(f):
+    """The registry op over ``f(x, axes, keepdims)``.  An empty axis
+    tuple reaches ``f`` too, which then reduces nothing but keeps its
+    dtype and NaN rules (torch would read ``dim=()`` as every axis)."""
     def op(x, *, axis=None, keepdims=False, exclude=False):
-        ax = _norm_axis(axis, x.ndim, exclude)
-        if not ax:      # an empty axis tuple reduces nothing
-            return x
-        return f(x, ax, bool(keepdims))
+        return f(x, _norm_axis(axis, x.ndim, exclude), bool(keepdims))
     return op
 
 
@@ -102,7 +105,12 @@ def _norm(x, *, ord=2, axis=None, keepdims=False):
     ax = tuple(range(x.ndim)) if axis is None else \
         (axis if isinstance(axis, tuple) else (axis,))
     if not ax:      # torch reads dim=() as every axis; JAX sums none
-        return abs_(x) if ord == 1 else torch.sqrt(torch.square(x))
+        if ord == 1:
+            return _sum(abs_(x), ax, keepdims)
+        # XLA folds sqrt(x * x) to |x| for a float (1e30 stays finite);
+        # an integer square wraps first, as in JAX
+        return abs_(x) if x.is_floating_point() else \
+            torch.sqrt(torch.square(x))
     if ord == 1:
         return _sum(abs_(x), ax, keepdims)
     return torch.sqrt(torch.sum(torch.square(x), dim=ax, keepdim=keepdims))
@@ -110,6 +118,7 @@ def _norm(x, *, ord=2, axis=None, keepdims=False):
 
 def _arg(f):
     def op(x, *, axis=None, keepdims=False):
+        x = _unbool(x, torch.uint8)      # torch's argmax refuses bool
         if axis is None:
             out = f(x.reshape(-1), dim=0)
         else:
@@ -124,7 +133,7 @@ register_op("argmin", _arg(torch.argmin), differentiable=False)
 
 @register_op("argmax_channel", differentiable=False)
 def _argmax_channel(x):
-    return torch.argmax(x, dim=-1).to(torch.float32)
+    return torch.argmax(_unbool(x, torch.uint8), dim=-1).to(torch.float32)
 
 
 @register_op("broadcast_to")
@@ -154,5 +163,6 @@ def _cumsum(x, *, axis=None, dtype=None):
         x, axis = x.reshape(-1), 0
     if dtype is not None:
         return torch.cumsum(x, dim=axis, dtype=torch_dtype(dtype))
+    # JAX keeps an integer dtype (int8 wraps) and sums bool as int32
     out = torch.cumsum(x, dim=axis)
-    return out if x.is_floating_point() else out.to(_int_result(x))
+    return out.to(torch.int32 if x.dtype == torch.bool else x.dtype)

@@ -219,7 +219,7 @@ def ftml_update(weight, grad, d, v, z, lr, t, beta1=0.6, beta2=0.999,
     if clip_grad is not None and clip_grad >= 0:
         g = g.clamp(-clip_grad, clip_grad)
     g = g.to(weight.dtype)
-    tf = torch.tensor(float(t), dtype=torch.float32, device=weight.device)
+    tf = torch.as_tensor(t, dtype=torch.float32, device=weight.device)
     v.copy_(beta2 * v + (1.0 - beta2) * g * g)
     d_t = (1.0 - beta1 ** tf) / lr * ((v / (1.0 - beta2 ** tf)).sqrt()
                                       + epsilon)
@@ -316,6 +316,9 @@ class Optimizer:
         self.set_wd_mult({})
 
     create_optimizer = staticmethod(create)
+    #: the skipped updates a ``TrainStep``'s loss scaler counted on the
+    #: device that the host has not rewound yet (None: no scaler)
+    _unrewound = None
 
     def __getstate__(self):
         # param_dict holds the live parameters: the owner sets it again
@@ -376,6 +379,26 @@ class Optimizer:
         self._index_update_count[index] = count + 1
         self.num_update = max(count + 1, self.num_update)
 
+    def rewind_updates(self, n=1):
+        """Roll the update counters back by ``n`` skipped updates (JAX
+        ``Optimizer.rewind_updates``): a loss scaler's overflowed step
+        applies no update, so lr schedules and the bias corrections count
+        only applied ones.  ``num_update`` never goes below
+        ``begin_num_update``; each index's own count (which the port's
+        per-index updates advance) goes back by ``n`` too."""
+        n = int(n)
+        self.num_update = max(self.begin_num_update, self.num_update - n)
+        for i, c in self._index_update_count.items():
+            self._index_update_count[i] = max(self.begin_num_update, c - n)
+
+    def _bias_count(self, index):
+        """The update count of ``index`` for a bias correction: the host
+        count less the skipped updates not rewound yet, a device tensor
+        under a ``TrainStep``'s loss scaler (so no host sync), else an
+        int."""
+        t = self._index_update_count[index]
+        return t if self._unrewound is None else t - self._unrewound
+
     def _mult(self, index, table, attr):
         if index in self.param_dict:
             return getattr(self.param_dict[index], attr, 1.0)
@@ -401,6 +424,12 @@ class Optimizer:
     def _common(self):
         return {"rescale_grad": self.rescale_grad,
                 "clip_gradient": self.clip_gradient}
+
+
+def _sqrt(x):
+    """sqrt of a Python number or of a (device) tensor, without a host
+    read of the tensor."""
+    return x.sqrt() if isinstance(x, torch.Tensor) else math.sqrt(x)
 
 
 def _as_fp32(x):
@@ -699,8 +728,8 @@ class Adam(Optimizer):
         sparse = _lazy_update(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
-        t = self._index_update_count[index]
-        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        t = self._bias_count(index)
+        lr *= _sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
         mean, var = state
         if sparse:
             _lazy(_lazy_adam, weight, grad, [mean, var], lr, self.beta1,
@@ -817,7 +846,7 @@ class Adamax(Optimizer):
         _dense(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
-        t = self._index_update_count[index]
+        t = self._bias_count(index)
         lr /= (1.0 - self.beta1 ** t)
         m, u = state
         _update_in_place(_adamax_update, [weight, grad, m, u], lr,
@@ -982,7 +1011,7 @@ class FTML(Optimizer):
         _dense(grad)
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
-        t = self._index_update_count[index]
+        t = self._bias_count(index)
         _update_in_place(ftml_update, [weight, grad, *state], lr, t,
                          self.beta1, self.beta2, self.epsilon, wd,
                          self.rescale_grad, self.clip_gradient)

@@ -129,9 +129,17 @@ class ShardedEmbedding(HybridBlock):
         rank, size = group_rank_size(group)
         start, stop = block_range(self._input_dim, size, rank)
         ids = x._data.long() - start
-        inside = ((ids >= 0) & (ids < stop - start)).unsqueeze(-1)
-        rows = weight._data[ids.clamp(0, stop - start - 1)]
-        rows = torch.where(inside, rows, torch.zeros_like(rows))
+        w = weight._data
+        if stop <= start:
+            # an empty block (ceil(n / size) rows leave the last ranks
+            # none): a zero lookup that still reaches the all-reduce
+            # every rank waits in, and gives the (0, D) block its zero
+            # gradient
+            rows = w.new_zeros(ids.shape + (0,)) @ w
+        else:
+            inside = ((ids >= 0) & (ids < stop - start)).unsqueeze(-1)
+            rows = w[ids.clamp(0, stop - start - 1)]
+            rows = torch.where(inside, rows, torch.zeros_like(rows))
         return _nd(reduce_from_group(rows, group), x)
 
     def __repr__(self):

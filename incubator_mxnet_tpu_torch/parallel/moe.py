@@ -55,7 +55,11 @@ def _dispatch_tensors(probs, top_k, capacity, normalize_gates):
     combine (N, E, C) = dispatch x gate value.  A token past its
     expert's capacity is dropped (its combine rows are zero)."""
     n, num_experts = probs.shape
-    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)
+    # a stable descending sort breaks ties toward the lower expert, as
+    # ``lax.top_k`` does (``torch.topk`` takes the higher ones)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[:, :top_k], gate_idx[:, :top_k]
     if normalize_gates:
         gate_vals = gate_vals / torch.clamp(
             gate_vals.sum(-1, keepdim=True), min=1e-9)

@@ -40,7 +40,12 @@ What one step does is the JAX step body's:
   optimizer states and moving statistics keep their values (by
   ``torch.where`` on the device, no host sync), and the scale backs off.
   The scale state is a device float32 ``[scale, streak]``;
-  ``loss_scale()`` reads it.
+  ``loss_scale()`` reads it.  The optimizer's update counters count
+  only applied updates, as JAX's do: the skipped steps are counted on
+  the device, where Adam's, Adamax's and FTML's bias corrections read
+  them, and the host's ``num_update`` and per-index counts are rewound
+  (``Optimizer.rewind_updates``) once a step's overflow flag has come
+  back through pinned memory, at most a few steps later on the card.
 
 A batch is ``(x..., y)``: any number of data inputs, then the label.
 ``block`` is a torch module over tensors (the zoo's ResNet, with a
@@ -102,11 +107,15 @@ compile cache and the numerics sentinels have no counterpart.
 """
 from __future__ import annotations
 
+import collections
+import time
+
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from .. import pipeline_io as _pipeline_io
+from .. import telemetry
 from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
@@ -143,6 +152,8 @@ def _inputs(step, batch):
         stamp = _pipeline_io.match_stamp(batch)[0]
         if stamp is not None and stamp.sharding == step._sharding:
             step.resident_fastpath += 1
+            if telemetry.enabled:
+                telemetry.counter("step.resident_fastpath.count").inc()
             return [b._data for b in batch]
         if stamp is not None and stamp.sharding is not None:
             raise MXNetError(
@@ -330,6 +341,14 @@ class TrainStep:
         self._scaler = loss_scaler
         self._scaler_state = None if loss_scaler is None else \
             loss_scaler.state_init(self.device)
+        if loss_scaler is not None:
+            # the overflowed steps the host has not rewound yet, counted
+            # on the device: the bias corrections read it there (the JAX
+            # step restores its in-program counters), and the host
+            # rewinds its own counters once each step's flag has landed
+            optimizer._unrewound = torch.zeros((), dtype=torch.float32,
+                                               device=self.device)
+            self._flags = collections.deque()
         #: the dp group (None: one process) and its size; the BN
         #: statistics are summed over it when it has more than one rank
         self._group = None if self._mesh is None else self._mesh.group("dp")
@@ -403,13 +422,48 @@ class TrainStep:
                     t.copy_(torch.where(overflow, old, t))
             self._scaler_state = scaler.next_state(self._scaler_state,
                                                    overflow)
+            self._optimizer._unrewound.add_(overflow)
+            self._post_flag(overflow)
+            self._rewind_skipped(wait=False)
         return loss
+
+    def _post_flag(self, overflow):
+        """Send the step's overflow flag to the host without waiting: a
+        copy into pinned memory behind an event on the card, the tensor
+        itself on the CPU."""
+        if overflow.device.type != "cuda":
+            self._flags.append((None, overflow))
+            return
+        flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+        flag.copy_(overflow, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._flags.append((event, flag))
+
+    def _rewind_skipped(self, wait):
+        """Rewind the optimizer's host counters by each overflowed step
+        whose flag has reached the host (JAX rewinds its host counter
+        when its drain reads the step's record): after every step those
+        already landed (on the CPU, all), and every one when ``wait``
+        (``loss_scale()`` reads the device state anyway)."""
+        opt = self._optimizer
+        while self._flags:
+            event, flag = self._flags[0]
+            if event is not None:
+                if not (wait or event.query()):
+                    return
+                event.synchronize()
+            self._flags.popleft()
+            if bool(flag):
+                opt.rewind_updates(1)
+                opt._unrewound.sub_(1.0)
 
     def loss_scale(self):
         """The current loss scale (a host read of the device state), or
         None without a scaler."""
         if self._scaler is None:
             return None
+        self._rewind_skipped(wait=True)
         return float(self._scaler_state[0])
 
     def sync_params(self):
@@ -432,7 +486,14 @@ class TrainStep:
     def __call__(self, *batch):
         """One step on the batch ``(x..., y)``; returns its loss (fp32,
         a 0-d tensor on the device; an NDArray for a Gluon block)."""
-        return self.run_steps(*batch, num_steps=1)[0]
+        if not telemetry.enabled:
+            return self.run_steps(*batch, num_steps=1)[0]
+        t0 = time.perf_counter()
+        loss = self.run_steps(*batch, num_steps=1)[0]
+        # the host time to enqueue the step (the card runs behind it)
+        telemetry.histogram("step.dispatch.us").observe(
+            (time.perf_counter() - t0) * 1e6)
+        return loss
 
     def run_steps(self, *batch, num_steps=None, stacked=False, drain=None):
         """``num_steps`` steps on the one batch ``(x..., y)`` (the
@@ -445,6 +506,15 @@ class TrainStep:
         if num_steps is None or num_steps < 1:
             raise MXNetError(f"run_steps needs num_steps >= 1, got "
                              f"{num_steps}")
+        if telemetry.enabled:
+            telemetry.counter("step.count").inc(int(num_steps))
+            # the bytes fed from host arrays (numpy, as JAX counts
+            # them) or from tensors on another device; a tensor already
+            # on the step's device is resident
+            telemetry.counter("transfer.h2d.bytes").inc(sum(
+                _tensor(b).nbytes for b in batch
+                if isinstance(b, np.ndarray)
+                or _tensor(b).device != self.device))
         *xs, y = _inputs(self, batch)
         if self._input_prep is not None:
             xs = [self._input_prep(x) for x in xs]

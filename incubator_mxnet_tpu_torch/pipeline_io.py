@@ -53,6 +53,7 @@ import threading
 import numpy as np
 import torch
 
+from . import telemetry
 from .base import MXNetError, get_env, numpy_dtype
 from .context import context_of, resolve_device
 from .io import DataBatch, DataIter
@@ -259,6 +260,9 @@ class DevicePrefetchIter(DataIter):
             data = [self._sharding.local(t).contiguous() for t in data]
             label = [self._sharding.local(t).contiguous() for t in label]
         host = data + label
+        if telemetry.enabled:
+            telemetry.counter("io.h2d_prefetch.bytes").inc(
+                sum(t.nbytes for t in host))
         sig = tuple((tuple(t.shape), numpy_dtype(t.dtype).name)
                     for t in host)
         dev, event = self._copy(host, sig)
@@ -365,6 +369,9 @@ class DevicePrefetchIter(DataIter):
             self.stalls += 1
         else:
             self.hits += 1
+        if telemetry.enabled:
+            telemetry.counter("io.h2d_prefetch.stall" if stalled
+                              else "io.h2d_prefetch.hit").inc()
         batch, event = item
         if event is not None:
             stream = torch.cuda.current_stream(self.device)

@@ -25,7 +25,8 @@ import torch
 from .context import Context
 
 __all__ = ["seed", "generator", "named_sample", "uniform", "normal", "randn",
-           "randint"]
+           "randint", "poisson", "exponential", "gamma", "negative_binomial",
+           "generalized_negative_binomial", "multinomial", "shuffle"]
 
 _DEFAULT_SEED = 0
 _lock = threading.Lock()
@@ -177,3 +178,45 @@ def randn(*shape, loc=0.0, scale=1.0, dtype="float32", ctx=None):
 def randint(low, high, shape=(), dtype="int32", ctx=None, out=None):
     return _sample("_random_randint", ctx, low=low, high=high, shape=shape,
                    dtype=dtype, out=out)
+
+
+def poisson(lam=1.0, shape=(), dtype="float32", ctx=None, out=None):
+    return _sample("_random_poisson", ctx, lam=lam, shape=shape,
+                   dtype=dtype, out=out)
+
+
+def exponential(scale=1.0, shape=(), dtype="float32", ctx=None, out=None):
+    return _sample("_random_exponential", ctx, lam=1.0 / scale, shape=shape,
+                   dtype=dtype, out=out)
+
+
+def gamma(alpha=1.0, beta=1.0, shape=(), dtype="float32", ctx=None,
+          out=None):
+    return _sample("_random_gamma", ctx, alpha=alpha, beta=beta,
+                   shape=shape, dtype=dtype, out=out)
+
+
+def negative_binomial(k=1, p=1.0, shape=(), dtype="float32", ctx=None,
+                      out=None):
+    return _sample("_random_negative_binomial", ctx, k=k, p=p, shape=shape,
+                   dtype=dtype, out=out)
+
+
+def generalized_negative_binomial(mu=1.0, alpha=1.0, shape=(),
+                                  dtype="float32", ctx=None, out=None):
+    return _sample("_random_generalized_negative_binomial", ctx, mu=mu,
+                   alpha=alpha, shape=shape, dtype=dtype, out=out)
+
+
+def multinomial(data, shape=(), get_prob=False, dtype="int32", out=None):
+    """Draws from the categorical rows of ``data`` (``_sample_multinomial``;
+    with ``get_prob`` also the log-probability of each draw)."""
+    from .ndarray import op as ndop
+    return ndop._sample_multinomial(data, shape=shape, get_prob=get_prob,
+                                    dtype=dtype, out=out)
+
+
+def shuffle(data, out=None):
+    """``data`` with its first axis randomly permuted (``_shuffle``)."""
+    from .ndarray import op as ndop
+    return ndop._shuffle(data, out=out)

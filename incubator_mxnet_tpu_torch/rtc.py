@@ -431,7 +431,7 @@ class Kernel:
         Asynchronous; writes into the NDArrays passed, in place."""
         global launches
         ctx = Context(ctx)
-        if ctx.device_type == "cpu":
+        if ctx.device_type in ("cpu", "cpu_pinned"):
             raise MXNetError(f"rtc kernels launch on a GPU context, not "
                              f"{ctx}")
         if len(args) != len(self._params):

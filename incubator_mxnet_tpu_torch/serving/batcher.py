@@ -25,6 +25,7 @@ import collections
 import threading
 import time
 
+from .. import telemetry
 from ..base import MXNetError
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
@@ -102,7 +103,20 @@ class DynamicBatcher:
 
     def _refuse(self, exc):
         self.rejected += 1
+        if telemetry.enabled:
+            telemetry.counter("serving.reject.count").inc()
         raise exc
+
+    def _note_expired(self):
+        self.expired += 1
+        if telemetry.enabled:
+            telemetry.counter("serving.expire.count").inc()
+
+    def _note_depth(self):
+        # a level set under the lock: toggling telemetry between a
+        # push and its pop cannot unbalance it
+        if telemetry.enabled:
+            telemetry.gauge("serving.queue.depth").set(len(self._queue))
 
     def submit(self, req):
         """Enqueue a Request, honouring admission control.  Raises
@@ -125,7 +139,7 @@ class DynamicBatcher:
                     if req.deadline is not None:
                         timeout = req.deadline - time.perf_counter()
                         if timeout <= 0:
-                            self.expired += 1
+                            self._note_expired()
                             raise DeadlineExceededError(
                                 "deadline expired while blocked on queue "
                                 "space (backpressure)")
@@ -135,6 +149,9 @@ class DynamicBatcher:
             self._queue.append(req)
             self._examples += req.n
             self.accepted += 1
+            if telemetry.enabled:
+                telemetry.counter("serving.request.count").inc()
+                self._note_depth()
             self._cond.notify_all()
 
     def next_batch(self):
@@ -167,13 +184,17 @@ class DynamicBatcher:
                 if not req.future.set_running_or_notify_cancel():
                     continue                    # the caller cancelled it
                 if req.expired(now):
-                    self.expired += 1
+                    self._note_expired()
                     req.future.set_exception(DeadlineExceededError(
                         f"request expired after "
                         f"{(now - req.t_submit) * 1e3:.1f} ms in queue"))
                     continue
+                if telemetry.enabled:
+                    telemetry.histogram("serving.queue_wait.us").observe(
+                        (now - req.t_submit) * 1e6)
                 batch.append(req)
                 total += req.n
+            self._note_depth()
             self._cond.notify_all()             # space freed for producers
             return batch
 
@@ -200,6 +221,9 @@ class DynamicBatcher:
             while self._queue:
                 req = self._queue.popleft()
                 self._examples -= req.n
+                if telemetry.enabled:
+                    telemetry.counter("serving.reject.count").inc()
                 if not req.future.done():
                     req.future.set_exception(type(exc)(*exc.args))
+            self._note_depth()
             self._cond.notify_all()

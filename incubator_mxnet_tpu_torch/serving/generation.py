@@ -55,8 +55,14 @@ What differs from the JAX engine:
   greedy output equals the plain engine's bit for bit on any device.
 * Admission reserves the spec window's overshoot too (``worst_blocks``
   counts it; the JAX admission leaves it out).
-* Not ported yet: the telemetry / tracing / request-journal hooks.
-  ``stats()`` returns the engine's own counters instead.
+* ``stats()`` is the ``gen.*`` slice of ``telemetry.report(as_dict=
+  True)``, as in the JAX engine: ``gen.kv.*`` exists only once a paged
+  engine is built, ``gen.prefix.*`` with the prefix cache live,
+  ``gen.spec.*`` with speculative decoding and
+  ``gen.prefill.chunk.count`` with chunked prefill; none with
+  ``MXNET_TELEMETRY=0``.  The registry is process-wide, so every engine
+  of the process adds to it.  The tracing and request-journal hooks are
+  not ported yet.
 * Prompt token ids are validated at submit against the decoder's
   vocabulary: an out-of-range id would be a device-side assert on CUDA.
 """
@@ -74,6 +80,7 @@ import time
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import MXNetError, get_env
 from ..context import resolve_device
 from ..parallel import paged_attention as _pa
@@ -612,12 +619,46 @@ def _accept(drafts, dlog, outs, tlog, temps, seeds, positions):
             n_acc.cpu().numpy().astype(np.int32))
 
 
-_COUNTERS = ("requests", "rejects", "tokens", "prefills", "decodes",
-             "queued_on_memory", "kv_cow", "prefix_hit", "prefix_miss",
-             "prefix_saved_tokens", "prefix_evict", "spec_proposed",
-             "spec_accepted", "spec_rollback", "prefill_chunks",
-             "retire_eos", "retire_max_tokens", "retire_max_len",
-             "retire_deadline", "retire_error")
+#: the engine's own counts and the ``gen.*`` counter each feeds, by the
+#: slice of the JAX schema it belongs to: "core" always, "kv" on the
+#: paged layout, "prefix" with the prefix cache, "spec" with
+#: speculative decoding, "chunk" with chunked prefill
+_COUNTERS = {
+    "requests": ("core", "gen.request.count"),
+    "rejects": ("core", "gen.reject.count"),
+    "tokens": ("core", "gen.token.count"),
+    "prefills": ("core", "gen.prefill.count"),
+    "decodes": ("core", "gen.decode.count"),
+    "h2d_bytes": ("core", "gen.h2d.bytes"),
+    "retire_eos": ("core", "gen.retire.eos"),
+    "retire_max_tokens": ("core", "gen.retire.max_tokens"),
+    "retire_max_len": ("core", "gen.retire.max_len"),
+    "retire_deadline": ("core", "gen.retire.deadline"),
+    "retire_error": ("core", "gen.retire.error"),
+    "kv_cow": ("kv", "gen.kv.cow.count"),
+    "queued_on_memory": ("kv", "gen.kv.queued_on_memory"),
+    "prefix_hit": ("prefix", "gen.prefix.hit"),
+    "prefix_miss": ("prefix", "gen.prefix.miss"),
+    "prefix_saved_tokens": ("prefix", "gen.prefix.saved_tokens"),
+    "prefix_evict": ("prefix", "gen.prefix.evict.count"),
+    "spec_proposed": ("spec", "gen.spec.proposed.count"),
+    "spec_accepted": ("spec", "gen.spec.accepted.count"),
+    "spec_rollback": ("spec", "gen.spec.rollback.count"),
+    "prefill_chunks": ("chunk", "gen.prefill.chunk.count"),
+}
+#: the gauges and histograms of each slice
+_LEVELS = {
+    "core": (("gauge", "gen.slot.occupancy"), ("gauge", "gen.queue.depth"),
+             ("gauge", "gen.tokens_per_s"),
+             ("gauge", "gen.time.prefill_pct"),
+             ("gauge", "gen.time.decode_pct"),
+             ("histogram", "gen.prefill.us"),
+             ("histogram", "gen.decode.us"), ("histogram", "gen.ttft.us"),
+             ("histogram", "gen.e2e.us")),
+    "kv": (("gauge", "gen.kv.blocks.live"), ("gauge", "gen.kv.blocks.free"),
+           ("gauge", "gen.kv.tokens_resident")),
+    "spec": (("gauge", "gen.spec.accept_rate"),),
+}
 
 
 class GenerationEngine:
@@ -709,6 +750,25 @@ class GenerationEngine:
         self._counts = dict.fromkeys(_COUNTERS, 0)
         self._busy_prefill_s = 0.0
         self._busy_decode_s = 0.0
+        self._tok_window = collections.deque(maxlen=64)
+        self._slices = {"core"}
+        if self._paged:
+            self._slices.add("kv")
+        if self._prefix is not None:
+            self._slices.add("prefix")
+        if config.spec_k:
+            self._slices.add("spec")
+        if config.prefill_chunk:
+            self._slices.add("chunk")
+        if telemetry.enabled:
+            # the engine's slices of the gen.* schema exist from its
+            # construction on, zeros included, as in the JAX engine
+            for key, (part, name) in _COUNTERS.items():
+                if part in self._slices:
+                    telemetry.counter(name)
+            for part in self._slices:
+                for kind, name in _LEVELS.get(part, ()):
+                    getattr(telemetry, kind)(name)
         self._scheduler = threading.Thread(
             target=self._loop, name="mxnet-gen-scheduler", daemon=True)
         self._scheduler.start()
@@ -764,15 +824,61 @@ class GenerationEngine:
                 "layout": self._cfg.kv_layout}
 
     def stats(self):
-        """The engine's counters: requests, rejects, tokens, prefills,
-        decodes, queued_on_memory, kv_cow, prefix_{hit, miss,
-        saved_tokens, evict}, spec_{proposed, accepted, rollback},
-        prefill_chunks, retire_{eos, max_tokens, max_len, deadline,
-        error}, and the busy seconds of prefill and decode."""
+        """The ``gen.*`` slice of ``telemetry.report(as_dict=True)`` (JAX
+        ``GenerationServer.stats``)."""
+        snap = telemetry.report(as_dict=True)
+        return {k: v for k, v in snap.items() if k.startswith("gen.")}
+
+    def _counters(self):
+        """This engine's own counts (the keys of ``_COUNTERS``) and the
+        busy seconds of prefill and decode (``prefill_s``,
+        ``decode_s``)."""
         out = dict(self._counts)
         out["prefill_s"] = self._busy_prefill_s
         out["decode_s"] = self._busy_decode_s
         return out
+
+    def _count(self, key, n=1):
+        self._counts[key] += n
+        if telemetry.enabled:
+            telemetry.counter(_COUNTERS[key][1]).inc(n)
+
+    def _note_queue(self):
+        if telemetry.enabled:
+            telemetry.gauge("gen.queue.depth").set(len(self._queue))
+
+    def _note_occupancy(self):
+        if telemetry.enabled:
+            telemetry.gauge("gen.slot.occupancy").set(len(self._active()))
+            if self._paged:
+                live = self._pool.live_count()
+                telemetry.gauge("gen.kv.blocks.live").set(live)
+                telemetry.gauge("gen.kv.blocks.free").set(
+                    self._pool.free_count())
+                telemetry.gauge("gen.kv.tokens_resident").set(
+                    live * self._cfg.block_size)
+
+    def _observe(self, name, seconds):
+        if telemetry.enabled:
+            telemetry.histogram(name).observe(seconds * 1e6)
+
+    def _note_rate(self, now, produced):
+        """Tokens a second over the last 64 decode iterations, and the
+        busy time's prefill and decode shares (JAX ``_note_rate``)."""
+        self._tok_window.append((now, produced))
+        if not telemetry.enabled or len(self._tok_window) < 2:
+            return
+        t_first = self._tok_window[0][0]
+        total = sum(p for _, p in self._tok_window) - self._tok_window[0][1]
+        if now > t_first:
+            telemetry.gauge("gen.tokens_per_s").set(
+                round(total / (now - t_first), 2))
+        busy = self._busy_prefill_s + self._busy_decode_s
+        if busy > 0:
+            telemetry.gauge("gen.time.prefill_pct").set(
+                round(self._busy_prefill_s / busy * 100, 1))
+            telemetry.gauge("gen.time.decode_pct").set(
+                round(self._busy_decode_s / busy * 100, 1))
 
     def _device_scope(self):
         if self._device.type == "cuda":
@@ -863,11 +969,12 @@ class GenerationEngine:
                        deadline, fut)
         with self._cond:
             if len(self._queue) >= self._cfg.queue_depth:
-                self._counts["rejects"] += 1
+                self._count("rejects")
                 raise QueueFullError(
                     f"generation queue full ({self._cfg.queue_depth})")
             self._queue.append(req)
-            self._counts["requests"] += 1
+            self._count("requests")
+            self._note_queue()
             self._cond.notify_all()
         return fut
 
@@ -934,7 +1041,7 @@ class GenerationEngine:
             self._release_slot_blocks(self._slots[i])
             self._slots[i] = None
         for req in victims:
-            self._counts["retire_error"] += 1
+            self._count("retire_error")
             self._fail(req, exc)
 
     def _fail(self, req, exc):
@@ -954,8 +1061,9 @@ class GenerationEngine:
                 if not self._queue or not self._free:
                     return
                 req = self._queue.popleft()
+                self._note_queue()
                 if req.expired():
-                    self._counts["retire_deadline"] += 1
+                    self._count("retire_deadline")
                     exc = DeadlineExceededError(
                         "deadline expired before prefill")
                     exc.tokens = np.zeros((0,), np.int32)
@@ -973,6 +1081,7 @@ class GenerationEngine:
                 with self._cond:
                     self._queue.appendleft(req)
                     self._free.append(slot)
+                    self._note_queue()
                 return
 
     def _admit_paged(self, req, slot):
@@ -1012,12 +1121,12 @@ class GenerationEngine:
             self._pool.retain(b)
         avail = self._pool.free_count() - self._pool.reserved
         if need > avail and self._prefix is not None:
-            self._counts["prefix_evict"] += self._prefix.evict(need - avail)
+            self._count("prefix_evict", self._prefix.evict(need - avail))
             avail = self._pool.free_count() - self._pool.reserved
         if need > avail:
             for b in pins:
                 self._pool.release(b)
-            self._counts["queued_on_memory"] += 1
+            self._count("queued_on_memory")
             return False
         self._pool.reserved += need
         if warm is not None:
@@ -1056,17 +1165,20 @@ class GenerationEngine:
             blocks.append(ent["tail"])
         L = ent["length"]
         tok = _sample_one(ent["logits"], req.temperature, req.seed, L)
-        self._counts["prefix_hit"] += 1
-        self._counts["prefix_saved_tokens"] += L
+        self._count("prefix_hit")
+        self._count("prefix_saved_tokens", L)
+        self._observe("gen.ttft.us",
+                      time.perf_counter() - req.future.submitted_at)
         s = _Slot(req, cache_len=L, last_token=tok, blocks=blocks,
                   reserve_left=reserve)
         self._slots[slot] = s
         self._emit(s, slot, tok)
+        self._note_occupancy()
 
     def _register(self, req, s, hashes, logits):
         """Prefix registration after a cold prompt's prefill; keeps its
         last-position logits on the host."""
-        self._counts["prefix_miss"] += 1
+        self._count("prefix_miss")
         self._prefix.register(req.prompt, hashes or [], s,
                               logits.float().cpu())
 
@@ -1081,7 +1193,7 @@ class GenerationEngine:
         s.generated = []          # no token exists until the last chunk
         s.chunk_pos = s.cache_len = len(lead) * bs
         s.chunk_hashes = hashes or []
-        self._counts["prefix_saved_tokens"] += len(lead) * bs
+        self._count("prefix_saved_tokens", len(lead) * bs)
         self._slots[slot] = s
 
     def _prefill_chunk_step(self):
@@ -1112,6 +1224,7 @@ class GenerationEngine:
             ids[j] = s.blocks[b]
         pt = np.zeros((1, cfg.max_blocks), np.int64)
         pt[0, :len(s.blocks)] = s.blocks
+        self._count("h2d_bytes", toks.nbytes + ids.nbytes + pt.nbytes)
         t0 = time.perf_counter()
         logits, k, v = self._block.prefill_chunk(
             torch.from_numpy(toks).to(dev), start, L, self._kv_k,
@@ -1123,8 +1236,10 @@ class GenerationEngine:
         if done:
             # the first generated token sits at absolute position L
             tok = _sample_one(logits[0], req.temperature, req.seed, L)
-        self._busy_prefill_s += time.perf_counter() - t0
-        self._counts["prefill_chunks"] += 1
+        t1 = time.perf_counter()
+        self._busy_prefill_s += t1 - t0
+        self._count("prefill_chunks")
+        self._observe("gen.prefill.us", t1 - t0)
         s.chunk_pos = s.cache_len = end
         if not done:
             return
@@ -1134,8 +1249,10 @@ class GenerationEngine:
         s.chunk_hashes = None
         s.last_token = tok
         s.generated = [tok]
-        self._counts["prefills"] += 1
+        self._count("prefills")
+        self._observe("gen.ttft.us", t1 - req.future.submitted_at)
         self._emit(s, i, tok)
+        self._note_occupancy()
 
     # ------------------------------------------------------------- prefill
     def _prefill(self, req, slot, hashes=None, lead=(), reserve=0):
@@ -1144,6 +1261,7 @@ class GenerationEngine:
         bucket = cfg.bucket_for(L)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :L] = req.prompt
+        self._count("h2d_bytes", toks.nbytes)
         t0 = time.perf_counter()
         logits, k, v = self._block.prefill(torch.from_numpy(toks).to(dev),
                                            L)
@@ -1157,6 +1275,7 @@ class GenerationEngine:
             # scatter into the null block
             ids = np.zeros((bucket // bs,), np.int64)
             ids[len(lead):len(s.blocks)] = s.blocks[len(lead):]
+            self._count("h2d_bytes", ids.nbytes)
             ids = torch.from_numpy(ids).to(dev)
             _pa.scatter_prompt_blocks(self._kv_k, k, ids, bs)
             _pa.scatter_prompt_blocks(self._kv_v, v, ids, bs)
@@ -1171,10 +1290,14 @@ class GenerationEngine:
             self._register(req, s, hashes, logits[0])
         s.last_token = tok
         s.generated = [tok]
-        self._busy_prefill_s += time.perf_counter() - t0
-        self._counts["prefills"] += 1
+        t1 = time.perf_counter()
+        self._busy_prefill_s += t1 - t0
+        self._count("prefills")
+        self._observe("gen.prefill.us", t1 - t0)
+        self._observe("gen.ttft.us", t1 - req.future.submitted_at)
         self._slots[slot] = s
         self._emit(s, slot, tok)
+        self._note_occupancy()
 
     # -------------------------------------------------------------- decode
     def _decode_iteration(self):
@@ -1212,7 +1335,7 @@ class GenerationEngine:
                     self._pool.release(old)
                     cow_dst.append(s.blocks[b])
                     cow_src.append(old)
-                    self._counts["kv_cow"] += 1
+                    self._count("kv_cow")
                 if spec:
                     # the window's later blocks lie past the sequence
                     # end, always fresh; rows past max_len go to the
@@ -1222,6 +1345,9 @@ class GenerationEngine:
                     while len(s.blocks) <= last_b:
                         s.blocks.append(self._alloc_block(s))
                 pt[i, :len(s.blocks)] = s.blocks
+        self._count("h2d_bytes", tokens.nbytes + positions.nbytes
+                    + temps.nbytes + seeds.nbytes
+                    + (pt.nbytes if self._paged else 0))
         t0 = time.perf_counter()
         if self._paged and cow_dst:
             dst = torch.tensor(cow_dst, device=dev)
@@ -1254,28 +1380,38 @@ class GenerationEngine:
             # the sampled token lands at absolute position `positions + 1`
             out = _sample(logits, temps, seeds, positions + 1)[:, None]
             acc = np.zeros((n,), np.int32)
-        self._busy_decode_s += time.perf_counter() - t0
-        self._counts["decodes"] += 1
+        t1 = time.perf_counter()
+        self._busy_decode_s += t1 - t0
+        self._count("decodes")
+        self._observe("gen.decode.us", t1 - t0)
+        produced = 0
         for i in active:
             s = self._slots[i]
             a = int(acc[i])
             if spec:
-                self._counts["spec_proposed"] += spec
-                self._counts["spec_accepted"] += a
+                self._count("spec_proposed", spec)
+                self._count("spec_accepted", a)
                 # the rejected tail is the rollback: its rows stay past
                 # cache_len, and the next window writes over them
-                self._counts["spec_rollback"] += spec - a
+                self._count("spec_rollback", spec - a)
             for j in range(a + 1):
                 s.cache_len += 1       # the fed token's row was written
                 tok = int(out[i, j])
                 s.last_token = tok
                 s.generated.append(tok)
+                produced += 1
                 self._emit(s, i, tok)
                 if self._slots[i] is not s:
                     # retired inside the window: the later accepted
                     # tokens are dropped, as a sequential engine would
                     # never have produced them
                     break
+        if spec and telemetry.enabled and self._counts["spec_proposed"]:
+            telemetry.gauge("gen.spec.accept_rate").set(round(
+                self._counts["spec_accepted"]
+                / self._counts["spec_proposed"], 4))
+        self._note_occupancy()
+        self._note_rate(t1, produced)
 
     def _spec_window(self, tok_t, pos_t, pt_t, temps, seeds, positions):
         """Draft K tokens with the first ``spec_draft_layers`` layers,
@@ -1314,7 +1450,7 @@ class GenerationEngine:
     def _emit(self, s, slot, tok):
         """Stream one token and apply the retirement rules."""
         req = s.req
-        self._counts["tokens"] += 1
+        self._count("tokens")
         req.future._emit_token(tok)
         if req.eos_id is not None and tok == req.eos_id:
             return self._retire(slot, "eos")
@@ -1333,8 +1469,11 @@ class GenerationEngine:
             self._release_slot_blocks(s)
             self._free.append(slot)
             self._cond.notify_all()
-        self._counts["retire_" + reason] += 1
+        self._count("retire_" + reason)
         req = s.req
+        self._observe("gen.e2e.us",
+                      time.perf_counter() - req.future.submitted_at)
+        self._note_occupancy()
         toks = np.asarray(s.generated, np.int32)
         req.future._end_stream()
         if reason == "deadline":

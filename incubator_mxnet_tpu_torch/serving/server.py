@@ -11,8 +11,11 @@ batch up to a bucket size on the host (numpy), runs the predictor — a
 ``input_dtypes`` declares each input's dtype beside ``input_shapes``
 (float32 by default); ``queue_depth()`` reads the queue; with
 ``ServingConfig(watchdog_s=s)`` a watchdog thread logs every thread's
-stack and counts a stall (``stats()["watchdog_stalls"]``) when the
-worker makes no progress for ``s`` seconds while requests are queued.
+stack and counts a stall (``serving.watchdog.stall``) when the worker
+makes no progress for ``s`` seconds while requests are queued.
+``stats()`` is the ``serving.*`` slice of ``telemetry.report(as_dict=
+True)``, as in the JAX server (the registry is process-wide, so every
+server of the process adds to it).
 A worker that dies outside its per-batch handler fails every queued
 future with WorkerCrashedError and refuses new submits.
 
@@ -22,10 +25,10 @@ and a symbol ``predict.Predictor`` (``_SymbolRunner``: one
 batch, its input specs read from the bound executor).
 
 What differs from the JAX server: the ``CompiledPredictor`` backend
-waits for a later slice of ROADMAP A7; the autotune consult, fleet shedding, the telemetry,
-tracing, request-journal and fault-injection hooks, and the watchdog's
-flight-recorder dump (``diagnostics.dump_state``) wait for A9.
-``stats()`` returns the server's own counters instead.  Outputs in bf16
+waits for a later slice of ROADMAP A7; the autotune consult, fleet
+shedding, the tracing, request-journal and fault-injection hooks, and
+the watchdog's flight-recorder dump (``diagnostics.dump_state``) wait
+for A9.  Outputs in bf16
 (``BlockPredictor(bf16_compute=True)``) leave the server widened to
 float32, which is exact: numpy has no bf16 (the JAX server hands back
 ``ml_dtypes`` bf16 arrays).
@@ -43,6 +46,7 @@ import traceback
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import MXNetError
 from ..context import resolve_device
 from .batcher import (DynamicBatcher, Request, ServerClosedError,
@@ -52,6 +56,19 @@ from .config import ServingConfig
 __all__ = ["ModelServer"]
 
 _logger = logging.getLogger(__name__)
+
+#: the serving.* metrics of the JAX schema: the batcher's admission and
+#: queue, the worker's batches, errors, heartbeat and latencies
+_SERVING_METRICS = (
+    ("counter", "serving.request.count"), ("counter", "serving.reject.count"),
+    ("counter", "serving.expire.count"), ("gauge", "serving.queue.depth"),
+    ("histogram", "serving.queue_wait.us"),
+    ("counter", "serving.batch.count"), ("counter", "serving.error.count"),
+    ("counter", "serving.worker_crash.count"),
+    ("histogram", "serving.batch_fill.ratio"),
+    ("histogram", "serving.exec.us"), ("histogram", "serving.e2e.us"),
+    ("gauge", "serving.worker.heartbeat"),
+    ("counter", "serving.watchdog.stall"))
 
 
 def _to_numpy(out):
@@ -171,6 +188,11 @@ class ModelServer:
             self._specs = [(tuple(s), np.dtype(d))
                            for s, d in zip(shapes, input_dtypes)]
         self._batcher = DynamicBatcher(config)
+        if telemetry.enabled:
+            # the serving.* schema exists from the first server on,
+            # zeros included, as the JAX server registers it
+            for kind, name in _SERVING_METRICS:
+                getattr(telemetry, kind)(name)
         # serialises predictor execution between the worker and warmup()
         self._exec_lock = threading.Lock()
         self._closed = False
@@ -277,22 +299,29 @@ class ModelServer:
             with self._scope():
                 while True:
                     batch = self._batcher.next_batch()
-                    self._hb += 1             # progress heartbeat
+                    self._beat()              # progress heartbeat
                     if batch is None:
                         return                # closed and drained
                     if batch:                 # else: all had expired
                         self._run_batch(batch)
-                    self._hb += 1
+                    self._beat()
         except Exception as e:
             # containment: a worker dying outside the per-batch handler
             # must not leave queued futures blocking forever
             self._worker_exc = e
+            if telemetry.enabled:
+                telemetry.counter("serving.worker_crash.count").inc()
             _logger.exception("serving worker died: failing %d pending "
                               "request(s), refusing new submits",
                               len(self._batcher))
             self._batcher.fail_pending(WorkerCrashedError(
                 f"serving worker crashed before this request ran ({e!r}); "
                 "the server is dead — recreate it"), close=True)
+
+    def _beat(self):
+        self._hb += 1
+        if telemetry.enabled:
+            telemetry.gauge("serving.worker.heartbeat").set(self._hb)
 
     def _run_batch(self, reqs):
         """Assemble, pad, run and scatter one batch.  A failure fails
@@ -314,21 +343,33 @@ class ModelServer:
             self._exec_s += time.perf_counter() - t0
         except Exception as e:
             self._counts["errors"] += 1
+            if telemetry.enabled:
+                telemetry.counter("serving.error.count").inc()
             _logger.exception("serving batch of %d request(s) failed",
                               len(reqs))
             for r in reqs:
                 if not r.future.done():
                     r.future.set_exception(e)
             return
+        t1 = time.perf_counter()
         self._counts["batches"] += 1
         self._counts["examples"] += total
         self._counts["padded"] += bucket
+        tel = telemetry.enabled
+        if tel:
+            telemetry.counter("serving.batch.count").inc()
+            telemetry.histogram("serving.batch_fill.ratio").observe(
+                total / bucket)
+            telemetry.histogram("serving.exec.us").observe((t1 - t0) * 1e6)
         off = 0
         for r in reqs:
             sliced = [o[off:off + r.n] for o in outs]
             off += r.n
             if r.unbatch:
                 sliced = [o[0] for o in sliced]
+            if tel:
+                telemetry.histogram("serving.e2e.us").observe(
+                    (t1 - r.t_submit) * 1e6)
             r.future.set_result(sliced[0] if len(sliced) == 1 else sliced)
 
     # ----------------------------------------------------------- watchdog
@@ -349,6 +390,8 @@ class ModelServer:
                 continue
             if now - last_progress >= wd_s:
                 self._stalls += 1
+                if telemetry.enabled:
+                    telemetry.counter("serving.watchdog.stall").inc()
                 _logger.error(
                     "serving worker made no progress for %.2fs with %d "
                     "queued request(s); thread stacks:\n%s",
@@ -374,7 +417,13 @@ class ModelServer:
                 self._runner.run(cols)
 
     def stats(self):
-        """The server's counters: requests, batches, examples, padded
+        """The ``serving.*`` slice of ``telemetry.report(as_dict=True)``
+        (JAX ``ModelServer.stats``)."""
+        snap = telemetry.report(as_dict=True)
+        return {k: v for k, v in snap.items() if k.startswith("serving.")}
+
+    def _counters(self):
+        """This server's own counts: requests, batches, examples, padded
         (bucket slots run), errors, rejected, expired, ``mean_fill``
         (examples / padded slots), ``exec_s`` (host seconds in the
         predictor, including the copies to and from the device) and

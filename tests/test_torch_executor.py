@@ -266,8 +266,7 @@ def test_backward_before_forward_and_after_eval_forward_raise():
 
 def test_group2ctx_on_one_device():
     """A ctx_group mapped to the executor's own context places its
-    arguments there; another device raises (multi-device, ROADMAP
-    A6)."""
+    arguments there; a card that does not exist (no GPU here) raises."""
     with tmx.cpu():
         with tmx.AttrScope(ctx_group="dev1"):
             a = tmx.sym.var("a")
@@ -278,3 +277,49 @@ def test_group2ctx_on_one_device():
             with pytest.raises(MXNetError):
                 (a + 1).bind(args={"a": tmx.nd.array([1.0])},
                              group2ctx={"dev1": tmx.gpu(0)})
+
+
+def _two_group_mlp(mx):
+    """x, w1 in group dev1; w2 in group dev2."""
+    with mx.AttrScope(ctx_group="dev1"):
+        x, w1 = mx.sym.var("x"), mx.sym.var("w1")
+        h = mx.sym.FullyConnected(x, weight=w1, no_bias=True, num_hidden=4)
+    with mx.AttrScope(ctx_group="dev2"):
+        w2 = mx.sym.var("w2")
+        y = mx.sym.FullyConnected(mx.sym.relu(h), weight=w2, no_bias=True,
+                                  num_hidden=3)
+    return y
+
+
+@pytest.mark.parametrize("placed", [False, True])
+def test_group2ctx_places_groups_on_their_contexts(placed):
+    """group2ctx with two groups on two contexts (cpu(0) and cpu(1)):
+    each group's argument and gradient arrays live on its context, and
+    the outputs and gradients equal the JAX executor's one-context bind
+    within 1e-5 of max.  (The JAX executor itself refuses this map: its
+    jitted forward gets arrays on two virtual devices.)"""
+    rs = np.random.RandomState(3)
+    vals = {"x": rs.randn(2, 5), "w1": rs.randn(4, 5), "w2": rs.randn(3, 4)}
+    vals = {k: v.astype(np.float32) for k, v in vals.items()}
+    cot = rs.randn(2, 3).astype(np.float32)
+
+    def run(mx, placed):
+        g2c = {"dev1": mx.cpu(0), "dev2": mx.cpu(1)} if placed else None
+        ex = _two_group_mlp(mx).bind(
+            ctx=mx.cpu(0), args={k: mx.nd.array(v) for k, v in vals.items()},
+            args_grad={k: mx.nd.zeros(v.shape) for k, v in vals.items()},
+            group2ctx=g2c)
+        out = ex.forward(is_train=True)[0].asnumpy()
+        ex.backward(mx.nd.array(cot))
+        ctxs = {k: (ex.arg_dict[k].context, ex.grad_dict[k].context)
+                for k in vals}
+        return out, _np(ex.grad_dict), ctxs
+    jo, jg, _ = run(jmx, False)
+    with tmx.cpu():
+        to, tg, tctx = run(tmx, placed)
+    _close(to, jo, "out")
+    for k in jg:
+        _close(tg[k], jg[k], k)
+    if placed:
+        assert tctx["w2"] == (tmx.cpu(1), tmx.cpu(1))
+        assert tctx["x"] == tctx["w1"] == (tmx.cpu(0), tmx.cpu(0))

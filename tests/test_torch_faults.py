@@ -45,6 +45,35 @@ input; every case failed before its repair.
   wrote the kernel's output into a fresh tensor with no ``grad_fn``.
   dq, dk and dv equal ``jax.grad`` of the JAX ``flash_attention``
   (``interpret=True``) within 1e-5 of their max.
+* C18 ``moe_ffn`` breaks tied gate probabilities toward the lower
+  expert, as ``lax.top_k`` does (``torch.topk`` took the higher ones):
+  with a zero gate its output, aux loss and gradients equal JAX's
+  within 1e-5 of their max (they were 19.96 apart).
+* C19 (in ``tests/test_torch_model_parallel.py``, whose four-rank world
+  runs it): a ``ShardedEmbedding`` block with no rows joins the
+  collectives with a zero lookup.
+* C20 a step the loss scaler skips leaves the optimizer's counters
+  where the JAX step leaves them: ``num_update`` counts applied updates
+  only, and Adam's, Adamax's and FTML's bias corrections with it; the
+  weights after one overflowed and three clean steps within 1e-6 of
+  JAX's ``TrainStep`` for SGD, Adam, Adamax and FTML.
+* C21 ``axis=()`` keeps each reduction's dtype and NaN rules: ``sum`` /
+  ``prod`` widen small integers and bool, ``mean`` of integers is
+  float32, ``nansum`` / ``nanprod`` replace NaN by 0 / 1; ``norm`` of a
+  float is ``|x|`` (1e30 stays finite).
+* C22 ``cbrt`` / ``rcbrt`` / ``hypot`` take ``abs`` after the float cast
+  (int8 -128), and ``rcbrt(-0.0)`` is -inf (signs exactly, values to
+  1e-6 relative: ``|x| ** (1/3)`` and XLA's cbrt are an ulp apart).
+* C23 bool computes where JAX computes (``abs``, ``ceil``, ``floor``,
+  ``trunc``, ``fix``, ``relu``, ``cbrt``, ``rcbrt``, ``softsign``,
+  ``smooth_l1``, the ``hypot``s, the ``mod``s, the ``power``s,
+  ``argmax`` / ``argmin`` / ``argmax_channel``), and ``cumsum`` keeps an
+  int8 / uint8 / int16 dtype; bool subtraction raises on both sides.
+
+The A4.6 names ride along: ``mx.random.poisson`` ... ``shuffle`` draw
+through the ``nd.random`` ops, ``autograd.set_recording`` /
+``set_training`` return the previous flag, ``autograd.get_symbol``
+raises, and ``cpu_pinned`` / ``num_devices`` / ``num_tpus`` exist.
 
 Tolerances: exact (value and dtype) for C1-C3 and C5-C7 (the same IEEE
 operations on both sides), except softmax (relative 1e-6, other
@@ -514,3 +543,249 @@ def test_c17_flash_attention_has_the_plain_vjp(causal):
         w = np.asarray(w)
         np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
                                    atol=1e-5 * np.abs(w).max())
+
+
+# ------------------------------------------------------------------ C18
+def test_c18_moe_zero_gate_breaks_ties_toward_the_lower_expert():
+    import jax
+    import jax.numpy as jnp
+    from incubator_mxnet_tpu.parallel.moe import moe_ffn as jax_moe
+    from incubator_mxnet_tpu_torch.parallel.moe import moe_ffn
+    rs = np.random.RandomState(18)
+    n, d, e, h = 12, 8, 4, 16
+    f = np.float32
+    args = [rs.randn(n, d).astype(f), np.zeros((d, e), f),
+            (0.3 * rs.randn(e, d, h)).astype(f),
+            (0.1 * rs.randn(e, h)).astype(f),
+            (0.3 * rs.randn(e, h, d)).astype(f),
+            (0.1 * rs.randn(e, d)).astype(f)]
+    cot = rs.randn(n, d).astype(f)
+    kw = dict(top_k=2, capacity_factor=1.0)
+
+    def jloss(*a):
+        y, aux = jax_moe(*a, **kw)
+        return (y * cot).sum() + aux, (y, aux)
+
+    (_, (jy, jaux)), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=tuple(range(6)), has_aux=True))(
+            *[jnp.asarray(a) for a in args])
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    y, aux = moe_ffn(*ts, **kw)
+    ((y * torch.from_numpy(cot)).sum() + aux).backward()
+    pairs = [(y.detach().numpy(), np.asarray(jy)),
+             (np.float32(aux.detach()), np.asarray(jaux))]
+    pairs += [(t.grad.numpy(), np.asarray(g)) for t, g in zip(ts, jgrads)]
+    for got, want in pairs:
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * max(np.abs(want).max(), 1))
+
+
+# ------------------------------------------------------------------ C20
+def _c20_batches():
+    rs = np.random.RandomState(20)
+    xs = [rs.randn(4, 5).astype(np.float32) for _ in range(4)]
+    ys = [rs.randn(4, 3).astype(np.float32) for _ in range(4)]
+    xs[0] = xs[0] * 1e6             # its scaled gradient overflows
+    return xs, ys
+
+
+def _c20_run(m, opt, step_cls, place):
+    m.random.seed(0)
+    net = m.gluon.nn.Dense(3, in_units=5, prefix="c20_")
+    net.initialize(m.init.Xavier())
+    net.weight.set_data(m.nd.array(np.linspace(
+        -1, 1, 15, dtype=np.float32).reshape(3, 5)))
+    net.bias.set_data(m.nd.array(np.array([0.1, -0.2, 0.3], np.float32)))
+    optimizer = m.optimizer.create(opt, learning_rate=0.01)
+    step = step_cls(net, m.gluon.loss.L2Loss(), optimizer,
+                    loss_scaler=m.numerics.LossScaler(
+                        init_scale=3e38, backoff_factor=1e-36), **place)
+    for x, y in zip(*_c20_batches()):
+        step(m.nd.array(x), m.nd.array(y))
+    step.sync_params()
+    return optimizer, [net.weight.data().asnumpy(),
+                       net.bias.data().asnumpy()]
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam", "adamax", "ftml"])
+def test_c20_skipped_step_rewinds_the_update_counters(opt):
+    jopt, want = _c20_run(jmx, opt, jparallel.TrainStep, {})
+    with tmx.cpu():
+        topt, got = _c20_run(tmx, opt, TrainStep, {"device": "cpu"})
+    assert jopt.num_update == 3
+    assert topt.num_update == 3
+    assert set(topt._index_update_count.values()) == {3}
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+
+
+def test_c20_rewind_updates_stops_at_begin_num_update():
+    for m in (jmx, tmx):
+        opt = m.optimizer.SGD(begin_num_update=5)
+        opt.num_update = 7
+        opt.rewind_updates(1)
+        assert opt.num_update == 6
+        opt.rewind_updates(4)
+        assert opt.num_update == 5
+
+
+# ------------------------------------------------------------- C21-C23
+EDGE = {"float32": np.array([[np.nan, 1e30], [-0.0, -3.0]], np.float32),
+        "int8": np.array([[-128, 3], [127, -5]], np.int8),
+        "uint8": np.array([[200, 3], [255, 0]], np.uint8),
+        "int16": np.array([[-300, 3], [32000, 5]], np.int16),
+        "bool": np.array([[True, False], [False, True]])}
+
+
+def _edge(m, dtype):
+    return m.nd.array(EDGE[dtype], dtype=dtype)
+
+
+@pytest.mark.parametrize("keepdims", [False, True])
+@pytest.mark.parametrize("dtype", list(EDGE))
+@pytest.mark.parametrize("op", ["sum", "prod", "mean", "nansum", "nanprod",
+                                "max", "min", "norm"])
+def test_c21_empty_axis_keeps_the_reduction_rules(op, dtype, keepdims):
+    got, want = _both(lambda m: getattr(m.nd, op)(
+        _edge(m, dtype), axis=(), keepdims=keepdims))
+    _exact(got, want, f"{op} {dtype} axis=()")
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: m.nd.cbrt(_edge(m, "int8")),
+    lambda m: m.nd.rcbrt(_edge(m, "int8")),
+    lambda m: m.nd.cbrt(m.nd.array(np.array([-0.0, 0.0, -8.0], np.float32))),
+    lambda m: m.nd.rcbrt(m.nd.array(np.array([-0.0, 0.0, -8.0],
+                                             np.float32))),
+    lambda m: m.nd.broadcast_hypot(
+        m.nd.array(np.array([-0.0, 3.0], np.float32)),
+        m.nd.array(np.array([-128, 4], np.int8), dtype="int8")),
+    lambda m: m.nd.broadcast_hypot(_edge(m, "int8"), _edge(m, "int8")),
+    lambda m: m.nd._internal._hypot_scalar(_edge(m, "int8"), scalar=0)],
+    ids=["cbrt_int8", "rcbrt_int8", "cbrt_zero", "rcbrt_zero",
+         "hypot_mixed", "hypot_int8", "hypot_scalar_int8"])
+def test_c22_cube_root_and_hypot_at_the_edges(call):
+    """Signs, infinities and dtypes exactly; values to 1e-6 relative
+    (the port's cube root is ``|x| ** (1/3)``, XLA's a cbrt: an ulp
+    apart)."""
+    got, want = _both(call)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(np.signbit(g), np.signbit(w))
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
+
+
+_C23_UNARY = ["abs", "ceil", "floor", "trunc", "fix", "relu", "cbrt",
+              "rcbrt", "softsign", "argmax_channel"]
+_C23_BINARY = ["broadcast_mod", "_mod", "broadcast_power", "_power",
+               "broadcast_hypot", "_hypot"]
+_C23_SCALAR = ["_mod_scalar", "_rmod_scalar", "_power_scalar",
+               "_rpower_scalar", "_hypot_scalar"]
+
+
+def _c23_call(op):
+    def call(m):
+        x = _edge(m, "bool")
+        f = getattr(m.nd, op, None) or getattr(m.nd._internal, op)
+        if op in _C23_BINARY:
+            return f(x, m.nd.array(EDGE["bool"][::-1].copy(), dtype="bool"))
+        if op in _C23_SCALAR:
+            # 7, not 2: the JAX registry caches an op by its attributes,
+            # and C12's ``** 2.0`` (== 2) would hand this call its
+            # float program
+            return f(x, scalar=7)
+        if op == "smooth_l1":
+            return f(x, scalar=1.0)
+        if op in ("argmax", "argmin"):
+            return f(x, axis=1)
+        return f(x)
+    return call
+
+
+@pytest.mark.parametrize("op", _C23_UNARY + _C23_BINARY + _C23_SCALAR +
+                         ["smooth_l1", "argmax", "argmin"])
+def test_c23_bool_computes_where_jax_computes(op):
+    got, want = _both(_c23_call(op))
+    _exact(got, want, f"{op} bool")
+
+
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int16", "bool"])
+@pytest.mark.parametrize("axis", [None, 1])
+def test_c23_cumsum_keeps_narrow_integer_dtypes(dtype, axis):
+    got, want = _both(lambda m: m.nd.cumsum(_edge(m, dtype), axis=axis))
+    _exact(got, want, f"cumsum {dtype}")
+
+
+@pytest.mark.parametrize("op", ["broadcast_sub", "elemwise_sub", "_minus"])
+def test_c23_bool_subtraction_raises_on_both_sides(op):
+    for m in (jmx, tmx):
+        with m.cpu():
+            x = _edge(m, "bool")
+            f = getattr(m.nd, op, None) or getattr(m.nd._internal, op)
+            with pytest.raises((TypeError, RuntimeError)):
+                f(x, x).asnumpy()
+
+
+# ---------------------------------------------------------- A4.6 names
+@pytest.mark.parametrize("name,kwargs", [
+    ("poisson", dict(lam=4.0)), ("exponential", dict(scale=2.0)),
+    ("gamma", dict(alpha=3.0, beta=0.5)),
+    ("negative_binomial", dict(k=3, p=0.4)),
+    ("generalized_negative_binomial", dict(mu=2.0, alpha=0.3))])
+def test_a46_random_samplers_are_the_nd_random_ops(name, kwargs):
+    """``mx.random.<name>`` draws what ``nd.random.<name>`` draws from
+    the same seed, with JAX's shape and dtype, and the mean within 6
+    standard errors of the JAX package's draw."""
+    shape = (4000,)
+    want = getattr(jmx.random, name)(shape=shape, **kwargs).asnumpy()
+    with tmx.cpu():
+        tmx.random.seed(11)
+        got = getattr(tmx.random, name)(shape=shape, **kwargs).asnumpy()
+        tmx.random.seed(11)
+        op_kw = {"lam": 0.5} if name == "exponential" else kwargs
+        op = getattr(tmx.nd.random, name)(shape=shape, **op_kw).asnumpy()
+    np.testing.assert_array_equal(got, op)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    se = np.sqrt(want.var() / shape[0] + got.var() / shape[0])
+    assert abs(got.mean() - want.mean()) <= 6 * se
+
+
+def test_a46_multinomial_and_shuffle():
+    probs = np.array([[0.0, 1.0, 0.0], [0.5, 0.0, 0.5]], np.float32)
+    data = np.arange(12, dtype=np.float32).reshape(6, 2)
+    for m in (jmx, tmx):
+        with m.cpu():
+            draw, logp = m.random.multinomial(m.nd.array(probs), shape=5,
+                                              get_prob=True)
+            mixed = m.random.shuffle(m.nd.array(data)).asnumpy()
+        draw = draw.asnumpy()
+        assert draw.shape == (2, 5) and draw.dtype == np.int32
+        assert (draw[0] == 1).all() and set(draw[1]) <= {0, 2}
+        assert logp.shape == (2, 5)
+        assert sorted(map(tuple, mixed)) == sorted(map(tuple, data))
+
+
+def test_a46_autograd_flags_and_get_symbol():
+    for m in (jmx, tmx):
+        ag = m.autograd
+        assert ag.set_recording(True) is False
+        assert ag.is_recording()
+        assert ag.set_recording(False) is True
+        assert ag.set_training(True) is False
+        assert ag.is_training()
+        assert ag.set_training(False) is True
+        assert not ag.is_recording() and not ag.is_training()
+        with pytest.raises(NotImplementedError):
+            ag.get_symbol(None)
+
+
+def test_a46_context_names():
+    for m in (jmx, tmx):
+        pinned = m.cpu_pinned(1)
+        assert (pinned.device_type, pinned.device_id) == ("cpu_pinned", 1)
+        assert str(pinned) == "cpu_pinned(1)"
+        assert m.num_tpus() == m.num_gpus() == 0
+        assert m.num_devices("cpu") >= 1
+    assert tmx.num_devices() == 1
+    with tmx.cpu_pinned():
+        assert tmx.nd.ones((2,)).asnumpy().tolist() == [1.0, 1.0]

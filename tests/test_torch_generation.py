@@ -24,7 +24,8 @@ from incubator_mxnet_tpu_torch.serving import (DeadlineExceededError,
                                                ServerClosedError)
 from incubator_mxnet_tpu_torch.serving.generation import (_draw_seed,
                                                           _gumbel)
-from torch_port_helpers import SMALL, jax_decoder, prompts, torch_twin
+from torch_port_helpers import (SMALL, fresh_port_telemetry,  # noqa: F401
+                                jax_decoder, prompts, torch_twin)
 
 
 def _engine(net=None, **kw):
@@ -49,7 +50,7 @@ def test_greedy_token_identical_to_jax_engine(layout):
                  max_new_tokens=8) as eng:
         futs = [eng.submit(p) for p in ps]
         got = [f.result(timeout=120) for f in futs]
-        assert eng.stats()["prefills"] == 4
+        assert eng.stats()["gen.prefill.count"] == 4
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(g, r)
         assert g.dtype == np.int32
@@ -62,13 +63,13 @@ def test_slot_reuse_after_eos_retirement():
         futs = [eng.submit([3, 1, 4], eos_id=first) for _ in range(6)]
         outs = [f.result(timeout=60) for f in futs]
         assert all(o.tolist() == [first] for o in outs)
-        assert eng.stats()["retire_eos"] == 6
+        assert eng.stats()["gen.retire.eos"] == 6
         assert eng.free_slots() == 2
         # every slot's block back: the prefix cache (on by default)
         # holds the one tail block of [3, 1, 4], which the 6 repeats hit
         assert eng.kv_info()["live"] == 1
         assert eng.kv_info()["prefix"] == {"blocks": 0, "terminals": 1}
-        assert eng.stats()["prefix_hit"] == 6
+        assert eng.stats()["gen.prefix.hit"] == 6
         assert eng.kv_info()["reserved"] == 0
 
 
@@ -82,7 +83,7 @@ def test_deadline_expiry_frees_mid_generation_slot():
             fut.result(timeout=60)
         assert 0 < len(ei.value.tokens) < 10 ** 6    # it was generating
         assert eng.free_slots() == 1
-        assert eng.stats()["retire_deadline"] == 1
+        assert eng.stats()["gen.retire.deadline"] == 1
         out = eng.submit([1, 2, 3], max_new_tokens=4).result(timeout=60)
         assert len(out) == 4
 
@@ -101,7 +102,7 @@ def test_queue_admission_bound():
         queued = [eng.submit([1, 2]), eng.submit([1, 2])]
         with pytest.raises(QueueFullError):
             eng.submit([1, 2])
-        assert eng.stats()["rejects"] == 1
+        assert eng.stats()["gen.reject.count"] == 1
     finally:
         eng.close(drain=False)
     for f in queued:
@@ -119,7 +120,7 @@ def test_memory_pressure_queues_instead_of_deadlocking():
     with _engine(slots=4, max_new_tokens=10, num_blocks=4) as eng:
         futs = [eng.submit(p) for p in ps]
         squeezed = [f.result(timeout=60) for f in futs]
-        assert eng.stats()["queued_on_memory"] >= 1
+        assert eng.stats()["gen.kv.queued_on_memory"] >= 1
     for a, b in zip(alone, squeezed):
         np.testing.assert_array_equal(a, b)
 
@@ -174,8 +175,8 @@ def test_concurrent_submitters_stress():
         st = eng.stats()
     for a, b in zip(alone, got):
         np.testing.assert_array_equal(a, b)
-    assert st["requests"] == st["prefills"] == 2 * len(ps)
-    assert st["tokens"] == 2 * sum(len(a) for a in alone)
+    assert st["gen.request.count"] == st["gen.prefill.count"] == 2 * len(ps)
+    assert st["gen.token.count"] == 2 * sum(len(a) for a in alone)
 
 
 def test_stream_and_close_without_drain():
@@ -203,7 +204,7 @@ def test_max_len_retirement_and_prompt_validation():
                  max_new_tokens=100) as eng:
         out = eng.submit([1, 2, 3, 4]).result(timeout=60)
         assert len(out) == 16 - 4 + 1
-        assert eng.stats()["retire_max_len"] == 1
+        assert eng.stats()["gen.retire.max_len"] == 1
         for bad in (list(range(1, 17)), [], [1, 32], [-1, 2]):
             with pytest.raises(MXNetError):
                 eng.submit(bad)

@@ -33,6 +33,7 @@ from incubator_mxnet_tpu_torch.serving import (DeadlineExceededError,
                                                GenerationEngine)
 from incubator_mxnet_tpu_torch.serving.generation import (_BlockPool,
                                                           _PrefixCache)
+from torch_port_helpers import fresh_port_telemetry  # noqa: F401
 from torch_port_helpers import SMALL, VOCAB, jax_decoder, prompts, \
     torch_twin
 
@@ -237,14 +238,14 @@ def test_terminal_prefix_hit_skips_prefill_like_jax(nets):
     want, _ = _jax(jnet, [prompt] * 3, sequential=True, **kw)
     with _port(tnet, **kw) as eng:
         got = [eng.submit(prompt).result(timeout=120)]
-        assert eng.stats()["prefills"] == 1
-        assert eng.stats()["prefix_miss"] == 1
+        assert eng.stats()["gen.prefill.count"] == 1
+        assert eng.stats()["gen.prefix.miss"] == 1
         got += [eng.submit(prompt).result(timeout=120) for _ in range(2)]
         st = eng.stats()
     _equal(got, want)
-    assert st["prefills"] == 1 and st["prefix_hit"] == 2
-    assert st["prefix_saved_tokens"] == 2 * len(prompt)
-    assert st["kv_cow"] >= 2
+    assert st["gen.prefill.count"] == 1 and st["gen.prefix.hit"] == 2
+    assert st["gen.prefix.saved_tokens"] == 2 * len(prompt)
+    assert st["gen.kv.cow.count"] >= 2
 
 
 def test_shared_full_block_dedup_like_jax(nets):
@@ -289,7 +290,7 @@ def test_memory_pressure_evicts_without_deadlock_like_jax(nets):
         st, info = eng.stats(), eng.kv_info()
     _equal(got, want)
     # admission queued, and dropped cold entries to make room
-    assert st["queued_on_memory"] > 0
+    assert st["gen.kv.queued_on_memory"] > 0
     assert info["prefix"]["terminals"] < len(ps)
     assert info["live"] + info["free"] == 3 and info["reserved"] == 0
 
@@ -340,7 +341,7 @@ def test_eviction_keeps_the_readmitted_prompts_own_blocks(nets, again):
     assert not bad, bad
     _equal(got, want)
     # the pinned blocks freed nothing: the prompt waited for R instead
-    assert st["queued_on_memory"] > 0
+    assert st["gen.kv.queued_on_memory"] > 0
 
 
 def test_copy_on_write_of_a_shared_tail_like_jax(nets):
@@ -358,7 +359,7 @@ def test_copy_on_write_of_a_shared_tail_like_jax(nets):
         got += _run(eng, [prompt, prompt])
         st = eng.stats()
     _equal(got, want * 3)
-    assert st["prefix_hit"] == 2 and st["kv_cow"] == 3
+    assert st["gen.prefix.hit"] == 2 and st["gen.kv.cow.count"] == 3
 
 
 SPEC = dict(slots=3, max_len=64, prefill_buckets=[16], max_new_tokens=12)
@@ -381,8 +382,8 @@ def test_spec_greedy_matches_jax_and_plain_with_rollback(nets):
         st = eng.stats()
     _equal(got, want)
     _equal(got, base)
-    assert st["spec_proposed"] > 0 and st["spec_rollback"] > 0
-    assert st["spec_proposed"] == st["spec_accepted"] + st["spec_rollback"]
+    assert st["gen.spec.proposed.count"] > 0 and st["gen.spec.rollback.count"] > 0
+    assert st["gen.spec.proposed.count"] == st["gen.spec.accepted.count"] + st["gen.spec.rollback.count"]
 
 
 def test_spec_sampled_pure_function_of_seed_and_position(nets):
@@ -398,7 +399,7 @@ def test_spec_sampled_pure_function_of_seed_and_position(nets):
                                                lengths=[3, 7, 5, 8]))]
         crowded = eng.submit(probe, **kw).result(timeout=120)
         [f.result(timeout=120) for f in noise]
-        assert eng.stats()["spec_proposed"] > 0
+        assert eng.stats()["gen.spec.proposed.count"] > 0
     with _port(tnet, **cfg) as eng:
         fresh = eng.submit(probe, **kw).result(timeout=120)
     np.testing.assert_array_equal(alone, crowded)
@@ -418,8 +419,8 @@ def test_chunked_prefill_matches_jax(nets):
         got = _run(eng, ps, stagger=True)
         st = eng.stats()
     _equal(got, want)
-    assert st["prefill_chunks"] == sum(-(-len(p) // 8) for p in ps)
-    assert st["prefills"] == len(ps)
+    assert st["gen.prefill.chunk.count"] == sum(-(-len(p) // 8) for p in ps)
+    assert st["gen.prefill.count"] == len(ps)
 
 
 def test_partial_prefix_hit_fills_only_tail_chunks_like_jax(nets):
@@ -432,12 +433,12 @@ def test_partial_prefix_hit_fills_only_tail_chunks_like_jax(nets):
     with _port(tnet, **kw) as eng:
         got = [eng.submit(p_cold).result(timeout=120)]
         s0 = eng.stats()
-        assert s0["prefill_chunks"] == len(p_cold) // 8
+        assert s0["gen.prefill.chunk.count"] == len(p_cold) // 8
         got.append(eng.submit(p_warm).result(timeout=120))
         s1 = eng.stats()
     _equal(got, want)
-    assert s1["prefill_chunks"] - s0["prefill_chunks"] == 1
-    assert s1["prefix_saved_tokens"] - s0["prefix_saved_tokens"] == 16
+    assert s1["gen.prefill.chunk.count"] - s0["gen.prefill.chunk.count"] == 1
+    assert s1["gen.prefix.saved_tokens"] - s0["gen.prefix.saved_tokens"] == 16
 
 
 def test_spec_with_chunks_equals_the_chunk_only_engine(nets):
@@ -449,7 +450,7 @@ def test_spec_with_chunks_equals_the_chunk_only_engine(nets):
         got = _run(eng, ps, stagger=True)
         st = eng.stats()
     _equal(got, want)
-    assert st["prefill_chunks"] > 0 and st["spec_proposed"] > 0
+    assert st["gen.prefill.chunk.count"] > 0 and st["gen.spec.proposed.count"] > 0
 
 
 def test_deadline_mid_chunk_retires_and_frees_blocks():
@@ -464,8 +465,8 @@ def test_deadline_mid_chunk_retires_and_frees_blocks():
             fut.result(timeout=120)
         assert len(ei.value.tokens) == 0
         st = eng.stats()
-        assert st["retire_deadline"] == 1 and st["prefills"] == 1
-        assert st["prefill_chunks"] < 1 + 480 // 8
+        assert st["gen.retire.deadline"] == 1 and st["gen.prefill.count"] == 1
+        assert st["gen.prefill.chunk.count"] < 1 + 480 // 8
         assert eng.live_blocks() == 0
         assert len(eng.submit([1, 2, 3]).result(timeout=120)) == 4
 
@@ -536,11 +537,14 @@ def test_env_switches(nets, monkeypatch, env, key, value):
         st = eng.stats()
     np.testing.assert_array_equal(a, b)
     if key == "prefix_cache":
-        assert st["prefills"] == 2 and st["prefix_hit"] == 0
+        # the prefix slice counts nothing (an earlier test of the
+        # process may have registered it)
+        assert st["gen.prefill.count"] == 2
+        assert st.get("gen.prefix.hit", 0) == 0
     elif key == "spec_k":
-        assert st["spec_proposed"] > 0
+        assert st["gen.spec.proposed.count"] > 0
     else:
-        assert st["prefill_chunks"] > 0
+        assert st["gen.prefill.chunk.count"] > 0
     monkeypatch.delenv(env)
     assert getattr(GenerationConfig(**kw), key) == \
         {"prefix_cache": True, "spec_k": 0, "prefill_chunk": 0}[key]

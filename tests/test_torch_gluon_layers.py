@@ -312,9 +312,13 @@ def test_deferred_shapes_and_errors(tmp_path):
         want = dense(x).asnumpy()
         assert dense.weight.shape == (3, 10)
         assert dense.weight.data().shape == (3, 10)
-        with pytest.raises(MXNetError, match="A6"):
-            tmx.gluon.nn.Dense(2, in_units=2).initialize(
-                ctx=[tmx.cpu(0), tmx.cpu(1)])
+        # several contexts: the first is taken, as in the JAX package
+        lists = []
+        for m in (jmx, tmx):
+            several = m.gluon.nn.Dense(2, in_units=2, prefix="several_")
+            several.initialize(ctx=[m.cpu(1), m.cpu(0)])
+            lists.append([c.device_id for c in several.weight.list_ctx()])
+        assert lists[0] == lists[1] == [1]
         # export writes the params in the checkpoint format, which the
         # JAX package loads with its arg: keys
         dense.export(str(tmp_path / "d"))
@@ -452,3 +456,40 @@ def test_loss_matches_jax(name, weighted):
     got = _loss_run(tmx, name, inputs, weight)
     _close(got[0], ref[0], "loss")
     _close(got[1], ref[1], "grad")
+
+
+@pytest.mark.parametrize("where", ["parameter", "dict", "reset_ctx",
+                                   "deferred"])
+def test_several_contexts_take_the_first(where):
+    """``initialize(ctx=[a, b])`` (a Parameter, a ParameterDict, a
+    deferred shape) and ``reset_ctx([a, b])`` place the value on the
+    first context, as the JAX package's ``initialize`` does (its
+    ``reset_ctx`` takes one context); ``list_ctx`` names it, and the
+    values equal JAX's from the same seed."""
+    def run(m):
+        m.random.seed(4)
+        net = m.gluon.nn.Dense(3, in_units=0 if where == "deferred" else 4,
+                               prefix="ctxs_")
+        ctxs = [m.cpu(1), m.cpu(0)]
+        if where == "parameter":
+            for p in net.collect_params().values():
+                p.initialize(ctx=ctxs)
+        elif where == "reset_ctx":
+            # the JAX reset_ctx takes one context (a list raises there)
+            net.initialize(ctx=m.cpu(0))
+            net.collect_params().reset_ctx(ctxs if m is tmx else ctxs[0])
+        else:
+            net.collect_params().initialize(ctx=ctxs)
+        if where == "deferred":
+            assert [c.device_id for c in net.weight.list_ctx()] == [1]
+            net(m.nd.ones((2, 4), ctx=m.cpu(1)))
+        return ({n: [c.device_id for c in p.list_ctx()]
+                 for n, p in net.collect_params().items()},
+                {n: p.data().asnumpy()
+                 for n, p in net.collect_params().items()})
+    jctx, jvals = run(jmx)
+    with tmx.cpu():
+        tctx, tvals = run(tmx)
+    assert tctx == jctx == {"ctxs_weight": [1], "ctxs_bias": [1]}
+    for n in jvals:
+        np.testing.assert_allclose(tvals[n], jvals[n], rtol=0, atol=1e-6)

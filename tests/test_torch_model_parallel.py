@@ -70,6 +70,15 @@ def _inputs():
         init[kind] = gluon_params_to_numpy(net)
     x, y = markov_batch(rs, worker.BATCH, worker.SIZES["seq_len"],
                         worker.SIZES["vocab"])
+    u = worker.UNEVEN
+    with mx.cpu():
+        net = worker.build_uneven(mx)
+        net.initialize(init=mx.init.Xavier(), ctx=mx.cpu())
+        net(mx.nd.zeros((1, u["tokens"])))
+    uneven = {"init": gluon_params_to_numpy(net),
+              "ids": rs.randint(0, u["vocab"], (2, u["tokens"])).astype(
+                  np.float32),
+              "y": rs.randn(2, u["tokens"], 3).astype(np.float32)}
     a = worker.A2A
     f = np.float32
     a2a = {"x": rs.randn(a["tokens"], a["dim"]).astype(f),
@@ -81,7 +90,7 @@ def _inputs():
                   ).astype(f),
            "b2": (0.1 * rs.randn(a["experts"], a["dim"])).astype(f),
            "cot": rs.randn(a["tokens"], a["dim"]).astype(f)}
-    return {"init": init, "x": x, "y": y, "a2a": a2a}
+    return {"init": init, "x": x, "y": y, "a2a": a2a, "uneven": uneven}
 
 
 def _jax_train(name, inputs):
@@ -295,6 +304,34 @@ def test_moe_ffn_alltoall_matches_jax(world):
             np.testing.assert_allclose(
                 g, want, rtol=0,
                 atol=STEP_RTOL * np.abs(want).max() + STEP_ATOL)
+
+
+# ------------------------------------------- sizes tp=4 does not divide
+def test_c19_empty_blocks_train_as_one_process(world):
+    """C19: ShardedEmbedding(5) and ColumnParallelDense(5) over tp=4 cut
+    in blocks of 2, 2, 1 and 0 rows; the rank with an empty block still
+    joins every collective (before the repair its lookup raised while
+    the others waited in the all-reduce).  After two SGD steps each
+    rank's global parameters equal one process's steps."""
+    inputs, ranks, _, _ = world
+    u = inputs["uneven"]
+    from incubator_mxnet_tpu_torch.convert import gluon_params_from_numpy
+    with mx.cpu():
+        net = worker.build_uneven(mx)
+        gluon_params_from_numpy(net, u["init"], ctx=mx.cpu())
+    step = parallel.TrainStep(net, mx.gluon.loss.L2Loss(),
+                              mx.optimizer.SGD(**worker.SGD_KW),
+                              device="cpu")
+    for _ in range(worker.STEPS):
+        step(u["ids"], u["y"])
+    want = gluon_params_to_numpy(net)
+    for r in ranks:
+        got = r["uneven"]
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            assert not np.array_equal(w, u["init"][k]), k
+            np.testing.assert_allclose(got[k], w, rtol=0,
+                                       atol=1e-6 * np.abs(w).max())
 
 
 # --------------------------------------------------------- refusals

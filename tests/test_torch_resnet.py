@@ -27,7 +27,8 @@ from incubator_mxnet_tpu_torch.gluon.nn._modules import FusedBNReLUConv2D
 from incubator_mxnet_tpu_torch.ops.fused_conv import sbr_conv3x3, sbr_matmul
 from incubator_mxnet_tpu_torch.predict import BlockPredictor
 from incubator_mxnet_tpu_torch.serving import ModelServer
-from torch_port_helpers import jax_resnet, torch_twin_resnet
+from torch_port_helpers import (fresh_port_telemetry,  # noqa: F401
+                                jax_resnet, torch_twin_resnet)
 
 REL_TOL = 1e-4
 SHAPE = (2, 16, 16, 3)
@@ -162,7 +163,8 @@ def test_served_logits_match_jax(r50):
     _close(np.stack(singles), ref)
     _close(batched, ref)
     stats = server.stats()
-    assert stats["examples"] == 4 and stats["errors"] == 0
+    assert server._counters()["examples"] == 4
+    assert stats["serving.error.count"] == 0
 
 
 def test_cpu_path_counts_no_kernel_launches(r50):

@@ -29,6 +29,7 @@ from incubator_mxnet_tpu_torch.serving import (DeadlineExceededError,
                                                ServingConfig,
                                                WorkerCrashedError,
                                                pow2_buckets)
+from torch_port_helpers import fresh_port_telemetry  # noqa: F401
 
 
 def _dense(seed=0, in_units=12, units=8):
@@ -178,10 +179,11 @@ def test_concurrent_resnet_serving_matches_direct_forwards():
     server.close()
     assert not errors, errors
     np.testing.assert_allclose(got, direct, atol=1e-5, rtol=0)
-    stats = server.stats()
-    assert stats["requests"] == 26 and stats["examples"] == 30
-    assert 0 < stats["mean_fill"] <= 1 and stats["errors"] == 0
-    assert stats["batches"] >= 30 // 4 and stats["exec_s"] > 0
+    stats, own = server.stats(), server._counters()
+    assert stats["serving.request.count"] == 26 and own["examples"] == 30
+    assert 0 < own["mean_fill"] <= 1 and stats["serving.error.count"] == 0
+    assert stats["serving.batch.count"] >= 30 // 4 and own["exec_s"] > 0
+    assert stats["serving.batch.count"] == own["batches"]
 
 
 def test_many_clients_lose_no_request_or_count():
@@ -215,9 +217,10 @@ def test_many_clients_lose_no_request_or_count():
     server.close()
     np.testing.assert_allclose(got.reshape(-1, 8), direct, rtol=1e-6,
                                atol=1e-7)
-    stats = server.stats()
-    assert stats["requests"] == stats["examples"] == 320
-    assert stats["rejected"] == stats["expired"] == stats["errors"] == 0
+    stats, own = server.stats(), server._counters()
+    assert stats["serving.request.count"] == own["examples"] == 320
+    assert stats["serving.reject.count"] == stats["serving.expire.count"] \
+        == stats["serving.error.count"] == 0
 
 
 # ------------------------------------------------- deadlines and close
@@ -230,7 +233,7 @@ def test_server_deadline_expires_queued_work():
         doomed.result(timeout=60)
     assert live.result(timeout=60).shape == (8,)
     server.close()
-    assert server.stats()["expired"] == 1
+    assert server.stats()["serving.expire.count"] == 1
 
 
 def test_server_close_drains_and_rejects_new_work():
@@ -276,7 +279,7 @@ def test_server_backend_failure_fails_batch_not_loop():
     good = server.submit(np.ones(3, "float32"))
     assert good.result(timeout=60).shape == (1,)       # loop survived
     server.close()
-    assert server.stats()["errors"] == 1
+    assert server.stats()["serving.error.count"] == 1
 
 
 def test_worker_crash_fails_pending_and_refuses_new_work():
@@ -542,7 +545,8 @@ def test_watchdog_counts_a_stall_and_logs_the_stacks(caplog):
         for f in futs:
             f.result(10)
         server.close()
-    assert server.stats()["watchdog_stalls"] >= 1
+    stalls = server.stats()["serving.watchdog.stall"]
+    assert stalls >= 1
     text = "\n".join(r.getMessage() for r in caplog.records)
     assert "no progress" in text and "mxnet-serving-worker" in text
     assert "sleepy" in text
@@ -552,7 +556,9 @@ def test_watchdog_counts_a_stall_and_logs_the_stacks(caplog):
         f.result(10)
     time.sleep(0.15)
     fast.close()
-    assert fast.stats()["watchdog_stalls"] == 0
+    # the registry is the process's: the fast server adds none
+    assert fast.stats()["serving.watchdog.stall"] == stalls
+    assert fast._counters()["watchdog_stalls"] == 0
     assert not any(t.name == "mxnet-serving-watchdog" and t.is_alive()
                    for t in threading.enumerate())
 

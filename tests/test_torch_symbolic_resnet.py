@@ -25,6 +25,7 @@ import pytest
 import chip_smoke as cs
 import incubator_mxnet_tpu as jmx
 import incubator_mxnet_tpu_torch as tmx
+from torch_port_helpers import fresh_port_telemetry  # noqa: F401
 
 UNITS, FILTERS, CLASSES, IMAGE, BATCH = [1, 1], [8, 16, 32], 10, \
     (3, 32, 32), 4
@@ -243,7 +244,8 @@ def test_model_server_over_symbol_predictor(jax_side, tmp_path):
         server.close()
     assert got.shape == (14, CLASSES)
     _close(got, direct, "served vs direct", rel=1e-5)
-    assert stats["examples"] == 14 and stats["errors"] == 0
+    assert server._counters()["examples"] == 14
+    assert stats["serving.error.count"] == 0
     assert set(buckets) <= set(server._cfg.buckets) | {BATCH}
     # concurrent forwards: each thread's get_output is its own
     seen = {}

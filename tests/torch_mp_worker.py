@@ -47,6 +47,9 @@ MESHES = {"dp2_tp2": (dict(dp=2, tp=2), "flash", "mlp"),
           "tp2_pp2": (dict(tp=2, pp=2), "flash", "pp")}
 EXPERTS, MICROBATCHES = 4, 2
 A2A = dict(tokens=16, dim=8, hidden=16, experts=4)
+#: sizes tp=4 does not divide: blocks of ceil(5 / 4) = 2 rows leave
+#: rank 3 no row of the embedding and no output feature of the column
+UNEVEN = dict(vocab=5, dim=6, tokens=7)
 
 
 def port_apply(fn, x):
@@ -76,6 +79,34 @@ def build_lm(pkg, apply, attend, kind):
     return c["TransformerLM"](**SIZES, attend=attend,
                               experts=EXPERTS if kind == "moe" else 0,
                               prefix="lm_")
+
+
+def build_uneven(pkg):
+    """ShardedEmbedding(5) -> ColumnParallelDense(5) ->
+    RowParallelDense(in_units=5), to be cut over tp=4."""
+    u = UNEVEN
+    net = pkg.gluon.nn.HybridSequential(prefix="uneven_")
+    with net.name_scope():
+        net.add(pkg.parallel.ShardedEmbedding(u["vocab"], u["dim"]),
+                pkg.parallel.ColumnParallelDense(
+                    5, in_units=u["dim"], flatten=False, activation="relu"),
+                pkg.parallel.RowParallelDense(3, in_units=5, flatten=False))
+    return net
+
+
+def uneven_job(inputs):
+    """Two SGD steps of ``build_uneven`` on tp=4: the global parameters
+    after them."""
+    u = inputs["uneven"]
+    with mx.cpu():
+        net = build_uneven(mx)
+        gluon_params_from_numpy(net, u["init"], ctx=mx.cpu())
+    step = TrainStep(net, mx.gluon.loss.L2Loss(),
+                     mx.optimizer.SGD(**SGD_KW),
+                     mesh=make_mesh(tp=4, device="cpu"))
+    for _ in range(STEPS):
+        step(u["ids"], u["y"])
+    return gluon_params_to_numpy(net)
 
 
 def _np(t):
@@ -171,6 +202,7 @@ def main():
                         weights_only=False)
     out = {name: train_job(name, inputs, rank, outdir) for name in MESHES}
     out["alltoall"] = alltoall_job(inputs)
+    out["uneven"] = uneven_job(inputs)
     out["refusals"] = refusal_jobs()
     torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     torch.distributed.barrier()

@@ -4,6 +4,7 @@ built on both sides — the JAX package's model (the reference) and the
 port's, the weights moved through ``convert.params_from_numpy`` /
 ``convert.resnet_params_from_numpy``."""
 import numpy as np
+import pytest
 
 import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu import gluon as jax_gluon
@@ -17,6 +18,19 @@ from incubator_mxnet_tpu_torch.gluon.decoder import \
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
 
 VOCAB = 32
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_telemetry():
+    """The port's telemetry registry zeroed and its switch read from
+    ``MXNET_TELEMETRY`` before each test of a module that imports this
+    fixture: the registry is process-wide (the JAX conftest resets only
+    the JAX package's), so ``stats()`` counts would leak from one test
+    into the next in a worker."""
+    from incubator_mxnet_tpu_torch import telemetry
+    telemetry.reset()
+    telemetry.enabled = telemetry._default_enabled()
+    yield telemetry
 SMALL = dict(vocab=VOCAB, dim=32, heads=2, depth=2, max_len=64)
 
 

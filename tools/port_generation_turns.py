@@ -28,6 +28,15 @@ import subprocess
 import sys
 
 
+def _counts(eng):
+    """The engine's own decodes, prefills and busy seconds: ``_counters``
+    (``stats()`` is the process's gen.* telemetry slice), or in a
+    checkout older than the telemetry port, ``stats()``, which held
+    them under the same keys."""
+    own = getattr(eng, "_counters", None)
+    return own() if own is not None else eng.stats()
+
+
 def child(reps, seed):
     import numpy as np
     import torch
@@ -47,9 +56,9 @@ def child(reps, seed):
     runs = []
     try:
         for _ in range(reps + 1):
-            before = eng.stats()
+            before = _counts(eng)
             outs, wall = cs._serve(eng, greedy, sampled)
-            after = eng.stats()
+            after = _counts(eng)
             diff = {k: after[k] - before[k]
                     for k in ("decodes", "prefills", "prefill_s",
                               "decode_s")}
